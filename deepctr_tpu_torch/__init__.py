@@ -1,0 +1,16 @@
+"""DeepCTR-TPU's PyTorch/CUDA port, for one NVIDIA Hopper GPU.
+
+Mirrors the layout and names of ``deepctr_tpu`` module for module.  It
+imports torch and numpy only, never jax and nothing of ``deepctr_tpu``.
+Models run on ``"cuda"`` unless the caller passes ``device="cpu"``.
+"""
+
+from . import config
+from .config import set_compute_dtype, compute_dtype
+from .features import (SparseFeat, DenseFeat, VarLenSparseFeat,
+                       build_input_features, get_feature_names,
+                       DEFAULT_GROUP_NAME)
+from . import layers
+from . import models
+
+__version__ = "0.1.0"

@@ -1,0 +1,184 @@
+"""Embedding engine + flat-matrix lookup helpers.
+
+Counterpart of ``deepctr_tpu/inputs.py``.  Tables live in one
+``EmbeddingDict`` whose parameters are logical ``[vocab, width]`` float32
+tables keyed by ``embedding_name``.  The JAX package stores big tables
+packed into 128-lane rows for the TPU; here every table is stored as it
+is read, and ``utils/jax_weights.py`` unpacks JAX weights.
+
+A forward gathers the rows of every field in one kernel launch per row
+width (:meth:`EmbeddingDict.gather`); the deep part of a fused table reads
+``rows[..., :dim]`` and the wide part ``rows[..., dim:]`` of that one
+gather, as the JAX package's ``_row_cache`` shares one gather between them.
+"""
+
+from collections import defaultdict
+from itertools import chain
+
+import torch
+from torch import nn
+
+from .features import SparseFeat, DenseFeat, VarLenSparseFeat
+from .layers.utils import concat_fun
+from .ops.gather import GatherArgs, gather_rows
+
+
+class EmbeddingDict(nn.Module):
+    """All embedding tables for a feature-column list, deduped by
+    ``embedding_name`` (shared tables).  ``linear=True`` builds dim-1
+    tables for the wide/linear part.
+
+    Tables named in ``wide_names`` carry ONE extra trailing column holding
+    the wide/linear weight of that feature (the JAX package's fused wide
+    column): width ``dim + 1``.  Tables are drawn from normal(init_std)
+    with ``generator``.
+    """
+
+    def __init__(self, feature_columns, init_std=1e-4, linear=False,
+                 wide_names=(), device=None, generator=None):
+        super().__init__()
+        self.wide_names = tuple(wide_names)
+        self.tables = nn.ParameterDict()
+        self.table_dims = {}
+        for feat in feature_columns:
+            if not isinstance(feat, (SparseFeat, VarLenSparseFeat)):
+                continue
+            name = feat.embedding_name
+            if name in self.tables:
+                continue
+            dim = 1 if linear else feat.embedding_dim
+            width = dim + 1 if name in self.wide_names else dim
+            table = torch.empty(feat.vocabulary_size, width, device=device)
+            table.normal_(0.0, init_std, generator=generator)
+            self.tables[name] = nn.Parameter(table)
+            self.table_dims[name] = dim
+        # one kernel-argument cache per group of fields gathered together
+        self._gather_args = {}
+
+    def gather(self, X, feature_index, feature_columns):
+        """Full-width rows (incl. any wide column) of every feature in
+        ``feature_columns``, one kernel launch per row width:
+        ``{feature name: [B, 1, width]}``."""
+        by_width = defaultdict(list)
+        for fc in feature_columns:
+            if isinstance(fc, VarLenSparseFeat):
+                raise NotImplementedError(
+                    "VarLenSparseFeat lookups are not ported yet (they come "
+                    "with the sequence slice)")
+            by_width[self.tables[fc.embedding_name].shape[1]].append(fc)
+        out = {}
+        for fcs in by_width.values():
+            group = tuple(fc.name for fc in fcs)
+            args = self._gather_args.setdefault(group, GatherArgs())
+            rows = gather_rows(X, [self.tables[fc.embedding_name]
+                                   for fc in fcs],
+                               [feature_index[fc.name][0] for fc in fcs],
+                               args=args)
+            for i, fc in enumerate(fcs):
+                out[fc.name] = rows[:, i:i + 1]
+        return out
+
+    def forward(self, name, rows):
+        """Deep columns of gathered full-width rows: [..., dim]."""
+        if name in self.wide_names:
+            return rows[..., :self.table_dims[name]]
+        return rows
+
+    def wide(self, name, rows):
+        """The fused wide column of gathered full-width rows: [..., 1]."""
+        return rows[..., self.table_dims[name]:]
+
+
+def sparse_ids(X, span):
+    """Static column slice -> int32 ids (truncating, as the JAX package)."""
+    return X[:, span[0]:span[1]].to(torch.int32)
+
+
+def embedding_lookup(X, embedding_dict, feature_index, sparse_feature_columns,
+                     return_feat_list=(), mask_feat_list=(), to_list=False,
+                     rows=None):
+    """[B,1,E] embeddings per sparse feature, grouped by group_name.
+
+    ``rows`` are full-width rows from :meth:`EmbeddingDict.gather` that the
+    caller shares with other readers of the same tables; without them this
+    gathers the selected features itself."""
+    selected = [fc for fc in sparse_feature_columns
+                if len(return_feat_list) == 0
+                or fc.name in return_feat_list]
+    if rows is None:
+        rows = embedding_dict.gather(X, feature_index, selected)
+    group_embedding_dict = defaultdict(list)
+    for fc in selected:
+        group_embedding_dict[fc.group_name].append(
+            embedding_dict(fc.embedding_name, rows[fc.name]))
+    if to_list:
+        return list(chain.from_iterable(group_embedding_dict.values()))
+    return group_embedding_dict
+
+
+def varlen_embedding_lookup(X, embedding_dict, feature_index,
+                            varlen_sparse_feature_columns):
+    """Sequence lookups: not ported yet (the sequence slice)."""
+    if len(varlen_sparse_feature_columns) > 0:
+        raise NotImplementedError(
+            "VarLenSparseFeat lookups are not ported yet (they come with "
+            "the sequence slice)")
+    return {}
+
+
+def get_dense_input(X, feature_index, feature_columns):
+    """Slice dense columns to a list of [B, d] float tensors."""
+    dense_feature_columns = [f for f in feature_columns
+                             if isinstance(f, DenseFeat)]
+    return [X[:, feature_index[fc.name][0]:feature_index[fc.name][1]]
+            for fc in dense_feature_columns]
+
+
+def combined_dnn_input(sparse_embedding_list, dense_value_list):
+    """Flatten+concat sparse embeddings and dense values to the [B, D] DNN
+    input."""
+    if len(sparse_embedding_list) > 0 and len(dense_value_list) > 0:
+        sparse_dnn_input = torch.cat(sparse_embedding_list, dim=-1).reshape(
+            sparse_embedding_list[0].shape[0], -1)
+        dense_dnn_input = torch.cat(dense_value_list, dim=-1).reshape(
+            dense_value_list[0].shape[0], -1)
+        return concat_fun([sparse_dnn_input,
+                           dense_dnn_input.to(sparse_dnn_input.dtype)])
+    elif len(sparse_embedding_list) > 0:
+        return torch.cat(sparse_embedding_list, dim=-1).reshape(
+            sparse_embedding_list[0].shape[0], -1)
+    elif len(dense_value_list) > 0:
+        return torch.cat(dense_value_list, dim=-1).reshape(
+            dense_value_list[0].shape[0], -1)
+    raise NotImplementedError
+
+
+def compute_input_dim(feature_columns, include_sparse=True,
+                      include_dense=True, feature_group=False):
+    """DNN input width implied by a feature-column list."""
+    sparse_feature_columns = [f for f in feature_columns
+                              if isinstance(f, (SparseFeat, VarLenSparseFeat))]
+    dense_feature_columns = [f for f in feature_columns
+                             if isinstance(f, DenseFeat)]
+    dense_input_dim = sum(f.dimension for f in dense_feature_columns)
+    if feature_group:
+        sparse_input_dim = len(sparse_feature_columns)
+    else:
+        sparse_input_dim = sum(f.embedding_dim for f in sparse_feature_columns)
+    input_dim = 0
+    if include_sparse:
+        input_dim += sparse_input_dim
+    if include_dense:
+        input_dim += dense_input_dim
+    return input_dim
+
+
+def embedding_size_of(feature_columns):
+    """Shared embedding dim; raises if sparse features disagree."""
+    sparse_feature_columns = [f for f in feature_columns
+                              if isinstance(f, (SparseFeat, VarLenSparseFeat))]
+    sizes = set(f.embedding_dim for f in sparse_feature_columns)
+    if len(sizes) > 1:
+        raise ValueError("embedding_dim of SparseFeat and VarlenSparseFeat "
+                         "must be same in this model!")
+    return list(sizes)[0]

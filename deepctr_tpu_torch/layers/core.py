@@ -1,0 +1,110 @@
+"""Core layers: dense layer, DNN tower, prediction head.
+
+Counterpart of ``deepctr_tpu/layers/core.py:18-74``.  Every matmul runs in
+the global compute dtype (``config.compute_dtype()``); parameters stay
+float32.  Weights are drawn at construction from the caller's
+``torch.Generator``; biases start at zero, unlike ``nn.Linear``'s default.
+"""
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .. import config
+from .activation import activation_layer
+
+# flax's lecun_normal draws a normal truncated at two standard deviations
+# and divides the scale by that truncated normal's own standard deviation
+_TRUNC_NORMAL_STD = 0.87962566103423978
+
+
+class Dense(nn.Module):
+    """``y = x @ weight.T + bias`` computed in the compute dtype.
+
+    ``weight`` is ``[out, in]`` (torch layout; the JAX kernel is its
+    transpose).  Counterpart of flax's ``nn.Dense`` as ``_dense`` builds it.
+    """
+
+    def __init__(self, in_features, features, init_std=None, use_bias=True,
+                 device=None, generator=None):
+        super().__init__()
+        self.weight = nn.Parameter(
+            torch.empty(features, in_features, device=device))
+        self.bias = (nn.Parameter(torch.zeros(features, device=device))
+                     if use_bias else None)
+        with torch.no_grad():
+            if init_std is not None:
+                self.weight.normal_(0.0, init_std, generator=generator)
+            else:
+                std = math.sqrt(1.0 / in_features) / _TRUNC_NORMAL_STD
+                nn.init.trunc_normal_(self.weight, 0.0, std, -2 * std,
+                                      2 * std, generator=generator)
+
+    def forward(self, x):
+        ct = config.compute_dtype()
+        bias = None if self.bias is None else self.bias.to(ct)
+        return F.linear(x.to(ct), self.weight.to(ct), bias)
+
+
+def _dense(in_features, features, init_std=None, use_bias=True,
+           device=None, generator=None):
+    """Kernel from normal(``init_std``), or lecun-normal when it is None."""
+    return Dense(in_features, features, init_std, use_bias, device,
+                 generator)
+
+
+class DNN(nn.Module):
+    """MLP tower: [Dense -> activation] * L.
+
+    (counterpart of ``deepctr_tpu/layers/core.py:25-54``; only kernel
+    weights are drawn from normal(init_std), biases start at 0.)  Batch
+    norm and dropout are not ported yet and raise.
+    """
+
+    def __init__(self, inputs_dim, hidden_units, activation="relu",
+                 l2_reg=0.0, dropout_rate=0.0, use_bn=False, init_std=1e-4,
+                 dice_dim=2, device=None, generator=None):
+        super().__init__()
+        if len(hidden_units) == 0:
+            raise ValueError("hidden_units is empty!!")
+        if use_bn:
+            raise NotImplementedError("DNN(use_bn=True) is not ported yet")
+        if dropout_rate > 0:
+            raise NotImplementedError("DNN dropout is not ported yet")
+        self.hidden_units = tuple(hidden_units)
+        self.l2_reg = l2_reg
+        self.activation = activation_layer(activation)
+        dims = (inputs_dim,) + self.hidden_units
+        for i, units in enumerate(self.hidden_units):
+            self.add_module("dense_%d" % i,
+                            _dense(dims[i], units, init_std, device=device,
+                                   generator=generator))
+
+    def forward(self, x):
+        for i in range(len(self.hidden_units)):
+            x = self.activation(getattr(self, "dense_%d" % i)(x))
+        return x
+
+
+class PredictionLayer(nn.Module):
+    """Adds a scalar bias and applies sigmoid iff task == 'binary'.
+    (counterpart of ``deepctr_tpu/layers/core.py:57-74``)
+    """
+
+    def __init__(self, task="binary", use_bias=True, device=None):
+        super().__init__()
+        if task not in ("binary", "multiclass", "regression"):
+            raise ValueError("task must be binary, multiclass or regression")
+        self.task = task
+        self.bias = (nn.Parameter(torch.zeros(1, device=device))
+                     if use_bias else None)
+
+    def forward(self, x):
+        out = x
+        if self.bias is not None:
+            out = out + self.bias
+        if self.task == "binary":
+            out = torch.sigmoid(out)
+        return out

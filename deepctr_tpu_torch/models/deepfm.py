@@ -1,0 +1,63 @@
+"""DeepFM (Guo et al., 2017): linear + FM + DNN over shared embeddings.
+
+Counterpart of ``deepctr_tpu/models/deepfm.py``.
+"""
+
+import torch
+
+from .basemodel import BaseModel
+from ..inputs import combined_dnn_input
+from ..layers import FM, DNN
+from ..layers.core import _dense
+
+
+class DeepFM(BaseModel):
+    """Instantiates the DeepFM architecture, with the JAX package's
+    constructor.  Runs on ``device`` (default ``"cuda"``; raises where CUDA
+    is absent unless ``device="cpu"``).  ``mesh``/``shard_embeddings``
+    are not ported yet and raise."""
+
+    def __init__(self, linear_feature_columns, dnn_feature_columns,
+                 use_fm=True, dnn_hidden_units=(256, 128), l2_reg_linear=1e-5,
+                 l2_reg_embedding=1e-5, l2_reg_dnn=0, init_std=1e-4,
+                 seed=1024, dnn_dropout=0, dnn_activation="relu",
+                 dnn_use_bn=False, task="binary", device=None, gpus=None,
+                 mesh=None, shard_embeddings=False):
+        if mesh is not None or shard_embeddings:
+            raise NotImplementedError("sharded models are not ported yet")
+        super().__init__(linear_feature_columns, dnn_feature_columns,
+                         l2_reg_linear=l2_reg_linear,
+                         l2_reg_embedding=l2_reg_embedding,
+                         init_std=init_std, seed=seed, task=task,
+                         device=device, gpus=gpus)
+        generator = self._init_generator
+        device = generator.device
+        self.use_fm = use_fm
+        self.use_dnn = (len(self.dnn_feature_columns) > 0 and
+                        len(dnn_hidden_units) > 0)
+        if use_fm:
+            self.fm = FM()
+        if self.use_dnn:
+            self.dnn = DNN(self.compute_input_dim(self.dnn_feature_columns),
+                           dnn_hidden_units, activation=dnn_activation,
+                           l2_reg=l2_reg_dnn, dropout_rate=dnn_dropout,
+                           use_bn=dnn_use_bn, init_std=init_std,
+                           device=device, generator=generator)
+            self.dnn_linear = _dense(dnn_hidden_units[-1], 1, use_bias=False,
+                                     device=device, generator=generator)
+
+    def forward(self, X):
+        rows = self.shared_rows(X)
+        sparse_embedding_list, dense_value_list = (
+            self.input_from_feature_columns(X, self.dnn_feature_columns,
+                                            rows=rows))
+        logit = self.linear_model(X, rows=rows)
+        if self.use_fm and len(sparse_embedding_list) > 0:
+            fm_input = torch.cat(sparse_embedding_list, dim=1)
+            logit = logit + self.fm(fm_input)
+        if self.use_dnn:
+            dnn_input = combined_dnn_input(sparse_embedding_list,
+                                           dense_value_list)
+            dnn_output = self.dnn(dnn_input)
+            logit = logit + self.dnn_linear(dnn_output).to(logit.dtype)
+        return self.out(logit)

@@ -1,0 +1,8 @@
+"""Hot ops: each has a plain PyTorch version and, where the JAX package has
+a TPU kernel, a hand-written CUDA kernel that runs on CUDA tensors.  Read
+launch counts from the kernel's own module (``ops.gather.GATHER_LAUNCHES``):
+a name imported from it is a copy taken at import time."""
+
+from .reference import fm_cross_ref
+from .dispatch import fm_cross
+from .gather import gather_rows, gather_rows_ref

@@ -1,0 +1,140 @@
+"""Multi-table embedding row gather: ``rows[b, f] = tables[f][int(X[b, cols[f]])]``.
+
+The port's counterpart of ``deepctr_tpu/ops/pallas_gather.py``
+(``gather_rows``, forward), and of the numerics of both TPU lookup forms
+in ``deepctr_tpu/inputs.py`` (one-hot matmuls for small tables, packed
+rows with a lane select for big ones): the tables here are logical
+``[V, W]`` float32 and the rows come back exact.
+
+``gather_rows`` launches the CUDA kernel in ``csrc/gather_rows.cu`` for
+CUDA tensors, or raises; it takes the plain version ``gather_rows_ref`` only
+because its tensors lie on the CPU.  Forward only: the backward kernel (a
+scatter-add of duplicate ids, summed in f32) comes with the training slice.
+"""
+
+import ctypes
+
+import torch
+
+from . import _build
+
+# kernel launches since import (or since a caller reset it to 0); counts
+# only launches of the CUDA kernel, never the plain version
+GATHER_LAUNCHES = 0
+
+# the kernel indexes output floats with 32-bit unsigned integers
+_MAX_OUTPUT_ELEMENTS = 2 ** 31 - 1
+
+
+def gather_rows_ref(X, tables, cols):
+    """Plain PyTorch version: ``index_select`` per field, NaN rows for ids
+    outside ``[0, V)``.  X [B, D] float32, tables [V_f, W], cols [F] ->
+    [B, F, W]."""
+    rows = []
+    for table, col in zip(tables, cols):
+        # truncation toward zero, as the JAX package's astype(int32)
+        ids = X[:, col].to(torch.int32).to(torch.int64)
+        valid = (ids >= 0) & (ids < table.shape[0])
+        picked = table.index_select(0, torch.where(valid, ids, 0))
+        rows.append(torch.where(valid[:, None], picked, float("nan")))
+    return torch.stack(rows, dim=1)
+
+
+class GatherArgs:
+    """The kernel's per-field argument array for one group of tables:
+    ``[table pointers | id columns | vocab sizes]`` as int64 on the device.
+
+    Kept between calls so that a forward copies nothing to the device but
+    its batch; rebuilt when a table's storage moves (``.to()``,
+    ``load_state_dict`` into new storage) or the fields change."""
+
+    def __init__(self):
+        self._key = None
+        self._meta = None
+
+    def meta(self, tables, cols, device):
+        ptrs = [t.data_ptr() for t in tables]
+        vocabs = [t.shape[0] for t in tables]
+        key = (device, tuple(ptrs), tuple(vocabs), tuple(cols))
+        if key != self._key:
+            host = torch.tensor(ptrs + list(cols) + vocabs, dtype=torch.int64)
+            self._meta = host.to(device)
+            self._key = key
+        return self._meta
+
+
+def _check(X, tables, cols):
+    if len(tables) == 0 or len(tables) != len(cols):
+        raise ValueError("gather_rows needs one id column per table, got "
+                         "%d tables and %d columns" % (len(tables), len(cols)))
+    devices = {X.device} | {t.device for t in tables}
+    if len(devices) != 1:
+        raise ValueError("X and the tables must be on one device, got %s"
+                         % sorted(map(str, devices)))
+    if X.dim() != 2 or X.dtype != torch.float32:
+        raise ValueError("X must be a 2-D float32 matrix, got %s %s"
+                         % (X.dtype, tuple(X.shape)))
+    width = tables[0].shape[1] if tables[0].dim() == 2 else None
+    for t in tables:
+        if t.dim() != 2 or t.dtype != torch.float32 or t.shape[1] != width:
+            raise ValueError("tables must be 2-D float32 of one width, got "
+                             "%s" % [(t.dtype, tuple(t.shape))
+                                     for t in tables])
+    for c in cols:
+        if not 0 <= c < X.shape[1]:
+            raise ValueError("id column %r outside X's %d columns"
+                             % (c, X.shape[1]))
+
+
+def _kernel():
+    fn = _build.load("gather_rows").gather_rows_f32
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def gather_rows(X, tables, cols, args=None):
+    """Rows of every table in one launch: X [B, D] float32 (ids as floats
+    at columns ``cols``), tables ``F`` x [V_f, W] float32 -> [B, F, W].
+
+    On CUDA tensors this launches the kernel (building it at first use) or
+    raises.  ``args`` is a :class:`GatherArgs` that the caller keeps so
+    that the per-field argument array is not copied to the device on every
+    call."""
+    global GATHER_LAUNCHES
+    _check(X, tables, cols)
+    if X.device.type == "cpu":
+        return gather_rows_ref(X, tables, cols)
+    if X.device.type != "cuda":
+        raise ValueError("no gather kernel for device %s" % X.device)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tables):
+        raise RuntimeError(
+            "gather_rows has no backward kernel yet (it comes with the "
+            "training slice): call it under torch.no_grad(), as predict "
+            "does")
+    if X.stride(1) != 1 or any(not t.is_contiguous() for t in tables):
+        raise ValueError("gather_rows needs row-major X and contiguous "
+                         "tables")
+    n_rows, n_fields, width = X.shape[0], len(tables), tables[0].shape[1]
+    if n_rows * n_fields * width > _MAX_OUTPUT_ELEMENTS:
+        raise ValueError("gather_rows output of %d x %d x %d floats is "
+                         "over the kernel's 2**31 limit: split the batch"
+                         % (n_rows, n_fields, width))
+    out = torch.empty((n_rows, n_fields, width), dtype=torch.float32,
+                      device=X.device)
+    if n_rows == 0:
+        return out
+    meta = (args if args is not None else GatherArgs()).meta(
+        tables, list(cols), X.device)
+    fn = _kernel()
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        rc = fn(X.data_ptr(), n_rows, X.stride(0), meta.data_ptr(),
+                n_fields, width, out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError("gather_rows kernel launch failed with CUDA "
+                           "error %d" % rc)
+    GATHER_LAUNCHES += 1
+    return out

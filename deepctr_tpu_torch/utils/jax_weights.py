@@ -1,0 +1,100 @@
+"""Carry weights from a ``deepctr_tpu`` model into its port.
+
+``load_jax_weights(model, weights)`` takes the numpy parameter tree that
+the JAX package's ``BaseModel.get_weights()`` returns and loads it into the
+port's model.  Leaf paths map to ``state_dict`` keys as:
+
+=====================================  =====================================
+JAX leaf                               port key
+=====================================  =====================================
+``embedding_dict/<name>``              ``embedding_dict.tables.<name>``
+``linear_model/embedding_dict/<name>`` ``linear_model.embedding_dict.tables.<name>``
+``linear_model/weight``                ``linear_model.weight``
+``dnn/dense_<i>/kernel`` ``[in,out]``  ``dnn.dense_<i>.weight`` ``[out,in]``
+``dnn/dense_<i>/bias``                 ``dnn.dense_<i>.bias``
+``dnn_linear/kernel``                  ``dnn_linear.weight`` (transposed)
+``out/bias``                           ``out.bias``
+=====================================  =====================================
+
+Tables that the JAX package stores packed (``[ceil(V/pack), 128]`` with
+``pack = 128 // W``, see ``deepctr_tpu/inputs.py:78-83``) are unpacked to
+the port's logical ``[V, W]``.  A leaf with no counterpart, a shape that
+matches neither layout, or a port weight that no leaf fills raises.
+Uses numpy only.
+"""
+
+import numpy as np
+
+
+def unpack_table(stored, vocab, width):
+    """A JAX table as stored -> logical ``[vocab, width]``.
+
+    ``stored`` is either already ``[vocab, width]`` or packed
+    ``[ceil(vocab/pack), 128]`` with ``pack = 128 // width``."""
+    stored = np.asarray(stored)
+    if stored.shape == (vocab, width):
+        return stored
+    pack = 128 // width if 0 < width <= 128 else 0
+    if pack and stored.shape == (-(-vocab // pack), 128):
+        return stored[:, :pack * width].reshape(-1, width)[:vocab]
+    raise ValueError("table of shape %s is neither [%d, %d] nor its packed "
+                     "layout" % (stored.shape, vocab, width))
+
+
+def _flatten(tree, prefix=""):
+    for key, value in tree.items():
+        path = prefix + key
+        if isinstance(value, dict):
+            yield from _flatten(value, path + "/")
+        else:
+            yield path, value
+
+
+def jax_to_state_dict(weights, target_shapes):
+    """Map a JAX parameter tree to ``{port key: numpy array}``.
+
+    ``weights`` is ``get_weights()``'s ``{"params": ..., "batch_stats":
+    ...}`` or the ``params`` tree alone; ``target_shapes`` is ``{port
+    key: shape}`` of the port model."""
+    if "params" in weights:
+        if any(True for _ in _flatten(weights.get("batch_stats", {}))):
+            raise ValueError("batch_stats have no counterpart: batch norm "
+                             "is not ported yet")
+        weights = weights["params"]
+    out = {}
+    for path, value in _flatten(weights):
+        parts = path.split("/")
+        value = np.asarray(value)
+        if len(parts) >= 2 and parts[-2] == "embedding_dict":
+            key = ".".join(parts[:-1] + ["tables", parts[-1]])
+        elif parts[-1] == "kernel":
+            key = ".".join(parts[:-1] + ["weight"])
+            value = value.T
+        else:
+            key = ".".join(parts)
+        if key not in target_shapes:
+            raise KeyError("JAX leaf %r has no counterpart in the port "
+                           "(looked for %r)" % (path, key))
+        shape = tuple(target_shapes[key])
+        if ".tables." in key:
+            try:
+                value = unpack_table(value, *shape)
+            except ValueError as err:
+                raise ValueError("JAX leaf %r: %s" % (path, err)) from None
+        if value.shape != shape:
+            raise ValueError("JAX leaf %r has shape %s, port %r wants %s"
+                             % (path, value.shape, key, shape))
+        out[key] = np.ascontiguousarray(value, dtype=np.float32)
+    missing = sorted(set(target_shapes) - set(out))
+    if missing:
+        raise KeyError("no JAX leaf fills port weights %s" % missing)
+    return out
+
+
+def load_jax_weights(model, weights):
+    """Load the JAX package's parameter tree into the port's ``model``;
+    returns the ``{port key: numpy array}`` it loaded."""
+    state = jax_to_state_dict(
+        weights, {k: tuple(v.shape) for k, v in model.state_dict().items()})
+    model.set_weights(state)
+    return state
