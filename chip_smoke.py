@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, DeepFM serving at Criteo width, through the
-entry points a user calls (``DeepFM(...)``, ``model.predict``), and holds
-every CUDA kernel of that path against its plain PyTorch version:
+Drives the port's main paths, DeepFM serving and training at Criteo
+width, through the entry points a user calls (``DeepFM(...)``,
+``model.predict``, ``model.compile``, ``model.fit``), and holds every CUDA
+kernel of those paths against its plain PyTorch version.  Serving first:
 
 1. build: compile every kernel under ``deepctr_tpu_torch/csrc/`` (one
    ``nvcc`` a source, all started together) and print the build time;
@@ -21,6 +22,30 @@ every CUDA kernel of that path against its plain PyTorch version:
    (``torch.profiler``); the kernel, its plain version and a library
    gather in ms of device time with a cold L2 and, apart, per call with
    the host included; the kernel's bound from this run's bytes.
+
+Then the training path, DeepFM ``compile``/``fit`` on the same model:
+
+5. train kernels vs plain at the bench shape (B=4096, the 26 Criteo
+   tables, W=17, the real dedup of a uniform batch with adagrad's "auto"
+   split: 8 sparse tables, 18 dense): ``scatter_add_rows`` must equal
+   ``scatter_add_rows_ref`` run on CPU copies bit for bit (both sum each
+   row in (b, f) order; ``index_add_`` on the card adds with atomics, so
+   it is only reported), and ``row_update`` must equal ``row_update_ref``
+   on the card bit for bit for sgd, adagrad, rmsprop and adam;
+6. ``compile("adagrad")`` + ``fit`` at full width, float32, a few steps
+   of 4096: the 8 tables of >= 16384 rows go sparse, each kernel
+   launches once a step, the loss is finite, and in every sparse table
+   exactly the rows the batches touched (with row 0) changed;
+7. card vs CPU: the same steps on a copy with every vocabulary capped at
+   2M rows (the same 8/18 split), started from the same weights on the
+   card and on the CPU: per-step losses within 1e-4 relative, weights
+   within 1e-4 but for at most 1e-5 of them and all within 2 lr a step
+   (the matmuls sum in another order, and adagrad's first step is close
+   to lr * sign(g), so a gradient near 0 may flip a weight by 2 lr);
+8. timing, bfloat16 compute: ``fit`` in examples/s (CUDA events) and its
+   device idle share (``torch.profiler``); both train kernels, their
+   plain versions and a library call in device ms with a cold L2 and per
+   call, and their bounds from this run's bytes.
 
 Any failure exits non-zero.  Without a CUDA device it fails at once and
 runs nothing on the CPU.  The last two lines before the final one are the
@@ -43,8 +68,11 @@ sys.path.insert(0, str(HERE))
 
 import deepctr_tpu_torch as pt  # noqa: E402
 from deepctr_tpu_torch.models import DeepFM  # noqa: E402
+from deepctr_tpu_torch.models.basemodel import _TouchedRows  # noqa: E402
 from deepctr_tpu_torch.ops import _build  # noqa: E402
 from deepctr_tpu_torch.ops import gather  # noqa: E402
+from deepctr_tpu_torch.ops import row_update as rowup  # noqa: E402
+from deepctr_tpu_torch.ops import scatter_add  # noqa: E402
 
 # Criteo Kaggle display-advertising layout, as bench.py runs it
 CRITEO_KAGGLE_VOCABS = [
@@ -63,11 +91,32 @@ ATOL_CPU = 1e-5
 # H100 SXM device-memory rate (NVIDIA data sheet), for the bytes bound
 HBM_BYTES_PER_S = 3.35e12
 
+TRAIN_STEPS = 4
+CAP_VOCAB = 2_000_000
+LOSS_RTOL = 1e-4
+WEIGHT_ATOL = 1e-4
+WEIGHT_OUTLIER_SHARE = 1e-5
+# the tables of >= 16384 rows, which adagrad's "auto" puts on the sparse
+# path at this width
+EXPECTED_SPARSE = sorted("embedding_dict/C%d" % i
+                         for i, v in enumerate(CRITEO_KAGGLE_VOCABS)
+                         if v >= 16384)
+
 KERNELS = {
     "gather_rows": {
         "route": "cuda",
         "source": "deepctr_tpu_torch/csrc/gather_rows.cu",
         "replaces": "deepctr_tpu/ops/pallas_gather.py:33",
+    },
+    "scatter_add_rows": {
+        "route": "cuda",
+        "source": "deepctr_tpu_torch/csrc/scatter_add_rows.cu",
+        "replaces": "deepctr_tpu/ops/pallas_gather.py:163",
+    },
+    "row_update": {
+        "route": "cuda",
+        "source": "deepctr_tpu_torch/csrc/row_update.cu",
+        "replaces": "deepctr_tpu/ops/pallas_update.py:146",
     },
 }
 
@@ -327,6 +376,342 @@ def phase_timing_bf16(model, X_all):
             "library_ms": ms["library"], "bound_ms": bound_ms,
             "bound_by": "bytes"}
 
+# ---------------------------------------------------------------------------
+# the training path
+# ---------------------------------------------------------------------------
+
+def reset_launches():
+    gather.GATHER_LAUNCHES = 0
+    scatter_add.SCATTER_ADD_LAUNCHES = 0
+    rowup.ROW_UPDATE_LAUNCHES = 0
+
+
+def read_launches():
+    return {"gather_rows": gather.GATHER_LAUNCHES,
+            "scatter_add_rows": scatter_add.SCATTER_ADD_LAUNCHES,
+            "row_update": rowup.ROW_UPDATE_LAUNCHES}
+
+
+def criteo_labels(n, seed):
+    return np.random.default_rng(seed).integers(0, 2, n).astype(np.float32)
+
+
+def train_kernel_args(model, X, seed):
+    """Both train kernels' arguments as a train step of ``model`` builds
+    them for the batch ``X``: the touched rows of its sparse tables, a
+    cotangent of the gather ([B, F, W], normal from ``seed``), and each
+    field's target (a zero dense gradient, or the touched rows') and
+    row."""
+    tables = model._tables()
+    touched = _TouchedRows(X, model._sparse_specs, tables)
+    fcs = model._shared_columns
+    gen = torch.Generator(device=X.device).manual_seed(seed)
+    grad = torch.randn(X.shape[0], len(fcs), tables[EXPECTED_SPARSE[0]]
+                       .shape[1], generator=gen, device=X.device)
+    targets, idx = model._scatter_targets(X, "embedding_dict/", fcs, tables,
+                                          touched, torch.zeros_like)
+    return touched, grad, targets, idx
+
+
+def phase_train_kernels_vs_plain(model, X):
+    """scatter_add_rows and row_update against their plain versions at the
+    main path's shapes."""
+    model.compile("adagrad", "binary_crossentropy")
+    sparse = sorted(p for p, _, _ in model._sparse_specs)
+    check(sparse == EXPECTED_SPARSE, "sparse tables %s, want %s"
+          % (sparse, EXPECTED_SPARSE))
+    with torch.no_grad():
+        touched, grad, targets, idx = train_kernel_args(model, X, SEED + 5)
+        # one copy a distinct target, so that fields sharing a target
+        # share its copy too
+        copies = {}
+        cpu_targets = [copies.setdefault(t.data_ptr(), t.cpu().clone())
+                       for t in targets]
+        on_card = [copies.setdefault(("card", t.data_ptr()),
+                                     torch.zeros_like(t)) for t in targets]
+        scatter_add.scatter_add_rows(grad, targets, idx)
+        scatter_add.scatter_add_rows_ref(grad.cpu(), cpu_targets, idx.cpu())
+        scatter_add.scatter_add_rows_ref(grad, on_card, idx)
+        torch.cuda.synchronize()
+        for t, c in zip(targets, cpu_targets):
+            check(same_bits(t.cpu(), c), "scatter_add_rows differs from its "
+                  "plain version at the bench shape")
+        k1_err = max((t.cpu() - c).abs().max().item()
+                     for t, c in zip(targets, cpu_targets))
+        atomics_err = max((t - c).abs().max().item()
+                          for t, c in zip(targets, on_card))
+        n_pairs = sum(int(torch.unique(idx[:, f]).numel())
+                      for f in range(idx.shape[1]))
+        log("kernel vs plain: scatter_add_rows bit-equal to the CPU plain "
+            "version at B=%d F=%d W=%d (max_abs_err %r; %d target rows, "
+            "sparse tables %s touched rows); index_add_ on the card "
+            "(atomics) differs by at most %r"
+            % (grad.shape[0], grad.shape[1], grad.shape[2], k1_err, n_pairs,
+               touched.counts, atomics_err))
+
+        tables = model._tables()
+        paths = [p for p, _, _ in model._sparse_specs]
+        l2s = [model._table_l2_vec(p) for p in paths]
+        gen = torch.Generator(device=X.device).manual_seed(SEED + 6)
+        k2_err = 0.0
+        for opt in ("sgd", "adagrad", "rmsprop", "adam"):
+            n_state = rowup.MODES[opt][1]
+            base = [tables[p].detach() for p in paths]
+            plain_w = [t.clone() for t in base]
+            plain_s = [tuple(torch.rand(t.shape, generator=gen,
+                                        device=X.device)
+                             for _ in range(n_state)) for t in base]
+            kern_w = [t.clone() for t in base]
+            kern_s = [tuple(s.clone() for s in st) for st in plain_s]
+            bias = ([rowup.adam_bias_corrections(3)] * len(paths)
+                    if opt == "adam" else None)
+            args = (touched.grads, touched.rows, touched.counts, l2s, 0.01,
+                    bias)
+            rowup.row_update(opt, kern_w, kern_s, *args)
+            rowup.row_update_ref(opt, plain_w, plain_s, *args)
+            torch.cuda.synchronize()
+            for a, b in zip(kern_w + [s for st in kern_s for s in st],
+                            plain_w + [s for st in plain_s for s in st]):
+                check(same_bits(a, b), "row_update (%s) differs from its "
+                      "plain version at the bench shape" % opt)
+                k2_err = max(k2_err, (a - b).abs().max().item())
+            for w, w0, r in zip(kern_w, base, touched.rows):
+                changed = (w != w0).any(dim=1).nonzero().view(-1)
+                check(torch.equal(changed, r), "row_update (%s) changed "
+                      "other rows than the touched ones" % opt)
+            del plain_w, plain_s, kern_w, kern_s
+        log("kernel vs plain: row_update bit-equal for sgd, adagrad, "
+            "rmsprop and adam over the 8 sparse tables (max_abs_err %r), "
+            "only the touched rows changed" % k2_err)
+    return k1_err, k2_err
+
+
+def phase_fit_f32(model, X_all):
+    """compile("adagrad") + fit at full width: launches, loss, and which
+    rows of the sparse tables changed."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pt.set_compute_dtype("float32")
+    model.compile("adagrad", "binary_crossentropy")
+    sparse = sorted(p for p, _, _ in model._sparse_specs)
+    check(sparse == EXPECTED_SPARSE, "sparse tables %s" % sparse)
+    n = BATCH * TRAIN_STEPS
+    x_host = X_all[:n].cpu().numpy()
+    y_host = criteo_labels(n, SEED)
+    tables = model._tables()
+    before = {p: tables[p].detach().clone() for p in sparse}
+    reset_launches()
+    hist = model.fit(x_host, y_host, batch_size=BATCH, epochs=1, verbose=0)
+    launches = read_launches()
+    for name, count in launches.items():
+        check(count == TRAIN_STEPS, "%s launched %d times in %d train steps"
+              % (name, count, TRAIN_STEPS))
+    loss = hist.history["loss"][-1]
+    check(np.isfinite(loss), "train loss %r" % loss)
+    with torch.no_grad():
+        for p in sparse:
+            col = model.feature_index[p.split("/")[-1]][0]
+            touched = torch.zeros(tables[p].shape[0], dtype=torch.bool,
+                                  device=X_all.device)
+            touched[X_all[:n, col].long()] = True
+            touched[0] = True
+            changed = (tables[p] != before[p]).any(dim=1)
+            check(torch.equal(changed, touched), "%s: the rows that changed "
+                  "are not the rows the batches touched" % p)
+    del before
+    log("fit f32: %d steps of %d, sparse tables %s, launches %s, loss %r; "
+        "in every sparse table exactly the touched rows (and row 0) "
+        "changed" % (TRAIN_STEPS, BATCH, [p.split("/")[-1] for p in sparse],
+                     launches, loss))
+    return launches
+
+
+def record_losses(model):
+    """Per-step total losses of ``model``'s train steps, appended to the
+    returned list."""
+    losses = []
+    step = model._train_step
+
+    def recorded(X, y, sw):
+        out = step(X, y, sw)
+        losses.append(float(out[1]))
+        return out
+    model._train_step = recorded
+    return losses
+
+
+def phase_fit_card_vs_cpu(X_all):
+    """The same train steps on the card and on the CPU, vocabularies
+    capped so that the CPU run takes seconds."""
+    pt.set_compute_dtype("float32")
+    vocabs = [min(v, CAP_VOCAB) for v in CRITEO_KAGGLE_VOCABS]
+    cols = ([pt.SparseFeat("C%d" % i, v, EMB_DIM)
+             for i, v in enumerate(vocabs)]
+            + [pt.DenseFeat("I%d" % i, 1) for i in range(N_DENSE)])
+    n = BATCH * TRAIN_STEPS
+    X = X_all[:n].clone()
+    caps = torch.tensor(vocabs, dtype=torch.float32, device=X.device)
+    X[:, :len(vocabs)] = torch.remainder(X[:, :len(vocabs)], caps)
+    x_host = X.cpu().numpy()
+    y_host = criteo_labels(n, SEED + 1)
+    card = DeepFM(cols, cols, dnn_hidden_units=HIDDEN, init_std=INIT_STD,
+                  seed=SEED, device=X_all.device)
+    cpu = DeepFM(cols, cols, dnn_hidden_units=HIDDEN, init_std=INIT_STD,
+                 seed=SEED, device="cpu")
+    cpu.set_weights(card.get_weights())
+    runs = {}
+    for name, model in (("card", card), ("cpu", cpu)):
+        model.compile("adagrad", "binary_crossentropy")
+        sparse = sorted(p for p, _, _ in model._sparse_specs)
+        check(sparse == EXPECTED_SPARSE, "%s: sparse tables %s"
+              % (name, sparse))
+        losses = record_losses(model)
+        t0 = time.perf_counter()
+        model.fit(x_host, y_host, batch_size=BATCH, epochs=1, verbose=0)
+        runs[name] = (losses, model.get_weights(), time.perf_counter() - t0)
+    (lc, wc, tc), (lp, wp, tp) = runs["card"], runs["cpu"]
+    check(len(lc) == len(lp) == TRAIN_STEPS, "losses %s %s" % (lc, lp))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
+    check(rel <= LOSS_RTOL, "card vs CPU: losses %s vs %s" % (lc, lp))
+    worst, n_out, n_all = 0.0, 0, 0
+    for k in wp:
+        d = np.abs(wc[k] - wp[k])
+        worst = max(worst, float(d.max()))
+        n_out += int((d > WEIGHT_ATOL).sum())
+        n_all += d.size
+    lr = card._learning_rate
+    check(worst <= 2 * lr * TRAIN_STEPS, "card vs CPU: a weight differs by "
+          "%r" % worst)
+    check(n_out <= WEIGHT_OUTLIER_SHARE * n_all, "card vs CPU: %d of %d "
+          "weights differ by more than %r" % (n_out, n_all, WEIGHT_ATOL))
+    log("fit card vs CPU (vocabularies capped at %d, %d steps): losses "
+        "card %s cpu %s, max rel diff %r; weights max |dw| %r, %d of %d "
+        "over %r; fit took %.2f s on the card, %.2f s on the CPU"
+        % (CAP_VOCAB, TRAIN_STEPS, lc, lp, rel, worst, n_out, n_all,
+           WEIGHT_ATOL, tc, tp))
+
+
+def fit_profile(fn):
+    """Device time of ``fn`` (torch.profiler, kernels only) in ms, or None
+    where the profiler saw no kernel; logs the biggest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+    rows = sorted(((ev.self_device_time_total, ev.count, ev.key)
+                   for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA), reverse=True)
+    total = sum(us for us, _, _ in rows)
+    if total <= 0:
+        log("fit profile: device time not measured (the profiler saw no "
+            "kernel)")
+        return None
+    ours = ("gather_rows", "scatter_add_rows", "row_update")
+    for us, count, key in rows[:8] + [r for r in rows[8:]
+                                      if any(k in r[2] for k in ours)]:
+        log("fit profile: %r ms in %d launches (%.1f%%) %s"
+            % (us / 1e3, count, 100 * us / total, key[:90]))
+    log("fit profile: %d kernel launches in all" % sum(c for _, c, _ in rows))
+    host = sorted(((ev.self_cpu_time_total, ev.count, ev.key)
+                   for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CPU), reverse=True)
+    for us, count, key in host[:8]:
+        log("fit profile, host: %r ms self time in %d calls %s"
+            % (us / 1e3, count, key[:60]))
+    return total / 1e3
+
+
+def phase_train_timing_bf16(model, X_all):
+    log("timing on: %s" % card_line())
+    pt.set_compute_dtype("bfloat16")
+    model.compile("adagrad", "binary_crossentropy")
+    n = BATCH * TRAIN_STEPS
+    x_host = X_all[:n].cpu().numpy()
+    y_host = criteo_labels(n, SEED + 2)
+
+    def fit():
+        model.fit(x_host, y_host, batch_size=BATCH, epochs=1, verbose=0)
+    fit_ms = time_ms(fit, reps=1, runs=3)
+    log("fit bf16, host numpy input: %r examples/s (%r ms for %d steps of "
+        "%d)" % (n / fit_ms * 1e3, fit_ms, TRAIN_STEPS, BATCH))
+    busy_ms = fit_profile(fit)
+    if busy_ms is not None:
+        log("fit bf16: device busy %r ms of %r ms, idle share %r"
+            % (busy_ms, fit_ms, 1 - busy_ms / fit_ms))
+
+    X = X_all[:BATCH].contiguous()
+    out = {}
+    with torch.no_grad():
+        touched, grad, targets, idx = train_kernel_args(model, X, SEED + 7)
+        width = grad.shape[2]
+        groups = scatter_add._groups(targets)
+        lib_args = [(t, idx[:, fs].reshape(-1).contiguous(),
+                     grad[:, fs].reshape(-1, width).contiguous())
+                    for t, fs in groups]
+        timed = {
+            "kernel": lambda: scatter_add.scatter_add_rows(
+                grad, targets, idx),
+            "plain": lambda: scatter_add.scatter_add_rows_ref(
+                grad, targets, idx),
+            # the library's scatter-add, one call per target
+            "library": lambda: [t.index_add_(0, i, s)
+                                for t, i, s in lib_args],
+        }
+        ms = {k: device_ms(fn) for k, fn in timed.items()}
+        call_ms = {k: time_ms(fn, reps=20) for k, fn in timed.items()}
+        meta = scatter_add.kernel_args(targets, X.device)
+        view = scatter_add.sort_contributions(targets, idx, meta)
+        alone_ms = device_ms(lambda: scatter_add.launch(grad, idx, view,
+                                                        meta))
+        sort_ms = device_ms(lambda: scatter_add.sort_contributions(
+            targets, idx, meta))
+        # bytes: the cotangent and the rows once, each target row read and
+        # written once
+        n_pairs = sum(int(torch.unique(i).numel()) for _, i, _ in lib_args)
+        n_bytes = (grad.numel() * 4 + idx.numel() * 8
+                   + 2 * n_pairs * width * 4)
+        out["scatter_add_rows"] = dict(
+            ms=ms["kernel"], plain_ms=ms["plain"], library_ms=ms["library"],
+            bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+        log("scatter_add_rows at B=%d F=%d W=%d, device time, cold L2 "
+            "(wrapper's sort included): kernel %r ms, plain %r ms, library "
+            "(index_add_ per target) %r ms; bound %r ms (%d bytes: %d "
+            "target rows); per call, host included: kernel %r, plain %r, "
+            "library %r ms; of the kernel's time, the sort %r ms and the "
+            "kernel alone %r ms"
+            % (grad.shape[0], grad.shape[1], width, ms["kernel"],
+               ms["plain"], ms["library"], out["scatter_add_rows"]["bound_ms"],
+               n_bytes, n_pairs, call_ms["kernel"], call_ms["plain"],
+               call_ms["library"], sort_ms, alone_ms))
+
+        tables = model._tables()
+        paths = [p for p, _, _ in model._sparse_specs]
+        upd = ([tables[p].detach() for p in paths],
+               [model._table_state[p] for p in paths], touched.grads,
+               touched.rows, touched.counts,
+               [model._table_l2_vec(p) for p in paths], 0.01)
+        timed = {
+            "kernel": lambda: rowup.row_update("adagrad", *upd),
+            "plain": lambda: rowup.row_update_ref("adagrad", *upd),
+        }
+        ms = {k: device_ms(fn) for k, fn in timed.items()}
+        call_ms = {k: time_ms(fn, reps=20) for k, fn in timed.items()}
+        # per touched float: w, acc, g read, w, acc written; a row id each
+        rows = sum(touched.counts)
+        n_bytes = rows * width * 5 * 4 + rows * 8
+        out["row_update"] = dict(
+            ms=ms["kernel"], plain_ms=ms["plain"], library_ms=None,
+            bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+        log("row_update (adagrad) over %d touched rows of %d tables, device "
+            "time, cold L2: kernel %r ms, plain %r ms, no library call; "
+            "bound %r ms (%d bytes); per call, host included: kernel %r, "
+            "plain %r ms"
+            % (rows, len(paths), ms["kernel"], ms["plain"],
+               out["row_update"]["bound_ms"], n_bytes, call_ms["kernel"],
+               call_ms["plain"]))
+    return out
+
 
 def main():
     if not torch.cuda.is_available():
@@ -359,6 +744,11 @@ def main():
     launches = phase_predict_f32(model, X_all)
     timing = phase_timing_bf16(model, X_all)
 
+    k1_err, k2_err = phase_train_kernels_vs_plain(model, X_all[:BATCH])
+    train_launches = phase_fit_f32(model, X_all)
+    phase_fit_card_vs_cpu(X_all)
+    train_timing = phase_train_timing_bf16(model, X_all)
+
     log(card_line())
     kernels = [dict(name="gather_rows", launches=launches,
                     max_abs_err=err, ms=timing["ms"],
@@ -366,6 +756,10 @@ def main():
                     bound_by=timing["bound_by"],
                     library_ms=timing["library_ms"],
                     **KERNELS["gather_rows"])]
+    for name, kerr in (("scatter_add_rows", k1_err), ("row_update", k2_err)):
+        kernels.append(dict(name=name, launches=train_launches[name],
+                            max_abs_err=kerr, **train_timing[name],
+                            **KERNELS[name]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

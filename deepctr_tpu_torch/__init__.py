@@ -10,6 +10,7 @@ from .config import set_compute_dtype, compute_dtype
 from .features import (SparseFeat, DenseFeat, VarLenSparseFeat,
                        build_input_features, get_feature_names,
                        DEFAULT_GROUP_NAME)
+from .callbacks import History, EarlyStopping, ModelCheckpoint
 from . import layers
 from . import models
 

@@ -54,6 +54,9 @@ class EmbeddingDict(nn.Module):
             self.table_dims[name] = dim
         # one kernel-argument cache per group of fields gathered together
         self._gather_args = {}
+        # set by the training engine around a train step's forward: a list
+        # that each gather appends its (feature columns, rows) to
+        self._capture = None
 
     def gather(self, X, feature_index, feature_columns):
         """Full-width rows (incl. any wide column) of every feature in
@@ -70,10 +73,17 @@ class EmbeddingDict(nn.Module):
         for fcs in by_width.values():
             group = tuple(fc.name for fc in fcs)
             args = self._gather_args.setdefault(group, GatherArgs())
-            rows = gather_rows(X, [self.tables[fc.embedding_name]
-                                   for fc in fcs],
-                               [feature_index[fc.name][0] for fc in fcs],
-                               args=args)
+            tables = [self.tables[fc.embedding_name] for fc in fcs]
+            cols = [feature_index[fc.name][0] for fc in fcs]
+            if self._capture is None:
+                rows = gather_rows(X, tables, cols, args=args)
+            else:
+                # the engine's train step: rows without a graph back to
+                # the tables; the engine routes their cotangent itself
+                with torch.no_grad():
+                    rows = gather_rows(X, tables, cols, args=args)
+                rows.requires_grad_()
+                self._capture.append((fcs, rows))
             for i, fc in enumerate(fcs):
                 out[fc.name] = rows[:, i:i + 1]
         return out

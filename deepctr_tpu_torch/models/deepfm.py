@@ -45,6 +45,10 @@ class DeepFM(BaseModel):
                            device=device, generator=generator)
             self.dnn_linear = _dense(dnn_hidden_units[-1], 1, use_bias=False,
                                      device=device, generator=generator)
+        # deepctr_tpu/models/deepfm.py:73-75, by JAX path
+        self.add_regularization_rule(r"^dnn/.*(kernel|embedding)$",
+                                     l2=l2_reg_dnn)
+        self.add_regularization_rule(r"^dnn_linear/kernel$", l2=l2_reg_dnn)
 
     def forward(self, X):
         rows = self.shared_rows(X)

@@ -1,7 +1,10 @@
 """Hot ops: each has a plain PyTorch version and, where the JAX package has
 a TPU kernel, a hand-written CUDA kernel that runs on CUDA tensors.  Read
-launch counts from the kernel's own module (``ops.gather.GATHER_LAUNCHES``):
-a name imported from it is a copy taken at import time."""
+launch counts from the kernel's own module (``ops.gather.GATHER_LAUNCHES``,
+``ops.scatter_add.SCATTER_ADD_LAUNCHES``, ``ops.row_update.
+ROW_UPDATE_LAUNCHES``): a name imported from it is a copy taken at import
+time.  The training kernels live in ``ops.scatter_add`` and
+``ops.row_update``."""
 
 from .reference import fm_cross_ref
 from .dispatch import fm_cross

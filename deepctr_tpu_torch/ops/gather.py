@@ -8,8 +8,13 @@ rows with a lane select for big ones): the tables here are logical
 
 ``gather_rows`` launches the CUDA kernel in ``csrc/gather_rows.cu`` for
 CUDA tensors, or raises; it takes the plain version ``gather_rows_ref`` only
-because its tensors lie on the CPU.  Forward only: the backward kernel (a
-scatter-add of duplicate ids, summed in f32) comes with the training slice.
+because its tensors lie on the CPU.  Under autograd, with a table that needs
+a gradient, it runs as :class:`GatherRows`, whose backward is
+``ops/scatter_add.py:scatter_add_rows`` (the kernel ``csrc/
+scatter_add_rows.cu`` on CUDA tensors) into a dense ``[V, W]`` gradient per
+table.  The training engine does not go through it: it gathers without a
+graph and hands the rows' cotangent to ``scatter_add_rows`` itself, so that
+one launch serves dense and touched-rows targets alike.
 """
 
 import ctypes
@@ -17,6 +22,7 @@ import ctypes
 import torch
 
 from . import _build
+from .scatter_add import scatter_add_rows
 
 # kernel launches since import (or since a caller reset it to 0); counts
 # only launches of the CUDA kernel, never the plain version
@@ -95,6 +101,31 @@ def _kernel():
     return fn
 
 
+class GatherRows(torch.autograd.Function):
+    """``gather_rows`` with a gradient for the tables: the backward adds
+    each ``(b, f)`` cotangent into a zero ``[V_f, W]`` gradient of its
+    table with :func:`scatter_add_rows` (one launch for every table).  X
+    gets no gradient: it carries ids."""
+
+    @staticmethod
+    def forward(ctx, X, cols, args, *tables):
+        ctx.save_for_backward(X)
+        ctx.cols = list(cols)
+        ctx.shapes = [t.shape for t in tables]
+        return _gather(X, tables, cols, args)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (X,) = ctx.saved_tensors
+        grads = [torch.zeros(s, dtype=torch.float32, device=grad.device)
+                 for s in ctx.shapes]
+        ids = X[:, ctx.cols].to(torch.int32).to(torch.int64)
+        scatter_add_rows(grad, grads, ids)
+        return (None, None, None) + tuple(
+            g if need else None
+            for g, need in zip(grads, ctx.needs_input_grad[3:]))
+
+
 def gather_rows(X, tables, cols, args=None):
     """Rows of every table in one launch: X [B, D] float32 (ids as floats
     at columns ``cols``), tables ``F`` x [V_f, W] float32 -> [B, F, W].
@@ -102,18 +133,20 @@ def gather_rows(X, tables, cols, args=None):
     On CUDA tensors this launches the kernel (building it at first use) or
     raises.  ``args`` is a :class:`GatherArgs` that the caller keeps so
     that the per-field argument array is not copied to the device on every
-    call."""
-    global GATHER_LAUNCHES
+    call.  With autograd on and a table that needs a gradient, the call
+    runs as :class:`GatherRows`."""
     _check(X, tables, cols)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tables):
+        return GatherRows.apply(X, list(cols), args, *tables)
+    return _gather(X, tables, cols, args)
+
+
+def _gather(X, tables, cols, args):
+    global GATHER_LAUNCHES
     if X.device.type == "cpu":
         return gather_rows_ref(X, tables, cols)
     if X.device.type != "cuda":
         raise ValueError("no gather kernel for device %s" % X.device)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tables):
-        raise RuntimeError(
-            "gather_rows has no backward kernel yet (it comes with the "
-            "training slice): call it under torch.no_grad(), as predict "
-            "does")
     if X.stride(1) != 1 or any(not t.is_contiguous() for t in tables):
         raise ValueError("gather_rows needs row-major X and contiguous "
                          "tables")

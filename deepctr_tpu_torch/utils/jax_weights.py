@@ -20,6 +20,9 @@ Tables that the JAX package stores packed (``[ceil(V/pack), 128]`` with
 ``pack = 128 // W``, see ``deepctr_tpu/inputs.py:78-83``) are unpacked to
 the port's logical ``[V, W]``.  A leaf with no counterpart, a shape that
 matches neither layout, or a port weight that no leaf fills raises.
+``port_key`` and ``jax_path`` apply the table in either direction; the
+engine matches its regularization rules against ``jax_path`` of each
+parameter, so that patterns written for the JAX package work unchanged.
 Uses numpy only.
 """
 
@@ -50,6 +53,28 @@ def _flatten(tree, prefix=""):
             yield path, value
 
 
+def port_key(path):
+    """JAX leaf path (``a/b/c``) -> the port's ``state_dict`` key."""
+    parts = path.split("/")
+    if len(parts) >= 2 and parts[-2] == "embedding_dict":
+        return ".".join(parts[:-1] + ["tables", parts[-1]])
+    if parts[-1] == "kernel":
+        return ".".join(parts[:-1] + ["weight"])
+    return ".".join(parts)
+
+
+def jax_path(key):
+    """The port's ``state_dict`` key -> the JAX leaf path (``port_key``'s
+    inverse).  A ``weight`` is a ``Dense`` layer's, whose JAX leaf is its
+    transpose ``kernel``, except the linear part's dense-feature weight."""
+    parts = key.split(".")
+    if len(parts) >= 3 and parts[-3:-1] == ["embedding_dict", "tables"]:
+        return "/".join(parts[:-2] + [parts[-1]])
+    if parts[-1] == "weight" and parts[0] != "linear_model":
+        return "/".join(parts[:-1] + ["kernel"])
+    return "/".join(parts)
+
+
 def jax_to_state_dict(weights, target_shapes):
     """Map a JAX parameter tree to ``{port key: numpy array}``.
 
@@ -63,15 +88,10 @@ def jax_to_state_dict(weights, target_shapes):
         weights = weights["params"]
     out = {}
     for path, value in _flatten(weights):
-        parts = path.split("/")
+        key = port_key(path)
         value = np.asarray(value)
-        if len(parts) >= 2 and parts[-2] == "embedding_dict":
-            key = ".".join(parts[:-1] + ["tables", parts[-1]])
-        elif parts[-1] == "kernel":
-            key = ".".join(parts[:-1] + ["weight"])
+        if path.split("/")[-1] == "kernel":
             value = value.T
-        else:
-            key = ".".join(parts)
         if key not in target_shapes:
             raise KeyError("JAX leaf %r has no counterpart in the port "
                            "(looked for %r)" % (path, key))

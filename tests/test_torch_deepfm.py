@@ -275,19 +275,36 @@ def test_not_yet_ported_options_raise():
         PDeepFM(hashed, hashed, device="cpu")
 
 
-def test_gather_kernel_refuses_a_grad_enabled_call():
-    """Forward only: a CUDA call that would need a backward raises before
-    it loads a kernel.  The check comes before any CUDA work, so a tensor
-    that only claims to be on the card is enough here."""
-    class _OnCard(torch.Tensor):
-        @property
-        def device(self):
-            return torch.device("cuda", 0)
+def test_gather_kernel_refuses_a_grad_enabled_call(monkeypatch):
+    """A grad-enabled call is no longer refused: with a table that needs a
+    gradient, ``gather_rows`` runs as ``GatherRows``, whose backward adds
+    the rows' cotangent into each table's gradient with
+    ``scatter_add_rows`` (one call for every table), as the JAX gather's
+    ``_gather_bwd`` does.  A table without ``requires_grad`` gets none."""
+    calls = []
+    real = pt_gather.scatter_add_rows
 
-    table = torch.zeros(4, 3).as_subclass(_OnCard).requires_grad_()
-    X = torch.zeros(2, 1).as_subclass(_OnCard)
-    with pytest.raises(RuntimeError, match="no backward kernel"):
-        pt_gather.gather_rows(X, [table], [0])
+    def spy(grad, targets, rows):
+        calls.append(len(targets))
+        return real(grad, targets, rows)
+    monkeypatch.setattr(pt_gather, "scatter_add_rows", spy)
+    rng = np.random.default_rng(6)
+    tables = [torch.from_numpy(rng.normal(0, 1, (v, 3)).astype(np.float32))
+              for v in (4, 9)]
+    tables[0].requires_grad_()
+    ids = np.stack([rng.integers(0, 4, 20), rng.integers(0, 9, 20)], axis=1)
+    X = torch.from_numpy(ids.astype(np.float32))
+    rows = pt_gather.gather_rows(X, tables, [0, 1])
+    g = rng.normal(0, 1, (20, 2, 3)).astype(np.float32)
+    (rows * torch.from_numpy(g)).sum().backward()
+    assert calls == [2]
+    want = np.zeros((4, 3), np.float32)
+    np.add.at(want, ids[:, 0], g[:, 0])
+    np.testing.assert_allclose(tables[0].grad.numpy(), want, rtol=1e-6,
+                               atol=1e-6)
+    assert tables[1].grad is None
+    with torch.no_grad():
+        assert not pt_gather.gather_rows(X, tables, [0, 1]).requires_grad
 
 
 # ---------------------------------------------------------------------------
