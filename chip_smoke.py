@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Drives the port's main paths, DeepFM serving and training at Criteo
-width, through the entry points a user calls (``DeepFM(...)``,
+width and DIN/DIEN serving at the sequence bench's width, through the entry
+points a user calls (``DeepFM(...)``, ``DIN(...)``, ``DIEN(...)``,
 ``model.predict``, ``model.compile``, ``model.fit``), and holds every CUDA
 kernel of those paths against its plain PyTorch version.  Serving first:
 
@@ -47,6 +48,32 @@ Then the training path, DeepFM ``compile``/``fit`` on the same model:
    plain versions and a library call in device ms with a cold L2 and per
    call, and their bounds from this run's bytes.
 
+Then the sequence models' serving path, at the columns of
+``tools/seq_train_bench.py`` (user 1000, item_id 10000 and cate_id 100
+rows with E=32, a dense field, the item and cate histories at maxlen 100
+sharing their tables) and batches of 1024, DNN 256-128, attention 64-16:
+
+9. kernels vs plain: ``gru_scan`` at T=100, H=64 in all three modes,
+   float32 and bfloat16 storage, B=1024 and a ragged B=1000, lengths over
+   [0, 100]; ``din_attention_fused`` at E=64, T=100, B=1024, sigmoid, relu
+   and linear, weight normalisation on and off, float32 and bfloat16 keys.
+   float32 within 1e-5 (relative above 1), bfloat16 within one bf16 ulp;
+   padded steps and empty histories give exact zeros;
+10. DIEN predict, float32: ``gru_type="GRU"`` (two ``gru_scan`` launches and
+    one ``din_attention`` launch a batch) and ``"AUGRU"`` with negative
+    sampling (two ``gru_scan`` launches, the attention scores by
+    composition); 8 batches, weights at std 0.3 from a seed, every
+    prediction finite and in (0, 1), the first batch within 1e-5 of the
+    same model on the CPU (whose attention runs the layer composition);
+11. DIN predict, float32, the same way: ``att_activation`` Dice (no fused
+    attention: the composition) and sigmoid (one launch a batch);
+12. timing, bfloat16 compute: predict of DIN (Dice, sigmoid) and DIEN (GRU,
+    AUGRU) in examples/s (CUDA events, median of 5 after warm-up) and idle
+    share (``torch.profiler``); both kernels and their plain versions in
+    device ms with a cold L2, ``torch.nn.GRU`` as the GRU's library
+    yardstick (timed only; the port never calls it), and each kernel's
+    bound from this run's inputs.
+
 Any failure exits non-zero.  Without a CUDA device it fails at once and
 runs nothing on the CPU.  The last two lines before the final one are the
 card (``nvidia-smi`` name and power limit) and a JSON line describing each
@@ -67,10 +94,12 @@ HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE))
 
 import deepctr_tpu_torch as pt  # noqa: E402
-from deepctr_tpu_torch.models import DeepFM  # noqa: E402
+from deepctr_tpu_torch.models import DIEN, DIN, DeepFM  # noqa: E402
 from deepctr_tpu_torch.models.basemodel import _TouchedRows  # noqa: E402
 from deepctr_tpu_torch.ops import _build  # noqa: E402
+from deepctr_tpu_torch.ops import attention  # noqa: E402
 from deepctr_tpu_torch.ops import gather  # noqa: E402
+from deepctr_tpu_torch.ops import gru  # noqa: E402
 from deepctr_tpu_torch.ops import row_update as rowup  # noqa: E402
 from deepctr_tpu_torch.ops import scatter_add  # noqa: E402
 
@@ -102,6 +131,28 @@ EXPECTED_SPARSE = sorted("embedding_dict/C%d" % i
                          for i, v in enumerate(CRITEO_KAGGLE_VOCABS)
                          if v >= 16384)
 
+# the sequence models: tools/seq_train_bench.py:40-64 at maxlen 100, the
+# serving batch of tools/predict_bench.py:37
+SEQ_VOCABS = {"user": 1000, "item_id": 10000, "cate_id": 100}
+SEQ_EMB = 32
+SEQ_MAXLEN = 100
+SEQ_BATCH = 1024
+SEQ_BATCHES = 8
+SEQ_HIDDEN = (256, 128)
+SEQ_ATT = (64, 16)
+SEQ_STD = 0.3
+# the GRU and attention kernels at the slice's shapes: H and E are the
+# item and cate embeddings side by side
+SEQ_H = 2 * SEQ_EMB
+# f32: the card's expf/tanhf and another order of sums than the plain
+# version's matmuls, relative to values above 1 (an unnormalised attention
+# readout sums 100 scores times keys); bf16: one bf16 ulp of the value (the
+# two round float32 results that differ by about 1e-7), or that float32
+# tolerance
+KERNEL_F32_ATOL = 1e-5
+# H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet)
+F32_FLOP_PER_S = 67e12
+
 KERNELS = {
     "gather_rows": {
         "route": "cuda",
@@ -117,6 +168,16 @@ KERNELS = {
         "route": "cuda",
         "source": "deepctr_tpu_torch/csrc/row_update.cu",
         "replaces": "deepctr_tpu/ops/pallas_update.py:146",
+    },
+    "gru_scan": {
+        "route": "cuda",
+        "source": "deepctr_tpu_torch/csrc/gru_scan.cu",
+        "replaces": "deepctr_tpu/ops/pallas_gru.py:213",
+    },
+    "din_attention": {
+        "route": "cuda",
+        "source": "deepctr_tpu_torch/csrc/din_attention.cu",
+        "replaces": "deepctr_tpu/ops/pallas_attention.py:73",
     },
 }
 
@@ -292,30 +353,6 @@ def device_ms(fn, runs=20):
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def predict_profile(model, X_all):
-    """Device time of one predict by kernel (torch.profiler, kernels
-    only): returns the total in ms, or None where the profiler saw no
-    kernel."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        model.predict(X_all, batch_size=BATCH)
-    rows = sorted(((ev.self_device_time_total, ev.count, ev.key)
-                   for ev in prof.key_averages()
-                   if ev.device_type == DeviceType.CUDA), reverse=True)
-    total = sum(us for us, _, _ in rows)
-    if total <= 0:
-        log("predict profile: device time not measured (the profiler saw "
-            "no kernel)")
-        return None
-    for us, count, key in rows[:6] + [r for r in rows[6:]
-                                      if "gather_rows" in r[2]]:
-        log("predict profile: %r ms in %d launches (%.1f%%) %s"
-            % (us / 1e3, count, 100 * us / total, key[:90]))
-    return total / 1e3
-
-
 def phase_timing_bf16(model, X_all):
     log("timing on: %s" % card_line())
     pt.set_compute_dtype("bfloat16")
@@ -332,7 +369,8 @@ def phase_timing_bf16(model, X_all):
         % (n / dev_ms * 1e3, dev_ms, n))
     log("predict bf16, host numpy input: %r examples/s (%r ms for %d)"
         % (n / host_ms * 1e3, host_ms, n))
-    busy_ms = predict_profile(model, X_all)
+    busy_ms = profile_ms(lambda: model.predict(X_all, batch_size=BATCH),
+                         "predict", top=6)
     if busy_ms is not None:
         log("predict bf16, device input: device busy %r ms of %r ms, idle "
             "share %r" % (busy_ms, dev_ms, 1 - busy_ms / dev_ms))
@@ -591,9 +629,10 @@ def phase_fit_card_vs_cpu(X_all):
            WEIGHT_ATOL, tc, tp))
 
 
-def fit_profile(fn):
+def profile_ms(fn, label, top=8):
     """Device time of ``fn`` (torch.profiler, kernels only) in ms, or None
-    where the profiler saw no kernel; logs the biggest kernels."""
+    where the profiler saw no kernel; logs the biggest kernels, the port's
+    own, and the host's biggest ops, each line headed by ``label``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -604,21 +643,21 @@ def fit_profile(fn):
                    if ev.device_type == DeviceType.CUDA), reverse=True)
     total = sum(us for us, _, _ in rows)
     if total <= 0:
-        log("fit profile: device time not measured (the profiler saw no "
-            "kernel)")
+        log("%s profile: device time not measured (the profiler saw no "
+            "kernel)" % label)
         return None
-    ours = ("gather_rows", "scatter_add_rows", "row_update")
-    for us, count, key in rows[:8] + [r for r in rows[8:]
-                                      if any(k in r[2] for k in ours)]:
-        log("fit profile: %r ms in %d launches (%.1f%%) %s"
-            % (us / 1e3, count, 100 * us / total, key[:90]))
-    log("fit profile: %d kernel launches in all" % sum(c for _, c, _ in rows))
+    for us, count, key in rows[:top] + [r for r in rows[top:]
+                                        if any(k in r[2] for k in KERNELS)]:
+        log("%s profile: %r ms in %d launches (%.1f%%) %s"
+            % (label, us / 1e3, count, 100 * us / total, key[:90]))
+    log("%s profile: %d kernel launches in all"
+        % (label, sum(c for _, c, _ in rows)))
     host = sorted(((ev.self_cpu_time_total, ev.count, ev.key)
                    for ev in prof.key_averages()
                    if ev.device_type == DeviceType.CPU), reverse=True)
-    for us, count, key in host[:8]:
-        log("fit profile, host: %r ms self time in %d calls %s"
-            % (us / 1e3, count, key[:60]))
+    for us, count, key in host[:top]:
+        log("%s profile, host: %r ms self time in %d calls %s"
+            % (label, us / 1e3, count, key[:60]))
     return total / 1e3
 
 
@@ -635,7 +674,7 @@ def phase_train_timing_bf16(model, X_all):
     fit_ms = time_ms(fit, reps=1, runs=3)
     log("fit bf16, host numpy input: %r examples/s (%r ms for %d steps of "
         "%d)" % (n / fit_ms * 1e3, fit_ms, TRAIN_STEPS, BATCH))
-    busy_ms = fit_profile(fit)
+    busy_ms = profile_ms(fit, "fit")
     if busy_ms is not None:
         log("fit bf16: device busy %r ms of %r ms, idle share %r"
             % (busy_ms, fit_ms, 1 - busy_ms / fit_ms))
@@ -713,6 +752,413 @@ def phase_train_timing_bf16(model, X_all):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the sequence models' serving path
+# ---------------------------------------------------------------------------
+
+def seq_lengths(n, gen, device):
+    """History lengths uniform over [0, maxlen], with 0, 1 and maxlen among
+    the first rows."""
+    lengths = torch.randint(0, SEQ_MAXLEN + 1, (n,), generator=gen,
+                            device=device)
+    lengths[:3] = torch.tensor([0, 1, SEQ_MAXLEN], device=device)
+    return lengths
+
+
+def gru_inputs(B, mode, dtype, seed, device):
+    """``gru_scan``'s arguments as DIEN's GRUs give them at maxlen 100 and
+    H=64: gi a [T, B, 3H] view of a [B, T, 3H] product, weights at std
+    0.3, lengths over [0, 100]."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    T, H = SEQ_MAXLEN, SEQ_H
+    gi = torch.randn(B, T, 3 * H, generator=gen, device=device).to(
+        dtype).transpose(0, 1)
+    whh_t = (SEQ_STD * torch.randn(H, 3 * H, generator=gen,
+                                   device=device)).to(dtype)
+    bhh = (SEQ_STD * torch.randn(3 * H, generator=gen,
+                                 device=device)).to(dtype)
+    lengths = seq_lengths(B, gen, device)
+    mask = (torch.arange(T, device=device)[None, :]
+            < lengths[:, None]).to(dtype)
+    att = (None if mode == "gru" else
+           torch.rand(B, T, generator=gen, device=device).to(dtype))
+    return (gi, whh_t, bhh, mask, att), lengths
+
+
+def attention_inputs(B, dtype, seed, device):
+    """``din_attention_fused``'s arguments at E=64, T=100 and layers
+    256-64-16-1, lengths over [0, 100]; query and keys at std 0.3, the
+    layers' weights and biases at 1/sqrt(fan_in), the scale of a
+    lecun-initialised layer (at std 0.3 a linear MLP's unnormalised
+    readouts reach tens, and the two orders of float32 sums part by more
+    than 1e-5 of them)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    T, E = SEQ_MAXLEN, SEQ_H
+    query = SEQ_STD * torch.randn(B, 1, E, generator=gen, device=device)
+    keys = (SEQ_STD * torch.randn(B, T, E, generator=gen,
+                                  device=device)).to(dtype)
+    lengths = seq_lengths(B, gen, device)
+    mask = torch.arange(T, device=device)[None, :] < lengths[:, None]
+    widths = (4 * E,) + SEQ_ATT + (1,)
+    layers = [(torch.randn(i, o, generator=gen, device=device) / i ** 0.5,
+               torch.randn(o, generator=gen, device=device) / i ** 0.5)
+              for i, o in zip(widths[:-1], widths[1:])]
+    return query, keys, mask, layers, lengths
+
+
+def compare(got, want, what):
+    """A float32 pair: max |got - want| / max(1, |want|), checked against
+    KERNEL_F32_ATOL, and max |got - want|.  A bfloat16 pair: the max in
+    bf16 ulps of the larger magnitude over the elements outside that
+    float32 tolerance, checked to one ulp, and max |got - want|."""
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          "%s: %s %s vs plain %s %s" % (what, got.dtype, tuple(got.shape),
+                                        want.dtype, tuple(want.shape)))
+    a, b = got.float(), want.float()
+    check(bool(torch.isfinite(a).all()), "%s: non-finite output" % what)
+    diff = (a - b).abs()
+    scaled = diff / b.abs().clamp_min(1.0)
+    if got.dtype == torch.float32:
+        err = scaled.max().item()
+        check(err <= KERNEL_F32_ATOL, "%s: max |kernel - plain| / max(1, "
+              "|plain|) = %r > %r" % (what, err, KERNEL_F32_ATOL))
+        return err, diff.max().item()
+    mag = torch.maximum(a.abs(), b.abs())
+    ulps = diff / torch.exp2(torch.floor(torch.log2(
+        mag.clamp_min(2.0 ** -126))) - 7)
+    ulps = torch.where(scaled <= KERNEL_F32_ATOL, torch.zeros_like(ulps),
+                       ulps)
+    worst = ulps.max().item()
+    check(worst <= 1.0, "%s: %d outputs more than one bf16 ulp from the "
+          "plain version (max %r ulps)" % (what, int((ulps > 1).sum()),
+                                           worst))
+    return worst, diff.max().item()
+
+
+def phase_seq_kernels_vs_plain(device):
+    """gru_scan and din_attention_fused against their plain versions at
+    the slice's shapes; returns the largest float32 |kernel - plain| of
+    each."""
+    errs = {"gru_scan": 0.0, "din_attention": 0.0}
+    seed = SEED + 20
+    with torch.no_grad():
+        for B in (SEQ_BATCH, 1000):
+            for mode in gru.MODES:
+                for dtype in (torch.float32, torch.bfloat16):
+                    seed += 1
+                    args, lengths = gru_inputs(B, mode, dtype, seed, device)
+                    outs, h_last = gru.gru_scan(*args[:4], att=args[4],
+                                                mode=mode)
+                    ref_outs, ref_h = gru.gru_scan_ref(*args[:4],
+                                                       att=args[4],
+                                                       mode=mode)
+                    torch.cuda.synchronize()
+                    what = "gru_scan %s %s B=%d" % (mode, dtype, B)
+                    e1, a1 = compare(outs, ref_outs, what + " outs")
+                    e2, a2 = compare(h_last, ref_h, what + " h_last")
+                    pad = (torch.arange(SEQ_MAXLEN, device=device)[:, None]
+                           >= lengths[None, :])
+                    check(bool((outs[pad] == 0).all()), what + ": a padded "
+                          "step emitted a non-zero row")
+                    check(bool((h_last[lengths == 0] == 0).all()),
+                          what + ": an empty history left a non-zero state")
+                    if dtype == torch.float32:
+                        errs["gru_scan"] = max(errs["gru_scan"], a1, a2)
+                    log("kernel vs plain: %s: outs %s %r, h_last %r; max "
+                        "|err| %r, %r"
+                        % (what, "max |err| / max(1, |plain|)"
+                           if dtype == torch.float32 else "max bf16 ulps",
+                           e1, e2, a1, a2))
+        for act in attention.ACTIVATIONS:
+            for wnorm in (False, True):
+                for dtype in (torch.float32, torch.bfloat16):
+                    seed += 1
+                    q, k, m, layers, lengths = attention_inputs(
+                        SEQ_BATCH, dtype, seed, device)
+                    got = attention.din_attention_fused(q, k, m, layers, act,
+                                                        wnorm)
+                    want = attention.din_attention_fused_ref(q, k, m, layers,
+                                                             act, wnorm)
+                    torch.cuda.synchronize()
+                    what = ("din_attention %s wnorm=%s %s" % (act, wnorm,
+                                                              dtype))
+                    e, a = compare(got, want, what)
+                    if not wnorm:
+                        check(bool((got[lengths == 0] == 0).all()),
+                              what + ": an empty history gave a non-zero "
+                              "readout")
+                    if dtype == torch.float32:
+                        errs["din_attention"] = max(errs["din_attention"], a)
+                    log("kernel vs plain: %s at B=%d T=%d E=%d: %s %r; max "
+                        "|err| %r" % (what, SEQ_BATCH, SEQ_MAXLEN, SEQ_H,
+                                      "max |err| / max(1, |plain|)"
+                                      if dtype == torch.float32
+                                      else "max bf16 ulps", e, a))
+    return errs
+
+
+def seq_columns(use_neg):
+    """The sequence bench's columns (tools/seq_train_bench.py:40-64)."""
+    feat = pt.SparseFeat
+    cols = [feat(name, vocab, SEQ_EMB) for name, vocab in SEQ_VOCABS.items()]
+    cols.append(pt.DenseFeat("pay_score", 1))
+    prefixes = ("hist_", "neg_hist_") if use_neg else ("hist_",)
+    for prefix in prefixes:
+        for name in ("item_id", "cate_id"):
+            cols.append(pt.VarLenSparseFeat(
+                feat(prefix + name, SEQ_VOCABS[name], SEQ_EMB,
+                     embedding_name=name),
+                maxlen=SEQ_MAXLEN, length_name="seq_length"))
+    return cols
+
+
+def seq_requests(model, n, seed, device):
+    """A flat [n, input_dim] float32 batch of the bench's data
+    (tools/seq_train_bench.py:67-80) with history lengths over [0, 100]."""
+    rng = np.random.default_rng(seed)
+    T = SEQ_MAXLEN
+    x = {"user": rng.integers(0, SEQ_VOCABS["user"], n),
+         "pay_score": rng.random(n),
+         "seq_length": rng.integers(0, T + 1, n)}
+    x["seq_length"][:3] = [0, 1, T]
+    for name in ("item_id", "cate_id"):
+        x[name] = rng.integers(1, SEQ_VOCABS[name], n)
+        for prefix in ("hist_", "neg_hist_"):
+            x[prefix + name] = rng.integers(1, SEQ_VOCABS[name], (n, T))
+    return torch.from_numpy(model._assemble_x(x)).to(device)
+
+
+def seq_model(kind, variant, device):
+    """DIEN (``variant`` its gru_type; AUGRU with negative sampling, as
+    bench.py runs it) or DIN (``variant`` its att_activation) at the bench
+    width.  Every weight is redrawn from normal(0.3), seeded, but the
+    prediction tower's (``dnn``, ``dnn_linear``) at 1/sqrt(fan_in), so that
+    no float32 sigmoid saturates to exactly 1; Dice's running mean from
+    normal(0.3), its variance from uniform[0.5, 1.5)."""
+    if kind == "dien":
+        neg = variant == "AUGRU"
+        model = DIEN(seq_columns(neg), ["item_id", "cate_id"],
+                     gru_type=variant, use_negsampling=neg,
+                     dnn_hidden_units=SEQ_HIDDEN, att_hidden_units=SEQ_ATT,
+                     seed=SEED, device=device)
+    else:
+        model = DIN(seq_columns(False), ["item_id", "cate_id"],
+                    dnn_hidden_units=SEQ_HIDDEN, att_hidden_size=SEQ_ATT,
+                    att_activation=variant, seed=SEED, device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 30)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            tower = name.startswith(("dnn.", "dnn_linear.")) and p.dim() == 2
+            p.normal_(0.0, p.shape[1] ** -0.5 if tower else SEQ_STD,
+                      generator=gen)
+        for name, b in model.named_buffers():
+            if name.endswith("bn.mean"):
+                b.normal_(0.0, SEQ_STD, generator=gen)
+            elif name.endswith("bn.var"):
+                b.uniform_(0.5, 1.5, generator=gen)
+    return model
+
+
+def reset_seq_launches():
+    gather.GATHER_LAUNCHES = 0
+    gru.GRU_SCAN_LAUNCHES = 0
+    attention.DIN_ATTENTION_LAUNCHES = 0
+
+
+def read_seq_launches():
+    return {"gather_rows": gather.GATHER_LAUNCHES,
+            "gru_scan": gru.GRU_SCAN_LAUNCHES,
+            "din_attention": attention.DIN_ATTENTION_LAUNCHES}
+
+
+def phase_seq_predict_f32(kind, variant, per_batch, device):
+    """predict at float32 over SEQ_BATCHES batches: the launches of each
+    kernel a batch (``per_batch``), the predictions, and the first batch
+    against the same model on the CPU.  Returns the launches."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pt.set_compute_dtype("float32")
+    model = seq_model(kind, variant, device)
+    n = SEQ_BATCH * SEQ_BATCHES
+    X = seq_requests(model, n, SEED + 40, device)
+    reset_seq_launches()
+    pred = model.predict(X, batch_size=SEQ_BATCH)
+    launches = read_seq_launches()
+    label = "%s %s" % (kind.upper(), variant)
+    for name, count in dict(per_batch, gather_rows=1).items():
+        check(launches[name] == count * SEQ_BATCHES, "%s: %s launched %d "
+              "times in %d batches, want %d a batch" % (
+                  label, name, launches[name], SEQ_BATCHES, count))
+    check_predictions(pred, n)
+    model.to("cpu")
+    try:
+        pred_cpu = model.predict(X[:SEQ_BATCH].cpu(), batch_size=SEQ_BATCH)
+    finally:
+        model.to(device)
+    diff = float(np.abs(pred[:SEQ_BATCH] - pred_cpu).max())
+    check(diff <= ATOL_CPU, "%s: card vs CPU max |dp| %r > %r"
+          % (label, diff, ATOL_CPU))
+    log("predict f32 %s: %d requests in %d batches, launches %s, "
+        "predictions in [%.6f, %.6f], std %.6f; first batch vs CPU max |dp| "
+        "= %r (atol %r)" % (label, n, SEQ_BATCHES, launches, pred.min(),
+                            pred.max(), pred.std(), diff, ATOL_CPU))
+    return launches
+
+
+def gru_bound(args, lengths):
+    """(ms, "operations" or "bytes") for gru_scan on ``args``: the h @ W_hh
+    products of the steps inside each history (the steps past it need no
+    arithmetic), against their gates read once, the [T, B, H] outputs and
+    h_last written once, the mask, W_hh and b_hh."""
+    gi, whh_t, bhh, mask, att = args
+    T, B, H3 = gi.shape
+    H = H3 // 3
+    valid = int(lengths.sum())
+    size = gi.element_size()
+    flops = 2 * valid * H * H3
+    n_bytes = (valid * H3 * size + T * B * H * size + B * H * size
+               + mask.numel() * 4 + 4 * (H * H3 + H3)
+               + (0 if att is None else att.numel() * 4))
+    return bound(n_bytes, flops)
+
+
+def attention_bound(q, k, m, layers, lengths, wnorm):
+    """(ms, bound) for din_attention_fused: the MLP of the steps inside
+    each history (an empty one under softmax weighs all T keys equally,
+    so needs them all) against the keys those steps read, the query, the
+    mask, the weights and the [B, 1, E] result."""
+    B, T, E = k.shape
+    steps = lengths.clone()
+    if wnorm:
+        steps[lengths == 0] = T
+    valid = int(steps.sum())
+    mlp = sum(w.shape[0] * w.shape[1] for w, _ in layers)
+    flops = 2 * valid * mlp + 2 * valid * E
+    n_bytes = (valid * E * k.element_size() + q.numel() * 4 + m.numel() * 4
+               + 4 * sum(w.numel() + b.numel() for w, b in layers)
+               + B * E * k.element_size())
+    return bound(n_bytes, flops)
+
+
+def bound(n_bytes, flops):
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / F32_FLOP_PER_S * 1e3
+    return ((by_ops, "operations") if by_ops >= by_bytes
+            else (by_bytes, "bytes"))
+
+
+def gru_backward_yardsticks(args, lengths, lib_gru, x):
+    """The GRU scan's backward (deepctr_tpu/ops/pallas_gru.py:264
+    _bwd_call) is not ported yet: log its plain version's device time
+    (autograd through gru_scan_ref), torch.nn.GRU's backward and the bound
+    (the 6 * H * 3H multiply-adds of a step inside a history: the gates
+    recomputed, dW_hh and dh; the gates, the carries and the output
+    cotangent read, the gate cotangent written), for the next slice."""
+    gi, whh_t, bhh, mask, _ = args
+    T, B, H3 = gi.shape
+    H = H3 // 3
+    with torch.enable_grad():
+        leaves = [a.detach().requires_grad_() for a in (gi, whh_t, bhh)]
+        outs, h_last = gru.gru_scan_ref(*leaves, mask, mode="gru")
+        cots = (torch.randn_like(outs), torch.randn_like(h_last))
+        y, _ = lib_gru(x.requires_grad_())
+        dy = torch.randn_like(y)
+        timed = {
+            "plain": lambda: torch.autograd.grad(
+                (outs, h_last), leaves, cots, retain_graph=True),
+            "library": lambda: torch.autograd.grad(
+                y, [x] + list(lib_gru.parameters()), dy,
+                retain_graph=True),
+        }
+        ms = {k: device_ms(fn) for k, fn in timed.items()}
+    valid = int(lengths.sum())
+    size = gi.element_size()
+    n_bytes = (valid * (H3 + H) * size + T * B * (H + H3) * size
+               + mask.numel() * 4 + 4 * (H * H3 + H3))
+    bound_ms, bound_by = bound(n_bytes, 6 * valid * H * H3)
+    log("gru_scan backward (not ported; the DIEN training slice) at T=%d "
+        "B=%d H=%d, bf16 storage, device time, cold L2: plain (autograd "
+        "through gru_scan_ref) %r ms, library (torch.nn.GRU backward, full "
+        "length) %r ms; bound %r ms (%s)"
+        % (T, B, H, ms["plain"], ms["library"], bound_ms, bound_by))
+
+
+def phase_seq_timing_bf16(device):
+    """DIN and DIEN predict at bf16 compute (examples/s, idle share), and
+    both sequence kernels against their plain versions in device ms."""
+    log("timing on: %s" % card_line())
+    pt.set_compute_dtype("bfloat16")
+    n = SEQ_BATCH * SEQ_BATCHES
+    for kind, variant in (("din", "dice"), ("din", "sigmoid"),
+                          ("dien", "GRU"), ("dien", "AUGRU")):
+        model = seq_model(kind, variant, device)
+        X = seq_requests(model, n, SEED + 50, device)
+        label = "%s %s" % (kind.upper(), variant)
+        check_predictions(model.predict(X, batch_size=SEQ_BATCH), n)
+        run_ms = time_ms(lambda: model.predict(X, batch_size=SEQ_BATCH),
+                         reps=1, runs=5)
+        log("predict bf16 %s, device input: %r examples/s (%r ms for %d)"
+            % (label, n / run_ms * 1e3, run_ms, n))
+        busy_ms = profile_ms(lambda: model.predict(X, batch_size=SEQ_BATCH),
+                             "predict %s" % label, top=5)
+        if busy_ms is not None:
+            log("predict bf16 %s: device busy %r ms of %r ms, idle share %r"
+                % (label, busy_ms, run_ms, 1 - busy_ms / run_ms))
+        del model, X
+
+    out = {}
+    with torch.no_grad():
+        args, lengths = gru_inputs(SEQ_BATCH, "gru", torch.bfloat16,
+                                   SEED + 60, device)
+        gi = args[0]
+        H = SEQ_H
+        # the library's GRU (cuDNN where it takes the type) over the [B, T,
+        # H] inputs that DIEN's GRUs read, every row at its full length;
+        # it projects its inputs itself and keeps no mask
+        lib_gru = torch.nn.GRU(H, H, batch_first=True).to(device,
+                                                          torch.bfloat16)
+        lib_gru.flatten_parameters()
+        x = torch.randn(SEQ_BATCH, SEQ_MAXLEN, H, device=device,
+                        dtype=torch.bfloat16)
+        timed = {
+            "kernel": lambda: gru.gru_scan(*args[:4], mode="gru"),
+            "plain": lambda: gru.gru_scan_ref(*args[:4], mode="gru"),
+            "library": lambda: lib_gru(x),
+        }
+        ms = {k: device_ms(fn) for k, fn in timed.items()}
+        bound_ms, bound_by = gru_bound(args, lengths)
+        out["gru_scan"] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
+                               library_ms=ms["library"], bound_ms=bound_ms,
+                               bound_by=bound_by)
+        log("gru_scan (gru) at T=%d B=%d H=%d, bf16 storage, %d steps "
+            "inside the histories, device time, cold L2: kernel %r ms, plain "
+            "%r ms, library (torch.nn.GRU, full length, its own input "
+            "projection) %r ms; bound %r ms (%s)"
+            % (gi.shape[0], gi.shape[1], H, int(lengths.sum()),
+               ms["kernel"], ms["plain"], ms["library"], bound_ms, bound_by))
+        gru_backward_yardsticks(args, lengths, lib_gru, x)
+
+        q, k, m, layers, lengths = attention_inputs(SEQ_BATCH, torch.bfloat16,
+                                                    SEED + 61, device)
+        timed = {
+            "kernel": lambda: attention.din_attention_fused(
+                q, k, m, layers, "relu", True),
+            "plain": lambda: attention.din_attention_fused_ref(
+                q, k, m, layers, "relu", True),
+        }
+        ms = {k_: device_ms(fn) for k_, fn in timed.items()}
+        bound_ms, bound_by = attention_bound(q, k, m, layers, lengths, True)
+        out["din_attention"] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
+                                    library_ms=None, bound_ms=bound_ms,
+                                    bound_by=bound_by)
+        log("din_attention (relu, softmax) at B=%d T=%d E=%d, bf16 keys, "
+            "device time, cold L2: kernel %r ms, plain %r ms, no library "
+            "call; bound %r ms (%s)" % (SEQ_BATCH, SEQ_MAXLEN, SEQ_H,
+                                        ms["kernel"], ms["plain"], bound_ms,
+                                        bound_by))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -748,6 +1194,20 @@ def main():
     train_launches = phase_fit_f32(model, X_all)
     phase_fit_card_vs_cpu(X_all)
     train_timing = phase_train_timing_bf16(model, X_all)
+    del model, X_all
+    torch.cuda.empty_cache()
+
+    seq_errs = phase_seq_kernels_vs_plain(device)
+    seq_launches = {"gru_scan": 0, "din_attention": 0}
+    for kind, variant, per_batch in (
+            ("dien", "GRU", {"gru_scan": 2, "din_attention": 1}),
+            ("dien", "AUGRU", {"gru_scan": 2, "din_attention": 0}),
+            ("din", "dice", {"gru_scan": 0, "din_attention": 0}),
+            ("din", "sigmoid", {"gru_scan": 0, "din_attention": 1})):
+        counts = phase_seq_predict_f32(kind, variant, per_batch, device)
+        for name in seq_launches:
+            seq_launches[name] += counts[name]
+    seq_timing = phase_seq_timing_bf16(device)
 
     log(card_line())
     kernels = [dict(name="gather_rows", launches=launches,
@@ -759,6 +1219,10 @@ def main():
     for name, kerr in (("scatter_add_rows", k1_err), ("row_update", k2_err)):
         kernels.append(dict(name=name, launches=train_launches[name],
                             max_abs_err=kerr, **train_timing[name],
+                            **KERNELS[name]))
+    for name in ("gru_scan", "din_attention"):
+        kernels.append(dict(name=name, launches=seq_launches[name],
+                            max_abs_err=seq_errs[name], **seq_timing[name],
                             **KERNELS[name]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,8 @@ A forward gathers the rows of every field in one kernel launch per row
 width (:meth:`EmbeddingDict.gather`); the deep part of a fused table reads
 ``rows[..., :dim]`` and the wide part ``rows[..., dim:]`` of that one
 gather, as the JAX package's ``_row_cache`` shares one gather between them.
+A ``VarLenSparseFeat`` spans ``maxlen`` columns of the flat matrix and
+gathers as ``maxlen`` fields of its table in the same launch.
 """
 
 from collections import defaultdict
@@ -19,6 +21,7 @@ import torch
 from torch import nn
 
 from .features import SparseFeat, DenseFeat, VarLenSparseFeat
+from .layers.sequence import masked_pooling
 from .layers.utils import concat_fun
 from .ops.gather import GatherArgs, gather_rows
 
@@ -61,20 +64,23 @@ class EmbeddingDict(nn.Module):
     def gather(self, X, feature_index, feature_columns):
         """Full-width rows (incl. any wide column) of every feature in
         ``feature_columns``, one kernel launch per row width:
-        ``{feature name: [B, 1, width]}``."""
+        ``{feature name: [B, 1, width]}``, ``[B, maxlen, width]`` for a
+        ``VarLenSparseFeat``."""
         by_width = defaultdict(list)
         for fc in feature_columns:
-            if isinstance(fc, VarLenSparseFeat):
-                raise NotImplementedError(
-                    "VarLenSparseFeat lookups are not ported yet (they come "
-                    "with the sequence slice)")
             by_width[self.tables[fc.embedding_name].shape[1]].append(fc)
         out = {}
         for fcs in by_width.values():
             group = tuple(fc.name for fc in fcs)
             args = self._gather_args.setdefault(group, GatherArgs())
-            tables = [self.tables[fc.embedding_name] for fc in fcs]
-            cols = [feature_index[fc.name][0] for fc in fcs]
+            tables, cols, spans = [], [], []
+            for fc in fcs:
+                start, end = feature_index[fc.name]
+                if not isinstance(fc, VarLenSparseFeat):
+                    end = start + 1
+                spans.append((len(cols), end - start))
+                tables += [self.tables[fc.embedding_name]] * (end - start)
+                cols += range(start, end)
             if self._capture is None:
                 rows = gather_rows(X, tables, cols, args=args)
             else:
@@ -84,8 +90,8 @@ class EmbeddingDict(nn.Module):
                     rows = gather_rows(X, tables, cols, args=args)
                 rows.requires_grad_()
                 self._capture.append((fcs, rows))
-            for i, fc in enumerate(fcs):
-                out[fc.name] = rows[:, i:i + 1]
+            for fc, (first, n) in zip(fcs, spans):
+                out[fc.name] = rows[:, first:first + n]
         return out
 
     def forward(self, name, rows):
@@ -127,13 +133,37 @@ def embedding_lookup(X, embedding_dict, feature_index, sparse_feature_columns,
 
 
 def varlen_embedding_lookup(X, embedding_dict, feature_index,
+                            varlen_sparse_feature_columns, rows=None):
+    """[B, maxlen, E] sequences per varlen feature: ``{name: tensor}``.
+
+    ``rows`` as for :func:`embedding_lookup`."""
+    if len(varlen_sparse_feature_columns) == 0:
+        return {}
+    if rows is None:
+        rows = embedding_dict.gather(X, feature_index,
+                                     varlen_sparse_feature_columns)
+    return {fc.name: embedding_dict(fc.embedding_name, rows[fc.name])
+            for fc in varlen_sparse_feature_columns}
+
+
+def get_varlen_pooling_list(embedding_vec_dict, X, feature_index,
                             varlen_sparse_feature_columns):
-    """Sequence lookups: not ported yet (the sequence slice)."""
-    if len(varlen_sparse_feature_columns) > 0:
-        raise NotImplementedError(
-            "VarLenSparseFeat lookups are not ported yet (they come with "
-            "the sequence slice)")
-    return {}
+    """Masked-pool each varlen sequence to [B, 1, E], masking by
+    ``ids != 0`` or by the feature's length column."""
+    pooled = []
+    for feat in varlen_sparse_feature_columns:
+        seq_emb = embedding_vec_dict[feat.name]
+        if feat.length_name is None:
+            mask = sparse_ids(X, feature_index[feat.name]) != 0    # [B,T]
+            emb = masked_pooling([seq_emb, mask], feat.combiner,
+                                 supports_masking=True)
+        else:
+            length = X[:, feature_index[feat.length_name][0]:
+                       feature_index[feat.length_name][1]]
+            emb = masked_pooling([seq_emb, length], feat.combiner,
+                                 supports_masking=False)
+        pooled.append(emb)
+    return pooled
 
 
 def get_dense_input(X, feature_index, feature_columns):
@@ -161,6 +191,15 @@ def combined_dnn_input(sparse_embedding_list, dense_value_list):
         return torch.cat(dense_value_list, dim=-1).reshape(
             dense_value_list[0].shape[0], -1)
     raise NotImplementedError
+
+
+def maxlen_lookup(X, feature_index, maxlen_column):
+    """The behaviour-length column (DIN/DIEN) as int32 [B, 1], truncating
+    as :func:`sparse_ids` does."""
+    if maxlen_column is None or len(maxlen_column) == 0:
+        raise ValueError("please add max length column for VarLenSparseFeat "
+                         "of DIN/DIEN input")
+    return sparse_ids(X, feature_index[maxlen_column[0]])
 
 
 def compute_input_dim(feature_columns, include_sparse=True,

@@ -1,4 +1,7 @@
-from .activation import activation_layer
-from .core import DNN, PredictionLayer
+from .activation import Dice, PReLU, activation_layer
+from .core import DNN, LocalActivationUnit, PredictionLayer
 from .interaction import FM
+from .sequence import (AGRUCell, AUGRUCell, AttentionSequencePoolingLayer,
+                       DynamicGRU, MaskedGRU, SequencePoolingLayer,
+                       masked_pooling)
 from .utils import concat_fun

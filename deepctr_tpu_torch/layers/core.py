@@ -1,6 +1,7 @@
-"""Core layers: dense layer, DNN tower, prediction head.
+"""Core layers: dense layer, DNN tower, prediction head, DIN's local
+activation unit.
 
-Counterpart of ``deepctr_tpu/layers/core.py:18-74``.  Every matmul runs in
+Counterpart of ``deepctr_tpu/layers/core.py:18-100``.  Every matmul runs in
 the global compute dtype (``config.compute_dtype()``); parameters stay
 float32.  Weights are drawn at construction from the caller's
 ``torch.Generator``; biases start at zero, unlike ``nn.Linear``'s default.
@@ -59,8 +60,10 @@ class DNN(nn.Module):
     """MLP tower: [Dense -> activation] * L.
 
     (counterpart of ``deepctr_tpu/layers/core.py:25-54``; only kernel
-    weights are drawn from normal(init_std), biases start at 0.)  Batch
-    norm and dropout are not ported yet and raise.
+    weights are drawn from normal(init_std), biases start at 0.)  An
+    activation with parameters (Dice, PReLU) is one module a layer, named
+    ``Dice_<i>``/``PReLU_<i>`` as flax names them.  Batch norm and dropout
+    are not ported yet and raise.
     """
 
     def __init__(self, inputs_dim, hidden_units, activation="relu",
@@ -75,16 +78,21 @@ class DNN(nn.Module):
             raise NotImplementedError("DNN dropout is not ported yet")
         self.hidden_units = tuple(hidden_units)
         self.l2_reg = l2_reg
-        self.activation = activation_layer(activation)
         dims = (inputs_dim,) + self.hidden_units
+        self.activations = []
         for i, units in enumerate(self.hidden_units):
             self.add_module("dense_%d" % i,
                             _dense(dims[i], units, init_std, device=device,
                                    generator=generator))
+            act = activation_layer(activation, hidden_size=units,
+                                   dice_dim=dice_dim, device=device)
+            if isinstance(act, nn.Module):
+                self.add_module("%s_%d" % (type(act).__name__, i), act)
+            self.activations.append(act)
 
-    def forward(self, x):
-        for i in range(len(self.hidden_units)):
-            x = self.activation(getattr(self, "dense_%d" % i)(x))
+    def forward(self, x, training=False):
+        for i, act in enumerate(self.activations):
+            x = act(getattr(self, "dense_%d" % i)(x), training)
         return x
 
 
@@ -108,3 +116,28 @@ class PredictionLayer(nn.Module):
         if self.task == "binary":
             out = torch.sigmoid(out)
         return out
+
+
+class LocalActivationUnit(nn.Module):
+    """DIN attention scorer over ``[query, key, query - key, query * key]``:
+    query [B,1,E], keys [B,T,E] -> scores [B,T,1].
+    (counterpart of ``deepctr_tpu/layers/core.py:77-100``)
+    """
+
+    def __init__(self, hidden_units=(64, 32), embedding_dim=4,
+                 activation="sigmoid", dropout_rate=0.0, use_bn=False,
+                 init_std=1e-4, device=None, generator=None):
+        super().__init__()
+        self.dnn = DNN(4 * embedding_dim, hidden_units, activation=activation,
+                       dropout_rate=dropout_rate, use_bn=use_bn,
+                       init_std=init_std, device=device, generator=generator)
+        self.dense = _dense(hidden_units[-1], 1, device=device,
+                            generator=generator)
+
+    def forward(self, query, user_behavior, training=False):
+        T = user_behavior.shape[1]
+        queries = query.expand(query.shape[0], T, query.shape[2])
+        att_input = torch.cat([queries, user_behavior,
+                               queries - user_behavior,
+                               queries * user_behavior], dim=-1)
+        return self.dense(self.dnn(att_input, training))

@@ -1,2 +1,4 @@
 from .basemodel import BaseModel
 from .deepfm import DeepFM
+from .din import DIN
+from .dien import DIEN

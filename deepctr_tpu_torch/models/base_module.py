@@ -11,8 +11,8 @@ from torch import nn
 from ..features import (SparseFeat, DenseFeat, VarLenSparseFeat,
                         build_input_features)
 from ..inputs import (EmbeddingDict, embedding_lookup,
-                      varlen_embedding_lookup, get_dense_input,
-                      compute_input_dim, embedding_size_of)
+                      varlen_embedding_lookup, get_varlen_pooling_list,
+                      get_dense_input, compute_input_dim, embedding_size_of)
 from ..layers.core import PredictionLayer
 
 
@@ -36,9 +36,9 @@ def fused_wide_names(linear_feature_columns, dnn_feature_columns):
 
 
 class LinearModel(nn.Module):
-    """Wide part: dim-1 embeddings for sparse feats and a weight vector for
-    dense feats.  Supports the IFM/DIFM ``sparse_feat_refine_weight``
-    rescaling hook.
+    """Wide part: dim-1 embeddings for sparse feats, a weight vector for
+    dense feats, masked-pooled dim-1 embeddings for varlen feats.
+    Supports the IFM/DIFM ``sparse_feat_refine_weight`` rescaling hook.
 
     Features whose table name appears in ``fused_names`` read their wide
     weight from the extra column of the shared deep table
@@ -81,20 +81,25 @@ class LinearModel(nn.Module):
         ``shared_embedding_dict.gather``, covering the fused features;
         without them this gathers those features itself."""
         index = self.feature_index
-        varlen_embedding_lookup(X, self.embedding_dict, index,
-                                self.varlen_sparse_feature_columns)
-        fused = [fc for fc in self.sparse_feature_columns
-                 if fc.embedding_name in self.fused_names]
-        own = [fc for fc in self.sparse_feature_columns
-               if fc.embedding_name not in self.fused_names]
+        cols = self.sparse_feature_columns + self.varlen_sparse_feature_columns
+        fused = [fc for fc in cols if fc.embedding_name in self.fused_names]
+        own = [fc for fc in cols if fc.embedding_name not in self.fused_names]
         if fused and rows is None:
             rows = self.shared_embedding_dict.gather(X, index, fused)
         own_rows = self.embedding_dict.gather(X, index, own) if own else {}
-        sparse_embedding_list = [
-            self.shared_embedding_dict.wide(fc.embedding_name, rows[fc.name])
-            if fc.embedding_name in self.fused_names
-            else self.embedding_dict(fc.embedding_name, own_rows[fc.name])
-            for fc in self.sparse_feature_columns]
+
+        def lookup(fc):
+            if fc.embedding_name in self.fused_names:
+                return self.shared_embedding_dict.wide(fc.embedding_name,
+                                                       rows[fc.name])
+            return self.embedding_dict(fc.embedding_name, own_rows[fc.name])
+
+        sparse_embedding_list = [lookup(fc)
+                                 for fc in self.sparse_feature_columns]
+        sparse_embedding_list += get_varlen_pooling_list(
+            {fc.name: lookup(fc)
+             for fc in self.varlen_sparse_feature_columns},
+            X, index, self.varlen_sparse_feature_columns)
         dense_value_list = get_dense_input(X, index,
                                            self.dense_feature_columns)
 
@@ -135,24 +140,26 @@ class BaseModule(nn.Module):
         self.out = PredictionLayer(task, device=device)
         # every feature a forward reads from the shared tables, deep and
         # wide, so that one gather per row width serves them all
+        sparse = (SparseFeat, VarLenSparseFeat)
         shared = {f.name: f for f in self.dnn_feature_columns
-                  if isinstance(f, SparseFeat)}
+                  if isinstance(f, sparse)}
         for f in self.linear_feature_columns:
-            if isinstance(f, SparseFeat) and f.embedding_name in fused:
+            if isinstance(f, sparse) and f.embedding_name in fused:
                 shared.setdefault(f.name, f)
         self._shared_columns = list(shared.values())
 
     def shared_rows(self, X):
         """Full-width rows of every feature read from the shared tables:
-        ``{feature name: [B, 1, width]}``, one launch per row width."""
+        ``{feature name: [B, 1 or maxlen, width]}``, one launch per row
+        width."""
         return self.embedding_dict.gather(X, self.feature_index,
                                           self._shared_columns)
 
     def input_from_feature_columns(self, X, feature_columns,
                                    support_dense=True, rows=None):
-        """Canonical embed step: (sparse embeddings [B,1,E] list, dense
-        values [B,d] list).  ``rows`` from :meth:`shared_rows` lets the
-        linear part share this gather."""
+        """Canonical embed step: (sparse embeddings [B,1,E] list, then the
+        pooled varlen ones, dense values [B,d] list).  ``rows`` from
+        :meth:`shared_rows` lets the linear part share this gather."""
         sparse_feature_columns = [f for f in feature_columns
                                   if isinstance(f, SparseFeat)]
         dense_feature_columns = [f for f in feature_columns
@@ -161,14 +168,22 @@ class BaseModule(nn.Module):
                                          if isinstance(f, VarLenSparseFeat)]
         if not support_dense and len(dense_feature_columns) > 0:
             raise ValueError("DenseFeat is not supported in dnn_feature_columns")
-        varlen_embedding_lookup(X, self.embedding_dict, self.feature_index,
-                                varlen_sparse_feature_columns)
+        if rows is None:
+            rows = self.embedding_dict.gather(
+                X, self.feature_index,
+                sparse_feature_columns + varlen_sparse_feature_columns)
         sparse_embedding_list = embedding_lookup(
             X, self.embedding_dict, self.feature_index,
             sparse_feature_columns, to_list=True, rows=rows)
+        seq_embed_dict = varlen_embedding_lookup(
+            X, self.embedding_dict, self.feature_index,
+            varlen_sparse_feature_columns, rows=rows)
+        varlen_embedding_list = get_varlen_pooling_list(
+            seq_embed_dict, X, self.feature_index,
+            varlen_sparse_feature_columns)
         dense_value_list = get_dense_input(X, self.feature_index,
                                            dense_feature_columns)
-        return sparse_embedding_list, dense_value_list
+        return sparse_embedding_list + varlen_embedding_list, dense_value_list
 
     def compute_input_dim(self, feature_columns, include_sparse=True,
                           include_dense=True, feature_group=False):

@@ -514,7 +514,7 @@ class BaseModel(BaseModule):
         for prefix, ed in self._embedding_dicts():
             ed._capture = captures.setdefault(prefix, [])
         try:
-            y_pred = self(X)
+            y_pred = self(X, training=True)
         finally:
             for _, ed in self._embedding_dicts():
                 ed._capture = None
@@ -626,9 +626,10 @@ class BaseModel(BaseModule):
         sample 0 at sample weight 0.  The shuffle is
         ``np.random.default_rng(seed).permutation``, as the JAX package's.
 
-        Not ported yet, and raising: a tensor or a callable ``x``
-        (device-resident and streaming fits), ``profile`` and
-        ``steps_per_epoch``."""
+        Not ported yet, and raising: a model with sequence features, a
+        tensor or a callable ``x`` (device-resident and streaming fits),
+        ``profile`` and ``steps_per_epoch``."""
+        self._check_trainable()
         if isinstance(x, torch.Tensor):
             raise NotImplementedError("fit on a device tensor is not ported "
                                       "yet: pass host arrays")
@@ -766,8 +767,20 @@ class BaseModel(BaseModule):
         callbacks.on_train_end()
         return self.history
 
+    def _check_trainable(self):
+        varlen = [f.name for f in self.dnn_feature_columns
+                  + self.linear_feature_columns
+                  if isinstance(f, VarLenSparseFeat)]
+        if varlen:
+            raise NotImplementedError(
+                "training a model with sequence features (%s) is not ported "
+                "yet: it comes with the DIN/DIEN training slice (the GRU "
+                "scan's backward kernel, Dice in training mode and DIEN's "
+                "auxiliary loss); predict runs" % ", ".join(varlen))
+
     def evaluate(self, x, y, batch_size=256):
         """``{metric: value}`` over the predictions of ``x``."""
+        self._check_trainable()
         pred_ans = self.predict(x, batch_size)
         y = np.asarray(y)
         return {name: metric_fun(y.reshape(-1), pred_ans.reshape(-1))
@@ -791,7 +804,7 @@ class BaseModel(BaseModule):
         with torch.no_grad():
             for start in range(0, X.shape[0], batch_size):
                 xb = X[start:start + batch_size].to(device, torch.float32)
-                outs.append(self(xb).float())
+                outs.append(self(xb, training=False).float())
         out = torch.cat(outs).cpu().numpy().astype("float64")
         if out.ndim == 1:
             out = out[:, None]

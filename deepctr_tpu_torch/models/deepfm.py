@@ -50,7 +50,7 @@ class DeepFM(BaseModel):
                                      l2=l2_reg_dnn)
         self.add_regularization_rule(r"^dnn_linear/kernel$", l2=l2_reg_dnn)
 
-    def forward(self, X):
+    def forward(self, X, training=False):
         rows = self.shared_rows(X)
         sparse_embedding_list, dense_value_list = (
             self.input_from_feature_columns(X, self.dnn_feature_columns,
@@ -62,6 +62,6 @@ class DeepFM(BaseModel):
         if self.use_dnn:
             dnn_input = combined_dnn_input(sparse_embedding_list,
                                            dense_value_list)
-            dnn_output = self.dnn(dnn_input)
+            dnn_output = self.dnn(dnn_input, training)
             logit = logit + self.dnn_linear(dnn_output).to(logit.dtype)
         return self.out(logit)

@@ -14,7 +14,13 @@ JAX leaf                               port key
 ``dnn/dense_<i>/bias``                 ``dnn.dense_<i>.bias``
 ``dnn_linear/kernel``                  ``dnn_linear.weight`` (transposed)
 ``out/bias``                           ``out.bias``
+``.../Dice_<i>/alpha``                 ``....Dice_<i>.alpha``
+``.../gru/weight_ih`` (and ``_hh``)    ``....gru.weight_ih`` (not transposed)
 =====================================  =====================================
+
+``batch_stats`` leaves map the same way onto buffers: Dice's running
+``.../Dice_<i>/bn/{mean,var}`` onto ``....Dice_<i>.bn.{mean,var}``.  A
+DNN's batch norm (``.../bn_<i>/...``) is not ported yet and raises.
 
 Tables that the JAX package stores packed (``[ceil(V/pack), 128]`` with
 ``pack = 128 // W``, see ``deepctr_tpu/inputs.py:78-83``) are unpacked to
@@ -26,7 +32,12 @@ parameter, so that patterns written for the JAX package work unchanged.
 Uses numpy only.
 """
 
+import re
+
 import numpy as np
+
+# a DNN's batch norm layer (deepctr_tpu/layers/core.py:45-48)
+_DNN_BN = re.compile(r"(^|/)bn_\d+/")
 
 
 def unpack_table(stored, vocab, width):
@@ -80,14 +91,18 @@ def jax_to_state_dict(weights, target_shapes):
 
     ``weights`` is ``get_weights()``'s ``{"params": ..., "batch_stats":
     ...}`` or the ``params`` tree alone; ``target_shapes`` is ``{port
-    key: shape}`` of the port model."""
+    key: shape}`` of the port model's ``state_dict`` (buffers
+    included)."""
+    leaves = []
     if "params" in weights:
-        if any(True for _ in _flatten(weights.get("batch_stats", {}))):
-            raise ValueError("batch_stats have no counterpart: batch norm "
-                             "is not ported yet")
+        leaves = list(_flatten(weights.get("batch_stats", {})))
+        bn = [p for p, _ in leaves if _DNN_BN.search(p)]
+        if bn:
+            raise ValueError("batch_stats %s have no counterpart: a DNN's "
+                             "batch norm is not ported yet" % bn)
         weights = weights["params"]
     out = {}
-    for path, value in _flatten(weights):
+    for path, value in list(_flatten(weights)) + leaves:
         key = port_key(path)
         value = np.asarray(value)
         if path.split("/")[-1] == "kernel":

@@ -268,8 +268,14 @@ def test_not_yet_ported_options_raise():
         PDeepFM(plin, pdnn, dnn_use_bn=True, device="cpu")
     with pytest.raises(NotImplementedError):
         PDeepFM(plin, pdnn, dnn_dropout=0.5, device="cpu")
+    # Dice is ported for inference; in training mode it raises
+    dice = PDeepFM(plin, pdnn, dnn_hidden_units=(8,), dnn_activation="dice",
+                   device="cpu")
+    x = _inputs(plin, 16, np.random.default_rng(5))
+    assert dice.predict(x, batch_size=16).shape == (16, 1)
+    dice.compile("sgd", "binary_crossentropy")
     with pytest.raises(NotImplementedError):
-        PDeepFM(plin, pdnn, dnn_activation="dice", device="cpu")
+        dice.fit(x, np.zeros(16), batch_size=16, verbose=0)
     hashed = [pt.SparseFeat("h", 10, 4, use_hash=True)]
     with pytest.raises(NotImplementedError):
         PDeepFM(hashed, hashed, device="cpu")

@@ -125,13 +125,30 @@ def test_one_gather_per_row_width(monkeypatch):
 
 
 def test_varlen_lookups_are_not_ported_yet():
-    seq = pt.VarLenSparseFeat(pt.SparseFeat("hist", 10, 4), maxlen=3)
-    ed = pt_inputs.EmbeddingDict([seq], device="cpu")
-    X = torch.zeros(2, 3)
-    with pytest.raises(NotImplementedError):
-        ed.gather(X, pt.build_input_features([seq]), [seq])
-    with pytest.raises(NotImplementedError):
-        pt_inputs.varlen_embedding_lookup(X, ed, {}, [seq])
+    """Varlen lookups are ported now (the name is older): a span of
+    ``maxlen`` columns gathers as ``maxlen`` fields of its table, in the
+    same launch as a sparse field of that width, and ids truncate."""
+    seq = pt.VarLenSparseFeat(pt.SparseFeat("hist", 10, 4,
+                                            embedding_name="item"),
+                              maxlen=3)
+    item = pt.SparseFeat("item", 10, 4)
+    cols = [item, seq]
+    ed = pt_inputs.EmbeddingDict(cols, init_std=0.3, device="cpu")
+    index = pt.build_input_features(cols)
+    X = torch.tensor([[4., 1., 2.9, 9.], [0., 0., 0., 3.]])
+    rows = ed.gather(X, index, cols)
+    assert rows["item"].shape == (2, 1, 4) and rows["hist"].shape == (2, 3, 4)
+    table = ed.tables["item"]
+    torch.testing.assert_close(rows["hist"], table[X[:, 1:].long()],
+                               rtol=0, atol=0)
+    seqs = pt_inputs.varlen_embedding_lookup(X, ed, index, [seq])
+    torch.testing.assert_close(seqs["hist"], rows["hist"], rtol=0, atol=0)
+    assert pt_inputs.varlen_embedding_lookup(X, ed, index, []) == {}
+    lengths = pt_inputs.maxlen_lookup(torch.tensor([[2.7], [0.]]),
+                                      {"len": (0, 1)}, ["len"])
+    assert lengths.dtype == torch.int32 and lengths[:, 0].tolist() == [2, 0]
+    with pytest.raises(ValueError, match="max length column"):
+        pt_inputs.maxlen_lookup(X, index, [])
 
 
 def test_dense_input_and_dnn_input_width_match_jax():
