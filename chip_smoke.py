@@ -55,10 +55,15 @@ sharing their tables) and batches of 1024, DNN 256-128, attention 64-16:
 
 9. kernels vs plain: ``gru_scan`` at T=100, H=64 in all three modes,
    float32 and bfloat16 storage, B=1024 and a ragged B=1000, lengths over
-   [0, 100]; ``din_attention_fused`` at E=64, T=100, B=1024, sigmoid, relu
-   and linear, weight normalisation on and off, float32 and bfloat16 keys.
-   float32 within 1e-5 (relative above 1), bfloat16 within one bf16 ulp;
-   padded steps and empty histories give exact zeros;
+   [0, 100], and at H=256 (W_hh^T read through L2); ``din_attention_fused``
+   at E=64, T=100, B=1024 and at E=512, T=200, layers 80-40 (the top of
+   the layer's gate, also through ``AttentionSequencePoolingLayer``),
+   sigmoid, relu and linear, weight normalisation on and off, float32 and
+   bfloat16 keys, every weight at std 0.3.  float32 within 1e-5 (relative
+   above 1; the attention against a float64 evaluation, relative to
+   sum_t |s_t k_t| above 1, or within twice the plain version's own error
+   where that is larger), bfloat16 within one bf16 ulp; padded steps and
+   empty histories give exact zeros;
 10. DIEN predict, float32: ``gru_type="GRU"`` (two ``gru_scan`` launches and
     one ``din_attention`` launch a batch) and ``"AUGRU"`` with negative
     sampling (two ``gru_scan`` launches, the attention scores by
@@ -95,6 +100,8 @@ sys.path.insert(0, str(HERE))
 
 import deepctr_tpu_torch as pt  # noqa: E402
 from deepctr_tpu_torch.models import DIEN, DIN, DeepFM  # noqa: E402
+from deepctr_tpu_torch.layers.sequence import (  # noqa: E402
+    AttentionSequencePoolingLayer)
 from deepctr_tpu_torch.models.basemodel import _TouchedRows  # noqa: E402
 from deepctr_tpu_torch.ops import _build  # noqa: E402
 from deepctr_tpu_torch.ops import attention  # noqa: E402
@@ -141,14 +148,23 @@ SEQ_BATCHES = 8
 SEQ_HIDDEN = (256, 128)
 SEQ_ATT = (64, 16)
 SEQ_STD = 0.3
+# the top of the fused attention's gate (E <= 512) at twice the bench's
+# maxlen, with DIN's default attention 80-40; and a GRU too wide for
+# W_hh^T to sit in shared memory
+WIDE_ATT = dict(B=256, T=200, E=512, hidden=(80, 40))
+WIDE_GRU = dict(B=300, T=50, H=256)
 # the GRU and attention kernels at the slice's shapes: H and E are the
 # item and cate embeddings side by side
 SEQ_H = 2 * SEQ_EMB
 # f32: the card's expf/tanhf and another order of sums than the plain
-# version's matmuls, relative to values above 1 (an unnormalised attention
-# readout sums 100 scores times keys); bf16: one bf16 ulp of the value (the
-# two round float32 results that differ by about 1e-7), or that float32
-# tolerance
+# version's matmuls, relative to values above 1; for the attention, held
+# to a float64 evaluation and relative to sum_t |s_t * k_t| above 1, the
+# magnitude of the terms its readout sums (an unnormalised readout sums
+# 100 scores times keys, which cancel), or within twice the plain float32
+# version's own error where that is larger (under a softmax of large
+# scores the scores' rounding, not the sum's, sets the error); bf16: one
+# bf16 ulp of the value (the two round float32 results that differ by
+# about 1e-7), or that float32 tolerance
 KERNEL_F32_ATOL = 1e-5
 # H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12
@@ -756,72 +772,106 @@ def phase_train_timing_bf16(model, X_all):
 # the sequence models' serving path
 # ---------------------------------------------------------------------------
 
-def seq_lengths(n, gen, device):
-    """History lengths uniform over [0, maxlen], with 0, 1 and maxlen among
-    the first rows."""
-    lengths = torch.randint(0, SEQ_MAXLEN + 1, (n,), generator=gen,
-                            device=device)
-    lengths[:3] = torch.tensor([0, 1, SEQ_MAXLEN], device=device)
+def seq_lengths(n, gen, device, T=SEQ_MAXLEN):
+    """History lengths uniform over [0, T], with 0, 1 and T among the
+    first rows."""
+    lengths = torch.randint(0, T + 1, (n,), generator=gen, device=device)
+    lengths[:3] = torch.tensor([0, 1, T], device=device)
     return lengths
 
 
-def gru_inputs(B, mode, dtype, seed, device):
-    """``gru_scan``'s arguments as DIEN's GRUs give them at maxlen 100 and
-    H=64: gi a [T, B, 3H] view of a [B, T, 3H] product, weights at std
-    0.3, lengths over [0, 100]."""
+def gru_inputs(B, mode, dtype, seed, device, T=SEQ_MAXLEN, H=SEQ_H):
+    """``gru_scan``'s arguments as DIEN's GRUs give them (at maxlen 100 and
+    H=64 by default): gi a [T, B, 3H] view of a [B, T, 3H] product,
+    weights rounded to ``dtype`` and held in float32, a bool mask of
+    lengths over [0, T].  The weights are at std 0.3 at H=64 and at
+    0.3 * sqrt(64 / H) otherwise, the same scale of h @ W_hh^T: at std 0.3
+    and H=256 the recurrence is chaotic, and the float32 plain version
+    itself ends 0.22 away from a float64 one after 50 steps."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    T, H = SEQ_MAXLEN, SEQ_H
+    std = SEQ_STD * (SEQ_H / H) ** 0.5
     gi = torch.randn(B, T, 3 * H, generator=gen, device=device).to(
         dtype).transpose(0, 1)
-    whh_t = (SEQ_STD * torch.randn(H, 3 * H, generator=gen,
-                                   device=device)).to(dtype)
-    bhh = (SEQ_STD * torch.randn(3 * H, generator=gen,
-                                 device=device)).to(dtype)
-    lengths = seq_lengths(B, gen, device)
-    mask = (torch.arange(T, device=device)[None, :]
-            < lengths[:, None]).to(dtype)
+    whh_t = (std * torch.randn(H, 3 * H, generator=gen,
+                               device=device)).to(dtype).float()
+    bhh = (std * torch.randn(3 * H, generator=gen,
+                             device=device)).to(dtype).float()
+    lengths = seq_lengths(B, gen, device, T)
+    mask = torch.arange(T, device=device)[None, :] < lengths[:, None]
     att = (None if mode == "gru" else
            torch.rand(B, T, generator=gen, device=device).to(dtype))
     return (gi, whh_t, bhh, mask, att), lengths
 
 
-def attention_inputs(B, dtype, seed, device):
-    """``din_attention_fused``'s arguments at E=64, T=100 and layers
-    256-64-16-1, lengths over [0, 100]; query and keys at std 0.3, the
-    layers' weights and biases at 1/sqrt(fan_in), the scale of a
-    lecun-initialised layer (at std 0.3 a linear MLP's unnormalised
-    readouts reach tens, and the two orders of float32 sums part by more
-    than 1e-5 of them)."""
+def attention_inputs(B, dtype, seed, device, T=SEQ_MAXLEN, E=SEQ_H,
+                     hidden=SEQ_ATT):
+    """``din_attention_fused``'s arguments (at E=64, T=100 and layers
+    256-64-16-1 by default), lengths over [0, T]; the query, the keys and
+    every weight and bias at std 0.3."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    T, E = SEQ_MAXLEN, SEQ_H
     query = SEQ_STD * torch.randn(B, 1, E, generator=gen, device=device)
     keys = (SEQ_STD * torch.randn(B, T, E, generator=gen,
                                   device=device)).to(dtype)
-    lengths = seq_lengths(B, gen, device)
+    lengths = seq_lengths(B, gen, device, T)
     mask = torch.arange(T, device=device)[None, :] < lengths[:, None]
-    widths = (4 * E,) + SEQ_ATT + (1,)
-    layers = [(torch.randn(i, o, generator=gen, device=device) / i ** 0.5,
-               torch.randn(o, generator=gen, device=device) / i ** 0.5)
+    widths = (4 * E,) + tuple(hidden) + (1,)
+    layers = [(SEQ_STD * torch.randn(i, o, generator=gen, device=device),
+               SEQ_STD * torch.randn(o, generator=gen, device=device))
               for i, o in zip(widths[:-1], widths[1:])]
     return query, keys, mask, layers, lengths
 
 
-def compare(got, want, what):
-    """A float32 pair: max |got - want| / max(1, |want|), checked against
-    KERNEL_F32_ATOL, and max |got - want|.  A bfloat16 pair: the max in
-    bf16 ulps of the larger magnitude over the elements outside that
-    float32 tolerance, checked to one ulp, and max |got - want|."""
+def attention_f64(q, k, m, layers, act, wnorm):
+    """The attention readout evaluated in float64, and sum_t |s_t| * |k_t|
+    [B, 1, E], the magnitude of the terms it sums."""
+    f64 = torch.float64
+    B, T, E = k.shape
+    qb, kk = q.to(f64).expand(B, T, E), k.to(f64)
+    x = torch.cat([qb, kk, qb - kk, qb * kk], dim=-1)
+    fn = {"sigmoid": torch.sigmoid, "relu": torch.relu,
+          "linear": lambda v: v}[act]
+    for w, b in layers[:-1]:
+        x = fn(x @ w.to(f64) + b.to(f64))
+    s = (x @ layers[-1][0].to(f64) + layers[-1][1].to(f64))[..., 0]
+    mm = m.to(f64)
+    s = (torch.softmax(s * mm + (1.0 - mm) * attention.NEG, dim=-1)
+         if wnorm else s * mm)
+    out = torch.einsum("bt,bte->be", s, kk)[:, None, :]
+    return out, torch.einsum("bt,bte->be", s.abs(), kk.abs())[:, None, :]
+
+
+def check_attention_f32(got, want, truth, scale, what):
+    """The float32 kernel and plain version against the float64 truth,
+    relative to max(1, scale): the kernel within KERNEL_F32_ATOL, or within
+    twice the plain version's error where that is larger.  Returns the
+    kernel's relative error and max |got - want|."""
+    scale = scale.clamp_min(1.0)
+    err = ((got.double() - truth).abs() / scale).max().item()
+    plain = ((want.double() - truth).abs() / scale).max().item()
+    tol = max(KERNEL_F32_ATOL, 2.0 * plain)
+    check(bool(torch.isfinite(got).all()), "%s: non-finite output" % what)
+    check(err <= tol, "%s: max |kernel - float64| / max(1, sum_t |s_t k_t|)"
+          " = %r > %r (the plain version's: %r)" % (what, err, tol, plain))
+    return err, plain, (got - want).abs().max().item()
+
+
+def compare(got, want, what, scale=None):
+    """A float32 pair: max |got - want| / max(1, scale), checked against
+    KERNEL_F32_ATOL, and max |got - want|; ``scale`` is |want| unless
+    given.  A bfloat16 pair: the max in bf16 ulps of the larger magnitude
+    over the elements outside that float32 tolerance, checked to one ulp,
+    and max |got - want|."""
     check(got.shape == want.shape and got.dtype == want.dtype,
           "%s: %s %s vs plain %s %s" % (what, got.dtype, tuple(got.shape),
                                         want.dtype, tuple(want.shape)))
     a, b = got.float(), want.float()
     check(bool(torch.isfinite(a).all()), "%s: non-finite output" % what)
     diff = (a - b).abs()
-    scaled = diff / b.abs().clamp_min(1.0)
+    scaled = diff / (b.abs() if scale is None else scale).clamp_min(1.0)
     if got.dtype == torch.float32:
         err = scaled.max().item()
         check(err <= KERNEL_F32_ATOL, "%s: max |kernel - plain| / max(1, "
-              "|plain|) = %r > %r" % (what, err, KERNEL_F32_ATOL))
+              "scale) = %r > %r" % (what, err, KERNEL_F32_ATOL))
         return err, diff.max().item()
     mag = torch.maximum(a.abs(), b.abs())
     ulps = diff / torch.exp2(torch.floor(torch.log2(
@@ -835,65 +885,123 @@ def compare(got, want, what):
     return worst, diff.max().item()
 
 
+def check_gru_case(B, mode, dtype, seed, device, T=SEQ_MAXLEN, H=SEQ_H):
+    """One gru_scan case against its plain version; returns the largest
+    |kernel - plain|."""
+    args, lengths = gru_inputs(B, mode, dtype, seed, device, T, H)
+    outs, h_last = gru.gru_scan(*args[:4], att=args[4], mode=mode)
+    ref_outs, ref_h = gru.gru_scan_ref(*args[:4], att=args[4], mode=mode)
+    torch.cuda.synchronize()
+    what = "gru_scan %s %s B=%d T=%d H=%d" % (mode, dtype, B, T, H)
+    e1, a1 = compare(outs, ref_outs, what + " outs")
+    e2, a2 = compare(h_last, ref_h, what + " h_last")
+    pad = torch.arange(T, device=device)[:, None] >= lengths[None, :]
+    check(bool((outs[pad] == 0).all()), what + ": a padded step emitted a "
+          "non-zero row")
+    check(bool((h_last[lengths == 0] == 0).all()),
+          what + ": an empty history left a non-zero state")
+    log("kernel vs plain: %s: outs %s %r, h_last %r; max |err| %r, %r"
+        % (what, "max |err| / max(1, |plain|)" if dtype == torch.float32
+           else "max bf16 ulps", e1, e2, a1, a2))
+    return max(a1, a2)
+
+
+def check_attention_case(act, wnorm, dtype, seed, device, B=SEQ_BATCH,
+                         T=SEQ_MAXLEN, E=SEQ_H, hidden=SEQ_ATT):
+    """One din_attention_fused case against its plain version; returns the
+    largest |kernel - plain|."""
+    q, k, m, layers, lengths = attention_inputs(B, dtype, seed, device, T, E,
+                                                hidden)
+    got = attention.din_attention_fused(q, k, m, layers, act, wnorm)
+    want = attention.din_attention_fused_ref(q, k, m, layers, act, wnorm)
+    torch.cuda.synchronize()
+    what = ("din_attention %s wnorm=%s %s B=%d T=%d E=%d layers %s"
+            % (act, wnorm, dtype, B, T, E, hidden))
+    if not wnorm:
+        check(bool((got[lengths == 0] == 0).all()),
+              what + ": an empty history gave a non-zero readout")
+    truth, scale = attention_f64(q, k, m, layers, act, wnorm)
+    if dtype == torch.float32:
+        e, p, a = check_attention_f32(got, want, truth, scale, what)
+        log("kernel vs plain: %s: max |err vs float64| / max(1, sum_t "
+            "|s_t k_t|) %r (plain version %r); max |kernel - plain| %r"
+            % (what, e, p, a))
+    else:
+        # the bf16 pair are float32 results each within the float32
+        # tolerance of sum_t |s_t k_t|, rounded once
+        e, a = compare(got, want, what, scale)
+        log("kernel vs plain: %s: max bf16 ulps %r; max |err| %r"
+            % (what, e, a))
+    return a
+
+
+def check_wide_attention_layer(device):
+    """AttentionSequencePoolingLayer at WIDE_ATT on the card: inference
+    takes the fused kernel (one launch), which agrees with the plain
+    version of the layer's readout."""
+    w = WIDE_ATT
+    layer = AttentionSequencePoolingLayer(
+        att_hidden_units=w["hidden"], att_activation="relu",
+        weight_normalization=True, embedding_dim=w["E"], device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 70)
+    q, k, m, _, lengths = attention_inputs(w["B"], torch.float32, SEED + 71,
+                                           device, w["T"], w["E"],
+                                           w["hidden"])
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.normal_(0.0, SEQ_STD, generator=gen)
+        attention.DIN_ATTENTION_LAUNCHES = 0
+        got = layer(q, k, keys_length=lengths)
+        launches = attention.DIN_ATTENTION_LAUNCHES
+        lau = layer.local_att
+        dense = [getattr(lau.dnn, "dense_%d" % i)
+                 for i in range(len(w["hidden"]))] + [lau.dense]
+        params = [(d.weight.t(), d.bias) for d in dense]
+        want = attention.din_attention_fused_ref(q, k, m, params, "relu",
+                                                 True)
+        truth, scale = attention_f64(q, k, m, params, "relu", True)
+    what = ("AttentionSequencePoolingLayer relu, softmax, B=%d T=%d E=%d "
+            "layers %s" % (w["B"], w["T"], w["E"], w["hidden"]))
+    check(launches == 1, "%s: the fused kernel launched %d times, want 1"
+          % (what, launches))
+    e, p, a = check_attention_f32(got, want, truth, scale, what)
+    log("kernel vs plain: %s through the layer's dispatch (1 launch): max "
+        "|err vs float64| / max(1, sum_t |s_t k_t|) %r (plain version %r); "
+        "max |kernel - plain| %r" % (what, e, p, a))
+
+
 def phase_seq_kernels_vs_plain(device):
     """gru_scan and din_attention_fused against their plain versions at
-    the slice's shapes; returns the largest float32 |kernel - plain| of
-    each."""
+    the slice's shapes, and at the wide shapes (WIDE_GRU, WIDE_ATT) that
+    take the kernels' other sizes; returns the largest float32 |kernel -
+    plain| of each at the slice's shapes."""
     errs = {"gru_scan": 0.0, "din_attention": 0.0}
     seed = SEED + 20
+    dtypes = (torch.float32, torch.bfloat16)
     with torch.no_grad():
         for B in (SEQ_BATCH, 1000):
             for mode in gru.MODES:
-                for dtype in (torch.float32, torch.bfloat16):
+                for dtype in dtypes:
                     seed += 1
-                    args, lengths = gru_inputs(B, mode, dtype, seed, device)
-                    outs, h_last = gru.gru_scan(*args[:4], att=args[4],
-                                                mode=mode)
-                    ref_outs, ref_h = gru.gru_scan_ref(*args[:4],
-                                                       att=args[4],
-                                                       mode=mode)
-                    torch.cuda.synchronize()
-                    what = "gru_scan %s %s B=%d" % (mode, dtype, B)
-                    e1, a1 = compare(outs, ref_outs, what + " outs")
-                    e2, a2 = compare(h_last, ref_h, what + " h_last")
-                    pad = (torch.arange(SEQ_MAXLEN, device=device)[:, None]
-                           >= lengths[None, :])
-                    check(bool((outs[pad] == 0).all()), what + ": a padded "
-                          "step emitted a non-zero row")
-                    check(bool((h_last[lengths == 0] == 0).all()),
-                          what + ": an empty history left a non-zero state")
+                    a = check_gru_case(B, mode, dtype, seed, device)
                     if dtype == torch.float32:
-                        errs["gru_scan"] = max(errs["gru_scan"], a1, a2)
-                    log("kernel vs plain: %s: outs %s %r, h_last %r; max "
-                        "|err| %r, %r"
-                        % (what, "max |err| / max(1, |plain|)"
-                           if dtype == torch.float32 else "max bf16 ulps",
-                           e1, e2, a1, a2))
-        for act in attention.ACTIVATIONS:
-            for wnorm in (False, True):
-                for dtype in (torch.float32, torch.bfloat16):
-                    seed += 1
-                    q, k, m, layers, lengths = attention_inputs(
-                        SEQ_BATCH, dtype, seed, device)
-                    got = attention.din_attention_fused(q, k, m, layers, act,
-                                                        wnorm)
-                    want = attention.din_attention_fused_ref(q, k, m, layers,
-                                                             act, wnorm)
-                    torch.cuda.synchronize()
-                    what = ("din_attention %s wnorm=%s %s" % (act, wnorm,
-                                                              dtype))
-                    e, a = compare(got, want, what)
-                    if not wnorm:
-                        check(bool((got[lengths == 0] == 0).all()),
-                              what + ": an empty history gave a non-zero "
-                              "readout")
-                    if dtype == torch.float32:
-                        errs["din_attention"] = max(errs["din_attention"], a)
-                    log("kernel vs plain: %s at B=%d T=%d E=%d: %s %r; max "
-                        "|err| %r" % (what, SEQ_BATCH, SEQ_MAXLEN, SEQ_H,
-                                      "max |err| / max(1, |plain|)"
-                                      if dtype == torch.float32
-                                      else "max bf16 ulps", e, a))
+                        errs["gru_scan"] = max(errs["gru_scan"], a)
+        for mode in gru.MODES:
+            for dtype in dtypes:
+                seed += 1
+                check_gru_case(WIDE_GRU["B"], mode, dtype, seed, device,
+                               T=WIDE_GRU["T"], H=WIDE_GRU["H"])
+        for shape in ({}, WIDE_ATT):
+            for act in attention.ACTIVATIONS:
+                for wnorm in (False, True):
+                    for dtype in dtypes:
+                        seed += 1
+                        a = check_attention_case(act, wnorm, dtype, seed,
+                                                 device, **shape)
+                        if dtype == torch.float32 and not shape:
+                            errs["din_attention"] = max(
+                                errs["din_attention"], a)
+    check_wide_attention_layer(device)
     return errs
 
 
@@ -1017,24 +1125,33 @@ def gru_bound(args, lengths):
     size = gi.element_size()
     flops = 2 * valid * H * H3
     n_bytes = (valid * H3 * size + T * B * H * size + B * H * size
-               + mask.numel() * 4 + 4 * (H * H3 + H3)
-               + (0 if att is None else att.numel() * 4))
+               + mask.numel() * mask.element_size() + 4 * (H * H3 + H3)
+               + (0 if att is None else att.numel() * att.element_size()))
     return bound(n_bytes, flops)
 
 
 def attention_bound(q, k, m, layers, lengths, wnorm):
-    """(ms, bound) for din_attention_fused: the MLP of the steps inside
-    each history (an empty one under softmax weighs all T keys equally,
-    so needs them all) against the keys those steps read, the query, the
-    mask, the weights and the [B, 1, E] result."""
+    """(ms, bound) for din_attention_fused, counting what the function
+    needs.  Operations: per sample with a valid step, the query's part of
+    the first layer and the fold of q into its key weights (2 E n1
+    multiply-adds, since [q, k, q - k, q * k] W_0 = q (A + C) + k (B - C +
+    diag(q) D)); per valid step, E n1 for the first layer, the later layers
+    and E for the weighted sum; a step past the history needs no MLP, and
+    an empty history reads as zeros (no softmax) or the mean of its T keys
+    (softmax).  Bytes: the keys those read, the query, the mask, the
+    weights and the [B, 1, E] result."""
     B, T, E = k.shape
-    steps = lengths.clone()
+    n1 = layers[0][0].shape[1]
+    later = sum(w.shape[0] * w.shape[1] for w, _ in layers[1:])
+    valid = int(lengths.sum())
+    rows = int((lengths > 0).sum())
+    flops = 2 * (rows * 2 * E * n1 + valid * (E * n1 + later + E))
+    steps_read = valid
     if wnorm:
-        steps[lengths == 0] = T
-    valid = int(steps.sum())
-    mlp = sum(w.shape[0] * w.shape[1] for w, _ in layers)
-    flops = 2 * valid * mlp + 2 * valid * E
-    n_bytes = (valid * E * k.element_size() + q.numel() * 4 + m.numel() * 4
+        flops += (B - rows) * T * E
+        steps_read += (B - rows) * T
+    n_bytes = (steps_read * E * k.element_size()
+               + q.numel() * q.element_size() + m.numel() * m.element_size()
                + 4 * sum(w.numel() + b.numel() for w, b in layers)
                + B * E * k.element_size())
     return bound(n_bytes, flops)
@@ -1108,6 +1225,8 @@ def phase_seq_timing_bf16(device):
 
     out = {}
     with torch.no_grad():
+        # float32 weights and a bool mask, as the layer keeps them: the
+        # window holds the kernel's launch and its outputs' allocation
         args, lengths = gru_inputs(SEQ_BATCH, "gru", torch.bfloat16,
                                    SEED + 60, device)
         gi = args[0]
@@ -1140,9 +1259,12 @@ def phase_seq_timing_bf16(device):
 
         q, k, m, layers, lengths = attention_inputs(SEQ_BATCH, torch.bfloat16,
                                                     SEED + 61, device)
+        # the weights packed once, as the layer keeps them: the window
+        # holds the kernel's launch and its output's allocation
+        packed = attention.pack_params(layers)
         timed = {
             "kernel": lambda: attention.din_attention_fused(
-                q, k, m, layers, "relu", True),
+                q, k, m, layers, "relu", True, packed=packed),
             "plain": lambda: attention.din_attention_fused_ref(
                 q, k, m, layers, "relu", True),
         }

@@ -9,31 +9,49 @@
 //   out   = sum_t s_t * k_t                                [E]
 //
 // act is sigmoid, relu or linear; the MLP, the softmax and the sum run in
-// float32 whatever the storage type of the keys (float32 or bfloat16), and
-// only `out` is rounded to it.
+// float32 whatever the storage type of the query and keys (float32 or
+// bfloat16), and only `out` is rounded to the keys' type.  The mask is 0/1.
+//
+// The first layer comes folded (ops/attention.py:pack_params).  With its
+// weight W_0 = [A; B; C; D] by quarters of E rows,
+//
+//   x_t W_0 = q (A + C) + k_t (B - C + diag(q) D),
+//
+// so the query's part is computed once a sample, and a time step costs
+// E x n1 multiply-adds of the first layer instead of 4E x n1.
 //
 // What it replaces: the TPU kernel deepctr_tpu/ops/pallas_attention.py:
 // din_attention_fused (_kernel), one grid step a sample, which keeps the
 // [B, T, 4E] MLP input and the [B, T, H] activations out of device memory.
 //
-// What bounds it: float32 arithmetic.  At E=64, T=100 and layers
-// 256 -> 64 -> 16 -> 1 a sample needs about 1.7M multiply-adds of MLP but
-// reads only its 25.6 KB of keys, so the B=1024 batch is some 3.5 GFLOP
-// against 27 MB: about 52 us at the card's 67 TFLOP/s float32 rate
-// outside the tensor cores, against 8 us for the bytes.  (The tensor
-// cores would be faster, but in TF32 or bf16, not float32.)
+// What bounds it: float32 arithmetic.  What the function needs is, per
+// sample, the query's part of the first layer and the fold (2 E n1
+// multiply-adds); per step inside the history, E n1 for the first layer,
+// the later layers (64 x 16 + 16 at the bench's 64-16 attention) and E for
+// the weighted sum; a step past the history needs no MLP (its score is the
+// mask constant, or 0).  At E=64, T=100, B=1024 and histories of 50 steps
+// on average that is about 0.56 GFLOP against 6.7 MB of bf16 keys: 8 us at
+// 67 TFLOP/s, the float32 rate outside the tensor cores, which is the rate
+// the bound assumes, against 2 us for the bytes.  (A 3xTF32 split on the
+// tensor cores keeps float32 accuracy at up to a third of their 495
+// TFLOP/s; its bound would be 0.41 of this one.)
 //
-// What the design does about that: one block a sample, as on the TPU.
-// The block copies its keys [T, E] and the MLP's weights (66 KB at E=64)
-// into shared memory once, computes the MLP over chunks of 16 time steps
-// with the activations of a chunk in shared memory, and keeps the scores
-// there for the softmax and the weighted sum, so that nothing but the
-// keys, the query, the mask and the [E] result touches device memory.
-// The query's quarter of the first layer is the same for every t and is
-// computed once a sample; each thread computes 4 time steps of one output
-// unit, so that a weight read from shared memory serves four
-// multiply-adds.  Several samples a block (to load the weights once for
-// all of them) and the tensor cores are later work.
+// What the design does about that: one block a sample, as on the TPU,
+// and only the steps inside the history go through the MLP.  The block
+// walks T in windows of 32 steps; one warp compacts the window's valid
+// steps (a ballot of the mask), their keys are copied into shared memory
+// in rows of up to 32, and the MLP runs over those rows with the
+// activations in shared memory; each thread computes 4 rows of one output
+// unit of the first layer, so that a folded weight serves four
+// multiply-adds.  The rows' scores fold into an online softmax (a running
+// maximum and sum, the weighted sum of keys rescaled when the maximum
+// rises), so the block holds no [T] or [T, E] array and takes any T.  The
+// weights are read through the L1 cache (they are the same for every
+// block), so the shared memory a block needs does not grow with them: at
+// E <= 512, 32 rows in work fit for hidden widths up to about 600, and
+// the launch takes fewer rows a pass for wider layers (one row fits up to
+// about 28,000).  Several samples a block and the tensor cores are later
+// work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,46 +59,55 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kChunk = 16;     // time steps whose activations are in smem
+constexpr int kWindow = 32;    // time steps one warp's ballot compacts
 constexpr int kRows = 4;       // time steps a thread computes in layer 0
 constexpr int kMaxLayers = 8;  // hidden layers + the output layer
-constexpr int kMaxSharedBytes = 232448;
+// the shared memory a block may take on Hopper, less this kernel's static
+// arrays
+constexpr int kMaxSharedBytes = 232448 - 256;
+// returned when even one row of work does not fit in shared memory
+constexpr int kDoesNotFit = -2;
 constexpr float kNeg = -4294967295.0f;  // -2^32 + 1, as float32
 
 struct Layout {
   int n_layers;                // hidden layers + 1
   int n[kMaxLayers + 1];       // widths: n[0] = 4E, n[n_layers] = 1
-  int w[kMaxLayers];           // offset of layer i's [n_i, n_i+1] weight
+  int w[kMaxLayers];           // offset of layer i's weight
   int b[kMaxLayers];           // offset of layer i's bias
-  int params;                  // floats of all weights and biases
   int max_hidden;              // widest hidden layer
 };
 
-bool make_layout(int n_layers, const int* widths, Layout* lay) {
+// The packed buffer: W_q = A + C, W_k = B - C, W_qk = D (each [E, n1]),
+// b_0 [n1], then every later layer's [n_i, n_i+1] weight and its bias.
+bool make_layout(int n_layers, const int* widths, int E, Layout* lay) {
   if (n_layers < 2 || n_layers > kMaxLayers) return false;
   lay->n_layers = n_layers;
-  int off = 0, widest = 0;
   for (int i = 0; i <= n_layers; ++i) {
     if (widths[i] <= 0) return false;
     lay->n[i] = widths[i];
   }
-  if (lay->n[n_layers] != 1) return false;
-  for (int i = 0; i < n_layers; ++i) {
+  if (lay->n[0] != 4 * E || lay->n[n_layers] != 1) return false;
+  int off = 3 * E * lay->n[1], widest = 0;
+  lay->w[0] = 0;
+  lay->b[0] = off;
+  off += lay->n[1];
+  for (int i = 1; i < n_layers; ++i) {
     lay->w[i] = off;
     off += lay->n[i] * lay->n[i + 1];
     lay->b[i] = off;
     off += lay->n[i + 1];
-    if (i + 1 < n_layers && lay->n[i + 1] > widest) widest = lay->n[i + 1];
   }
-  lay->params = off;
+  for (int i = 1; i < n_layers; ++i) {
+    if (lay->n[i] > widest) widest = lay->n[i];
+  }
   lay->max_hidden = widest;
   return true;
 }
 
-size_t shared_floats(const Layout& lay, int T, int E) {
-  return static_cast<size_t>(lay.params) + static_cast<size_t>(T) * E + E +
-         lay.n[1] + 2 * static_cast<size_t>(kChunk) * lay.max_hidden +
-         2 * static_cast<size_t>(T) + 32;
+size_t shared_bytes(const Layout& lay, int E, int rows) {
+  return sizeof(float) *
+         (2 * static_cast<size_t>(E) + lay.n[1] +
+          static_cast<size_t>(rows) * (E + 2 * lay.max_hidden + 2));
 }
 
 __device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
@@ -99,194 +126,202 @@ __device__ __forceinline__ float act_f(float x) {
   return x;
 }
 
-// Block-wide max (MAX) or sum over one value a thread; every thread gets
-// the result.  `red` holds 32 floats.
 __device__ __forceinline__ float minus_inf() {
   return __int_as_float(static_cast<int>(0xff800000u));
 }
 
-template <bool MAX>
-__device__ float block_reduce(float v, float* red) {
-  for (int s = 16; s > 0; s >>= 1) {
-    const float o = __shfl_xor_sync(0xffffffffu, v, s);
-    v = MAX ? fmaxf(v, o) : v + o;
-  }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  v = lane < (kThreads >> 5) ? red[lane] : (MAX ? minus_inf() : 0.0f);
-  for (int s = 16; s > 0; s >>= 1) {
-    const float o = __shfl_xor_sync(0xffffffffu, v, s);
-    v = MAX ? fmaxf(v, o) : v + o;
-  }
-  return v;
-}
-
 template <typename S, int ACT>
 __global__ void __launch_bounds__(kThreads)
-din_attention_kernel(const float* __restrict__ q,
+din_attention_kernel(const void* __restrict__ q, int q_bf16,
                      const S* __restrict__ keys, long long k_sb,
-                     long long k_st, const float* __restrict__ mask,
-                     const float* __restrict__ params, Layout lay, int T,
-                     int E, int wnorm, S* __restrict__ out) {
+                     long long k_st, const unsigned char* __restrict__ mask,
+                     const float* __restrict__ prm, Layout lay, int T, int E,
+                     int chunk, int wnorm, S* __restrict__ out) {
   extern __shared__ float smem[];
-  float* prm = smem;                     // weights and biases
-  float* ks = prm + lay.params;          // [T, E] keys
-  float* qs = ks + T * E;                // [E] query
-  float* c0 = qs + E;                    // [n1] query part of layer 0
-  float* buf0 = c0 + lay.n[1];           // [kChunk, max_hidden]
-  float* buf1 = buf0 + kChunk * lay.max_hidden;
-  float* sc = buf1 + kChunk * lay.max_hidden;  // [T] scores
-  float* ms = sc + T;                    // [T] mask
-  float* red = ms + T;                   // [32]
-  const int tid = threadIdx.x;
-  const long long b = blockIdx.x;
-
-  for (int i = tid; i < lay.params; i += kThreads) prm[i] = __ldg(params + i);
-  const S* kb = keys + b * k_sb;
-  for (int i = tid; i < T * E; i += kThreads) {
-    const int t = i / E, e = i - t * E;
-    ks[i] = load_f(kb + t * k_st + e);
-  }
-  for (int i = tid; i < E; i += kThreads) qs[i] = __ldg(q + b * E + i);
-  for (int i = tid; i < T; i += kThreads) ms[i] = __ldg(mask + b * T + i);
-  __syncthreads();
-
+  __shared__ int vi[kWindow];  // the window's valid steps
+  __shared__ int nv_s;         // how many
   const int n1 = lay.n[1];
-  const float* w0 = prm + lay.w[0];
+  float* qs = smem;                          // [E] the query
+  float* acc = qs + E;                       // [E] the running sum
+  float* c0 = acc + E;                       // [n1] query part of layer 0
+  float* kc = c0 + n1;                       // [chunk, E] keys in work
+  float* buf0 = kc + chunk * E;              // [chunk, max_hidden]
+  float* buf1 = buf0 + chunk * lay.max_hidden;
+  float* sc = buf1 + chunk * lay.max_hidden;  // [chunk] scores
+  float* pc = sc + chunk;                    // [chunk] their weights
+  const int tid = threadIdx.x, lane = tid & 31;
+  const long long b = blockIdx.x;
+  const S* kb = keys + b * k_sb;
+  const unsigned char* mb = mask + b * T;
+
+  for (int i = tid; i < E; i += kThreads) {
+    qs[i] = q_bf16 ? __bfloat162float(
+                         static_cast<const __nv_bfloat16*>(q)[b * E + i])
+                   : static_cast<const float*>(q)[b * E + i];
+    acc[i] = 0.0f;
+  }
+  __syncthreads();
+  const float* wq = prm + lay.w[0];
+  const float* wk = wq + E * n1;
+  const float* wqk = wk + E * n1;
   const float* b0 = prm + lay.b[0];
   for (int o = tid; o < n1; o += kThreads) {
-    float acc = 0.0f;
-    for (int e = 0; e < E; ++e) acc = fmaf(qs[e], w0[e * n1 + o], acc);
-    c0[o] = acc;
+    float a = __ldg(b0 + o);
+    for (int e = 0; e < E; ++e) a = fmaf(qs[e], __ldg(wq + e * n1 + o), a);
+    c0[o] = a;
   }
-  __syncthreads();
 
+  // the online softmax's running maximum and sum, the same in every thread
+  float run_max = minus_inf(), run_sum = 0.0f;
+  int valid = 0;
   const int last = lay.n_layers - 1;
-  for (int t0 = 0; t0 < T; t0 += kChunk) {
-    const int rows = min(kChunk, T - t0);
-    // layer 0, the [k, q - k, q * k] quarters on top of c0
-    const int groups = (rows + kRows - 1) / kRows;
-    for (int idx = tid; idx < groups * n1; idx += kThreads) {
-      const int g = idx / n1, o = idx - g * n1;
-      float acc[kRows];
-      const float* krow[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        acc[r] = c0[o];
-        krow[r] = ks + (t0 + min(g * kRows + r, rows - 1)) * E;
-      }
-      for (int e = 0; e < E; ++e) {
-        const float w1 = w0[(E + e) * n1 + o];
-        const float w2 = w0[(2 * E + e) * n1 + o];
-        const float w3 = w0[(3 * E + e) * n1 + o];
-        const float qe = qs[e];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float kv = krow[r][e];
-          acc[r] = fmaf(kv, w1, acc[r]);
-          acc[r] = fmaf(qe - kv, w2, acc[r]);
-          acc[r] = fmaf(qe * kv, w3, acc[r]);
-        }
-      }
-      const float bias = b0[o];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int row = g * kRows + r;
-        if (row < rows) buf0[row * n1 + o] = act_f<ACT>(acc[r] + bias);
-      }
+  for (int t0 = 0; t0 < T; t0 += kWindow) {
+    if (tid < 32) {
+      const int t = t0 + lane;
+      const bool on = t < T && mb[t] != 0;
+      const unsigned bal = __ballot_sync(0xffffffffu, on);
+      if (on) vi[__popc(bal & ((1u << lane) - 1u))] = t;
+      if (lane == 0) nv_s = __popc(bal);
     }
-    __syncthreads();
-    // the other hidden layers, ping-ponging between buf0 and buf1
-    float* in = buf0;
-    float* nxt = buf1;
-    for (int l = 1; l < last; ++l) {
-      const int ni = lay.n[l], no = lay.n[l + 1];
-      const float* wl = prm + lay.w[l];
-      const float* bl = prm + lay.b[l];
-      for (int idx = tid; idx < rows * no; idx += kThreads) {
-        const int r = idx / no, o = idx - r * no;
-        float acc = 0.0f;
-        for (int k = 0; k < ni; ++k) acc = fmaf(in[r * ni + k], wl[k * no + o],
-                                                acc);
-        nxt[r * no + o] = act_f<ACT>(acc + bl[o]);
+    __syncthreads();  // also publishes c0 before the first rows
+    const int nv = nv_s;
+    valid += nv;
+    for (int r0 = 0; r0 < nv; r0 += chunk) {
+      const int rows = min(chunk, nv - r0);
+      for (int i = tid; i < rows * E; i += kThreads) {
+        const int r = i / E, e = i - r * E;
+        kc[i] = load_f(kb + static_cast<long long>(vi[r0 + r]) * k_st + e);
       }
       __syncthreads();
-      float* tmp = in;
-      in = nxt;
-      nxt = tmp;
+      // layer 0: c0 + k_t (W_k + diag(q) W_qk)
+      const int groups = (rows + kRows - 1) / kRows;
+      for (int idx = tid; idx < groups * n1; idx += kThreads) {
+        const int g = idx / n1, o = idx - g * n1;
+        float a[kRows];
+        const float* krow[kRows];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          a[r] = c0[o];
+          krow[r] = kc + min(g * kRows + r, rows - 1) * E;
+        }
+        for (int e = 0; e < E; ++e) {
+          const float w = fmaf(qs[e], __ldg(wqk + e * n1 + o),
+                               __ldg(wk + e * n1 + o));
+#pragma unroll
+          for (int r = 0; r < kRows; ++r) a[r] = fmaf(krow[r][e], w, a[r]);
+        }
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          const int row = g * kRows + r;
+          if (row < rows) buf0[row * n1 + o] = act_f<ACT>(a[r]);
+        }
+      }
+      __syncthreads();
+      // the other hidden layers, ping-ponging between buf0 and buf1
+      float* in = buf0;
+      float* nxt = buf1;
+      for (int l = 1; l < last; ++l) {
+        const int ni = lay.n[l], no = lay.n[l + 1];
+        const float* wl = prm + lay.w[l];
+        const float* bl = prm + lay.b[l];
+        for (int idx = tid; idx < rows * no; idx += kThreads) {
+          const int r = idx / no, o = idx - r * no;
+          float a = __ldg(bl + o);
+          for (int k = 0; k < ni; ++k) {
+            a = fmaf(in[r * ni + k], __ldg(wl + k * no + o), a);
+          }
+          nxt[r * no + o] = act_f<ACT>(a);
+        }
+        __syncthreads();
+        float* tmp = in;
+        in = nxt;
+        nxt = tmp;
+      }
+      // the output layer: one score a row
+      const int nl = lay.n[last];
+      const float* wo = prm + lay.w[last];
+      for (int r = tid; r < rows; r += kThreads) {
+        float a = __ldg(prm + lay.b[last]);
+        for (int k = 0; k < nl; ++k) a = fmaf(in[r * nl + k], __ldg(wo + k), a);
+        sc[r] = a;
+      }
+      __syncthreads();
+      // fold the rows into the weighted sum
+      if (wnorm) {
+        float mx = run_max;
+        for (int r = 0; r < rows; ++r) mx = fmaxf(mx, sc[r]);
+        const float scale = expf(run_max - mx);  // 0 for the first rows
+        if (tid < rows) pc[tid] = expf(sc[tid] - mx);
+        __syncthreads();
+        float s = 0.0f;
+        for (int r = 0; r < rows; ++r) s += pc[r];
+        run_sum = run_sum * scale + s;
+        run_max = mx;
+        for (int e = tid; e < E; e += kThreads) {
+          float v = acc[e] * scale;
+          for (int r = 0; r < rows; ++r) v = fmaf(pc[r], kc[r * E + e], v);
+          acc[e] = v;
+        }
+      } else {
+        for (int e = tid; e < E; e += kThreads) {
+          float v = acc[e];
+          for (int r = 0; r < rows; ++r) v = fmaf(sc[r], kc[r * E + e], v);
+          acc[e] = v;
+        }
+      }
+      __syncthreads();  // kc, sc and pc take the next rows
     }
-    // the output layer: one score a time step
-    const int nl = lay.n[last];
-    const float* wo = prm + lay.w[last];
-    const float bo = prm[lay.b[last]];
-    for (int r = tid; r < rows; r += kThreads) {
-      float acc = 0.0f;
-      for (int k = 0; k < nl; ++k) acc = fmaf(in[r * nl + k], wo[k], acc);
-      sc[t0 + r] = acc + bo;
-    }
-    __syncthreads();
+    __syncthreads();  // every thread has read nv_s and vi
   }
 
-  if (wnorm) {
-    float mx = minus_inf();
-    for (int t = tid; t < T; t += kThreads) {
-      const float s = sc[t] * ms[t] + (1.0f - ms[t]) * kNeg;
-      sc[t] = s;
-      mx = fmaxf(mx, s);
+  // A step past the history scores -2^32 + 1 under the softmax, and its
+  // weight exp(-2^32 + 1 - max) is exactly 0 beside any valid step's.  With
+  // no valid step every score is that constant and the softmax is uniform.
+  if (wnorm && valid == 0) {
+    for (int e = tid; e < E; e += kThreads) {
+      float v = 0.0f;
+      for (int t = 0; t < T; ++t) v += load_f(kb + t * k_st + e);
+      store_f(out + b * E + e, v / static_cast<float>(T));
     }
-    mx = block_reduce<true>(mx, red);
-    float sum = 0.0f;
-    for (int t = tid; t < T; t += kThreads) {
-      const float ex = expf(sc[t] - mx);
-      sc[t] = ex;
-      sum += ex;
-    }
-    sum = block_reduce<false>(sum, red);
-    for (int t = tid; t < T; t += kThreads) sc[t] = sc[t] / sum;
   } else {
-    for (int t = tid; t < T; t += kThreads) sc[t] = sc[t] * ms[t];
-  }
-  __syncthreads();
-  for (int e = tid; e < E; e += kThreads) {
-    float acc = 0.0f;
-    for (int t = 0; t < T; ++t) acc = fmaf(sc[t], ks[t * E + e], acc);
-    store_f(out + b * E + e, acc);
+    for (int e = tid; e < E; e += kThreads) {
+      store_f(out + b * E + e, wnorm ? acc[e] / run_sum : acc[e]);
+    }
   }
 }
 
 template <typename S, int ACT>
-int launch(const float* q, const void* keys, long long k_sb, long long k_st,
-           const float* mask, const float* params, const Layout& lay, int B,
-           int T, int E, int wnorm, void* out, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * shared_floats(lay, T, E);
+int launch(const void* q, int q_bf16, const void* keys, long long k_sb,
+           long long k_st, const unsigned char* mask, const float* params,
+           const Layout& lay, int B, int T, int E, int chunk, int wnorm,
+           void* out, cudaStream_t stream) {
+  const size_t smem = shared_bytes(lay, E, chunk);
   auto kernel = din_attention_kernel<S, ACT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<B, kThreads, smem, stream>>>(
-      q, static_cast<const S*>(keys), k_sb, k_st, mask, params, lay, T, E,
-      wnorm, static_cast<S*>(out));
+      q, q_bf16, static_cast<const S*>(keys), k_sb, k_st, mask, params, lay,
+      T, E, chunk, wnorm, static_cast<S*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename S>
-int dispatch_act(int act, const float* q, const void* keys, long long k_sb,
-                 long long k_st, const float* mask, const float* params,
-                 const Layout& lay, int B, int T, int E, int wnorm, void* out,
-                 cudaStream_t stream) {
+int dispatch_act(int act, const void* q, int q_bf16, const void* keys,
+                 long long k_sb, long long k_st, const unsigned char* mask,
+                 const float* params, const Layout& lay, int B, int T, int E,
+                 int chunk, int wnorm, void* out, cudaStream_t stream) {
   switch (act) {
     case 0:
-      return launch<S, 0>(q, keys, k_sb, k_st, mask, params, lay, B, T, E,
-                          wnorm, out, stream);
+      return launch<S, 0>(q, q_bf16, keys, k_sb, k_st, mask, params, lay, B,
+                          T, E, chunk, wnorm, out, stream);
     case 1:
-      return launch<S, 1>(q, keys, k_sb, k_st, mask, params, lay, B, T, E,
-                          wnorm, out, stream);
+      return launch<S, 1>(q, q_bf16, keys, k_sb, k_st, mask, params, lay, B,
+                          T, E, chunk, wnorm, out, stream);
     case 2:
-      return launch<S, 2>(q, keys, k_sb, k_st, mask, params, lay, B, T, E,
-                          wnorm, out, stream);
+      return launch<S, 2>(q, q_bf16, keys, k_sb, k_st, mask, params, lay, B,
+                          T, E, chunk, wnorm, out, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -294,41 +329,40 @@ int dispatch_act(int act, const float* q, const void* keys, long long k_sb,
 
 }  // namespace
 
-// Bytes of shared memory a block takes, or -1 for widths the kernel does
-// not take.  `widths` has n_layers + 1 entries: 4E, the hidden widths, 1.
-extern "C" long long din_attention_shared_bytes(int T, int E, int n_layers,
-                                                const int* widths) {
-  Layout lay;
-  if (!make_layout(n_layers, widths, &lay)) return -1;
-  return static_cast<long long>(sizeof(float) * shared_floats(lay, T, E));
-}
-
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-// dtype: 0 float32, 1 bfloat16 (keys and out); act: 0 sigmoid, 1 relu,
-// 2 linear.  q [B, E] float32, keys addressed as keys[b * k_sb + t * k_st +
-// e], mask [B, T] float32 0/1, params every layer's [n_i, n_i+1] weight
-// then its bias, in order, float32; out [B, E].  `widths` is a host array.
+// Launches on `stream` and returns cudaGetLastError() (0 on success), or
+// -2 when one row of work does not fit in a block's shared memory.
+// dtype: 0 float32, 1 bfloat16 (keys and out); q_bf16: 0 float32, 1
+// bfloat16 query; act: 0 sigmoid, 1 relu, 2 linear.  q [B, E], keys
+// addressed as keys[b * k_sb + t * k_st + e], mask [B, T] bytes (0 or 1),
+// params the buffer of ops/attention.py:pack_params (float32), widths its
+// n_layers + 1 widths (4E, the hidden widths, 1) as a host array; out
+// [B, E].
 extern "C" int din_attention_fwd(int dtype, int act, int wnorm,
-                                 const float* q, const void* keys,
+                                 const void* q, int q_bf16, const void* keys,
                                  long long k_sb, long long k_st,
-                                 const float* mask, const float* params,
-                                 int n_layers, const int* widths, int B,
-                                 int T, int E, void* out, void* stream) {
+                                 const unsigned char* mask,
+                                 const float* params, int n_layers,
+                                 const int* widths, int B, int T, int E,
+                                 void* out, void* stream) {
   Layout lay;
-  if (B <= 0 || T <= 0 || E <= 0 || !make_layout(n_layers, widths, &lay) ||
-      lay.n[0] != 4 * E ||
-      sizeof(float) * shared_floats(lay, T, E) >
-          static_cast<size_t>(kMaxSharedBytes)) {
+  if (B <= 0 || T <= 0 || E <= 0 || !make_layout(n_layers, widths, E, &lay)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  int chunk = kWindow;
+  while (chunk > 0 &&
+         shared_bytes(lay, E, chunk) > static_cast<size_t>(kMaxSharedBytes)) {
+    chunk /= 2;
+  }
+  if (chunk == 0) return kDoesNotFit;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return dispatch_act<float>(act, q, keys, k_sb, k_st, mask, params, lay, B,
-                               T, E, wnorm, out, s);
+    return dispatch_act<float>(act, q, q_bf16, keys, k_sb, k_st, mask, params,
+                               lay, B, T, E, chunk, wnorm, out, s);
   }
   if (dtype == 1) {
-    return dispatch_act<__nv_bfloat16>(act, q, keys, k_sb, k_st, mask, params,
-                                       lay, B, T, E, wnorm, out, s);
+    return dispatch_act<__nv_bfloat16>(act, q, q_bf16, keys, k_sb, k_st, mask,
+                                       params, lay, B, T, E, chunk, wnorm, out,
+                                       s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

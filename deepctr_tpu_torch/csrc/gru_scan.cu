@@ -22,7 +22,8 @@
 // What bounds it: the serial chain of T dependent steps.  The bytes
 // (the [T, B, 3H] gates read once, the [T, B, H] outputs written once)
 // and the 2*B*T*H*3H multiply-adds would each take tens of microseconds
-// at the card's peak rates at T=100, B=1024, H=64; each step, though,
+// at T=100, B=1024, H=64 at the card's peak rates (for the operations, 67
+// TFLOP/s, the float32 rate outside the tensor cores); each step, though,
 // needs the h of the step before, so a block does its T steps one after
 // the other and the time is T times the latency of one step.
 //
@@ -34,17 +35,22 @@
 // shared memory (h broadcast across the warp, W_hh^T rows contiguous
 // across it); two barriers a step hand the new h tile to the block.  A
 // tile of 8 rows at H=64 gives 512 threads and, at B=1024, 128 blocks:
-// about one per SM.  Putting the h @ W_hh^T product on the tensor cores
-// (several rows per warp with mma.sync) is later work.
+// about one per SM.  Above H=138 W_hh^T does not fit in shared memory and
+// is read through the cache instead (the same for every block, it stays
+// in L2); a block takes H <= 1024 units.  Putting the h @ W_hh^T product
+// on the tensor cores (several rows per warp with mma.sync) is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kMaxThreads = 512;
-// the shared memory a block may use on Hopper (232,448 bytes)
+constexpr int kMaxThreads = 512;   // threads of a block of several rows
+constexpr int kMaxUnits = 1024;    // the most threads a block may have
+// the shared memory a block may take on Hopper
 constexpr int kMaxSharedBytes = 232448;
+// returned for a hidden size a block does not take
+constexpr int kDoesNotFit = -2;
 
 __device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
@@ -53,6 +59,21 @@ __device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
 __device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);  // round to nearest even, as torch's .to()
+}
+
+template <bool SHARED>
+__device__ __forceinline__ float load_w(const float* p) {
+  if constexpr (SHARED) {
+    return *p;
+  } else {
+    return __ldg(p);
+  }
+}
+
+__device__ __forceinline__ float load_att(const void* att, int bf16,
+                                          long long i) {
+  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(att)[i])
+              : __ldg(static_cast<const float*>(att) + i);
 }
 
 __device__ __forceinline__ float sigmoid_f(float x) {
@@ -64,30 +85,39 @@ int rows_per_block(int H) {
   return rows < 1 ? 1 : rows;
 }
 
-size_t shared_bytes(int H) {
-  return sizeof(float) * (static_cast<size_t>(3) * H * H +
-                          static_cast<size_t>(rows_per_block(H)) * H);
+size_t tile_bytes(int H) {
+  return sizeof(float) * static_cast<size_t>(rows_per_block(H)) * H;
 }
 
-// MODE: 0 gru, 1 agru, 2 augru.  gi is addressed as
+bool w_fits(int H) {
+  return tile_bytes(H) + sizeof(float) * static_cast<size_t>(3) * H * H <=
+         static_cast<size_t>(kMaxSharedBytes);
+}
+
+// MODE: 0 gru, 1 agru, 2 augru; W_SHARED: W_hh^T copied into shared
+// memory (else read from device memory).  gi is addressed as
 // gi[t * gi_st + b * gi_sb + c], outs as outs[t * out_st + b * out_sb + j];
-// mask and att are [B, T] float32, W_hh^T is [H, 3H] and b_hh [3H] float32.
-template <typename S, int MODE>
-__global__ void gru_scan_kernel(const S* __restrict__ gi, long long gi_st,
-                                long long gi_sb,
-                                const float* __restrict__ whh_t,
-                                const float* __restrict__ bhh,
-                                const float* __restrict__ mask,
-                                const float* __restrict__ att, int B, int T,
-                                int H, S* __restrict__ outs, long long out_st,
-                                long long out_sb, S* __restrict__ h_last) {
+// mask is [B, T] bytes (0 or 1), att [B, T] float32 or bfloat16
+// (att_bf16), W_hh^T [H, 3H] and b_hh [3H] float32.
+template <typename S, int MODE, bool W_SHARED>
+__global__ void __launch_bounds__(kMaxUnits)
+gru_scan_kernel(const S* __restrict__ gi, long long gi_st, long long gi_sb,
+                const float* __restrict__ whh_t,
+                const float* __restrict__ bhh,
+                const unsigned char* __restrict__ mask,
+                const void* __restrict__ att, int att_bf16, int B, int T,
+                int H, S* __restrict__ outs, long long out_st,
+                long long out_sb, S* __restrict__ h_last) {
   extern __shared__ float smem[];
   const int H3 = 3 * H;
-  float* w = smem;             // [H][3H]
-  float* hs = smem + H * H3;   // [rows][H]
+  float* hs = smem;                 // [rows][H]
+  float* ws = smem + blockDim.x;    // [H][3H] when W_SHARED
   const int rows = blockDim.x / H;  // blockDim.x == rows * H
   const int tid = threadIdx.x;
-  for (int i = tid; i < H * H3; i += blockDim.x) w[i] = __ldg(whh_t + i);
+  if (W_SHARED) {
+    for (int i = tid; i < H * H3; i += blockDim.x) ws[i] = __ldg(whh_t + i);
+  }
+  const float* w = W_SHARED ? ws : whh_t;
   const int lr = tid / H;
   const int j = tid - lr * H;
   const long long b = static_cast<long long>(blockIdx.x) * rows + lr;
@@ -100,8 +130,8 @@ __global__ void gru_scan_kernel(const S* __restrict__ gi, long long gi_st,
     bn = __ldg(bhh + 2 * H + j);
   }
   const S* g = gi + b * gi_sb + j;
-  const float* m_row = mask + b * T;
-  const float* a_row = att + b * T;  // read only when MODE != 0
+  const unsigned char* m_row = mask + b * T;
+  const long long a_row = b * T;  // att is read only when MODE != 0
 
   // the next step's gates, mask and attention, loaded a step ahead
   float nr = 0.0f, nz = 0.0f, nn = 0.0f, nm = 0.0f, na = 0.0f;
@@ -109,8 +139,8 @@ __global__ void gru_scan_kernel(const S* __restrict__ gi, long long gi_st,
     nr = load_f(g);
     nz = load_f(g + H);
     nn = load_f(g + 2 * H);
-    nm = __ldg(m_row);
-    if (MODE != 0) na = __ldg(a_row);
+    nm = static_cast<float>(m_row[0]);
+    if (MODE != 0) na = load_att(att, att_bf16, a_row);
   }
   float h = 0.0f;
   __syncthreads();
@@ -121,8 +151,8 @@ __global__ void gru_scan_kernel(const S* __restrict__ gi, long long gi_st,
       nr = load_f(gn);
       nz = load_f(gn + H);
       nn = load_f(gn + 2 * H);
-      nm = __ldg(m_row + t + 1);
-      if (MODE != 0) na = __ldg(a_row + t + 1);
+      nm = static_cast<float>(m_row[t + 1]);
+      if (MODE != 0) na = load_att(att, att_bf16, a_row + t + 1);
     }
     float hr = 0.0f, hz = 0.0f, hn = 0.0f;
     const float* hrow = hs + lr * H;
@@ -130,9 +160,9 @@ __global__ void gru_scan_kernel(const S* __restrict__ gi, long long gi_st,
     for (int k = 0; k < H; ++k) {
       const float hk = hrow[k];
       const float* wk = w + k * H3;
-      hr = fmaf(hk, wk[j], hr);
-      hz = fmaf(hk, wk[H + j], hz);
-      hn = fmaf(hk, wk[2 * H + j], hn);
+      hr = fmaf(hk, load_w<W_SHARED>(wk + j), hr);
+      hz = fmaf(hk, load_w<W_SHARED>(wk + H + j), hz);
+      hn = fmaf(hk, load_w<W_SHARED>(wk + 2 * H + j), hn);
     }
     hr += br;
     hz += bz;
@@ -158,42 +188,63 @@ __global__ void gru_scan_kernel(const S* __restrict__ gi, long long gi_st,
   if (active) store_f(h_last + b * H + j, h);
 }
 
-template <typename S, int MODE>
+template <typename S, int MODE, bool W_SHARED>
 int launch(const void* gi, long long gi_st, long long gi_sb,
-           const float* whh_t, const float* bhh, const float* mask,
-           const float* att, int B, int T, int H, void* outs,
+           const float* whh_t, const float* bhh, const unsigned char* mask,
+           const void* att, int att_bf16, int B, int T, int H, void* outs,
            long long out_st, long long out_sb, void* h_last,
            cudaStream_t stream) {
   const int rows = rows_per_block(H);
-  const size_t smem = shared_bytes(H);
-  auto kernel = gru_scan_kernel<S, MODE>;
+  const size_t smem =
+      tile_bytes(H) + (W_SHARED ? sizeof(float) * 3 * H * H : 0);
+  auto kernel = gru_scan_kernel<S, MODE, W_SHARED>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned blocks = static_cast<unsigned>((B + rows - 1) / rows);
   kernel<<<blocks, rows * H, smem, stream>>>(
-      static_cast<const S*>(gi), gi_st, gi_sb, whh_t, bhh, mask, att, B, T, H,
-      static_cast<S*>(outs), out_st, out_sb, static_cast<S*>(h_last));
+      static_cast<const S*>(gi), gi_st, gi_sb, whh_t, bhh, mask, att,
+      att_bf16, B, T, H, static_cast<S*>(outs), out_st, out_sb,
+      static_cast<S*>(h_last));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename S, int MODE>
+int dispatch_w(const void* gi, long long gi_st, long long gi_sb,
+               const float* whh_t, const float* bhh,
+               const unsigned char* mask, const void* att, int att_bf16,
+               int B, int T, int H, void* outs, long long out_st,
+               long long out_sb, void* h_last, cudaStream_t stream) {
+  if (w_fits(H)) {
+    return launch<S, MODE, true>(gi, gi_st, gi_sb, whh_t, bhh, mask, att,
+                                 att_bf16, B, T, H, outs, out_st, out_sb,
+                                 h_last, stream);
+  }
+  return launch<S, MODE, false>(gi, gi_st, gi_sb, whh_t, bhh, mask, att,
+                                att_bf16, B, T, H, outs, out_st, out_sb,
+                                h_last, stream);
 }
 
 template <typename S>
 int dispatch_mode(int mode, const void* gi, long long gi_st, long long gi_sb,
-                  const float* whh_t, const float* bhh, const float* mask,
-                  const float* att, int B, int T, int H, void* outs,
-                  long long out_st, long long out_sb, void* h_last,
-                  cudaStream_t stream) {
+                  const float* whh_t, const float* bhh,
+                  const unsigned char* mask, const void* att, int att_bf16,
+                  int B, int T, int H, void* outs, long long out_st,
+                  long long out_sb, void* h_last, cudaStream_t stream) {
   switch (mode) {
     case 0:
-      return launch<S, 0>(gi, gi_st, gi_sb, whh_t, bhh, mask, att, B, T, H,
-                          outs, out_st, out_sb, h_last, stream);
+      return dispatch_w<S, 0>(gi, gi_st, gi_sb, whh_t, bhh, mask, att,
+                              att_bf16, B, T, H, outs, out_st, out_sb,
+                              h_last, stream);
     case 1:
-      return launch<S, 1>(gi, gi_st, gi_sb, whh_t, bhh, mask, att, B, T, H,
-                          outs, out_st, out_sb, h_last, stream);
+      return dispatch_w<S, 1>(gi, gi_st, gi_sb, whh_t, bhh, mask, att,
+                              att_bf16, B, T, H, outs, out_st, out_sb,
+                              h_last, stream);
     case 2:
-      return launch<S, 2>(gi, gi_st, gi_sb, whh_t, bhh, mask, att, B, T, H,
-                          outs, out_st, out_sb, h_last, stream);
+      return dispatch_w<S, 2>(gi, gi_st, gi_sb, whh_t, bhh, mask, att,
+                              att_bf16, B, T, H, outs, out_st, out_sb,
+                              h_last, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -201,37 +252,34 @@ int dispatch_mode(int mode, const void* gi, long long gi_st, long long gi_sb,
 
 }  // namespace
 
-// Bytes of shared memory a block takes at hidden size H; the wrapper
-// refuses an H whose tile does not fit.
-extern "C" long long gru_scan_shared_bytes(int H) {
-  return static_cast<long long>(shared_bytes(H));
-}
-
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-// dtype: 0 float32, 1 bfloat16 (gi, outs, h_last); mode: 0 gru, 1 agru,
-// 2 augru (att is read only for 1 and 2).  Strides are in elements.  The
-// caller checks shapes, types and contiguity of the last dimension, and
-// allocates outs and h_last [B, H] (contiguous).
+// Launches on `stream` and returns cudaGetLastError() (0 on success), or
+// -2 for H > 1024.  dtype: 0 float32, 1 bfloat16 (gi, outs, h_last);
+// mode: 0 gru, 1 agru, 2 augru (att, float32 or bfloat16 as att_bf16
+// says, is read only for 1 and 2).  mask is [B, T] bytes (0 or 1).
+// Strides are in elements.  The caller checks shapes, types and
+// contiguity of the last dimension, and allocates outs and h_last [B, H]
+// (contiguous).
 extern "C" int gru_scan_fwd(int dtype, int mode, const void* gi,
                             long long gi_st, long long gi_sb,
                             const float* whh_t, const float* bhh,
-                            const float* mask, const float* att, int B, int T,
-                            int H, void* outs, long long out_st,
-                            long long out_sb, void* h_last, void* stream) {
-  if (B <= 0 || T <= 0 || H <= 0 || H > kMaxThreads ||
-      shared_bytes(H) > static_cast<size_t>(kMaxSharedBytes) ||
-      (mode != 0 && att == nullptr)) {
+                            const unsigned char* mask, const void* att,
+                            int att_bf16, int B, int T, int H, void* outs,
+                            long long out_st, long long out_sb, void* h_last,
+                            void* stream) {
+  if (H > kMaxUnits) return kDoesNotFit;
+  if (B <= 0 || T <= 0 || H <= 0 || (mode != 0 && att == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     return dispatch_mode<float>(mode, gi, gi_st, gi_sb, whh_t, bhh, mask, att,
-                                B, T, H, outs, out_st, out_sb, h_last, s);
+                                att_bf16, B, T, H, outs, out_st, out_sb,
+                                h_last, s);
   }
   if (dtype == 1) {
     return dispatch_mode<__nv_bfloat16>(mode, gi, gi_st, gi_sb, whh_t, bhh,
-                                        mask, att, B, T, H, outs, out_st,
-                                        out_sb, h_last, s);
+                                        mask, att, att_bf16, B, T, H, outs,
+                                        out_st, out_sb, h_last, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -13,7 +13,9 @@ import torch
 from torch import nn
 
 from .. import config
-from ..ops.attention import ACTIVATIONS, MAX_EMBEDDING, din_attention_fused
+from ..ops._args import ParamCache
+from ..ops.attention import (ACTIVATIONS, MAX_EMBEDDING, din_attention_fused,
+                             pack_params)
 from ..ops.dispatch import din_attention
 from ..ops.gru import gru_scan
 from .core import LocalActivationUnit
@@ -83,6 +85,8 @@ class AttentionSequencePoolingLayer(nn.Module):
         self.local_att = LocalActivationUnit(
             hidden_units=att_hidden_units, embedding_dim=embedding_dim,
             activation=att_activation, device=device, generator=generator)
+        # the fused kernel's packed weights, rebuilt when they change
+        self._packed = ParamCache()
 
     def _fused(self, query, keys, training):
         return (not training and not self.return_score
@@ -95,9 +99,13 @@ class AttentionSequencePoolingLayer(nn.Module):
         att = self.local_att
         layers = [getattr(att.dnn, "dense_%d" % i)
                   for i in range(len(att.dnn.hidden_units))] + [att.dense]
-        return din_attention_fused(
-            query, keys, mask, [(d.weight.t(), d.bias) for d in layers],
-            self.att_activation, self.weight_normalization)
+        params = [(d.weight.t(), d.bias) for d in layers]
+        packed = self._packed.get([t for d in layers for t in (d.weight,
+                                                               d.bias)],
+                                  None, lambda: pack_params(params))
+        return din_attention_fused(query, keys, mask, params,
+                                   self.att_activation,
+                                   self.weight_normalization, packed=packed)
 
     def forward(self, query, keys, keys_length=None, mask=None,
                 training=False):
@@ -146,16 +154,21 @@ def _gru_input_gates(inputs, w_ih, b_ih):
     return gi.transpose(0, 1)
 
 
-def _gru_recurrence(gi, w_hh, b_hh, lengths, att, mode):
-    """``gru_scan`` over hoisted gates gi [T, B, 3H], with the 0/1 mask of
-    ``lengths`` [B]: -> (outputs [B, T, H], final state [B, H])."""
+def _gru_recurrence(gi, module, lengths, att, mode):
+    """``gru_scan`` over hoisted gates gi [T, B, 3H] with ``module``'s
+    recurrent weights (rounded to gi's dtype, as the JAX layer gives them)
+    and the mask of ``lengths`` [B]: -> (outputs [B, T, H], final state
+    [B, H])."""
     T, B, _ = gi.shape
     dtype = gi.dtype
     pos = torch.arange(T, device=gi.device)[None, :]
-    mask = (pos < lengths.to(torch.int32).reshape(-1, 1)).to(dtype)
+    mask = pos < lengths.to(torch.int32).reshape(-1, 1)
     att_bt = None if att is None else att.reshape(B, T).to(dtype)
-    outs, h_last = gru_scan(gi, w_hh.t().to(dtype), b_hh.to(dtype), mask,
-                            att=att_bt, mode=mode)
+    w_hh, b_hh = module.weight_hh, module.bias_hh
+    whh_t, bhh = module._recurrent.get(
+        [w_hh, b_hh], dtype, lambda: (
+            w_hh.t().to(dtype).float().contiguous(), b_hh.to(dtype).float()))
+    outs, h_last = gru_scan(gi, whh_t, bhh, mask, att=att_bt, mode=mode)
     return outs.transpose(0, 1), h_last
 
 
@@ -209,12 +222,13 @@ class DynamicGRU(nn.Module):
         self.gru_type = gru_type
         _gru_params(self, input_size, hidden_size, init_std, device,
                     generator)
+        # the recurrence's float32 copies of W_hh^T and b_hh
+        self._recurrent = ParamCache()
 
     def forward(self, inputs, att_scores, lengths, training=False):
         gi = _gru_input_gates(inputs, self.weight_ih, self.bias_ih)
         mode = "augru" if self.gru_type == "AUGRU" else "agru"
-        return _gru_recurrence(gi, self.weight_hh, self.bias_hh, lengths,
-                               att_scores, mode)
+        return _gru_recurrence(gi, self, lengths, att_scores, mode)
 
 
 class MaskedGRU(nn.Module):
@@ -229,8 +243,9 @@ class MaskedGRU(nn.Module):
         super().__init__()
         _gru_params(self, input_size, hidden_size, init_std, device,
                     generator)
+        # the recurrence's float32 copies of W_hh^T and b_hh
+        self._recurrent = ParamCache()
 
     def forward(self, inputs, lengths, training=False):
         gi = _gru_input_gates(inputs, self.weight_ih, self.bias_ih)
-        return _gru_recurrence(gi, self.weight_hh, self.bias_hh, lengths,
-                               None, "gru")
+        return _gru_recurrence(gi, self, lengths, None, "gru")

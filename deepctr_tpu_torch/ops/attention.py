@@ -36,7 +36,9 @@ MAX_EMBEDDING = 512
 # the mask constant of the reference layer (deepctr_tpu/ops/reference.py)
 NEG = -2.0 ** 32 + 1.0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_SHARED_BYTES = 232448
+# din_attention_fwd's code for a launch whose rows do not fit in shared
+# memory
+_DOES_NOT_FIT = -2
 
 
 def _act(name, x):
@@ -47,9 +49,10 @@ def _act(name, x):
     return x
 
 
-def din_attention_fused_ref(query, keys, mask, layer_params, activation,
-                            weight_normalization):
-    """Plain PyTorch version, in float32.  Arguments and result as
+def din_attention_weights_ref(query, keys, mask, layer_params, activation,
+                              weight_normalization):
+    """The float32 weight [B, T] of each key in the readout: the softmax
+    over the masked scores, or the scores times the mask.  Arguments as
     :func:`din_attention_fused`."""
     _check(query, keys, mask, layer_params, activation)
     B, T, E = keys.shape
@@ -63,10 +66,32 @@ def din_attention_fused_ref(query, keys, mask, layer_params, activation,
     s = (x @ w_o.to(f32) + b_o.to(f32))[..., 0]                  # [B, T]
     m = mask.to(f32)
     if weight_normalization:
-        s = torch.softmax(s * m + (1.0 - m) * NEG, dim=-1)
-    else:
-        s = s * m
-    return torch.einsum("bt,bte->be", s, k)[:, None, :].to(keys.dtype)
+        return torch.softmax(s * m + (1.0 - m) * NEG, dim=-1)
+    return s * m
+
+
+def din_attention_fused_ref(query, keys, mask, layer_params, activation,
+                            weight_normalization):
+    """Plain PyTorch version, in float32.  Arguments and result as
+    :func:`din_attention_fused`."""
+    s = din_attention_weights_ref(query, keys, mask, layer_params,
+                                  activation, weight_normalization)
+    out = torch.einsum("bt,bte->be", s, keys.to(torch.float32))
+    return out[:, None, :].to(keys.dtype)
+
+
+def pack_params(layer_params):
+    """The kernel's float32 weight buffer for ``layer_params``: the first
+    layer folded, ``[W_q = A + C | W_k = B - C | W_qk = D | b_0]`` with
+    ``A, B, C, D`` the E-row quarters of its ``[4E, n1]`` weight (so that
+    ``[q, k, q - k, q * k] @ W_0 = q @ W_q + k @ (W_k + diag(q) @ W_qk)``),
+    then every later layer's ``W [in, out]`` and ``b [out]``, flattened."""
+    f32 = torch.float32
+    w0, b0 = (t.to(f32) for t in layer_params[0])
+    a, b, c, d = w0.chunk(4)
+    parts = [a + c, b - c, d, b0] + [t.to(f32) for wb in layer_params[1:]
+                                     for t in wb]
+    return torch.cat([p.reshape(-1) for p in parts])
 
 
 def _check(query, keys, mask, layer_params, activation):
@@ -106,37 +131,52 @@ def _check(query, keys, mask, layer_params, activation):
                          "device, got %s" % sorted(map(str, devices)))
 
 
+def _check_packed(packed, keys, layer_params):
+    E = keys.shape[2]
+    widths = [w.shape[1] for w, _ in layer_params]
+    n = 3 * E * widths[0] + widths[0] + sum(
+        i * o + o for i, o in zip(widths[:-1], widths[1:]))
+    if (packed.dtype != torch.float32 or packed.device != keys.device
+            or packed.dim() != 1 or packed.numel() != n
+            or not packed.is_contiguous()):
+        raise ValueError("packed must be pack_params(layer_params): %d "
+                         "contiguous float32 values on %s, got %s %s on %s"
+                         % (n, keys.device, packed.dtype,
+                            tuple(packed.shape), packed.device))
+
+
 def _kernel():
     lib = _build.load("din_attention")
     fn = lib.din_attention_fwd
     fn.argtypes = ([ctypes.c_int] * 3
-                   + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                      ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-                      ctypes.c_int, ctypes.c_void_p]
+                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+                      ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
                    + [ctypes.c_int] * 3
                    + [ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    lib.din_attention_shared_bytes.argtypes = [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
-    lib.din_attention_shared_bytes.restype = ctypes.c_longlong
-    return fn, lib.din_attention_shared_bytes
+    return fn
 
 
 def din_attention_fused(query, keys, mask, layer_params, activation,
-                        weight_normalization):
-    """query [B, 1, E], keys [B, T, E] (float32 or bfloat16, last dimension
-    contiguous), mask [B, T] (1 = valid), ``layer_params`` = ``[(W [in, out],
-    b [out]), ...]``: the hidden layers from ``4E`` inputs, then the output
-    layer ``(W_out [H, 1], b_out [1])``.  Returns [B, 1, E] in the keys'
-    dtype.
+                        weight_normalization, packed=None):
+    """query [B, 1, E] and keys [B, T, E] (float32 or bfloat16, the keys'
+    last dimension contiguous), mask [B, T] (1 or True = valid, 0 or False
+    = padded), ``layer_params`` = ``[(W [in, out], b [out]), ...]``: the
+    hidden layers from ``4E`` inputs, then the output layer ``(W_out [H,
+    1], b_out [1])``.  ``packed`` is ``pack_params(layer_params)`` from a
+    caller that keeps it between calls; it is built here when None.
+    Returns [B, 1, E] in the keys' dtype.
 
     On CUDA tensors this launches the kernel (building it at first use) or
-    raises."""
+    raises.  The kernel runs the MLP only for the valid steps, so any T."""
     global DIN_ATTENTION_LAUNCHES
+    _check(query, keys, mask, layer_params, activation)
+    if packed is not None:
+        _check_packed(packed, keys, layer_params)
     if keys.device.type == "cpu":
         return din_attention_fused_ref(query, keys, mask, layer_params,
                                        activation, weight_normalization)
-    _check(query, keys, mask, layer_params, activation)
     if keys.device.type != "cuda":
         raise ValueError("no din_attention kernel for device %s"
                          % keys.device)
@@ -145,34 +185,35 @@ def din_attention_fused(query, keys, mask, layer_params, activation,
         raise NotImplementedError(
             "din_attention_fused has no backward: call it under "
             "torch.no_grad(), or train through the layer composition")
-    if keys.dtype not in _DTYPES or keys.stride(2) != 1:
-        raise ValueError("keys must be float32 or bfloat16 with a contiguous "
-                         "last dimension, got %s with strides %s"
-                         % (keys.dtype, keys.stride()))
+    if (keys.dtype not in _DTYPES or query.dtype not in _DTYPES
+            or keys.stride(2) != 1):
+        raise ValueError("query and keys must be float32 or bfloat16, the "
+                         "keys with a contiguous last dimension, got %s and "
+                         "%s with strides %s" % (query.dtype, keys.dtype,
+                                                 keys.stride()))
     B, T, E = keys.shape
     widths = [4 * E] + [w.shape[1] for w, _ in layer_params]
-    c_widths = (ctypes.c_int * len(widths))(*widths)
-    fn, shared_bytes = _kernel()
-    smem = shared_bytes(T, E, len(layer_params), ctypes.addressof(c_widths))
-    if not 0 < smem <= _MAX_SHARED_BYTES:
-        raise ValueError("din_attention_fused: T=%d, E=%d and layers %s "
-                         "need %d bytes of shared memory, over the block's "
-                         "%d" % (T, E, widths, smem, _MAX_SHARED_BYTES))
     out = torch.empty(B, 1, E, dtype=keys.dtype, device=keys.device)
     if B == 0:
         return out
-    f32 = torch.float32
-    params = torch.cat([t.to(f32).reshape(-1) for wb in layer_params
-                        for t in (wb[0].contiguous(), wb[1])])
-    q = query.reshape(B, E).to(f32).contiguous()
-    m = mask.to(f32).contiguous()
+    if packed is None:
+        packed = pack_params(layer_params)
+    q = query.reshape(B, E).contiguous()
+    m = (mask if mask.dtype == torch.bool else mask != 0).contiguous()
+    c_widths = (ctypes.c_int * len(widths))(*widths)
     with torch.cuda.device(keys.device):
         stream = torch.cuda.current_stream(keys.device).cuda_stream
-        rc = fn(_DTYPES[keys.dtype], ACTIVATIONS[activation],
-                int(bool(weight_normalization)), q.data_ptr(),
-                keys.data_ptr(), keys.stride(0), keys.stride(1),
-                m.data_ptr(), params.data_ptr(), len(layer_params),
-                ctypes.addressof(c_widths), B, T, E, out.data_ptr(), stream)
+        rc = _kernel()(
+            _DTYPES[keys.dtype], ACTIVATIONS[activation],
+            int(bool(weight_normalization)), q.data_ptr(),
+            _DTYPES[query.dtype], keys.data_ptr(), keys.stride(0),
+            keys.stride(1), m.data_ptr(), packed.data_ptr(),
+            len(layer_params), ctypes.addressof(c_widths), B, T, E,
+            out.data_ptr(), stream)
+    if rc == _DOES_NOT_FIT:
+        raise ValueError("din_attention_fused: one step of E=%d with layers "
+                         "%s does not fit in a block's shared memory"
+                         % (E, widths))
     if rc != 0:
         raise RuntimeError("din_attention kernel launch failed with CUDA "
                            "error %d" % rc)

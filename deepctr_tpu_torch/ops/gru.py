@@ -31,8 +31,8 @@ GRU_SCAN_LAUNCHES = 0
 
 MODES = {"gru": 0, "agru": 1, "augru": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the shared memory a block may use on Hopper
-_MAX_SHARED_BYTES = 232448
+# gru_scan_fwd's code for a hidden size a block does not take
+_DOES_NOT_FIT = -2
 
 
 def gru_scan_ref(gi, whh_t, bhh, mask, att=None, mode="gru"):
@@ -102,13 +102,11 @@ def _kernel():
     fn.argtypes = ([ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                     ctypes.c_longlong, ctypes.c_longlong]
                    + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int] * 3
+                   + [ctypes.c_int] * 4
                    + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
                       ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    lib.gru_scan_shared_bytes.argtypes = [ctypes.c_int]
-    lib.gru_scan_shared_bytes.restype = ctypes.c_longlong
-    return fn, lib.gru_scan_shared_bytes
+    return fn
 
 
 def gru_scan(gi, whh_t, bhh, mask, att=None, mode="gru"):
@@ -118,13 +116,16 @@ def gru_scan(gi, whh_t, bhh, mask, att=None, mode="gru"):
                       any strides with a contiguous last dimension
     whh_t [H, 3H]     recurrent weight, transposed (gh = h @ whh_t + bhh)
     bhh   [3H]
-    mask  [B, T]      0/1: step t updates row b iff mask[b, t] is 1
+    mask  [B, T]      0/1 (or bool): step t updates row b iff mask[b, t]
     att   [B, T]      attention scores (modes agru and augru only)
 
     Returns ``(outs [T, B, H], h_last [B, H])`` in gi's dtype; padded steps
     emit zero rows and keep the carry.  Any B >= 1 and T >= 1.  On CUDA
     tensors this launches the kernel (building it at first use) or raises;
-    its ``outs`` is a ``[T, B, H]`` view of a contiguous ``[B, T, H]``."""
+    it takes H <= 1024, and its ``outs`` is a ``[T, B, H]`` view of a
+    contiguous ``[B, T, H]``.  The kernel reads float32 weights, a bool
+    mask and float32 or gi-typed scores as they are; other types are cast
+    first."""
     global GRU_SCAN_LAUNCHES
     if gi.device.type == "cpu":
         return gru_scan_ref(gi, whh_t, bhh, mask, att, mode)
@@ -141,11 +142,6 @@ def gru_scan(gi, whh_t, bhh, mask, att=None, mode="gru"):
         raise ValueError("gru_scan needs gi's last dimension contiguous")
     T, B, H3 = gi.shape
     H = H3 // 3
-    fn, shared_bytes = _kernel()
-    if shared_bytes(H) > _MAX_SHARED_BYTES:
-        raise ValueError("gru_scan: W_hh^T of hidden size %d takes %d bytes "
-                         "of shared memory, over the block's %d"
-                         % (H, shared_bytes(H), _MAX_SHARED_BYTES))
     out = torch.empty(B, T, H, dtype=gi.dtype, device=gi.device)
     h_last = torch.empty(B, H, dtype=gi.dtype, device=gi.device)
     if B == 0:
@@ -153,15 +149,21 @@ def gru_scan(gi, whh_t, bhh, mask, att=None, mode="gru"):
     f32 = torch.float32
     w = whh_t.to(f32).contiguous()
     b = bhh.to(f32).contiguous()
-    m = mask.to(f32).contiguous()
-    a = None if att is None else att.to(f32).contiguous()
+    m = (mask if mask.dtype == torch.bool else mask != 0).contiguous()
+    a = None
+    if att is not None:
+        a = (att if att.dtype in (f32, gi.dtype) else att.to(f32)).contiguous()
     with torch.cuda.device(gi.device):
         stream = torch.cuda.current_stream(gi.device).cuda_stream
-        rc = fn(_DTYPES[gi.dtype], MODES[mode], gi.data_ptr(), gi.stride(0),
-                gi.stride(1), w.data_ptr(), b.data_ptr(), m.data_ptr(),
-                None if a is None else a.data_ptr(), B, T, H,
-                out.data_ptr(), out.stride(1), out.stride(0),
-                h_last.data_ptr(), stream)
+        rc = _kernel()(
+            _DTYPES[gi.dtype], MODES[mode], gi.data_ptr(), gi.stride(0),
+            gi.stride(1), w.data_ptr(), b.data_ptr(), m.data_ptr(),
+            None if a is None else a.data_ptr(),
+            int(a is not None and a.dtype == torch.bfloat16), B, T, H,
+            out.data_ptr(), out.stride(1), out.stride(0), h_last.data_ptr(),
+            stream)
+    if rc == _DOES_NOT_FIT:
+        raise ValueError("gru_scan takes hidden sizes up to 1024, got %d" % H)
     if rc != 0:
         raise RuntimeError("gru_scan kernel launch failed with CUDA error %d"
                            % rc)

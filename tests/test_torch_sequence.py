@@ -191,6 +191,29 @@ def test_masked_gru_and_dynamic_grus_match_jax():
             _close(g, w)
 
 
+def test_gru_layers_see_a_change_of_their_weights():
+    """The recurrence keeps float32 copies of W_hh and b_hh between calls;
+    an in-place change or a load of new weights must reach it."""
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.normal(0, 1, (3, T, E)).astype(np.float32))
+    att = torch.from_numpy(rng.random((3, T)).astype(np.float32))
+    lengths = torch.tensor([T, 2, 0])
+    for make, extra in ((lambda: pseq.MaskedGRU(E, E, init_std=0.3,
+                                                device="cpu"), ()),
+                        (lambda: pseq.DynamicGRU(E, E, "AUGRU", init_std=0.3,
+                                                 device="cpu"), (att,))):
+        layer, fresh = make(), make()
+        with torch.no_grad():
+            before, _ = layer(x, *extra, lengths)
+            layer.weight_hh.mul_(2.0)
+            layer.bias_hh.add_(0.5)
+            after, _ = layer(x, *extra, lengths)
+            fresh.load_state_dict(layer.state_dict())
+            want, _ = fresh(x, *extra, lengths)
+        assert not torch.equal(before, after)
+        torch.testing.assert_close(after, want, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("cell", ["AGRUCell", "AUGRUCell"])
 def test_gru_cells_match_jax(cell):
     rng = np.random.default_rng(5)

@@ -22,6 +22,7 @@ from deepctr_tpu.ops.pallas_attention import (
 from deepctr_tpu.ops.pallas_gru import gru_scan as j_gru_scan
 from deepctr_tpu_torch import config as pt_config
 from deepctr_tpu_torch.ops import attention as p_att
+from deepctr_tpu_torch.ops._args import ParamCache
 from deepctr_tpu_torch.ops import gru as p_gru
 from deepctr_tpu_torch.ops import reference as pref
 
@@ -211,10 +212,88 @@ def test_din_attention_fused_refuses_what_the_kernel_does_not_take():
         p_att.din_attention_fused(*args[:3], args[3][:-1], "relu", False)
     with pytest.raises(ValueError, match="query"):
         p_att.din_attention_fused(args[0][:1], *args[1:], "relu", False)
+    packed = p_att.pack_params(args[3])
+    with pytest.raises(ValueError, match="pack_params"):
+        p_att.din_attention_fused(*args, "relu", False, packed=packed[:-1])
+    with pytest.raises(ValueError, match="pack_params"):
+        p_att.din_attention_fused(*args, "relu", False,
+                                  packed=packed.double())
     big = torch.zeros(1, 2, 513)
     with pytest.raises(ValueError, match="E <= 512"):
         p_att.din_attention_fused(torch.zeros(1, 1, 513), big,
                                   torch.ones(1, 2), args[3], "relu", False)
+
+
+def test_pack_params_folds_the_first_layer():
+    """The kernel's weight buffer: q @ W_q + k @ (W_k + diag(q) W_qk) + b_0
+    is the first layer over [q, k, q - k, q * k] (1e-5: another order of
+    float32 sums), and the later layers follow as they are."""
+    B, T, E, n1 = 4, 6, 8, 16
+    q, k, _, layers, _ = _attention_inputs(B, T, E, (n1, 8), seed=8)
+    t = torch.from_numpy
+    params = [(t(w), t(b)) for w, b in layers]
+    packed = p_att.pack_params(params)
+    w_q, w_k, w_qk = packed[:3 * E * n1].reshape(3, E, n1)
+    b_0 = packed[3 * E * n1:3 * E * n1 + n1]
+    tq, tk = t(q), t(k)
+    folded = (tq @ w_q + b_0 + torch.einsum(
+        "bte,beo->bto", tk, w_k + tq[:, 0, :, None] * w_qk))
+    qb = tq.expand(B, T, E)
+    want = (torch.cat([qb, tk, qb - tk, qb * tk], dim=-1) @ params[0][0]
+            + params[0][1])
+    torch.testing.assert_close(folded, want, rtol=0, atol=F32_ATOL)
+    rest = torch.cat([x.reshape(-1) for wb in params[1:] for x in wb])
+    assert torch.equal(packed[3 * E * n1 + n1:], rest)
+
+
+@pytest.mark.parametrize("wnorm", [False, True])
+def test_din_attention_weights_ref_are_the_readouts_weights(wnorm):
+    """The weights sum the keys into the readout; under the softmax each
+    row sums to 1 and puts nothing on a padded step beside a valid one,
+    without it a padded step weighs 0."""
+    q, k, m, layers, lengths = _attention_inputs(8, 10, 4, (6,), seed=9)
+    t = torch.from_numpy
+    args = (t(q), t(k), t(m), [(t(w), t(b)) for w, b in layers], "relu",
+            wnorm)
+    s = p_att.din_attention_weights_ref(*args)
+    assert s.shape == (8, 10)
+    torch.testing.assert_close(
+        torch.einsum("bt,bte->be", s, t(k))[:, None, :],
+        p_att.din_attention_fused_ref(*args), rtol=0, atol=0)
+    pad = t(m) == 0
+    if wnorm:
+        torch.testing.assert_close(s.sum(-1), torch.ones(8), rtol=0,
+                                   atol=F32_ATOL)
+        assert (s[pad & torch.from_numpy(lengths > 0)[:, None]] == 0).all()
+    else:
+        assert (s[pad] == 0).all()
+
+
+def test_param_cache_rebuilds_when_a_parameter_changes():
+    """The kernels' weight copies: kept while the parameters stay, rebuilt
+    after an in-place change, a replacement or a new key, and never kept
+    while autograd records through a parameter."""
+    w = torch.nn.Parameter(torch.ones(3))
+    cache = ParamCache()
+    builds = []
+
+    def build():
+        builds.append(1)
+        return w.detach() * 2
+
+    with torch.no_grad():
+        first = cache.get([w], "f32", build)
+        assert cache.get([w], "f32", build) is first and len(builds) == 1
+        w.add_(1.0)
+        assert cache.get([w], "f32", build)[0] == 4 and len(builds) == 2
+        w.data = torch.zeros(3)
+        assert cache.get([w], "f32", build)[0] == 0 and len(builds) == 3
+        kept = cache.get([w], "bf16", build)
+        assert len(builds) == 4
+    cache.get([w], "bf16", build)
+    assert len(builds) == 5
+    with torch.no_grad():
+        assert cache.get([w], "bf16", build) is kept and len(builds) == 5
 
 
 @pytest.mark.parametrize("return_score", [False, True])
