@@ -3,10 +3,11 @@
     python3 chip_smoke.py
 
 Drives the port's main paths, DeepFM serving and training at Criteo
-width and DIN/DIEN serving at the sequence bench's width, through the entry
-points a user calls (``DeepFM(...)``, ``DIN(...)``, ``DIEN(...)``,
-``model.predict``, ``model.compile``, ``model.fit``), and holds every CUDA
-kernel of those paths against its plain PyTorch version.  Serving first:
+width and DIN/DIEN serving and training at the sequence bench's width,
+through the entry points a user calls (``DeepFM(...)``, ``DIN(...)``,
+``DIEN(...)``, ``model.predict``, ``model.compile``, ``model.fit``,
+``model.evaluate``), and holds every CUDA kernel of those paths against its
+plain PyTorch version.  Serving first:
 
 1. build: compile every kernel under ``deepctr_tpu_torch/csrc/`` (one
    ``nvcc`` a source, all started together) and print the build time;
@@ -78,6 +79,37 @@ sharing their tables) and batches of 1024, DNN 256-128, attention 64-16:
     device ms with a cold L2, ``torch.nn.GRU`` as the GRU's library
     yardstick (timed only; the port never calls it), and each kernel's
     bound from this run's inputs.
+
+Then the sequence models' training path, at the same columns:
+
+13. the GRU backward kernel (``gru_scan_bwd``) against ``gru_scan_bwd_ref``
+    on the carries of the carry-saving forward, at the shapes of phase 9,
+    all three modes, float32 and bfloat16 storage, with the output
+    cotangents given and absent: dgi as phase 9 holds outputs; dW_hh,
+    db_hh and d(att), sums over (t, b) or over the H units, within 1e-5
+    of the sum of their terms' magnitudes (one bf16 ulp for d(att) at
+    bfloat16),
+    exact zeros on padded steps, the same bits from a repeat launch; the
+    carry-saving forward gives the inference forward's bits and the plain
+    version's carries;
+14. ``compile("adagrad")`` + ``fit`` + ``evaluate`` at float32, full width,
+    3 steps of 1024: DIEN ``AUGRU`` with negative sampling and DIN with
+    Dice, the tables dense under "auto" (11,100 rows), each step's launches
+    (DIEN: one gather of 403 fields, one scatter, two ``gru_scan`` and two
+    ``gru_scan_bwd``; DIN: one gather, one scatter), finite losses; DIEN
+    again with ``sparse_table_updates=True`` (one ``row_update`` a step,
+    exactly the touched rows and row 0 change); then card against CPU from
+    the same weights at batches of 256: per-step losses within 1e-4
+    relative;
+15. timing, bfloat16 compute: ``fit`` of both models in examples/s and idle
+    share; the backward kernel, its plain version and ``torch.nn.GRU``'s
+    backward in device ms with a cold L2, and its bound; the carry-saving
+    forward beside the inference forward.
+
+Launches in the kernels line are those of the main-path runs (phases 3,
+6, 10, 11 and 14), each counted from 0 just before the run and read just
+after; the runs that compare a kernel with its plain version, time it or
+check the card against the CPU are not counted.
 
 Any failure exits non-zero.  Without a CUDA device it fails at once and
 runs nothing on the CPU.  The last two lines before the final one are the
@@ -169,6 +201,21 @@ KERNEL_F32_ATOL = 1e-5
 # H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12
 
+# the sequence models' training: steps of SEQ_BATCH on the card, and the
+# card-vs-CPU steps at a batch the CPU run takes in seconds
+SEQ_TRAIN_STEPS = 3
+SEQ_CPU_BATCH = 256
+SEQ_CPU_STEPS = 3
+# the launches of one train step (tables dense under "auto": no row_update)
+SEQ_TRAIN_LAUNCHES = {
+    ("dien", "AUGRU"): {"gather_rows": 1, "scatter_add_rows": 1,
+                        "gru_scan": 2, "gru_scan_bwd": 2, "row_update": 0,
+                        "din_attention": 0},
+    ("din", "dice"): {"gather_rows": 1, "scatter_add_rows": 1, "gru_scan": 0,
+                      "gru_scan_bwd": 0, "row_update": 0,
+                      "din_attention": 0},
+}
+
 KERNELS = {
     "gather_rows": {
         "route": "cuda",
@@ -190,6 +237,11 @@ KERNELS = {
         "source": "deepctr_tpu_torch/csrc/gru_scan.cu",
         "replaces": "deepctr_tpu/ops/pallas_gru.py:213",
     },
+    "gru_scan_bwd": {
+        "route": "cuda",
+        "source": "deepctr_tpu_torch/csrc/gru_scan_bwd.cu",
+        "replaces": "deepctr_tpu/ops/pallas_gru.py:264",
+    },
     "din_attention": {
         "route": "cuda",
         "source": "deepctr_tpu_torch/csrc/din_attention.cu",
@@ -197,9 +249,37 @@ KERNELS = {
     },
 }
 
+# each kernel's launch counter: (module, attribute)
+COUNTERS = {
+    "gather_rows": (gather, "GATHER_LAUNCHES"),
+    "scatter_add_rows": (scatter_add, "SCATTER_ADD_LAUNCHES"),
+    "row_update": (rowup, "ROW_UPDATE_LAUNCHES"),
+    "gru_scan": (gru, "GRU_SCAN_LAUNCHES"),
+    "gru_scan_bwd": (gru, "GRU_SCAN_BWD_LAUNCHES"),
+    "din_attention": (attention, "DIN_ATTENTION_LAUNCHES"),
+}
+# the launches of every main-path run, summed (read_counts adds to it)
+MAIN_PATH_LAUNCHES = dict.fromkeys(COUNTERS, 0)
+
 
 def log(msg):
     print(msg, flush=True)
+
+
+def reset_counts():
+    """Every kernel's launch count to 0, just before a main-path run."""
+    for module, attr in COUNTERS.values():
+        setattr(module, attr, 0)
+
+
+def read_counts():
+    """The launches since reset_counts(), just after a main-path run;
+    added to MAIN_PATH_LAUNCHES."""
+    counts = {name: getattr(module, attr)
+              for name, (module, attr) in COUNTERS.items()}
+    for name, count in counts.items():
+        MAIN_PATH_LAUNCHES[name] += count
+    return counts
 
 
 def card_line():
@@ -315,9 +395,9 @@ def phase_predict_f32(model, X_all):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     pt.set_compute_dtype("float32")
-    gather.GATHER_LAUNCHES = 0
+    reset_counts()
     pred = model.predict(X_all, batch_size=BATCH)
-    launches = gather.GATHER_LAUNCHES
+    launches = read_counts()["gather_rows"]
     check(launches >= N_BATCHES, "the kernel launched %d times over %d "
           "batches" % (launches, N_BATCHES))
     check_predictions(pred, X_all.shape[0])
@@ -434,18 +514,6 @@ def phase_timing_bf16(model, X_all):
 # the training path
 # ---------------------------------------------------------------------------
 
-def reset_launches():
-    gather.GATHER_LAUNCHES = 0
-    scatter_add.SCATTER_ADD_LAUNCHES = 0
-    rowup.ROW_UPDATE_LAUNCHES = 0
-
-
-def read_launches():
-    return {"gather_rows": gather.GATHER_LAUNCHES,
-            "scatter_add_rows": scatter_add.SCATTER_ADD_LAUNCHES,
-            "row_update": rowup.ROW_UPDATE_LAUNCHES}
-
-
 def criteo_labels(n, seed):
     return np.random.default_rng(seed).integers(0, 2, n).astype(np.float32)
 
@@ -554,9 +622,11 @@ def phase_fit_f32(model, X_all):
     y_host = criteo_labels(n, SEED)
     tables = model._tables()
     before = {p: tables[p].detach().clone() for p in sparse}
-    reset_launches()
+    reset_counts()
     hist = model.fit(x_host, y_host, batch_size=BATCH, epochs=1, verbose=0)
-    launches = read_launches()
+    counts = read_counts()
+    launches = {name: counts[name]
+                for name in ("gather_rows", "scatter_add_rows", "row_update")}
     for name, count in launches.items():
         check(count == TRAIN_STEPS, "%s launched %d times in %d train steps"
               % (name, count, TRAIN_STEPS))
@@ -1067,18 +1137,6 @@ def seq_model(kind, variant, device):
     return model
 
 
-def reset_seq_launches():
-    gather.GATHER_LAUNCHES = 0
-    gru.GRU_SCAN_LAUNCHES = 0
-    attention.DIN_ATTENTION_LAUNCHES = 0
-
-
-def read_seq_launches():
-    return {"gather_rows": gather.GATHER_LAUNCHES,
-            "gru_scan": gru.GRU_SCAN_LAUNCHES,
-            "din_attention": attention.DIN_ATTENTION_LAUNCHES}
-
-
 def phase_seq_predict_f32(kind, variant, per_batch, device):
     """predict at float32 over SEQ_BATCHES batches: the launches of each
     kernel a batch (``per_batch``), the predictions, and the first batch
@@ -1089,9 +1147,9 @@ def phase_seq_predict_f32(kind, variant, per_batch, device):
     model = seq_model(kind, variant, device)
     n = SEQ_BATCH * SEQ_BATCHES
     X = seq_requests(model, n, SEED + 40, device)
-    reset_seq_launches()
+    reset_counts()
     pred = model.predict(X, batch_size=SEQ_BATCH)
-    launches = read_seq_launches()
+    launches = read_counts()
     label = "%s %s" % (kind.upper(), variant)
     for name, count in dict(per_batch, gather_rows=1).items():
         check(launches[name] == count * SEQ_BATCHES, "%s: %s launched %d "
@@ -1164,42 +1222,6 @@ def bound(n_bytes, flops):
             else (by_bytes, "bytes"))
 
 
-def gru_backward_yardsticks(args, lengths, lib_gru, x):
-    """The GRU scan's backward (deepctr_tpu/ops/pallas_gru.py:264
-    _bwd_call) is not ported yet: log its plain version's device time
-    (autograd through gru_scan_ref), torch.nn.GRU's backward and the bound
-    (the 6 * H * 3H multiply-adds of a step inside a history: the gates
-    recomputed, dW_hh and dh; the gates, the carries and the output
-    cotangent read, the gate cotangent written), for the next slice."""
-    gi, whh_t, bhh, mask, _ = args
-    T, B, H3 = gi.shape
-    H = H3 // 3
-    with torch.enable_grad():
-        leaves = [a.detach().requires_grad_() for a in (gi, whh_t, bhh)]
-        outs, h_last = gru.gru_scan_ref(*leaves, mask, mode="gru")
-        cots = (torch.randn_like(outs), torch.randn_like(h_last))
-        y, _ = lib_gru(x.requires_grad_())
-        dy = torch.randn_like(y)
-        timed = {
-            "plain": lambda: torch.autograd.grad(
-                (outs, h_last), leaves, cots, retain_graph=True),
-            "library": lambda: torch.autograd.grad(
-                y, [x] + list(lib_gru.parameters()), dy,
-                retain_graph=True),
-        }
-        ms = {k: device_ms(fn) for k, fn in timed.items()}
-    valid = int(lengths.sum())
-    size = gi.element_size()
-    n_bytes = (valid * (H3 + H) * size + T * B * (H + H3) * size
-               + mask.numel() * 4 + 4 * (H * H3 + H3))
-    bound_ms, bound_by = bound(n_bytes, 6 * valid * H * H3)
-    log("gru_scan backward (not ported; the DIEN training slice) at T=%d "
-        "B=%d H=%d, bf16 storage, device time, cold L2: plain (autograd "
-        "through gru_scan_ref) %r ms, library (torch.nn.GRU backward, full "
-        "length) %r ms; bound %r ms (%s)"
-        % (T, B, H, ms["plain"], ms["library"], bound_ms, bound_by))
-
-
 def phase_seq_timing_bf16(device):
     """DIN and DIEN predict at bf16 compute (examples/s, idle share), and
     both sequence kernels against their plain versions in device ms."""
@@ -1255,7 +1277,6 @@ def phase_seq_timing_bf16(device):
             "projection) %r ms; bound %r ms (%s)"
             % (gi.shape[0], gi.shape[1], H, int(lengths.sum()),
                ms["kernel"], ms["plain"], ms["library"], bound_ms, bound_by))
-        gru_backward_yardsticks(args, lengths, lib_gru, x)
 
         q, k, m, layers, lengths = attention_inputs(SEQ_BATCH, torch.bfloat16,
                                                     SEED + 61, device)
@@ -1279,6 +1300,345 @@ def phase_seq_timing_bf16(device):
                                         ms["kernel"], ms["plain"], bound_ms,
                                         bound_by))
     return out
+
+
+# ---------------------------------------------------------------------------
+# the sequence models' training path
+# ---------------------------------------------------------------------------
+
+def bits_equal(a, b):
+    """The same shape, dtype and bits (NaNs and signed zeros included)."""
+    if a is None or b is None:
+        return a is None and b is None
+    ints = {4: torch.int32, 2: torch.int16}[a.element_size()]
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.contiguous().view(ints),
+                            b.contiguous().view(ints)))
+
+
+def bwd_inputs(B, mode, dtype, seed, device, T=SEQ_MAXLEN, H=SEQ_H):
+    """``gru_inputs`` and the cotangents of outs ([T, B, H], a view of a
+    [B, T, H], as the layers hand it back) and h_last, normal from the
+    seed, in the storage type."""
+    args, lengths = gru_inputs(B, mode, dtype, seed, device, T, H)
+    gen = torch.Generator(device=device).manual_seed(seed + 1000)
+    douts = torch.randn(B, T, H, generator=gen, device=device).to(
+        dtype).transpose(0, 1)
+    dh_last = torch.randn(B, H, generator=gen, device=device).to(dtype)
+    return args, lengths, douts, dh_last
+
+
+def gru_bwd_scales(args, carry, dgi):
+    """The magnitudes of the terms the backward's sums add up: for dW_hh
+    and db_hh the sums over (t, b) of |carry| |d_gh| and of |d_gh|, with
+    d_gh = [d_pre_r, d_pre_z, d_pre_n * r] from dgi; for d(att) [B, T] the
+    sum over the H units of |du| (agru) or |du z| (augru), which is
+    |d_pre_n| |n - h| / (a (1 - n^2)) in both modes; r and n recomputed
+    from the carries.  None for d(att) in mode gru."""
+    gi, whh_t, bhh, _, att = args
+    T, B, H3 = gi.shape
+    H = H3 // 3
+    h = carry.float().reshape(T * B, H)
+    g = gi.float().reshape(T * B, H3)
+    gh = h @ whh_t + bhh
+    r = torch.sigmoid(g[:, :H] + gh[:, :H])
+    n = torch.tanh(g[:, 2 * H:] + r * gh[:, 2 * H:])
+    d = dgi.float().reshape(T * B, H3).clone()
+    scale_a = None
+    if att is not None:
+        a = att.float().t().reshape(T * B, 1)
+        terms = torch.nan_to_num(d[:, 2 * H:].abs() * (n - h).abs()
+                                 / (a * (1.0 - n * n)), nan=0.0, posinf=0.0)
+        scale_a = terms.sum(dim=1).reshape(T, B).t()
+    d[:, 2 * H:] *= r
+    d = d.abs()
+    return h.abs().t() @ d, d.sum(dim=0), scale_a
+
+
+def check_gru_bwd_case(B, mode, dtype, seed, device, T=SEQ_MAXLEN, H=SEQ_H):
+    """The carry-saving forward and gru_scan_bwd against their plain
+    versions, with the output cotangents given and absent; returns the
+    largest |kernel - plain| of the backward's outputs."""
+    args, lengths, douts, dh_last = bwd_inputs(B, mode, dtype, seed, device,
+                                               T, H)
+    gi, whh_t, bhh, mask, att = args
+    what = "gru_scan_bwd %s %s B=%d T=%d H=%d" % (mode, dtype, B, T, H)
+    outs0, h0 = gru.gru_scan(gi, whh_t, bhh, mask, att=att, mode=mode)
+    outs, h_last, carry = gru.gru_scan_with_carry(gi, whh_t, bhh, mask,
+                                                  att=att, mode=mode)
+    ref_carry = gru.gru_scan_ref(gi, whh_t, bhh, mask, att=att, mode=mode,
+                                 save_carry=True)[2]
+    bwd = (gi, carry, whh_t, bhh, mask, att)
+    got = gru.gru_scan_bwd(*bwd, douts, dh_last, mode)
+    again = gru.gru_scan_bwd(*bwd, douts, dh_last, mode)
+    bare = gru.gru_scan_bwd(*bwd, None, None, mode)
+    want = gru.gru_scan_bwd_ref(*bwd, douts, dh_last, mode)
+    want_bare = gru.gru_scan_bwd_ref(*bwd, None, None, mode)
+    torch.cuda.synchronize()
+    check(bits_equal(outs, outs0) and bits_equal(h_last, h0),
+          what + ": the carry-saving forward's outputs differ from the "
+          "inference forward's")
+    ec, _ = compare(carry, ref_carry, what + " carry")
+    check(all(bits_equal(a, b) for a, b in zip(got, again)),
+          what + ": a repeat launch gave other bits")
+    pad = torch.arange(T, device=device)[:, None] >= lengths[None, :]
+    worst, errs = 0.0, []
+    for label, k, r in (("", got, want), (" (no cotangents)", bare,
+                                          want_bare)):
+        dgi, dwhh, dbhh, datt = k
+        check(bool((dgi[pad] == 0).all()), what + label + ": a padded step "
+              "has a non-zero dgi row")
+        scale_w, scale_b, scale_a = gru_bwd_scales(args, carry, r[0])
+        for name, a, b, scale in (("dgi", dgi, r[0], None),
+                                  ("dwhh", dwhh, r[1], scale_w),
+                                  ("dbhh", dbhh, r[2], scale_b),
+                                  ("datt", datt, r[3], scale_a)):
+            if a is None:
+                check(b is None, what + ": no datt")
+                continue
+            e, m = compare(a, b, what + label + " " + name, scale)
+            errs.append("%s%s %r" % (name, label, e))
+            worst = max(worst, m)
+        if datt is not None:
+            check(bool((datt[pad.t()] == 0).all()), what + label + ": a "
+                  "padded step has a non-zero d(att)")
+    log("kernel vs plain: %s: carry %r; %s (dgi: %s; dW_hh, db_hh, d(att) "
+        "relative to the sum of their terms' magnitudes, at least 1); max "
+        "|err| %r; "
+        "repeat bit-equal, padded steps zero, the carry-saving forward "
+        "bit-equal to the inference forward"
+        % (what, ec, ", ".join(errs), "max |err| / max(1, |plain|)"
+           if dtype == torch.float32 else "max bf16 ulps", worst))
+    return worst
+
+
+def phase_gru_bwd_vs_plain(device):
+    """gru_scan_bwd against gru_scan_bwd_ref at the shapes of phase 9;
+    returns the largest float32 |kernel - plain| at the slice's shape."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    err = 0.0
+    seed = SEED + 200
+    with torch.no_grad():
+        for B in (SEQ_BATCH, 1000):
+            for mode in gru.MODES:
+                for dtype in (torch.float32, torch.bfloat16):
+                    seed += 1
+                    a = check_gru_bwd_case(B, mode, dtype, seed, device)
+                    if dtype == torch.float32:
+                        err = max(err, a)
+        for mode in gru.MODES:
+            for dtype in (torch.float32, torch.bfloat16):
+                seed += 1
+                check_gru_bwd_case(WIDE_GRU["B"], mode, dtype, seed, device,
+                                   T=WIDE_GRU["T"], H=WIDE_GRU["H"])
+    return err
+
+
+def seq_labels(n, seed):
+    return np.random.default_rng(seed).integers(0, 2, n).astype(np.float32)
+
+
+def seq_train_data(model, n, seed):
+    """The bench's inputs as the flat host matrix ``fit`` takes, and
+    labels."""
+    X = seq_requests(model, n, seed, "cpu").numpy()
+    return X, seq_labels(n, seed + 1)
+
+
+def phase_seq_fit_f32(kind, variant, device):
+    """compile("adagrad") + fit + evaluate at float32: the launches of
+    each step, finite losses and AUC."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pt.set_compute_dtype("float32")
+    label = "%s %s" % (kind.upper(), variant)
+    model = seq_model(kind, variant, device)
+    model.compile("adagrad", "binary_crossentropy", metrics=["auc"])
+    check(model._sparse_specs == [], "%s: tables on the sparse path under "
+          "auto: %s" % (label, model._sparse_specs))
+    n = SEQ_BATCH * SEQ_TRAIN_STEPS
+    x, y = seq_train_data(model, n, SEED + 80)
+    losses = record_losses(model)
+    reset_counts()
+    model.fit(x, y, batch_size=SEQ_BATCH, epochs=1, verbose=0)
+    counts = read_counts()
+    for name, per_step in SEQ_TRAIN_LAUNCHES[(kind, variant)].items():
+        check(counts[name] == per_step * SEQ_TRAIN_STEPS,
+              "%s: %s launched %d times in %d train steps, want %d a step"
+              % (label, name, counts[name], SEQ_TRAIN_STEPS, per_step))
+    check(len(losses) == SEQ_TRAIN_STEPS and np.isfinite(losses).all(),
+          "%s: train losses %s" % (label, losses))
+    auc = model.evaluate(x, y, batch_size=SEQ_BATCH)["auc"]
+    check(np.isfinite(auc), "%s: evaluate gave auc %r" % (label, auc))
+    log("fit f32 %s: %d steps of %d, launches %s, per-step losses %s; "
+        "evaluate auc %r" % (label, SEQ_TRAIN_STEPS, SEQ_BATCH, counts,
+                             losses, auc))
+    return counts
+
+
+def phase_seq_fit_sparse(device):
+    """DIEN AUGRU with sparse_table_updates=True: the touched rows of the
+    three tables, the history spans' 100 id columns each included, go
+    through row_update; exactly those rows (and row 0) change."""
+    pt.set_compute_dtype("float32")
+    model = seq_model("dien", "AUGRU", device)
+    model.compile("adagrad", "binary_crossentropy",
+                  sparse_table_updates=True)
+    specs = model._sparse_specs
+    check(sorted(p for p, _, _ in specs) == sorted(
+        "embedding_dict/" + t for t in SEQ_VOCABS), "sparse tables %s"
+        % [p for p, _, _ in specs])
+    steps = 2
+    n = SEQ_BATCH * steps
+    x, y = seq_train_data(model, n, SEED + 85)
+    tables = model._tables()
+    before = {p: tables[p].detach().clone() for p, _, _ in specs}
+    reset_counts()
+    model.fit(x, y, batch_size=SEQ_BATCH, epochs=1, verbose=0)
+    counts = read_counts()
+    for name, want in (("row_update", steps), ("scatter_add_rows", steps),
+                       ("gru_scan_bwd", 2 * steps)):
+        check(counts[name] == want, "DIEN sparse: %s launched %d times in "
+              "%d steps" % (name, counts[name], steps))
+    X = torch.from_numpy(x).to(device)
+    with torch.no_grad():
+        for path, spans, rows in specs:
+            cols = [c for s, e in spans for c in range(s, e)]
+            touched = torch.zeros(rows, dtype=torch.bool, device=device)
+            touched[X[:, cols].long().reshape(-1)] = True
+            touched[0] = True
+            changed = (tables[path] != before[path]).any(dim=1)
+            check(torch.equal(changed, touched), "DIEN sparse: %s: the rows "
+                  "that changed are not the rows the batches touched" % path)
+    log("fit f32 DIEN AUGRU, sparse_table_updates=True: %d steps of %d, "
+        "launches %s; in each of %s exactly the touched rows (and row 0) "
+        "changed" % (steps, SEQ_BATCH, counts, [p for p, _, _ in specs]))
+    return counts
+
+
+def phase_seq_fit_card_vs_cpu(kind, variant, device):
+    """The same train steps on the card and on the CPU from the same
+    weights, at batches of SEQ_CPU_BATCH."""
+    pt.set_compute_dtype("float32")
+    label = "%s %s" % (kind.upper(), variant)
+    card = seq_model(kind, variant, device)
+    cpu = seq_model(kind, variant, "cpu")
+    cpu.set_weights(card.get_weights())
+    n = SEQ_CPU_BATCH * SEQ_CPU_STEPS
+    x, y = seq_train_data(card, n, SEED + 90)
+    runs = {}
+    for name, model in (("card", card), ("cpu", cpu)):
+        model.compile("adagrad", "binary_crossentropy")
+        losses = record_losses(model)
+        t0 = time.perf_counter()
+        model.fit(x, y, batch_size=SEQ_CPU_BATCH, epochs=1, verbose=0)
+        runs[name] = (losses, time.perf_counter() - t0)
+    (lc, tc), (lp, tp) = runs["card"], runs["cpu"]
+    check(len(lc) == len(lp) == SEQ_CPU_STEPS, "losses %s %s" % (lc, lp))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
+    check(rel <= LOSS_RTOL, "%s card vs CPU: losses %s vs %s" % (label, lc,
+                                                                lp))
+    log("fit card vs CPU %s (%d steps of %d): losses card %s cpu %s, max "
+        "rel diff %r (rtol %r); fit took %.2f s on the card, %.2f s on the "
+        "CPU" % (label, SEQ_CPU_STEPS, SEQ_CPU_BATCH, lc, lp, rel, LOSS_RTOL,
+                 tc, tp))
+
+
+def gru_bwd_bound(args, lengths):
+    """(ms, "operations" or "bytes") for gru_scan_bwd on ``args``: a step
+    inside a history does 3 products of H x 3H multiply-adds a row (the
+    gates recomputed, dh, dW_hh); a step past it needs none.  Bytes: the
+    gates, carries and output cotangents of those steps, h_last's
+    cotangent, the mask and the weights read once; dgi (every step),
+    dW_hh and db_hh written once."""
+    gi, whh_t, bhh, mask, _ = args
+    T, B, H3 = gi.shape
+    H = H3 // 3
+    valid = int(lengths.sum())
+    size = gi.element_size()
+    n_bytes = (valid * (H3 + 2 * H) * size + B * H * size
+               + mask.numel() * mask.element_size() + T * B * H3 * size
+               + 2 * 4 * (H * H3 + H3))
+    return bound(n_bytes, 6 * valid * H * H3)
+
+
+def phase_seq_train_timing_bf16(device):
+    """fit of DIEN AUGRU+neg and DIN Dice at bf16 (examples/s, idle share);
+    the backward kernel against its plain version and torch.nn.GRU's
+    backward, and the carry-saving forward against the inference one, in
+    device ms."""
+    log("timing on: %s" % card_line())
+    pt.set_compute_dtype("bfloat16")
+    n = SEQ_BATCH * SEQ_TRAIN_STEPS
+    for kind, variant in SEQ_TRAIN_LAUNCHES:
+        label = "%s %s" % (kind.upper(), variant)
+        model = seq_model(kind, variant, device)
+        model.compile("adagrad", "binary_crossentropy")
+        x, y = seq_train_data(model, n, SEED + 95)
+
+        def fit():
+            model.fit(x, y, batch_size=SEQ_BATCH, epochs=1, verbose=0)
+        fit_ms = time_ms(fit, reps=1, runs=3)
+        log("fit bf16 %s, host numpy input: %r examples/s (%r ms for %d "
+            "steps of %d)" % (label, n / fit_ms * 1e3, fit_ms,
+                              SEQ_TRAIN_STEPS, SEQ_BATCH))
+        busy_ms = profile_ms(fit, "fit %s" % label)
+        if busy_ms is not None:
+            log("fit bf16 %s: device busy %r ms of %r ms, idle share %r"
+                % (label, busy_ms, fit_ms, 1 - busy_ms / fit_ms))
+        del model
+
+    args, lengths, douts, dh_last = bwd_inputs(
+        SEQ_BATCH, "gru", torch.bfloat16, SEED + 300, device)
+    gi, whh_t, bhh, mask, _ = args
+    T, B, H3 = gi.shape
+    H = H3 // 3
+    with torch.no_grad():
+        _, _, carry = gru.gru_scan_with_carry(gi, whh_t, bhh, mask)
+        fwd = {
+            "inference forward": lambda: gru.gru_scan(gi, whh_t, bhh, mask),
+            "carry-saving forward": lambda: gru.gru_scan_with_carry(
+                gi, whh_t, bhh, mask),
+        }
+        fwd_ms = {k: device_ms(fn) for k, fn in fwd.items()}
+        bwd = (gi, carry, whh_t, bhh, mask, None, douts, dh_last)
+        timed = {
+            "kernel": lambda: gru.gru_scan_bwd(*bwd),
+            "plain": lambda: gru.gru_scan_bwd_ref(*bwd),
+        }
+        ms = {k: device_ms(fn) for k, fn in timed.items()}
+    # the earlier yardsticks: autograd through the plain forward, and the
+    # library's GRU (cuDNN where it takes the type) over the [B, T, H]
+    # inputs DIEN's GRUs read, every row at its full length, its own input
+    # projection included
+    lib_gru = torch.nn.GRU(H, H, batch_first=True).to(device, torch.bfloat16)
+    lib_gru.flatten_parameters()
+    x = torch.randn(B, T, H, device=device, dtype=torch.bfloat16)
+    with torch.enable_grad():
+        leaves = [a.detach().requires_grad_() for a in (gi, whh_t, bhh)]
+        outs, h_last = gru.gru_scan_ref(*leaves, mask)
+        y, _ = lib_gru(x.requires_grad_())
+        dy = torch.randn_like(y)
+        more = {
+            "autograd": lambda: torch.autograd.grad(
+                (outs, h_last), leaves, (douts, dh_last), retain_graph=True),
+            "library": lambda: torch.autograd.grad(
+                y, [x] + list(lib_gru.parameters()), dy, retain_graph=True),
+        }
+        ms.update({k: device_ms(fn) for k, fn in more.items()})
+    bound_ms, bound_by = gru_bwd_bound(args, lengths)
+    log("gru_scan_bwd (gru) at T=%d B=%d H=%d, bf16 storage, %d steps inside "
+        "the histories, device time, cold L2: kernel %r ms, plain "
+        "(gru_scan_bwd_ref) %r ms, autograd through gru_scan_ref %r ms, "
+        "library (torch.nn.GRU backward, full length) %r ms; bound %r ms "
+        "(%s)" % (T, B, H, int(lengths.sum()), ms["kernel"], ms["plain"],
+                  ms["autograd"], ms["library"], bound_ms, bound_by))
+    log("gru_scan forward at the same shape, device time, cold L2: "
+        "inference %r ms, carry-saving (training) %r ms"
+        % (fwd_ms["inference forward"], fwd_ms["carry-saving forward"]))
+    return dict(ms=ms["kernel"], plain_ms=ms["plain"],
+                library_ms=ms["library"], bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
 def main():
@@ -1309,43 +1669,48 @@ def main():
     X_all = criteo_requests(BATCH * N_BATCHES, generator, device)
 
     err = phase_kernel_vs_plain(model, X_all[:BATCH])
-    launches = phase_predict_f32(model, X_all)
+    phase_predict_f32(model, X_all)
     timing = phase_timing_bf16(model, X_all)
 
     k1_err, k2_err = phase_train_kernels_vs_plain(model, X_all[:BATCH])
-    train_launches = phase_fit_f32(model, X_all)
+    phase_fit_f32(model, X_all)
     phase_fit_card_vs_cpu(X_all)
     train_timing = phase_train_timing_bf16(model, X_all)
     del model, X_all
     torch.cuda.empty_cache()
 
     seq_errs = phase_seq_kernels_vs_plain(device)
-    seq_launches = {"gru_scan": 0, "din_attention": 0}
     for kind, variant, per_batch in (
             ("dien", "GRU", {"gru_scan": 2, "din_attention": 1}),
             ("dien", "AUGRU", {"gru_scan": 2, "din_attention": 0}),
             ("din", "dice", {"gru_scan": 0, "din_attention": 0}),
             ("din", "sigmoid", {"gru_scan": 0, "din_attention": 1})):
-        counts = phase_seq_predict_f32(kind, variant, per_batch, device)
-        for name in seq_launches:
-            seq_launches[name] += counts[name]
+        phase_seq_predict_f32(kind, variant, per_batch, device)
     seq_timing = phase_seq_timing_bf16(device)
 
+    seq_errs["gru_scan_bwd"] = phase_gru_bwd_vs_plain(device)
+    for kind, variant in SEQ_TRAIN_LAUNCHES:
+        phase_seq_fit_f32(kind, variant, device)
+    phase_seq_fit_sparse(device)
+    for kind, variant in SEQ_TRAIN_LAUNCHES:
+        phase_seq_fit_card_vs_cpu(kind, variant, device)
+    seq_timing["gru_scan_bwd"] = phase_seq_train_timing_bf16(device)
+
     log(card_line())
-    kernels = [dict(name="gather_rows", launches=launches,
-                    max_abs_err=err, ms=timing["ms"],
-                    plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
-                    bound_by=timing["bound_by"],
-                    library_ms=timing["library_ms"],
-                    **KERNELS["gather_rows"])]
-    for name, kerr in (("scatter_add_rows", k1_err), ("row_update", k2_err)):
-        kernels.append(dict(name=name, launches=train_launches[name],
-                            max_abs_err=kerr, **train_timing[name],
-                            **KERNELS[name]))
-    for name in ("gru_scan", "din_attention"):
-        kernels.append(dict(name=name, launches=seq_launches[name],
-                            max_abs_err=seq_errs[name], **seq_timing[name],
-                            **KERNELS[name]))
+    measured = {"gather_rows": dict(max_abs_err=err, **timing),
+                "scatter_add_rows": dict(max_abs_err=k1_err,
+                                         **train_timing["scatter_add_rows"]),
+                "row_update": dict(max_abs_err=k2_err,
+                                   **train_timing["row_update"])}
+    for name in ("gru_scan", "gru_scan_bwd", "din_attention"):
+        measured[name] = dict(max_abs_err=seq_errs[name], **seq_timing[name])
+    kernels = []
+    for name in ("gather_rows", "scatter_add_rows", "row_update", "gru_scan",
+                 "gru_scan_bwd", "din_attention"):
+        check(MAIN_PATH_LAUNCHES[name] > 0, "%s never launched on the main "
+              "path" % name)
+        kernels.append(dict(name=name, launches=MAIN_PATH_LAUNCHES[name],
+                            **measured[name], **KERNELS[name]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

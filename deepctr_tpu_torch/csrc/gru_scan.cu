@@ -1,5 +1,5 @@
 // Masked GRU / AGRU / AUGRU recurrence over hoisted input gates, for
-// Hopper (sm_90a).  Forward only.
+// Hopper (sm_90a).  The forward; its backward is csrc/gru_scan_bwd.cu.
 //
 //   gh = h @ W_hh^T + b_hh                        (torch gate order r|z|n)
 //   r = sigmoid(i_r + h_r), z = sigmoid(i_z + h_z), n = tanh(i_n + r * h_n)
@@ -10,7 +10,12 @@
 //
 // for t = 0 .. T-1 and every batch row, with h_0 = 0.  The gate math and
 // the carry h are float32; only `outs` and `h_last` are rounded to the
-// storage type (float32 or bfloat16), as the TPU kernel does.
+// storage type (float32 or bfloat16), as the TPU kernel does.  For
+// training, the forward also writes the carries `carry[t] = h_{t-1}`
+// ([T, B, H], rounded to the storage type, as `_make_fwd_kernel` writes
+// them with save_carry), the one residual the backward cannot recompute;
+// at inference the caller passes no carry buffer and that store is
+// compiled out.
 //
 // What it replaces: the TPU kernel deepctr_tpu/ops/pallas_gru.py:_fwd_call
 // (_make_fwd_kernel), the whole recurrence in one pallas_call whose grid
@@ -95,11 +100,12 @@ bool w_fits(int H) {
 }
 
 // MODE: 0 gru, 1 agru, 2 augru; W_SHARED: W_hh^T copied into shared
-// memory (else read from device memory).  gi is addressed as
-// gi[t * gi_st + b * gi_sb + c], outs as outs[t * out_st + b * out_sb + j];
-// mask is [B, T] bytes (0 or 1), att [B, T] float32 or bfloat16
-// (att_bf16), W_hh^T [H, 3H] and b_hh [3H] float32.
-template <typename S, int MODE, bool W_SHARED>
+// memory (else read from device memory); CARRY: write carry [T, B, H].
+// gi is addressed as gi[t * gi_st + b * gi_sb + c], outs as
+// outs[t * out_st + b * out_sb + j]; mask is [B, T] bytes (0 or 1), att
+// [B, T] float32 or bfloat16 (att_bf16), W_hh^T [H, 3H] and b_hh [3H]
+// float32.
+template <typename S, int MODE, bool W_SHARED, bool CARRY>
 __global__ void __launch_bounds__(kMaxUnits)
 gru_scan_kernel(const S* __restrict__ gi, long long gi_st, long long gi_sb,
                 const float* __restrict__ whh_t,
@@ -107,7 +113,8 @@ gru_scan_kernel(const S* __restrict__ gi, long long gi_st, long long gi_sb,
                 const unsigned char* __restrict__ mask,
                 const void* __restrict__ att, int att_bf16, int B, int T,
                 int H, S* __restrict__ outs, long long out_st,
-                long long out_sb, S* __restrict__ h_last) {
+                long long out_sb, S* __restrict__ h_last,
+                S* __restrict__ carry) {
   extern __shared__ float smem[];
   const int H3 = 3 * H;
   float* hs = smem;                 // [rows][H]
@@ -146,6 +153,9 @@ gru_scan_kernel(const S* __restrict__ gi, long long gi_st, long long gi_sb,
   __syncthreads();
   for (int t = 0; t < T; ++t) {
     const float ir = nr, iz = nz, in = nn, m = nm, a = na;
+    if (CARRY && active) {
+      store_f(carry + (static_cast<long long>(t) * B + b) * H + j, h);
+    }
     if (active && t + 1 < T) {
       const S* gn = g + (t + 1) * gi_st;
       nr = load_f(gn);
@@ -188,16 +198,16 @@ gru_scan_kernel(const S* __restrict__ gi, long long gi_st, long long gi_sb,
   if (active) store_f(h_last + b * H + j, h);
 }
 
-template <typename S, int MODE, bool W_SHARED>
+template <typename S, int MODE, bool W_SHARED, bool CARRY>
 int launch(const void* gi, long long gi_st, long long gi_sb,
            const float* whh_t, const float* bhh, const unsigned char* mask,
            const void* att, int att_bf16, int B, int T, int H, void* outs,
-           long long out_st, long long out_sb, void* h_last,
+           long long out_st, long long out_sb, void* h_last, void* carry,
            cudaStream_t stream) {
   const int rows = rows_per_block(H);
   const size_t smem =
       tile_bytes(H) + (W_SHARED ? sizeof(float) * 3 * H * H : 0);
-  auto kernel = gru_scan_kernel<S, MODE, W_SHARED>;
+  auto kernel = gru_scan_kernel<S, MODE, W_SHARED, CARRY>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -206,24 +216,42 @@ int launch(const void* gi, long long gi_st, long long gi_sb,
   kernel<<<blocks, rows * H, smem, stream>>>(
       static_cast<const S*>(gi), gi_st, gi_sb, whh_t, bhh, mask, att,
       att_bf16, B, T, H, static_cast<S*>(outs), out_st, out_sb,
-      static_cast<S*>(h_last));
+      static_cast<S*>(h_last), static_cast<S*>(carry));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename S, int MODE>
+template <typename S, int MODE, bool CARRY>
 int dispatch_w(const void* gi, long long gi_st, long long gi_sb,
                const float* whh_t, const float* bhh,
                const unsigned char* mask, const void* att, int att_bf16,
                int B, int T, int H, void* outs, long long out_st,
-               long long out_sb, void* h_last, cudaStream_t stream) {
+               long long out_sb, void* h_last, void* carry,
+               cudaStream_t stream) {
   if (w_fits(H)) {
-    return launch<S, MODE, true>(gi, gi_st, gi_sb, whh_t, bhh, mask, att,
-                                 att_bf16, B, T, H, outs, out_st, out_sb,
-                                 h_last, stream);
+    return launch<S, MODE, true, CARRY>(gi, gi_st, gi_sb, whh_t, bhh, mask,
+                                        att, att_bf16, B, T, H, outs, out_st,
+                                        out_sb, h_last, carry, stream);
   }
-  return launch<S, MODE, false>(gi, gi_st, gi_sb, whh_t, bhh, mask, att,
-                                att_bf16, B, T, H, outs, out_st, out_sb,
-                                h_last, stream);
+  return launch<S, MODE, false, CARRY>(gi, gi_st, gi_sb, whh_t, bhh, mask,
+                                       att, att_bf16, B, T, H, outs, out_st,
+                                       out_sb, h_last, carry, stream);
+}
+
+template <typename S, int MODE>
+int dispatch_carry(const void* gi, long long gi_st, long long gi_sb,
+                   const float* whh_t, const float* bhh,
+                   const unsigned char* mask, const void* att, int att_bf16,
+                   int B, int T, int H, void* outs, long long out_st,
+                   long long out_sb, void* h_last, void* carry,
+                   cudaStream_t stream) {
+  if (carry != nullptr) {
+    return dispatch_w<S, MODE, true>(gi, gi_st, gi_sb, whh_t, bhh, mask, att,
+                                     att_bf16, B, T, H, outs, out_st, out_sb,
+                                     h_last, carry, stream);
+  }
+  return dispatch_w<S, MODE, false>(gi, gi_st, gi_sb, whh_t, bhh, mask, att,
+                                    att_bf16, B, T, H, outs, out_st, out_sb,
+                                    h_last, carry, stream);
 }
 
 template <typename S>
@@ -231,20 +259,21 @@ int dispatch_mode(int mode, const void* gi, long long gi_st, long long gi_sb,
                   const float* whh_t, const float* bhh,
                   const unsigned char* mask, const void* att, int att_bf16,
                   int B, int T, int H, void* outs, long long out_st,
-                  long long out_sb, void* h_last, cudaStream_t stream) {
+                  long long out_sb, void* h_last, void* carry,
+                  cudaStream_t stream) {
   switch (mode) {
     case 0:
-      return dispatch_w<S, 0>(gi, gi_st, gi_sb, whh_t, bhh, mask, att,
-                              att_bf16, B, T, H, outs, out_st, out_sb,
-                              h_last, stream);
+      return dispatch_carry<S, 0>(gi, gi_st, gi_sb, whh_t, bhh, mask, att,
+                                  att_bf16, B, T, H, outs, out_st, out_sb,
+                                  h_last, carry, stream);
     case 1:
-      return dispatch_w<S, 1>(gi, gi_st, gi_sb, whh_t, bhh, mask, att,
-                              att_bf16, B, T, H, outs, out_st, out_sb,
-                              h_last, stream);
+      return dispatch_carry<S, 1>(gi, gi_st, gi_sb, whh_t, bhh, mask, att,
+                                  att_bf16, B, T, H, outs, out_st, out_sb,
+                                  h_last, carry, stream);
     case 2:
-      return dispatch_w<S, 2>(gi, gi_st, gi_sb, whh_t, bhh, mask, att,
-                              att_bf16, B, T, H, outs, out_st, out_sb,
-                              h_last, stream);
+      return dispatch_carry<S, 2>(gi, gi_st, gi_sb, whh_t, bhh, mask, att,
+                                  att_bf16, B, T, H, outs, out_st, out_sb,
+                                  h_last, carry, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -253,19 +282,20 @@ int dispatch_mode(int mode, const void* gi, long long gi_st, long long gi_sb,
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success), or
-// -2 for H > 1024.  dtype: 0 float32, 1 bfloat16 (gi, outs, h_last);
-// mode: 0 gru, 1 agru, 2 augru (att, float32 or bfloat16 as att_bf16
-// says, is read only for 1 and 2).  mask is [B, T] bytes (0 or 1).
-// Strides are in elements.  The caller checks shapes, types and
-// contiguity of the last dimension, and allocates outs and h_last [B, H]
-// (contiguous).
+// -2 for H > 1024.  dtype: 0 float32, 1 bfloat16 (gi, outs, h_last,
+// carry); mode: 0 gru, 1 agru, 2 augru (att, float32 or bfloat16 as
+// att_bf16 says, is read only for 1 and 2).  mask is [B, T] bytes (0 or
+// 1).  Strides are in elements.  The caller checks shapes, types and
+// contiguity of the last dimension, and allocates outs, h_last [B, H]
+// (contiguous) and, for training, carry [T, B, H] (contiguous; null at
+// inference).
 extern "C" int gru_scan_fwd(int dtype, int mode, const void* gi,
                             long long gi_st, long long gi_sb,
                             const float* whh_t, const float* bhh,
                             const unsigned char* mask, const void* att,
                             int att_bf16, int B, int T, int H, void* outs,
                             long long out_st, long long out_sb, void* h_last,
-                            void* stream) {
+                            void* carry, void* stream) {
   if (H > kMaxUnits) return kDoesNotFit;
   if (B <= 0 || T <= 0 || H <= 0 || (mode != 0 && att == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -274,12 +304,12 @@ extern "C" int gru_scan_fwd(int dtype, int mode, const void* gi,
   if (dtype == 0) {
     return dispatch_mode<float>(mode, gi, gi_st, gi_sb, whh_t, bhh, mask, att,
                                 att_bf16, B, T, H, outs, out_st, out_sb,
-                                h_last, s);
+                                h_last, carry, s);
   }
   if (dtype == 1) {
     return dispatch_mode<__nv_bfloat16>(mode, gi, gi_st, gi_sb, whh_t, bhh,
                                         mask, att, att_bf16, B, T, H, outs,
-                                        out_st, out_sb, h_last, s);
+                                        out_st, out_sb, h_last, carry, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -9,34 +9,73 @@ import torch
 from torch import nn
 
 
+class BatchNorm(nn.Module):
+    """flax's ``nn.BatchNorm`` over every axis but the last, as the JAX
+    package builds it (``momentum=0.9``): what Dice normalises with, and a
+    ``DNN`` layer's ``bn_<i>`` with ``use_bn``.
+
+    Training normalises with the batch's own statistics, from flax 0.12's
+    ``_compute_stats``: in float32, ``mean = E[x]`` and the biased
+    ``var = max(0, E[x^2] - E[x]^2)`` over every row the batch holds (a
+    sequence's padded steps and a fit's padded tail included), and the
+    gradient flows through both.  Each training call then moves the
+    running buffers ``mean`` and ``var`` (the JAX package's
+    ``batch_stats/.../{mean,var}``) outside autograd, ``ra = momentum * ra
+    + (1 - momentum) * batch``.  Inference normalises with them.  Either
+    way ``y = (x - mean) * rsqrt(var + epsilon)``, then ``* scale + bias``
+    where the layer has them (parameters ``scale`` and ``bias``, from 1 and
+    0).  Returns float32, as flax does for float32 parameters."""
+
+    def __init__(self, features, epsilon=1e-5, momentum=0.9, use_scale=True,
+                 use_bias=True, device=None):
+        super().__init__()
+        self.epsilon = epsilon
+        self.momentum = momentum
+        self.register_buffer("mean", torch.zeros(features, device=device))
+        self.register_buffer("var", torch.ones(features, device=device))
+        self.scale = (nn.Parameter(torch.ones(features, device=device))
+                      if use_scale else None)
+        self.bias = (nn.Parameter(torch.zeros(features, device=device))
+                     if use_bias else None)
+
+    def forward(self, x, training=False):
+        x32 = x.float()
+        if training:
+            axes = tuple(range(x.dim() - 1))
+            mean = torch.mean(x32, dim=axes)
+            var = torch.clamp_min(torch.mean(x32 * x32, dim=axes)
+                                  - mean * mean, 0.0)
+            with torch.no_grad():
+                mom = self.momentum
+                self.mean.copy_(mom * self.mean + (1 - mom) * mean)
+                self.var.copy_(mom * self.var + (1 - mom) * var)
+        else:
+            mean, var = self.mean, self.var
+        y = (x32 - mean) * torch.rsqrt(var + self.epsilon)
+        if self.scale is not None:
+            y = y * self.scale
+        if self.bias is not None:
+            y = y + self.bias
+        return y
+
+
 class Dice(nn.Module):
     """Data-adaptive activation from DIN: ``alpha * (1 - p) * x + p * x``
     with ``p = sigmoid(BN(x))``, BatchNorm over every axis but the last,
-    without scale or bias.
-
-    Inference only: BN normalises with the running statistics, the buffers
-    ``bn.mean`` and ``bn.var`` (the JAX package's ``batch_stats/.../bn/
-    {mean,var}``), ``(x - mean) * rsqrt(var + epsilon)``.  Training mode,
-    which updates them, comes with the DIN/DIEN training slice and
-    raises."""
+    without scale or bias (:class:`BatchNorm` with ``epsilon=1e-8``, the
+    JAX package's ``Dice``): batch statistics in training, which move the
+    running buffers ``bn.mean`` and ``bn.var``, those buffers at
+    inference.  Computed in float32, returned in x's dtype."""
 
     def __init__(self, emb_size, epsilon=1e-8, device=None):
         super().__init__()
-        self.epsilon = epsilon
         self.alpha = nn.Parameter(torch.zeros(emb_size, device=device))
-        self.bn = nn.Module()
-        self.bn.register_buffer("mean", torch.zeros(emb_size, device=device))
-        self.bn.register_buffer("var", torch.ones(emb_size, device=device))
+        self.bn = BatchNorm(emb_size, epsilon=epsilon, use_scale=False,
+                            use_bias=False, device=device)
 
     def forward(self, x, training=False):
-        if training:
-            raise NotImplementedError(
-                "Dice in training mode is not ported yet (it comes with the "
-                "DIN/DIEN training slice)")
         x32 = x.float()
-        x_norm = (x32 - self.bn.mean) * torch.rsqrt(self.bn.var
-                                                    + self.epsilon)
-        x_p = torch.sigmoid(x_norm)
+        x_p = torch.sigmoid(self.bn(x32, training))
         return (self.alpha * (1.0 - x_p) * x32 + x_p * x32).to(x.dtype)
 
 

@@ -14,7 +14,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import config
-from .activation import activation_layer
+from .activation import BatchNorm, activation_layer
 
 # flax's lecun_normal draws a normal truncated at two standard deviations
 # and divides the scale by that truncated normal's own standard deviation
@@ -57,13 +57,16 @@ def _dense(in_features, features, init_std=None, use_bias=True,
 
 
 class DNN(nn.Module):
-    """MLP tower: [Dense -> activation] * L.
+    """MLP tower: [Dense -> (BatchNorm) -> activation] * L.
 
     (counterpart of ``deepctr_tpu/layers/core.py:25-54``; only kernel
     weights are drawn from normal(init_std), biases start at 0.)  An
     activation with parameters (Dice, PReLU) is one module a layer, named
-    ``Dice_<i>``/``PReLU_<i>`` as flax names them.  Batch norm and dropout
-    are not ported yet and raise.
+    ``Dice_<i>``/``PReLU_<i>`` as flax names them.  With ``use_bn`` each
+    dense layer is followed by ``bn_<i>``, flax's ``nn.BatchNorm(momentum=
+    0.9, epsilon=1e-5)`` with scale and bias (:class:`BatchNorm`): batch
+    statistics in training, the running ones at inference.  Dropout is not
+    ported yet and raises.
     """
 
     def __init__(self, inputs_dim, hidden_units, activation="relu",
@@ -72,18 +75,20 @@ class DNN(nn.Module):
         super().__init__()
         if len(hidden_units) == 0:
             raise ValueError("hidden_units is empty!!")
-        if use_bn:
-            raise NotImplementedError("DNN(use_bn=True) is not ported yet")
         if dropout_rate > 0:
             raise NotImplementedError("DNN dropout is not ported yet")
         self.hidden_units = tuple(hidden_units)
         self.l2_reg = l2_reg
+        self.use_bn = use_bn
         dims = (inputs_dim,) + self.hidden_units
         self.activations = []
         for i, units in enumerate(self.hidden_units):
             self.add_module("dense_%d" % i,
                             _dense(dims[i], units, init_std, device=device,
                                    generator=generator))
+            if use_bn:
+                self.add_module("bn_%d" % i, BatchNorm(units, epsilon=1e-5,
+                                                       device=device))
             act = activation_layer(activation, hidden_size=units,
                                    dice_dim=dice_dim, device=device)
             if isinstance(act, nn.Module):
@@ -92,7 +97,10 @@ class DNN(nn.Module):
 
     def forward(self, x, training=False):
         for i, act in enumerate(self.activations):
-            x = act(getattr(self, "dense_%d" % i)(x), training)
+            x = getattr(self, "dense_%d" % i)(x)
+            if self.use_bn:
+                x = getattr(self, "bn_%d" % i)(x, training)
+            x = act(x, training)
         return x
 
 

@@ -3,10 +3,11 @@
 Counterpart of ``deepctr_tpu/layers/sequence.py``.  Histories are padded
 to a static ``maxlen`` and masked by their lengths.  The GRU family hoists
 the input projection out of the recurrence into one matmul and runs the
-masked recurrence through ``ops/gru.py:gru_scan`` (the CUDA kernel on the
-card); ``AttentionSequencePoolingLayer`` runs the fused attention kernel
-(``ops/attention.py``) at inference.  ``KMaxPooling`` comes with the rest
-of the zoo.
+masked recurrence through ``ops/gru.py:gru_scan`` (on the card the CUDA
+kernel, and in training its backward kernel);
+``AttentionSequencePoolingLayer`` runs the fused attention kernel
+(``ops/attention.py``) at inference and the composition in training.
+``KMaxPooling`` comes with the rest of the zoo.
 """
 
 import torch
@@ -158,7 +159,9 @@ def _gru_recurrence(gi, module, lengths, att, mode):
     """``gru_scan`` over hoisted gates gi [T, B, 3H] with ``module``'s
     recurrent weights (rounded to gi's dtype, as the JAX layer gives them)
     and the mask of ``lengths`` [B]: -> (outputs [B, T, H], final state
-    [B, H])."""
+    [B, H]).  Under autograd the float32 copy of W_hh^T is built afresh,
+    so the way back rounds dW_hh to gi's dtype, as the JAX wrapper does
+    (``pallas_gru.py:335``); the scores' gradient comes back as [B, T]."""
     T, B, _ = gi.shape
     dtype = gi.dtype
     pos = torch.arange(T, device=gi.device)[None, :]

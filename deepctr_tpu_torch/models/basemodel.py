@@ -17,10 +17,12 @@ A train step, per batch:
    sort (``torch.unique``) over all sparse tables;
 2. the forward, whose gathers run without a graph back to the tables
    (``EmbeddingDict._capture``): the gathered rows are leaves;
-3. loss + the eager L1/L2 of the dense parameters, ``backward``;
+3. loss + the eager L1/L2 of the dense parameters + the model's auxiliary
+   term (DIEN's, ``aux_loss``), ``backward``;
 4. one ``scatter_add_rows`` launch a gather: each row's cotangent goes
    into its dense table's ``[V, W]`` gradient, or into the ``[n, W]``
-   gradient of its sparse table's touched rows;
+   gradient of its sparse table's touched rows (a ``VarLenSparseFeat``
+   is ``maxlen`` fields of its table);
 5. the dense optimizer on the dense parameters, and one ``row_update``
    launch on the touched rows of every sparse table (lazy L2 and the
    optimizer's row step, in place).
@@ -215,6 +217,9 @@ class BaseModel(BaseModule):
         self.stop_training = False
         self.history = History()
         self.optim = None
+        # a training forward's auxiliary loss term (DIEN's, scaled by its
+        # alpha), which the train step adds to the total loss; else None
+        self.aux_loss = None
         # per-group regularization rules (path_regex, l1, l2, part), with
         # paths the JAX package's; part: None = whole parameter,
         # "deep"/"wide" = the column split of a fused table
@@ -513,14 +518,18 @@ class BaseModel(BaseModule):
         captures = {}
         for prefix, ed in self._embedding_dicts():
             ed._capture = captures.setdefault(prefix, [])
+        self.aux_loss = None
         try:
             y_pred = self(X, training=True)
         finally:
             for _, ed in self._embedding_dicts():
                 ed._capture = None
+            aux, self.aux_loss = self.aux_loss, None
         reg, _ = self._ensure_compiled()
         data_loss = self._compute_loss(y_pred.float(), y, sw)
         total = data_loss + self._reg_loss(reg)
+        if aux is not None:
+            total = total + aux
         for p in self._dense_opt.params:
             p.grad = None
         total.backward()
@@ -550,20 +559,25 @@ class BaseModel(BaseModule):
 
     def _scatter_targets(self, X, prefix, fcs, tables, touched, dense_target):
         """``scatter_add_rows``'s targets and ``[B, F]`` rows for the fields
-        ``fcs`` of one gather: ``dense_target(table)`` indexed by id for a
-        dense table, the touched rows' gradient indexed by slot for a
-        sparse one."""
+        of one gather of the columns ``fcs``, in the gather's field order
+        (a ``VarLenSparseFeat`` is ``maxlen`` fields, one an id column):
+        ``dense_target(table)`` indexed by id for a dense table, the
+        touched rows' gradient indexed by slot for a sparse one."""
         targets, cols, fields, slot_cols = [], [], [], []
-        for f, fc in enumerate(fcs):
+        for fc in fcs:
             path = prefix + fc.embedding_name
-            col = self.feature_index[fc.name][0]
-            cols.append(col)
-            if touched is not None and path in touched.index:
-                targets.append(touched.grads[touched.index[path]])
-                fields.append(f)
-                slot_cols.append(touched.col_index[col])
-            else:
-                targets.append(dense_target(tables[path]))
+            start, end = self.feature_index[fc.name]
+            if not isinstance(fc, VarLenSparseFeat):
+                end = start + 1
+            sparse = touched is not None and path in touched.index
+            target = (touched.grads[touched.index[path]] if sparse
+                      else dense_target(tables[path]))
+            for col in range(start, end):
+                if sparse:
+                    fields.append(len(cols))
+                    slot_cols.append(touched.col_index[col])
+                cols.append(col)
+                targets.append(target)
         idx = X[:, cols].to(torch.int32).to(torch.int64)
         if fields:
             idx[:, fields] = touched.slots[:, slot_cols]
@@ -626,10 +640,9 @@ class BaseModel(BaseModule):
         sample 0 at sample weight 0.  The shuffle is
         ``np.random.default_rng(seed).permutation``, as the JAX package's.
 
-        Not ported yet, and raising: a model with sequence features, a
-        tensor or a callable ``x`` (device-resident and streaming fits),
-        ``profile`` and ``steps_per_epoch``."""
-        self._check_trainable()
+        Not ported yet, and raising: a tensor or a callable ``x``
+        (device-resident and streaming fits), ``profile`` and
+        ``steps_per_epoch``."""
         if isinstance(x, torch.Tensor):
             raise NotImplementedError("fit on a device tensor is not ported "
                                       "yet: pass host arrays")
@@ -767,20 +780,8 @@ class BaseModel(BaseModule):
         callbacks.on_train_end()
         return self.history
 
-    def _check_trainable(self):
-        varlen = [f.name for f in self.dnn_feature_columns
-                  + self.linear_feature_columns
-                  if isinstance(f, VarLenSparseFeat)]
-        if varlen:
-            raise NotImplementedError(
-                "training a model with sequence features (%s) is not ported "
-                "yet: it comes with the DIN/DIEN training slice (the GRU "
-                "scan's backward kernel, Dice in training mode and DIEN's "
-                "auxiliary loss); predict runs" % ", ".join(varlen))
-
     def evaluate(self, x, y, batch_size=256):
         """``{metric: value}`` over the predictions of ``x``."""
-        self._check_trainable()
         pred_ans = self.predict(x, batch_size)
         y = np.asarray(y)
         return {name: metric_fun(y.reshape(-1), pred_ans.reshape(-1))

@@ -1,13 +1,14 @@
-"""DIEN (Zhou et al., 2019): interest extractor GRU -> interest evolving
-GRU (GRU/AIGRU/AGRU/AUGRU) -> DNN.
+"""DIEN (Zhou et al., 2019): interest extractor GRU (+ auxiliary loss on
+negative samples) -> interest evolving GRU (GRU/AIGRU/AGRU/AUGRU) -> DNN.
 
-Counterpart of ``deepctr_tpu/models/dien.py``, for inference.  Both GRUs
-run the masked recurrence of ``ops/gru.py`` (rows with ``length == 0``
-keep a zero state), and the ``GRU`` variant's attention readout the fused
-kernel of ``ops/attention.py``.  The auxiliary loss over negative samples
-is a training term: with ``use_negsampling`` its network exists, so that
-weights load, but ``predict`` neither runs it nor gathers the
-``neg_hist_*`` sequences it reads.
+Counterpart of ``deepctr_tpu/models/dien.py``.  Both GRUs run the masked
+recurrence of ``ops/gru.py`` (rows with ``length == 0`` keep a zero state;
+on the card its forward and backward kernels), and the ``GRU`` variant's
+attention readout the fused kernel of ``ops/attention.py`` at inference.
+With ``use_negsampling`` a training forward also gathers the
+``neg_hist_*`` sequences (in the same gather launch as the other fields)
+and computes the auxiliary loss, which the train step adds to the total
+loss scaled by ``alpha``; ``predict`` neither runs it nor gathers them.
 """
 
 import torch
@@ -24,8 +25,9 @@ from ..layers.sequence import (AttentionSequencePoolingLayer, DynamicGRU,
 
 
 class InterestExtractor(nn.Module):
-    """GRU over the behaviour sequence, and the auxiliary network that its
-    training loss feeds (``deepctr_tpu/models/dien.py:27-74``)."""
+    """GRU over the behaviour sequence, and the auxiliary BCE that pushes
+    state t to tell the click at t + 1 from the non-click
+    (``deepctr_tpu/models/dien.py:27-74``)."""
 
     def __init__(self, input_size, use_neg=False, init_std=1e-3, device=None,
                  generator=None):
@@ -38,14 +40,38 @@ class InterestExtractor(nn.Module):
                                      activation="sigmoid", init_std=init_std,
                                      device=device, generator=generator)
 
-    def forward(self, keys, keys_length, training=False):
-        """keys [B, T, H], keys_length [B] -> interests [B, T, H]."""
-        if training and self.use_neg:
-            raise NotImplementedError(
-                "DIEN's auxiliary loss is not ported yet (it comes with the "
-                "DIEN training slice)")
+    def forward(self, keys, keys_length, neg_keys=None, training=False):
+        """keys [B, T, H], keys_length [B], neg_keys [B, T, H] or None ->
+        (interests [B, T, H], auxiliary loss: a float32 scalar, 0 without
+        negative samples)."""
         interests, _ = self.gru(keys, keys_length, training=training)
-        return interests
+        aux_loss = torch.zeros((), dtype=torch.float32, device=keys.device)
+        if self.use_neg and neg_keys is not None:
+            aux_loss = self._auxiliary_loss(
+                interests[:, :-1, :], keys[:, 1:, :], neg_keys[:, 1:, :],
+                keys_length - 1, training)
+        return interests, aux_loss
+
+    def _auxiliary_loss(self, states, click_seq, noclick_seq, keys_length,
+                        training):
+        """The mean BCE over the valid (state, next behaviour) pairs, the
+        clicks and the non-clicks, each through its own pass of the
+        auxiliary network (``deepctr_tpu/models/dien.py:53-74``)."""
+        T = states.shape[1]
+        pos = torch.arange(T, device=states.device)[None, :]
+        mask = (pos < torch.clamp_min(keys_length, 0).reshape(-1, 1)).to(
+            torch.float32)
+        click_p = self.auxiliary_net(torch.cat(
+            [states, click_seq.to(states.dtype)], dim=-1), training)[..., 0]
+        noclick_p = self.auxiliary_net(torch.cat(
+            [states, noclick_seq.to(states.dtype)], dim=-1),
+            training)[..., 0]
+        eps = 1e-7
+        click_p = torch.clamp(click_p.float(), eps, 1 - eps)
+        noclick_p = torch.clamp(noclick_p.float(), eps, 1 - eps)
+        losses = -(torch.log(click_p) + torch.log(1.0 - noclick_p)) * mask
+        denom = 2.0 * torch.clamp_min(torch.sum(mask), 1.0)
+        return torch.sum(losses) / denom
 
 
 class InterestEvolving(nn.Module):
@@ -101,10 +127,9 @@ class InterestEvolving(nn.Module):
 
 class DIEN(BaseModel):
     """Instantiates DIEN with the JAX package's constructor.  Runs on
-    ``device`` (default ``"cuda"``); ``predict`` only: training a model
-    with sequence features comes with the DIN/DIEN training slice, and
-    with it ``alpha``, the auxiliary loss's weight.
-    ``mesh``/``shard_embeddings`` are not ported yet and raise."""
+    ``device`` (default ``"cuda"``); ``predict``, ``fit`` and ``evaluate``,
+    the auxiliary loss weighed by ``alpha``.  ``mesh``/``shard_embeddings``
+    are not ported yet and raise."""
 
     def __init__(self, dnn_feature_columns, history_feature_list,
                  gru_type="GRU", use_negsampling=False, alpha=1.0,
@@ -135,7 +160,15 @@ class DIEN(BaseModel):
         self.history_feature_columns = [
             f for f in self.varlen_sparse_feature_columns
             if f.name in self.history_fc_names]
-        # the lookups of one predict (no neg_hist_*), in one gather launch
+        self.use_negsampling = use_negsampling
+        self.alpha = alpha
+        self.neg_history_fc_names = ["neg_" + x
+                                     for x in self.history_fc_names]
+        self.neg_history_feature_columns = [
+            f for f in self.varlen_sparse_feature_columns
+            if f.name in self.neg_history_fc_names]
+        # the lookups of one predict (no neg_hist_*), in one gather launch;
+        # a training forward with negative sampling adds neg_hist_*
         self._gather_columns = (self.sparse_feature_columns
                                 + self.history_feature_columns)
 
@@ -164,7 +197,9 @@ class DIEN(BaseModel):
 
     def forward(self, X, training=False):
         index, ed = self.feature_index, self.embedding_dict
-        rows = ed.gather(X, index, self._gather_columns)
+        with_neg = training and self.use_negsampling
+        rows = ed.gather(X, index, self._gather_columns + (
+            self.neg_history_feature_columns if with_neg else []))
         query_emb = torch.cat(embedding_lookup(
             X, ed, index, self.sparse_feature_columns,
             return_feat_list=self.history_feature_list, to_list=True,
@@ -177,8 +212,16 @@ class DIEN(BaseModel):
             X, index, [f.length_name
                        for f in self.varlen_sparse_feature_columns
                        if f.length_name is not None])[:, 0]
-        masked_interest = self.interest_extractor(keys_emb, keys_length,
-                                                  training=training)
+        neg_keys_emb = None
+        if with_neg:
+            neg_keys_emb = torch.cat(embedding_lookup(
+                X, ed, index, self.neg_history_feature_columns,
+                return_feat_list=self.neg_history_fc_names, to_list=True,
+                rows=rows), dim=-1)                            # [B, T, H]
+        masked_interest, aux_loss = self.interest_extractor(
+            keys_emb, keys_length, neg_keys_emb, training=training)
+        if with_neg:
+            self.aux_loss = self.alpha * aux_loss
         hist = self.interest_evolution(query_emb, masked_interest,
                                        keys_length, training)  # [B, H]
         deep_input_emb = torch.cat(embedding_lookup(

@@ -21,9 +21,10 @@ from ..layers.sequence import AttentionSequencePoolingLayer
 
 class DIN(BaseModel):
     """Instantiates DIN with the JAX package's constructor.  Runs on
-    ``device`` (default ``"cuda"``); ``predict`` only: training a model
-    with sequence features comes with the DIN/DIEN training slice.
-    ``mesh``/``shard_embeddings`` are not ported yet and raise."""
+    ``device`` (default ``"cuda"``); ``predict``, ``fit`` and ``evaluate``
+    (a training forward runs Dice, the default attention activation, on
+    its batch statistics).  ``mesh``/``shard_embeddings`` are not ported
+    yet and raise."""
 
     def __init__(self, dnn_feature_columns, history_feature_list,
                  dnn_use_bn=False, dnn_hidden_units=(256, 128),

@@ -2,9 +2,9 @@
 a TPU kernel, a hand-written CUDA kernel that runs on CUDA tensors.  Read
 launch counts from the kernel's own module (``ops.gather.GATHER_LAUNCHES``,
 ``ops.scatter_add.SCATTER_ADD_LAUNCHES``, ``ops.row_update.
-ROW_UPDATE_LAUNCHES``, ``ops.gru.GRU_SCAN_LAUNCHES``, ``ops.attention.
-DIN_ATTENTION_LAUNCHES``): a name imported from it is a copy taken at
-import time.  The training kernels live in ``ops.scatter_add`` and
+ROW_UPDATE_LAUNCHES``, ``ops.gru.GRU_SCAN_LAUNCHES`` and
+``GRU_SCAN_BWD_LAUNCHES``, ``ops.attention.DIN_ATTENTION_LAUNCHES``): a
+name imported from it is a copy taken at import time.  The training kernels live in ``ops.scatter_add`` and
 ``ops.row_update``, the sequence kernels in ``ops.gru`` and
 ``ops.attention``."""
 

@@ -15,12 +15,14 @@ JAX leaf                               port key
 ``dnn_linear/kernel``                  ``dnn_linear.weight`` (transposed)
 ``out/bias``                           ``out.bias``
 ``.../Dice_<i>/alpha``                 ``....Dice_<i>.alpha``
+``.../bn_<i>/{scale,bias}``            ``....bn_<i>.{scale,bias}``
 ``.../gru/weight_ih`` (and ``_hh``)    ``....gru.weight_ih`` (not transposed)
 =====================================  =====================================
 
 ``batch_stats`` leaves map the same way onto buffers: Dice's running
-``.../Dice_<i>/bn/{mean,var}`` onto ``....Dice_<i>.bn.{mean,var}``.  A
-DNN's batch norm (``.../bn_<i>/...``) is not ported yet and raises.
+``.../Dice_<i>/bn/{mean,var}`` onto ``....Dice_<i>.bn.{mean,var}``, a DNN
+batch norm's ``.../bn_<i>/{mean,var}`` onto ``....bn_<i>.{mean,var}``;
+``jax_batch_stats`` reads the port's buffers back as that tree.
 
 Tables that the JAX package stores packed (``[ceil(V/pack), 128]`` with
 ``pack = 128 // W``, see ``deepctr_tpu/inputs.py:78-83``) are unpacked to
@@ -32,12 +34,7 @@ parameter, so that patterns written for the JAX package work unchanged.
 Uses numpy only.
 """
 
-import re
-
 import numpy as np
-
-# a DNN's batch norm layer (deepctr_tpu/layers/core.py:45-48)
-_DNN_BN = re.compile(r"(^|/)bn_\d+/")
 
 
 def unpack_table(stored, vocab, width):
@@ -96,10 +93,6 @@ def jax_to_state_dict(weights, target_shapes):
     leaves = []
     if "params" in weights:
         leaves = list(_flatten(weights.get("batch_stats", {})))
-        bn = [p for p, _ in leaves if _DNN_BN.search(p)]
-        if bn:
-            raise ValueError("batch_stats %s have no counterpart: a DNN's "
-                             "batch norm is not ported yet" % bn)
         weights = weights["params"]
     out = {}
     for path, value in list(_flatten(weights)) + leaves:
@@ -133,3 +126,18 @@ def load_jax_weights(model, weights):
         weights, {k: tuple(v.shape) for k, v in model.state_dict().items()})
     model.set_weights(state)
     return state
+
+
+def jax_batch_stats(model):
+    """The running statistics of ``model`` (Dice's and the DNN batch
+    norms' ``mean``/``var`` buffers) as the JAX package's nested
+    ``batch_stats`` tree of numpy arrays, as ``get_weights()["batch_stats"]``
+    gives it."""
+    tree = {}
+    for key, buf in model.named_buffers():
+        node = tree
+        parts = jax_path(key).split("/")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = buf.detach().cpu().numpy()
+    return tree

@@ -257,25 +257,25 @@ def test_load_jax_weights_raises_on_what_does_not_map():
         **params["embedding_dict"], "s1": np.zeros((99, 9))}}}
     with pytest.raises(ValueError, match="s1"):
         load_jax_weights(pmodel, bad_table)
-    with pytest.raises(ValueError, match="batch_stats"):
+    # a batch norm's statistics for a model without one
+    with pytest.raises(KeyError, match="bn_0/mean"):
         load_jax_weights(pmodel, {"params": params,
                                   "batch_stats": {"bn_0": {"mean": 0}}})
 
 
 def test_not_yet_ported_options_raise():
     plin, pdnn = _columns(pt)
-    with pytest.raises(NotImplementedError):
-        PDeepFM(plin, pdnn, dnn_use_bn=True, device="cpu")
+    x = _inputs(plin, 16, np.random.default_rng(5))
+    # the DNN's batch norm and Dice are ported, training included
+    for kw in ({"dnn_use_bn": True}, {"dnn_activation": "dice"}):
+        model = PDeepFM(plin, pdnn, dnn_hidden_units=(8,), device="cpu",
+                        **kw)
+        assert model.predict(x, batch_size=16).shape == (16, 1)
+        model.compile("sgd", "binary_crossentropy")
+        hist = model.fit(x, np.zeros(16), batch_size=16, verbose=0)
+        assert np.isfinite(hist.history["loss"]).all()
     with pytest.raises(NotImplementedError):
         PDeepFM(plin, pdnn, dnn_dropout=0.5, device="cpu")
-    # Dice is ported for inference; in training mode it raises
-    dice = PDeepFM(plin, pdnn, dnn_hidden_units=(8,), dnn_activation="dice",
-                   device="cpu")
-    x = _inputs(plin, 16, np.random.default_rng(5))
-    assert dice.predict(x, batch_size=16).shape == (16, 1)
-    dice.compile("sgd", "binary_crossentropy")
-    with pytest.raises(NotImplementedError):
-        dice.fit(x, np.zeros(16), batch_size=16, verbose=0)
     hashed = [pt.SparseFeat("h", 10, 4, use_hash=True)]
     with pytest.raises(NotImplementedError):
         PDeepFM(hashed, hashed, device="cpu")

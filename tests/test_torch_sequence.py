@@ -114,8 +114,14 @@ def test_dice_and_prelu_match_jax():
     want = JDice().apply(variables, x, training=False)
     dice = _load(pact.Dice(6), variables)
     _close(dice(torch.from_numpy(x)), want)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        dice(torch.from_numpy(x), training=True)
+    # training mode normalises with the batch's statistics and moves the
+    # running ones (tests/test_torch_sequence_train_ops.py holds its
+    # gradient)
+    want, mutated = JDice().apply(variables, x, training=True,
+                                  mutable=["batch_stats"])
+    _close(dice(torch.from_numpy(x), training=True), want)
+    for leaf in ("mean", "var"):
+        _close(getattr(dice.bn, leaf), mutated["batch_stats"]["bn"][leaf])
 
     # the JAX PReLU's ``init`` field shadows flax's Module.init, so its
     # variables are written out
@@ -340,7 +346,7 @@ def test_deepfm_with_varlen_features_matches_jax():
                                rtol=0, atol=ATOL)
 
 
-def test_load_jax_weights_maps_dice_stats_and_raises_on_dnn_batch_norm():
+def test_load_jax_weights_maps_dice_stats_and_dnn_batch_norm():
     rng = np.random.default_rng(9)
     _, pmodel, weights = _pair(JDIN, PDIN, rng, att_hidden_size=(6, 3))
     stats = weights["batch_stats"]["attention"]["local_att"]["dnn"]
@@ -355,18 +361,42 @@ def test_load_jax_weights_maps_dice_stats_and_raises_on_dnn_batch_norm():
     bn = {"params": weights["params"], "batch_stats": {
         **weights["batch_stats"],
         "dnn": {"bn_0": {"mean": np.zeros(8), "var": np.ones(8)}}}}
-    with pytest.raises(ValueError, match="bn_0"):
+    with pytest.raises(KeyError, match="bn_0"):
         load_jax_weights(pmodel, bn)
+    # a DNN's batch norm: bn_<i> scale and bias, its running mean and var
+    jmodel, pmodel, weights = _pair(JDIN, PDIN, rng, att_hidden_size=(6, 3),
+                                    dnn_use_bn=True)
+    buffers = dict(pmodel.named_buffers())
+    params = dict(pmodel.named_parameters())
+    for i in range(2):
+        for leaf in ("mean", "var"):
+            np.testing.assert_array_equal(
+                buffers["dnn.bn_%d.%s" % (i, leaf)],
+                weights["batch_stats"]["dnn"]["bn_%d" % i][leaf])
+        for leaf in ("scale", "bias"):
+            np.testing.assert_array_equal(
+                params["dnn.bn_%d.%s" % (i, leaf)].detach(),
+                weights["params"]["dnn"]["bn_%d" % i][leaf])
+    x = _seq_data(24, rng)
+    np.testing.assert_allclose(pmodel.predict(x, batch_size=16),
+                               jmodel.predict(x, batch_size=16), rtol=0,
+                               atol=ATOL)
 
 
-def test_fit_and_evaluate_on_sequence_models_raise():
+def test_fit_and_evaluate_run_on_sequence_models():
+    """fit and evaluate on models with sequence features (their parity
+    with the JAX package: tests/test_torch_sequence_train.py): the loss
+    falls and Dice's running statistics move."""
     model = PDIN(_seq_columns(pt, False), ["item_id", "cate_id"],
                  dnn_hidden_units=(8, 4), device="cpu")
     x = _seq_data(16, np.random.default_rng(10))
-    y = np.zeros(16, np.float32)
+    y = (x["item_id"] < V_ITEM // 2).astype(np.float32)
     model.compile("adagrad", "binary_crossentropy", metrics=["auc"])
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model.fit(x, y, batch_size=8, verbose=0)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model.evaluate(x, y, batch_size=8)
+    stats = {k: v.clone() for k, v in model.named_buffers()}
+    hist = model.fit(x, y, batch_size=8, epochs=5, verbose=0)
+    assert np.isfinite(hist.history["loss"]).all()
+    assert hist.history["loss"][-1] < hist.history["loss"][0]
+    assert all(not torch.equal(v, stats[k])
+               for k, v in model.named_buffers())
+    assert set(model.evaluate(x, y, batch_size=8)) == {"auc"}
     assert model.predict(x, batch_size=8).shape == (16, 1)
