@@ -2,12 +2,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's main paths, DeepFM serving and training at Criteo
-width and DIN/DIEN serving and training at the sequence bench's width,
-through the entry points a user calls (``DeepFM(...)``, ``DIN(...)``,
-``DIEN(...)``, ``model.predict``, ``model.compile``, ``model.fit``,
-``model.evaluate``), and holds every CUDA kernel of those paths against its
-plain PyTorch version.  Serving first:
+Drives the port's main paths, DeepFM and xDeepFM serving and training at
+Criteo width and DIN/DIEN serving and training at the sequence bench's
+width, through the entry points a user calls (``DeepFM(...)``,
+``xDeepFM(...)``, ``DIN(...)``, ``DIEN(...)``, ``model.predict``,
+``model.compile``, ``model.fit``, ``model.evaluate``), and the scatter
+micro-benchmark (``python -m deepctr_tpu_torch.tools.scatter_micro``), and
+holds every CUDA kernel of those paths against its plain PyTorch version.
+Serving first:
 
 1. build: compile every kernel under ``deepctr_tpu_torch/csrc/`` (one
    ``nvcc`` a source, all started together) and print the build time;
@@ -106,8 +108,54 @@ Then the sequence models' training path, at the same columns:
     backward in device ms with a cold L2, and its bound; the carry-saving
     forward beside the inference forward.
 
+Then xDeepFM at the Criteo width of ``bench.py``'s xdeepfm leg (26 fields
+of 10,000 rows with E=16, 13 dense fields, DNN 400-400, CIN 256-128 with
+split_half, batches of 4096), serving and training:
+
+16. ``cin_mix`` against ``cin_mix_ref`` on the card at both layers' shapes
+    (B=4096, D=16, F=26: H=26, O=256 and H=128, O=128, the latter as the
+    layer gives it, the first half of a [B, D, 256] map), at a ragged
+    B=1000, at the split_half=False layer-1 shape (H=256, K=6656), at an
+    odd small shape (D=3, H=5, F=3, O=7) and at H=400 (bfloat16 rows too
+    wide for the tensor-core path), float32 and bfloat16: float32
+    within 1e-5 of sum_k |w z| per element (the plain version's matmul
+    without TF32), bfloat16 within one bf16 ulp; a repeat launch gives the
+    same bits; ``CinMix``'s gradients (dh, dx, dwt) against autograd
+    through ``cin_mix_ref`` at float32, within 1e-5 of the sums of their
+    terms' magnitudes;
+17. xDeepFM at float32, weights redrawn from a seed so that predictions
+    spread: ``predict`` over 8 batches (2 ``cin_mix`` launches and 1
+    gather a batch), every prediction finite and in (0, 1), the first
+    batch within 1e-5 of the same model on the CPU; ``compile("adagrad")``
+    + ``fit`` + ``evaluate``, 3 steps of 4096 (tables dense under "auto":
+    a gather, a scatter and 2 ``cin_mix`` launches a step), finite losses;
+    card against CPU from the same weights at batches of 512: per-step
+    losses within 1e-4 relative;
+18. timing, bfloat16 compute: xDeepFM ``predict`` and ``fit`` in
+    examples/s (CUDA events, median of 5 after a warm-up) with the
+    device's idle share and device time by kernel (``torch.profiler``);
+    ``cin_mix`` at each layer's shape in device ms with a cold L2 beside
+    its plain version and the library's product of a prebuilt z by the
+    weight (``torch.matmul``; building z is timed apart), and its bound
+    from this run's shapes.
+
+Then the row scatter of the scatter micro-benchmark:
+
+19. ``static_scatter`` at the shape of ``tools/scatter_issue_micro.py``
+    (26 tables of 142,858 pair rows of 2 x 128 float32 in a 3.8 GB arena,
+    5,120 slots a table, 4,097 valid, the rest at the dump row) at unroll
+    1, 2, 4 and 8, and the dynamic variant (one launch, and one a table):
+    bit-equal to the plain versions on every row but the dump row, whose
+    every value is one of the padding slots'; rows no slot names
+    unchanged; the rows past the arena untouched; the dynamic variant
+    leaves the dump row alone.  Then the micro-benchmark's run
+    (``deepctr_tpu_torch/tools/scatter_micro.py``) with a few repeats, its
+    lines printed, and each variant in device ms with a cold L2 beside the
+    plain version and the library's ``index_copy_`` of the valid rows.
+
 Launches in the kernels line are those of the main-path runs (phases 3,
-6, 10, 11 and 14), each counted from 0 just before the run and read just
+6, 10, 11, 14 and 17; for ``static_scatter``, the micro-benchmark's run
+in phase 19), each counted from 0 just before the run and read just
 after; the runs that compare a kernel with its plain version, time it or
 check the card against the CPU are not counted.
 
@@ -131,16 +179,19 @@ HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE))
 
 import deepctr_tpu_torch as pt  # noqa: E402
-from deepctr_tpu_torch.models import DIEN, DIN, DeepFM  # noqa: E402
+from deepctr_tpu_torch.models import DIEN, DIN, DeepFM, xDeepFM  # noqa: E402
 from deepctr_tpu_torch.layers.sequence import (  # noqa: E402
     AttentionSequencePoolingLayer)
 from deepctr_tpu_torch.models.basemodel import _TouchedRows  # noqa: E402
 from deepctr_tpu_torch.ops import _build  # noqa: E402
 from deepctr_tpu_torch.ops import attention  # noqa: E402
+from deepctr_tpu_torch.ops import cin  # noqa: E402
 from deepctr_tpu_torch.ops import gather  # noqa: E402
 from deepctr_tpu_torch.ops import gru  # noqa: E402
 from deepctr_tpu_torch.ops import row_update as rowup  # noqa: E402
 from deepctr_tpu_torch.ops import scatter_add  # noqa: E402
+from deepctr_tpu_torch.ops import scatter_rows  # noqa: E402
+from deepctr_tpu_torch.tools import scatter_micro  # noqa: E402
 
 # Criteo Kaggle display-advertising layout, as bench.py runs it
 CRITEO_KAGGLE_VOCABS = [
@@ -216,6 +267,27 @@ SEQ_TRAIN_LAUNCHES = {
                       "din_attention": 0},
 }
 
+# xDeepFM: bench.py:271-273 at its defaults (bench.py:29-36)
+XD_VOCAB = 10000
+XD_FIELDS = 26
+XD_HIDDEN = (400, 400)
+XD_CIN = (256, 128)
+XD_EMB_STD = 0.3
+XD_TRAIN_STEPS = 3
+XD_CPU_BATCH = 512
+XD_CPU_STEPS = 3
+# the CIN layers' (H, O) at split_half, D = EMB_DIM, F = XD_FIELDS
+XD_LAYERS = ((XD_FIELDS, XD_CIN[0]), (XD_CIN[0] // 2, XD_CIN[1]))
+# H100 SXM bf16 dense tensor-core rate (NVIDIA data sheet)
+BF16_FLOP_PER_S = 989e12
+# the launches of one xDeepFM train step (tables dense under "auto")
+XD_TRAIN_LAUNCHES = {"gather_rows": 1, "scatter_add_rows": 1, "cin_mix": 2,
+                     "row_update": 0}
+# phase 19: the micro-benchmark's repeats, and rows of a sentinel past the
+# arena
+SCATTER_REPEATS = 5
+GUARD_ROWS = 64
+
 KERNELS = {
     "gather_rows": {
         "route": "cuda",
@@ -247,6 +319,16 @@ KERNELS = {
         "source": "deepctr_tpu_torch/csrc/din_attention.cu",
         "replaces": "deepctr_tpu/ops/pallas_attention.py:73",
     },
+    "cin_mix": {
+        "route": "cuda",
+        "source": "deepctr_tpu_torch/csrc/cin_mix.cu",
+        "replaces": "deepctr_tpu/ops/pallas.py:68",
+    },
+    "static_scatter": {
+        "route": "cuda",
+        "source": "deepctr_tpu_torch/csrc/static_scatter.cu",
+        "replaces": "tools/scatter_issue_micro.py:85",
+    },
 }
 
 # each kernel's launch counter: (module, attribute)
@@ -257,6 +339,8 @@ COUNTERS = {
     "gru_scan": (gru, "GRU_SCAN_LAUNCHES"),
     "gru_scan_bwd": (gru, "GRU_SCAN_BWD_LAUNCHES"),
     "din_attention": (attention, "DIN_ATTENTION_LAUNCHES"),
+    "cin_mix": (cin, "CIN_MIX_LAUNCHES"),
+    "static_scatter": (scatter_rows, "STATIC_SCATTER_LAUNCHES"),
 }
 # the launches of every main-path run, summed (read_counts adds to it)
 MAIN_PATH_LAUNCHES = dict.fromkeys(COUNTERS, 0)
@@ -1641,6 +1725,436 @@ def phase_seq_train_timing_bf16(device):
                 bound_by=bound_by)
 
 
+# ---------------------------------------------------------------------------
+# xDeepFM: the CIN kernel, serving and training
+# ---------------------------------------------------------------------------
+
+def cin_inputs(B, H, O, dtype, seed, device, D=EMB_DIM, F=XD_FIELDS,
+               split_of=None):
+    """``cin_mix``'s arguments: hidden_t [B, D, H] and x0_t [B, D, F] normal,
+    w3 [O, H, F] from the layer's init U(+-1/sqrt(O)), all rounded to
+    ``dtype``; with ``split_of`` the hidden maps are the first half of a
+    [B, D, split_of] tensor, as the layer hands them on."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    width = split_of or H
+    maps = torch.randn(B, D, width, generator=gen, device=device).to(dtype)
+    hidden = maps[..., :H]
+    x0 = torch.randn(B, D, F, generator=gen, device=device).to(dtype)
+    w3 = ((torch.rand(O, H, F, generator=gen, device=device) * 2 - 1)
+          * O ** -0.5).to(dtype)
+    return hidden, x0, w3
+
+
+def cin_scale(hidden, x0, w3):
+    """sum_k |w z| of every output, in float32."""
+    return cin.cin_mix_ref(hidden.float().abs(), x0.float().abs(),
+                           w3.float().abs())
+
+
+def check_cin_case(B, H, O, dtype, seed, device, D=EMB_DIM, F=XD_FIELDS,
+                   split_of=None):
+    """One cin_mix case against its plain version and a repeat launch;
+    returns max |kernel - plain|."""
+    hidden, x0, w3 = cin_inputs(B, H, O, dtype, seed, device, D, F,
+                                split_of)
+    wt = cin.kernel_weight(w3, dtype)
+    got = cin.cin_mix(hidden, x0, w3, wt=wt)
+    again = cin.cin_mix(hidden, x0, w3, wt=wt)
+    want = cin.cin_mix_ref(hidden, x0, w3)
+    torch.cuda.synchronize()
+    what = ("cin_mix %s B=%d D=%d H=%d F=%d O=%d%s"
+            % (dtype, B, D, H, F, O,
+               " (first half of %d maps)" % split_of if split_of else ""))
+    check(bits_equal(got, again), what + ": a repeat launch gave other bits")
+    e, a = compare(got, want, what, cin_scale(hidden, x0, w3))
+    log("kernel vs plain: %s: %s %r; max |err| %r; repeat bit-equal"
+        % (what, "max |err| / max(1, sum_k |w z|)" if dtype == torch.float32
+           else "max bf16 ulps", e, a))
+    return a
+
+
+def check_cin_grads(B, H, O, seed, device, D=EMB_DIM, F=XD_FIELDS):
+    """CinMix's gradients against autograd through cin_mix_ref, float32."""
+    hidden, x0, w3 = cin_inputs(B, H, O, torch.float32, seed, device, D, F)
+    wt = cin.kernel_weight(w3, torch.float32)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    g = torch.randn(B, D, O, generator=gen, device=device)
+    leaves = [t.detach().clone().requires_grad_() for t in (hidden, x0, wt)]
+    out = cin.CinMix.apply(*leaves)
+    got = torch.autograd.grad(out, leaves, g)
+    ref_leaves = [t.detach().clone().requires_grad_()
+                  for t in (hidden, x0, wt)]
+    w3_ref = ref_leaves[2].reshape(F, H, O).permute(2, 1, 0)
+    ref_out = cin.cin_mix_ref(ref_leaves[0], ref_leaves[1], w3_ref)
+    want = torch.autograd.grad(ref_out, ref_leaves, g)
+    scales = cin.cin_mix_bwd(hidden.abs(), x0.abs(), wt.abs(), g.abs())
+    torch.cuda.synchronize()
+    what = "CinMix gradients B=%d D=%d H=%d F=%d O=%d" % (B, D, H, F, O)
+    errs = []
+    for name, a, b, scale in zip(("dh", "dx", "dwt"), got, want, scales):
+        e, _ = compare(a, b, what + " " + name, scale)
+        errs.append("%s %r" % (name, e))
+    log("kernel vs plain: %s vs autograd through cin_mix_ref: max |err| / "
+        "max(1, sum of term magnitudes): %s" % (what, ", ".join(errs)))
+
+
+def phase_cin_vs_plain(device):
+    """cin_mix against cin_mix_ref at the slice's shapes and the others of
+    phase 16; returns the largest float32 |kernel - plain| at the slice's
+    shapes."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    err = 0.0
+    seed = SEED + 400
+    (h0, o0), (h1, o1) = XD_LAYERS
+    cases = [dict(B=BATCH, H=h0, O=o0), dict(B=BATCH, H=h1, O=o1,
+                                             split_of=o0),
+             dict(B=1000, H=h0, O=o0), dict(B=1000, H=h1, O=o1,
+                                            split_of=o0),
+             dict(B=BATCH, H=o0, O=o1),                # split_half=False
+             dict(B=37, H=5, O=7, D=3, F=3),
+             # rows too wide for the tensor-core path's shared memory
+             dict(B=64, H=400, O=72)]
+    with torch.no_grad():
+        for i, case in enumerate(cases):
+            for dtype in (torch.float32, torch.bfloat16):
+                seed += 1
+                a = check_cin_case(dtype=dtype, seed=seed, device=device,
+                                   **case)
+                if dtype == torch.float32 and i < 2:
+                    err = max(err, a)
+    for case in (dict(B=BATCH, H=h0, O=o0), dict(B=BATCH, H=h1, O=o1),
+                 dict(B=37, H=5, O=7, D=3, F=3)):
+        seed += 1
+        check_cin_grads(seed=seed, device=device, **case)
+    return err
+
+
+def xdeepfm_columns():
+    sparse = [pt.SparseFeat("C%d" % i, XD_VOCAB, EMB_DIM)
+              for i in range(XD_FIELDS)]
+    dense = [pt.DenseFeat("I%d" % i, 1) for i in range(N_DENSE)]
+    return sparse + dense
+
+
+def xdeepfm_model(device):
+    """xDeepFM at the slice's width, its weights redrawn from a seed so
+    that predictions spread: the tables (deep and wide columns) from
+    normal(0.3), the DNN's kernels at 1/sqrt(fan_in); the CIN's and the
+    output layers' at their init."""
+    cols = xdeepfm_columns()
+    model = xDeepFM(cols, cols, dnn_hidden_units=XD_HIDDEN,
+                    cin_layer_size=XD_CIN, seed=SEED, device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 410)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.startswith("dnn.") and p.dim() == 2:
+                p.normal_(0.0, p.shape[1] ** -0.5, generator=gen)
+            elif "embedding_dict" in name:
+                p.normal_(0.0, XD_EMB_STD, generator=gen)
+    return model
+
+
+def xdeepfm_requests(n, seed, device):
+    """A flat [n, 39] float32 batch: uniform ids, dense values in [0, 1)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    ids = torch.randint(0, XD_VOCAB, (n, XD_FIELDS), generator=gen,
+                        device=device)
+    dense = torch.rand(n, N_DENSE, generator=gen, device=device)
+    return torch.cat([ids.float(), dense], dim=1).contiguous()
+
+
+def phase_xdeepfm_f32(device):
+    """predict, then compile/fit/evaluate, at float32; then card against
+    CPU from the same weights.  Returns the launches of both runs."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pt.set_compute_dtype("float32")
+    model = xdeepfm_model(device)
+    n = BATCH * N_BATCHES
+    X = xdeepfm_requests(n, SEED + 420, device)
+    reset_counts()
+    pred = model.predict(X, batch_size=BATCH)
+    counts = read_counts()
+    for name, per_batch in (("cin_mix", 2), ("gather_rows", 1)):
+        check(counts[name] == per_batch * N_BATCHES, "xDeepFM predict: %s "
+              "launched %d times in %d batches, want %d a batch"
+              % (name, counts[name], N_BATCHES, per_batch))
+    check_predictions(pred, n)
+    model.to("cpu")
+    try:
+        pred_cpu = model.predict(X[:BATCH].cpu(), batch_size=BATCH)
+    finally:
+        model.to(device)
+    diff = float(np.abs(pred[:BATCH] - pred_cpu).max())
+    check(diff <= ATOL_CPU, "xDeepFM: card vs CPU max |dp| %r > %r"
+          % (diff, ATOL_CPU))
+    log("predict f32 xDeepFM: %d requests in %d batches, launches %s, "
+        "predictions in [%.6f, %.6f], std %.6f; first batch vs CPU max |dp| "
+        "= %r (atol %r)" % (n, N_BATCHES, counts, pred.min(), pred.max(),
+                            pred.std(), diff, ATOL_CPU))
+
+    model.compile("adagrad", "binary_crossentropy", metrics=["auc"])
+    check(model._sparse_specs == [], "xDeepFM: tables on the sparse path "
+          "under auto: %s" % model._sparse_specs)
+    n = BATCH * XD_TRAIN_STEPS
+    x = X[:n].cpu().numpy()
+    y = criteo_labels(n, SEED + 421)
+    losses = record_losses(model)
+    reset_counts()
+    model.fit(x, y, batch_size=BATCH, epochs=1, verbose=0)
+    train_counts = read_counts()
+    for name, per_step in XD_TRAIN_LAUNCHES.items():
+        check(train_counts[name] == per_step * XD_TRAIN_STEPS,
+              "xDeepFM fit: %s launched %d times in %d train steps, want %d "
+              "a step" % (name, train_counts[name], XD_TRAIN_STEPS,
+                          per_step))
+    check(len(losses) == XD_TRAIN_STEPS and np.isfinite(losses).all(),
+          "xDeepFM: train losses %s" % losses)
+    auc = model.evaluate(x, y, batch_size=BATCH)["auc"]
+    check(np.isfinite(auc), "xDeepFM: evaluate gave auc %r" % auc)
+    log("fit f32 xDeepFM: %d steps of %d, launches %s, per-step losses %s; "
+        "evaluate auc %r" % (XD_TRAIN_STEPS, BATCH, train_counts, losses,
+                             auc))
+    del model
+
+    card = xdeepfm_model(device)
+    cpu = xdeepfm_model("cpu")
+    cpu.set_weights(card.get_weights())
+    n = XD_CPU_BATCH * XD_CPU_STEPS
+    x = X[-n:].cpu().numpy()
+    y = criteo_labels(n, SEED + 422)
+    runs = {}
+    for name, m in (("card", card), ("cpu", cpu)):
+        m.compile("adagrad", "binary_crossentropy")
+        rec = record_losses(m)
+        t0 = time.perf_counter()
+        m.fit(x, y, batch_size=XD_CPU_BATCH, epochs=1, verbose=0)
+        runs[name] = (rec, time.perf_counter() - t0)
+    (lc, tc), (lp, tp) = runs["card"], runs["cpu"]
+    check(len(lc) == len(lp) == XD_CPU_STEPS, "losses %s %s" % (lc, lp))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
+    check(rel <= LOSS_RTOL, "xDeepFM card vs CPU: losses %s vs %s"
+          % (lc, lp))
+    log("fit card vs CPU xDeepFM (%d steps of %d): losses card %s cpu %s, "
+        "max rel diff %r (rtol %r); fit took %.2f s on the card, %.2f s on "
+        "the CPU" % (XD_CPU_STEPS, XD_CPU_BATCH, lc, lp, rel, LOSS_RTOL, tc,
+                     tp))
+    return counts, train_counts
+
+
+def cin_bound(B, H, O, size, flop_rate, D=EMB_DIM, F=XD_FIELDS):
+    """(ms, "operations" or "bytes") for cin_mix: 2 M K O operations at
+    ``flop_rate`` against hidden, x0 and wt read once and the output
+    written once, ``size`` bytes an element."""
+    M, K = B * D, H * F
+    n_bytes = size * (M * H + M * F + K * O + M * O)
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = 2 * M * K * O / flop_rate * 1e3
+    return ((by_ops, "operations") if by_ops >= by_bytes
+            else (by_bytes, "bytes"))
+
+
+def phase_xdeepfm_timing_bf16(device):
+    """xDeepFM predict and fit at bf16 compute (examples/s, idle share,
+    device time by kernel), and cin_mix at both layers' shapes against
+    its plain version and the library's product, with its bound."""
+    log("timing on: %s" % card_line())
+    pt.set_compute_dtype("bfloat16")
+    model = xdeepfm_model(device)
+    n = BATCH * N_BATCHES
+    X = xdeepfm_requests(n, SEED + 430, device)
+    check_predictions(model.predict(X, batch_size=BATCH), n)
+    run_ms = time_ms(lambda: model.predict(X, batch_size=BATCH), reps=1,
+                     runs=5)
+    log("predict bf16 xDeepFM, device input: %r examples/s (%r ms for %d)"
+        % (n / run_ms * 1e3, run_ms, n))
+    busy_ms = profile_ms(lambda: model.predict(X, batch_size=BATCH),
+                         "predict xDeepFM", top=6)
+    if busy_ms is not None:
+        log("predict bf16 xDeepFM: device busy %r ms of %r ms, idle share %r"
+            % (busy_ms, run_ms, 1 - busy_ms / run_ms))
+
+    model.compile("adagrad", "binary_crossentropy")
+    nt = BATCH * XD_TRAIN_STEPS
+    x, y = X[:nt].cpu().numpy(), criteo_labels(nt, SEED + 431)
+
+    def fit():
+        model.fit(x, y, batch_size=BATCH, epochs=1, verbose=0)
+    fit_ms = time_ms(fit, reps=1, runs=5)
+    log("fit bf16 xDeepFM, host numpy input: %r examples/s (%r ms for %d "
+        "steps of %d)" % (nt / fit_ms * 1e3, fit_ms, XD_TRAIN_STEPS, BATCH))
+    busy_ms = profile_ms(fit, "fit xDeepFM")
+    if busy_ms is not None:
+        log("fit bf16 xDeepFM: device busy %r ms of %r ms, idle share %r"
+            % (busy_ms, fit_ms, 1 - busy_ms / fit_ms))
+    del model
+
+    dtype = torch.bfloat16
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    bound_by = set()
+    with torch.no_grad():
+        for i, (H, O) in enumerate(XD_LAYERS):
+            hidden, x0, w3 = cin_inputs(BATCH, H, O, dtype, SEED + 440 + i,
+                                        device, split_of=XD_CIN[0] if i
+                                        else None)
+            wt = cin.kernel_weight(w3, dtype)
+            M, K = BATCH * EMB_DIM, H * XD_FIELDS
+            zf = (x0[..., :, None] * hidden[..., None, :]).reshape(M, K)
+            timed = {
+                "kernel": lambda: cin.cin_mix(hidden, x0, w3, wt=wt),
+                "plain": lambda: cin.cin_mix_ref(hidden, x0, w3),
+                # the library's product of a prebuilt z [M, K] (f-major,
+                # the kernel's K order) by the kernel's weight
+                "library": lambda: torch.matmul(zf, wt),
+                "z build": lambda: (x0[..., :, None]
+                                    * hidden[..., None, :]).reshape(M, K),
+            }
+            ms = {k: device_ms(fn) for k, fn in timed.items()}
+            bound_ms, by = cin_bound(BATCH, H, O, 2, BF16_FLOP_PER_S)
+            f32_ms, f32_by = cin_bound(BATCH, H, O, 4, F32_FLOP_PER_S)
+            for k, key in (("kernel", "ms"), ("plain", "plain_ms"),
+                           ("library", "library_ms")):
+                total[key] += ms[k]
+            total["bound_ms"] += bound_ms
+            bound_by.add(by)
+            flops = 2 * M * K * O
+            log("cin_mix layer %d (B=%d D=%d H=%d F=%d O=%d, K=%d), bf16, "
+                "device time, cold L2: kernel %r ms (%r TFLOP/s), plain %r "
+                "ms, library (torch.matmul of a prebuilt z by wt) %r ms, "
+                "building z %r ms; bound %r ms (%s, %.4g GFLOP at %.3g "
+                "FLOP/s); at float32 FMA rate the bound would be %r ms (%s)"
+                % (i, BATCH, EMB_DIM, H, XD_FIELDS, O, K, ms["kernel"],
+                   flops / ms["kernel"] / 1e9, ms["plain"], ms["library"],
+                   ms["z build"], bound_ms, by, flops / 1e9,
+                   BF16_FLOP_PER_S, f32_ms, f32_by))
+            del zf
+    log("cin_mix, both layers of one forward, bf16: kernel %r ms, plain %r "
+        "ms, library %r ms, bound %r ms" % (total["ms"], total["plain_ms"],
+                                            total["library_ms"],
+                                            total["bound_ms"]))
+    return dict(total, bound_by="/".join(sorted(bound_by)))
+
+
+# ---------------------------------------------------------------------------
+# the scatter micro-benchmark's row scatter
+# ---------------------------------------------------------------------------
+
+def guarded_copy(arena):
+    """A copy of ``arena`` in a buffer GUARD_ROWS rows longer, those rows
+    at a sentinel: (the copy, a view of the rows past it)."""
+    rows, width = arena.shape
+    buf = torch.empty(rows + GUARD_ROWS, width, dtype=arena.dtype,
+                      device=arena.device)
+    buf[:rows].copy_(arena)
+    buf[rows:].fill_(-12345.0)
+    return buf[:rows], buf[rows:]
+
+
+def phase_static_scatter(device):
+    """static_scatter (every unroll) and the dynamic variant against their
+    plain versions at the tool's shape, then the micro-benchmark's run
+    (its launches counted) and the device-ms table.  Returns the kernels
+    line's entry."""
+    inp = scatter_micro.make_inputs(SEED + 500, device)
+    arena, vals, starts = inp["arena"], inp["vals"], inp["starts"]
+    nvs = inp["n_valids"]
+    G, R, N, NV = inp["shape"]
+    L, W = scatter_micro.L, scatter_micro.W
+    dump = G * R * L
+    named = torch.zeros(arena.shape[0], dtype=torch.bool, device=device)
+    named[(starts[:, :NV].reshape(-1, 1).long()
+           + torch.arange(L, device=device)).reshape(-1)] = True
+    pad = vals[:, NV * L:].reshape(G, N - NV, L, W)
+    with torch.no_grad():
+        want = arena.clone()
+        scatter_rows.static_scatter_ref(want, vals, starts)
+        err = 0.0
+        for u in scatter_rows.UNROLLS:
+            got, guard = guarded_copy(arena)
+            scatter_rows.static_scatter(got, vals, starts, unroll=u)
+            torch.cuda.synchronize()
+            what = "static_scatter u%d" % u
+            check(same_bits(got[:dump], want[:dump]), what + ": differs "
+                  "from the plain version outside the dump row")
+            unnamed = ~named[:dump]
+            check(torch.equal(got[:dump][unnamed], arena[:dump][unnamed]),
+                  what + ": a row no slot names changed")
+            d = got[dump:dump + L]
+            check(bool((pad == d).flatten(0, 1).any(dim=0).all()),
+                  what + ": a dump-row value is none of the padding slots'")
+            check(bool((guard == -12345.0).all()), what + ": wrote past the "
+                  "arena")
+            err = max(err, (got[:dump] - want[:dump]).abs().max().item())
+            del got, guard
+        dyn_want = arena.clone()
+        scatter_rows.scatter_rows_ref(dyn_want, vals, starts, nvs, L=L)
+        for label, fn in (
+                ("one launch", lambda a: scatter_rows.scatter_rows(
+                    a, vals, starts, nvs, L=L)),
+                ("one launch a table", lambda a: [scatter_rows.scatter_rows(
+                    a, vals[t], starts[t], nvs[t:t + 1], L=L)
+                    for t in range(G)])):
+            got, guard = guarded_copy(arena)
+            fn(got)
+            torch.cuda.synchronize()
+            check(same_bits(got, dyn_want), "dynamic scatter (%s) differs "
+                  "from its plain version" % label)
+            check(torch.equal(got[dump:], arena[dump:]), "dynamic scatter "
+                  "(%s) wrote the dump row" % label)
+            check(bool((guard == -12345.0).all()), "dynamic scatter (%s) "
+                  "wrote past the arena" % label)
+            del got, guard
+        del want, dyn_want
+    log("kernel vs plain: static_scatter at G=%d R=%d N=%d NV=%d L=%d W=%d "
+        "(a %.2f GB arena), unroll 1, 2, 4, 8: bit-equal outside the dump "
+        "row (max |err| %r), dump-row values all padding slots', unnamed "
+        "rows unchanged, nothing written past the arena; the dynamic "
+        "variant (one launch, and one a table) bit-equal everywhere, the "
+        "dump row untouched" % (G, R, N, NV, L, W,
+                                arena.numel() * 4 / 1e9, err))
+
+    reset_counts()
+    scatter_rows.SCATTER_ROWS_LAUNCHES = 0
+    records = scatter_micro.run(inp, repeats=SCATTER_REPEATS)
+    counts = read_counts()
+    for rec in records:
+        print(json.dumps(rec), flush=True)
+    log("scatter micro-benchmark on %s: static_scatter launches %d, dynamic "
+        "launches %d" % (card_line(), counts["static_scatter"],
+                         scatter_rows.SCATTER_ROWS_LAUNCHES))
+
+    with torch.no_grad():
+        valid = torch.arange(N, device=device)[None, :] < nvs[:, None].long()
+        dst = (starts[valid].long()[:, None]
+               + torch.arange(L, device=device)).reshape(-1)
+        src = vals.reshape(G, N, L, W)[valid].reshape(-1, W).contiguous()
+        timed = {"u%d" % u: (lambda u=u: scatter_rows.static_scatter(
+            arena, vals, starts, unroll=u)) for u in scatter_rows.UNROLLS}
+        timed.update({
+            "dynamic": lambda: scatter_rows.scatter_rows(
+                arena, vals, starts, nvs, L=L),
+            "plain": lambda: scatter_rows.static_scatter_ref(arena, vals,
+                                                             starts),
+            # the library's row copy of the valid rows, indices prebuilt
+            "library": lambda: arena.index_copy_(0, dst, src),
+        })
+        ms = {k: device_ms(fn) for k, fn in timed.items()}
+    best = min(scatter_rows.UNROLLS, key=lambda u: ms["u%d" % u])
+    n_bytes = 2 * G * N * L * W * 4
+    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    dyn_bound = 2 * G * NV * L * W * 4 / HBM_BYTES_PER_S * 1e3
+    log("static_scatter at the tool's shape, device time, cold L2: %s ms; "
+        "dynamic (one launch) %r ms (bound %r ms); plain %r ms; library "
+        "(index_copy_ of the valid rows) %r ms; bound %r ms (%d bytes); "
+        "fastest unroll %d" % (", ".join("u%d %r" % (u, ms["u%d" % u])
+                                         for u in scatter_rows.UNROLLS),
+                               ms["dynamic"], dyn_bound, ms["plain"],
+                               ms["library"], bound_ms, n_bytes, best))
+    return dict(max_abs_err=err, ms=ms["u%d" % best], plain_ms=ms["plain"],
+                library_ms=ms["library"], bound_ms=bound_ms,
+                bound_by="bytes")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -1695,6 +2209,13 @@ def main():
     for kind, variant in SEQ_TRAIN_LAUNCHES:
         phase_seq_fit_card_vs_cpu(kind, variant, device)
     seq_timing["gru_scan_bwd"] = phase_seq_train_timing_bf16(device)
+    torch.cuda.empty_cache()
+
+    cin_err = phase_cin_vs_plain(device)
+    phase_xdeepfm_f32(device)
+    cin_timing = phase_xdeepfm_timing_bf16(device)
+    torch.cuda.empty_cache()
+    scatter = phase_static_scatter(device)
 
     log(card_line())
     measured = {"gather_rows": dict(max_abs_err=err, **timing),
@@ -1704,9 +2225,10 @@ def main():
                                    **train_timing["row_update"])}
     for name in ("gru_scan", "gru_scan_bwd", "din_attention"):
         measured[name] = dict(max_abs_err=seq_errs[name], **seq_timing[name])
+    measured["cin_mix"] = dict(max_abs_err=cin_err, **cin_timing)
+    measured["static_scatter"] = scatter
     kernels = []
-    for name in ("gather_rows", "scatter_add_rows", "row_update", "gru_scan",
-                 "gru_scan_bwd", "din_attention"):
+    for name in KERNELS:
         check(MAIN_PATH_LAUNCHES[name] > 0, "%s never launched on the main "
               "path" % name)
         kernels.append(dict(name=name, launches=MAIN_PATH_LAUNCHES[name],

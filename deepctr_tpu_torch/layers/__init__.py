@@ -1,6 +1,6 @@
 from .activation import Dice, PReLU, activation_layer
 from .core import DNN, LocalActivationUnit, PredictionLayer
-from .interaction import FM
+from .interaction import CIN, FM
 from .sequence import (AGRUCell, AUGRUCell, AttentionSequencePoolingLayer,
                        DynamicGRU, MaskedGRU, SequencePoolingLayer,
                        masked_pooling)

@@ -2,3 +2,4 @@ from .basemodel import BaseModel
 from .deepfm import DeepFM
 from .din import DIN
 from .dien import DIEN
+from .xdeepfm import xDeepFM

@@ -1,0 +1,171 @@
+"""Fused CIN layer of xDeepFM, D-major.
+
+The port's counterpart of ``deepctr_tpu/ops/pallas.py`` (``cin_mix``, the
+kernel ``_cin_pallas_fwd``)::
+
+    out[b, d, o] = sum_{h, f} w3[o, h, f] * hidden_t[b, d, h] * x0_t[b, d, f]
+
+at the operands' dtype: the outer product ``z = h * x`` is rounded to it,
+the sum over ``K = H * F`` is float32 and is rounded once.
+
+``cin_mix`` launches the CUDA kernel in ``csrc/cin_mix.cu`` for CUDA
+tensors, for every layer and every shape, or raises; it takes the plain
+version ``cin_mix_ref`` only because its tensors lie on the CPU, where
+autograd differentiates it.  The JAX package's ``cin_mix_supported`` gate
+(lane-aligned H, B a multiple of 8, a VMEM estimate) is a TPU tiling rule
+and has no counterpart here.
+
+Unlike the JAX package, which runs its kernel only at inference unless
+``set_use_pallas(True)``, the port runs it in training too: while autograd
+records, ``cin_mix`` runs as :class:`CinMix`, whose forward is the kernel
+and whose backward is ``_cin_mix_bwd``'s explicit contractions
+(``cin_mix_bwd``), in the operands' dtype, from the saved inputs.
+"""
+
+import ctypes
+
+import torch
+
+from . import _build
+from .reference import cin_mix_ref
+
+# kernel launches since import (or since a caller reset it to 0); counts
+# only launches of the CUDA kernel, never the plain version
+CIN_MIX_LAUNCHES = 0
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def kernel_weight(w3, dtype):
+    """The kernel's weight layout: ``wt [F*H, O]`` with ``wt[f*H + h, o] =
+    w3[o, h, f]``, in ``dtype``, contiguous.  Differentiable."""
+    O, H, F = w3.shape
+    return w3.permute(2, 1, 0).reshape(F * H, O).to(dtype).contiguous()
+
+
+def _check(hidden_t, x0_t, w3):
+    if hidden_t.dim() != 3 or x0_t.dim() != 3 or w3.dim() != 3:
+        raise ValueError("cin_mix takes hidden_t [B, D, H], x0_t [B, D, F] "
+                         "and w3 [O, H, F], got %s, %s and %s"
+                         % (tuple(hidden_t.shape), tuple(x0_t.shape),
+                            tuple(w3.shape)))
+    B, D, H = hidden_t.shape
+    F = x0_t.shape[2]
+    if tuple(x0_t.shape[:2]) != (B, D) or tuple(w3.shape[1:]) != (H, F):
+        raise ValueError("cin_mix: hidden_t %s, x0_t %s and w3 %s do not "
+                         "agree" % (tuple(hidden_t.shape),
+                                    tuple(x0_t.shape), tuple(w3.shape)))
+    devices = {t.device for t in (hidden_t, x0_t, w3)}
+    if len(devices) != 1:
+        raise ValueError("cin_mix's tensors must be on one device, got %s"
+                         % sorted(map(str, devices)))
+
+
+def _rows(t):
+    """The row stride of a [B, D, n] tensor whose (b, d) rows lie at one
+    stride with contiguous rows, else None."""
+    if t.stride(2) != 1 and t.shape[2] > 1:
+        return None
+    if t.shape[0] > 1 and t.stride(0) != t.shape[1] * t.stride(1):
+        return None
+    ld = t.stride(1) if t.shape[1] > 1 else (
+        t.stride(0) if t.shape[0] > 1 else t.shape[2])
+    return ld if ld >= t.shape[2] else None
+
+
+def _kernel():
+    lib = _build.load("cin_mix")
+    fn = lib.cin_mix_fwd
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(hidden_t, x0_t, wt):
+    """The kernel on CUDA tensors: -> [B, D, O] in hidden_t's dtype."""
+    global CIN_MIX_LAUNCHES
+    if hidden_t.device.type != "cuda":
+        raise ValueError("no cin_mix kernel for device %s" % hidden_t.device)
+    B, D, H = hidden_t.shape
+    F = x0_t.shape[2]
+    O = wt.shape[1]
+    dtype = hidden_t.dtype
+    if dtype not in _DTYPES or x0_t.dtype != dtype or wt.dtype != dtype:
+        raise ValueError("cin_mix takes float32 or bfloat16 operands of one "
+                         "dtype, got %s, %s and a weight of %s"
+                         % (hidden_t.dtype, x0_t.dtype, wt.dtype))
+    if tuple(wt.shape) != (F * H, O) or not wt.is_contiguous():
+        raise ValueError("cin_mix: the kernel weight must be contiguous [%d, "
+                         "%d], got %s" % (F * H, O, tuple(wt.shape)))
+    ld_h, ld_x = _rows(hidden_t), _rows(x0_t)
+    if ld_h is None or ld_x is None:
+        raise ValueError("cin_mix: hidden_t and x0_t need contiguous rows at "
+                         "one stride over (b, d), got strides %s and %s"
+                         % (hidden_t.stride(), x0_t.stride()))
+    out = torch.empty(B, D, O, dtype=dtype, device=hidden_t.device)
+    if B * D == 0:
+        return out
+    with torch.cuda.device(hidden_t.device):
+        stream = torch.cuda.current_stream(hidden_t.device).cuda_stream
+        rc = _kernel()(_DTYPES[dtype], hidden_t.data_ptr(), ld_h,
+                       x0_t.data_ptr(), ld_x, wt.data_ptr(), out.data_ptr(),
+                       B * D, H, F, O, stream)
+    if rc != 0:
+        raise RuntimeError("cin_mix kernel launch failed with CUDA error %d"
+                           % rc)
+    CIN_MIX_LAUNCHES += 1
+    return out
+
+
+def cin_mix_bwd(hidden_t, x0_t, wt, g):
+    """``_cin_mix_bwd``'s contractions (``pallas.py:104-117``) in the
+    operands' dtype, from the forward's inputs and the cotangent g [B, D,
+    O]: -> (dh [B, D, H], dx [B, D, F], dwt [F*H, O])."""
+    B, D, H = hidden_t.shape
+    F = x0_t.shape[2]
+    dz = torch.einsum("bdo,ko->bdk", g, wt).reshape(B, D, F, H)
+    dh = torch.einsum("bdfh,bdf->bdh", dz, x0_t)
+    dx = torch.einsum("bdfh,bdh->bdf", dz, hidden_t)
+    z = torch.einsum("bdf,bdh->bdfh", x0_t, hidden_t).reshape(B, D, F * H)
+    dwt = torch.einsum("bdk,bdo->ko", z, g)
+    return dh, dx, dwt.to(wt.dtype)
+
+
+class CinMix(torch.autograd.Function):
+    """The kernel forward on CUDA tensors, with the contractions of
+    :func:`cin_mix_bwd` as its backward; saves only its inputs."""
+
+    @staticmethod
+    def forward(ctx, hidden_t, x0_t, wt):
+        ctx.save_for_backward(hidden_t, x0_t, wt)
+        return _launch(hidden_t, x0_t, wt)
+
+    @staticmethod
+    def backward(ctx, g):
+        hidden_t, x0_t, wt = ctx.saved_tensors
+        return cin_mix_bwd(hidden_t, x0_t, wt, g.to(hidden_t.dtype))
+
+
+def cin_mix(hidden_t, x0_t, w3, wt=None):
+    """Fused CIN layer: hidden_t [B, D, H], x0_t [B, D, F], w3 [O, H, F] ->
+    [B, D, O] in hidden_t's dtype (float32 or bfloat16, all three alike).
+    ``wt`` is ``kernel_weight(w3, dtype)`` from a caller that keeps it
+    between calls; it is built here when None.
+
+    On CUDA tensors this launches the kernel (building it at first use),
+    as :class:`CinMix` while autograd records, or raises.  hidden_t and
+    x0_t may be views whose (b, d) rows lie at one stride."""
+    _check(hidden_t, x0_t, w3)
+    if hidden_t.device.type == "cpu":
+        return cin_mix_ref(hidden_t, x0_t, w3)
+    if hidden_t.device.type != "cuda":
+        raise ValueError("no cin_mix kernel for device %s" % hidden_t.device)
+    if wt is None:
+        wt = kernel_weight(w3, hidden_t.dtype)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (hidden_t, x0_t, wt)):
+        return CinMix.apply(hidden_t, x0_t, wt)
+    return _launch(hidden_t, x0_t, wt)

@@ -17,6 +17,31 @@ def fm_cross_ref(inputs):
     return 0.5 * torch.sum(cross, dim=2)
 
 
+def cin_layer_ref(hidden, x0, w, b):
+    """One CIN layer: outer interaction + 1x1 channel-mix.
+
+    hidden [B,H,D], x0 [B,F,D], w [O, H*F], b [O] -> [B,O,D]."""
+    B, H, D = hidden.shape
+    F = x0.shape[1]
+    z = torch.einsum("bhd,bmd->bhmd", hidden, x0).reshape(B, H * F, D)
+    return torch.einsum("oc,bcd->bod", w, z) + b[None, :, None]
+
+
+def cin_mix_ref(hidden_t, x0_t, w3):
+    """D-major CIN layer: hidden_t [B,D,H], x0_t [B,D,F], w3 [O,H,F]
+    -> [B,D,O], out[b,d,o] = sum_{h,f} w3[o,h,f] h[b,d,h] x[b,d,f].
+
+    Works at the operands' dtype as the JAX einsums do: the outer product
+    z = h * x is rounded to it, the contraction accumulates in float32 and
+    rounds once."""
+    B, D, H = hidden_t.shape
+    F = x0_t.shape[2]
+    O = w3.shape[0]
+    z = (hidden_t[..., :, None] * x0_t[..., None, :]).reshape(B, D, H * F)
+    out = torch.matmul(z.float(), w3.reshape(O, H * F).t().float())
+    return out.to(hidden_t.dtype)
+
+
 def din_attention_ref(scores, keys, keys_masks, weight_normalization,
                       return_score):
     """Masked (optionally softmax) attention readout over history.

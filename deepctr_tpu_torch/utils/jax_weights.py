@@ -17,6 +17,9 @@ JAX leaf                               port key
 ``.../Dice_<i>/alpha``                 ``....Dice_<i>.alpha``
 ``.../bn_<i>/{scale,bias}``            ``....bn_<i>.{scale,bias}``
 ``.../gru/weight_ih`` (and ``_hh``)    ``....gru.weight_ih`` (not transposed)
+``cin/conv_w_<i>`` ``[size, in_ch]``   ``cin.conv_w_<i>`` (not transposed)
+``cin/conv_b_<i>``                     ``cin.conv_b_<i>``
+``cin_linear/kernel``                  ``cin_linear.weight`` (transposed)
 =====================================  =====================================
 
 ``batch_stats`` leaves map the same way onto buffers: Dice's running
