@@ -31,11 +31,17 @@ Then the training path, DeepFM ``compile``/``fit`` on the same model:
 
 5. train kernels vs plain at the bench shape (B=4096, the 26 Criteo
    tables, W=17, the real dedup of a uniform batch with adagrad's "auto"
-   split: 8 sparse tables, 18 dense): ``scatter_add_rows`` must equal
-   ``scatter_add_rows_ref`` run on CPU copies bit for bit (both sum each
-   row in (b, f) order; ``index_add_`` on the card adds with atomics, so
-   it is only reported), and ``row_update`` must equal ``row_update_ref``
-   on the card bit for bit for sgd, adagrad, rmsprop and adam;
+   split: 8 sparse tables, 18 dense), and at a long-run case (a 3-row
+   dense table read by every row of B=4096 in three fields, a 1000-row
+   one, an id out of range): ``scatter_add_rows``' sort must equal
+   ``sort_keys_ref``, its result ``scatter_add_rows_chunked_ref`` (the
+   plain version of its two-level order) run on CPU copies bit for bit,
+   and ``scatter_add_rows_ref`` (``index_add_`` on the CPU) bit for bit on
+   every target row of at most CHUNK contributions and within 1e-6 of the
+   sum of the terms' magnitudes on the others; a repeat gives the same
+   bits (``index_add_`` on the card adds with atomics, so it is only
+   reported); ``row_update`` must equal ``row_update_ref`` on the card bit
+   for bit for sgd, adagrad, rmsprop and adam;
 6. ``compile("adagrad")`` + ``fit`` at full width, float32, a few steps
    of 4096: the 8 tables of >= 16384 rows go sparse, each kernel
    launches once a step, the loss is finite, and in every sparse table
@@ -49,7 +55,8 @@ Then the training path, DeepFM ``compile``/``fit`` on the same model:
 8. timing, bfloat16 compute: ``fit`` in examples/s (CUDA events) and its
    device idle share (``torch.profiler``); both train kernels, their
    plain versions and a library call in device ms with a cold L2 and per
-   call, and their bounds from this run's bytes.
+   call, ``scatter_add_rows``' sort and sums apart, and their bounds from
+   this run's bytes.
 
 Then the sequence models' serving path, at the columns of
 ``tools/seq_train_bench.py`` (user 1000, item_id 10000 and cate_id 100
@@ -115,9 +122,11 @@ split_half, batches of 4096), serving and training:
 16. ``cin_mix`` against ``cin_mix_ref`` on the card at both layers' shapes
     (B=4096, D=16, F=26: H=26, O=256 and H=128, O=128, the latter as the
     layer gives it, the first half of a [B, D, 256] map), at a ragged
-    B=1000, at the split_half=False layer-1 shape (H=256, K=6656), at an
-    odd small shape (D=3, H=5, F=3, O=7) and at H=400 (bfloat16 rows too
-    wide for the tensor-core path), float32 and bfloat16: float32
+    B=1000, at the split_half=False layer-1 shape (H=256, K=6656), at O=100
+    (no multiple of 8) beside H=26, at an odd small shape (D=3, H=5, F=3,
+    O=7), at H=400 (bfloat16 on the tensor cores with 128-row blocks) and
+    at H=1000 (bfloat16 rows too wide for the tensor-core path's shared
+    memory: the FMA route), float32 and bfloat16: float32
     within 1e-5 of sum_k |w z| per element (the plain version's matmul
     without TF32), bfloat16 within one bf16 ulp; a repeat launch gives the
     same bits; ``CinMix``'s gradients (dh, dx, dwt) against autograd
@@ -619,6 +628,100 @@ def train_kernel_args(model, X, seed):
     return touched, grad, targets, idx
 
 
+def distinct_copies(targets, device=None, fn=None):
+    """A copy of each distinct target (of ``fn`` of it, where given), on
+    ``device`` (theirs by default), shared by the fields that share the
+    target."""
+    copies = {}
+    for t in targets:
+        if t.data_ptr() not in copies:
+            v = fn(t.detach()) if fn else t.detach()
+            copies[t.data_ptr()] = v.to(device or t.device, copy=True)
+    return [copies[t.data_ptr()] for t in targets]
+
+
+def long_run_case(device, seed, B=BATCH, W=EMB_DIM + 1):
+    """scatter_add_rows' arguments with long runs: a 3-row dense table read
+    by every row in three fields (runs of ~4096), a 1000-row table, an id
+    out of range and a negative one; targets and cotangent normal."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    small = torch.randn(3, W, generator=gen, device=device)
+    big = torch.randn(1000, W, generator=gen, device=device)
+    targets = [small, big, small, small]
+    rows = torch.stack([torch.randint(0, t.shape[0], (B,), generator=gen,
+                                      device=device) for t in targets], 1)
+    rows[5, 1] = 1000
+    rows[9, 0] = -1
+    grad = torch.randn(B, len(targets), W, generator=gen, device=device)
+    return grad, targets, rows
+
+
+def check_scatter_case(grad, targets, idx, what):
+    """scatter_add_rows on copies of ``targets`` against its plain
+    versions (see phase 5); returns max |kernel - index_add_ on the CPU|."""
+    C = scatter_add.CHUNK
+    check(_build.load("scatter_add_rows").scatter_add_rows_chunk() == C,
+          "scatter_add.CHUNK differs from the kernels' chunk length")
+    got = distinct_copies(targets)
+    again = distinct_copies(targets)
+    scatter_add.scatter_add_rows(grad, got, idx)
+    scatter_add.scatter_add_rows(grad, again, idx)
+    # the kernels' sort, left in a workspace by a sort-only call
+    meta = scatter_add.kernel_args(targets, grad.device)
+    total = scatter_add.total_rows(targets)
+    ws = scatter_add.workspace(idx.numel(), grad.shape[2], grad.device)
+    scatter_add.launch(grad, idx, meta, total, ws, part=1)
+    keys, order = scatter_add.kernel_sorted(ws, idx.numel(), grad.shape[2],
+                                            total)
+    cpu_grad, cpu_idx = grad.cpu(), idx.cpu()
+    chunked = distinct_copies(targets, "cpu")
+    scatter_add.scatter_add_rows_chunked_ref(cpu_grad, chunked, cpu_idx)
+    plain = distinct_copies(targets, "cpu")
+    scatter_add.scatter_add_rows_ref(cpu_grad, plain, cpu_idx)
+    scale = distinct_copies(targets, "cpu", torch.abs)
+    scatter_add.scatter_add_rows_ref(cpu_grad.abs(), scale, cpu_idx)
+    counts = distinct_copies(targets, "cpu",
+                             lambda t: torch.zeros(t.shape[0], 1))
+    scatter_add.scatter_add_rows_ref(torch.ones(*cpu_idx.shape, 1), counts,
+                                     cpu_idx)
+    want_keys, want_order = scatter_add.sort_keys_ref(
+        chunked, cpu_idx, scatter_add.kernel_args(chunked, "cpu"))
+    torch.cuda.synchronize()
+    check(torch.equal(keys.cpu().long(), want_keys)
+          and torch.equal(order.cpu().long(), want_order),
+          "scatter_add_rows' sort differs from sort_keys_ref at " + what)
+    err, rel, long_rows = 0.0, 0.0, 0
+    firsts = {}
+    for i, t in enumerate(targets):
+        firsts.setdefault(t.data_ptr(), i)
+    for i in firsts.values():
+        a, c, p, s, n = got[i], chunked[i], plain[i], scale[i], counts[i]
+        check(same_bits(a, again[i]), "scatter_add_rows: a repeat gave "
+              "other bits at " + what)
+        a = a.cpu()
+        check(same_bits(a, c), "scatter_add_rows differs from its plain "
+              "two-level version at " + what)
+        short = n[:, 0] <= C
+        check(same_bits(a[short], p[short]), "scatter_add_rows differs from "
+              "index_add_ on a row of at most %d contributions at %s"
+              % (C, what))
+        d = (a - p).abs()
+        rel = max(rel, (d / s.clamp_min(1e-30)).max().item())
+        check(bool((d <= 1e-6 * s).all()), "scatter_add_rows: a long run "
+              "differs from index_add_ by more than 1e-6 of the sum of its "
+              "terms' magnitudes at " + what)
+        err = max(err, d.max().item())
+        long_rows += int((~short).sum())
+    log("kernel vs plain: scatter_add_rows at %s (B=%d F=%d W=%d): sort "
+        "equal to sort_keys_ref, bit-equal to the two-level plain version, "
+        "bit-equal to index_add_ on the CPU on rows of at most %d "
+        "contributions, %d longer rows within %r of the sum of their terms' "
+        "magnitudes (max |err| %r); repeat bit-equal"
+        % (what, grad.shape[0], grad.shape[1], grad.shape[2], C, long_rows,
+           rel, err))
+    return err
+
+
 def phase_train_kernels_vs_plain(model, X):
     """scatter_add_rows and row_update against their plain versions at the
     main path's shapes."""
@@ -628,32 +731,22 @@ def phase_train_kernels_vs_plain(model, X):
           % (sparse, EXPECTED_SPARSE))
     with torch.no_grad():
         touched, grad, targets, idx = train_kernel_args(model, X, SEED + 5)
-        # one copy a distinct target, so that fields sharing a target
-        # share its copy too
         copies = {}
-        cpu_targets = [copies.setdefault(t.data_ptr(), t.cpu().clone())
-                       for t in targets]
+        k1_err = check_scatter_case(grad, targets, idx, "the bench shape")
         on_card = [copies.setdefault(("card", t.data_ptr()),
                                      torch.zeros_like(t)) for t in targets]
-        scatter_add.scatter_add_rows(grad, targets, idx)
-        scatter_add.scatter_add_rows_ref(grad.cpu(), cpu_targets, idx.cpu())
         scatter_add.scatter_add_rows_ref(grad, on_card, idx)
-        torch.cuda.synchronize()
-        for t, c in zip(targets, cpu_targets):
-            check(same_bits(t.cpu(), c), "scatter_add_rows differs from its "
-                  "plain version at the bench shape")
-        k1_err = max((t.cpu() - c).abs().max().item()
-                     for t, c in zip(targets, cpu_targets))
         atomics_err = max((t - c).abs().max().item()
                           for t, c in zip(targets, on_card))
         n_pairs = sum(int(torch.unique(idx[:, f]).numel())
                       for f in range(idx.shape[1]))
-        log("kernel vs plain: scatter_add_rows bit-equal to the CPU plain "
-            "version at B=%d F=%d W=%d (max_abs_err %r; %d target rows, "
-            "sparse tables %s touched rows); index_add_ on the card "
+        log("kernel vs plain: scatter_add_rows at B=%d F=%d W=%d (%d target "
+            "rows, sparse tables %s touched rows); index_add_ on the card "
             "(atomics) differs by at most %r"
-            % (grad.shape[0], grad.shape[1], grad.shape[2], k1_err, n_pairs,
+            % (grad.shape[0], grad.shape[1], grad.shape[2], n_pairs,
                touched.counts, atomics_err))
+        check_scatter_case(*long_run_case(X.device, SEED + 8),
+                           "the long-run case")
 
         tables = model._tables()
         paths = [p for p, _, _ in model._sparse_specs]
@@ -869,12 +962,14 @@ def phase_train_timing_bf16(model, X_all):
         }
         ms = {k: device_ms(fn) for k, fn in timed.items()}
         call_ms = {k: time_ms(fn, reps=20) for k, fn in timed.items()}
+        # the sort and the two-level sums apart, each on its own launch
         meta = scatter_add.kernel_args(targets, X.device)
-        view = scatter_add.sort_contributions(targets, idx, meta)
-        alone_ms = device_ms(lambda: scatter_add.launch(grad, idx, view,
-                                                        meta))
-        sort_ms = device_ms(lambda: scatter_add.sort_contributions(
-            targets, idx, meta))
+        total_rows = scatter_add.total_rows(targets)
+        ws = scatter_add.workspace(idx.numel(), width, X.device)
+        sort_ms = device_ms(lambda: scatter_add.launch(
+            grad, idx, meta, total_rows, ws, part=1))
+        alone_ms = device_ms(lambda: scatter_add.launch(
+            grad, idx, meta, total_rows, ws, part=2))
         # bytes: the cotangent and the rows once, each target row read and
         # written once
         n_pairs = sum(int(torch.unique(i).numel()) for _, i, _ in lib_args)
@@ -884,11 +979,11 @@ def phase_train_timing_bf16(model, X_all):
             ms=ms["kernel"], plain_ms=ms["plain"], library_ms=ms["library"],
             bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
         log("scatter_add_rows at B=%d F=%d W=%d, device time, cold L2 "
-            "(wrapper's sort included): kernel %r ms, plain %r ms, library "
+            "(its sort included): kernel %r ms, plain %r ms, library "
             "(index_add_ per target) %r ms; bound %r ms (%d bytes: %d "
             "target rows); per call, host included: kernel %r, plain %r, "
-            "library %r ms; of the kernel's time, the sort %r ms and the "
-            "kernel alone %r ms"
+            "library %r ms; apart: the sort %r ms, the two-level sums %r "
+            "ms"
             % (grad.shape[0], grad.shape[1], width, ms["kernel"],
                ms["plain"], ms["library"], out["scatter_add_rows"]["bound_ms"],
                n_bytes, n_pairs, call_ms["kernel"], call_ms["plain"],
@@ -1757,14 +1852,15 @@ def check_cin_case(B, H, O, dtype, seed, device, D=EMB_DIM, F=XD_FIELDS,
     returns max |kernel - plain|."""
     hidden, x0, w3 = cin_inputs(B, H, O, dtype, seed, device, D, F,
                                 split_of)
-    wt = cin.kernel_weight(w3, dtype)
-    got = cin.cin_mix(hidden, x0, w3, wt=wt)
-    again = cin.cin_mix(hidden, x0, w3, wt=wt)
+    wt, wm = cin.kernel_weights(w3, dtype)
+    got = cin.cin_mix(hidden, x0, w3, wt=wt, wm=wm)
+    again = cin.cin_mix(hidden, x0, w3, wt=wt, wm=wm)
     want = cin.cin_mix_ref(hidden, x0, w3)
     torch.cuda.synchronize()
-    what = ("cin_mix %s B=%d D=%d H=%d F=%d O=%d%s"
+    what = ("cin_mix %s B=%d D=%d H=%d F=%d O=%d%s, %s route"
             % (dtype, B, D, H, F, O,
-               " (first half of %d maps)" % split_of if split_of else ""))
+               " (first half of %d maps)" % split_of if split_of else "",
+               cin.route(dtype, H, F, O)))
     check(bits_equal(got, again), what + ": a repeat launch gave other bits")
     e, a = compare(got, want, what, cin_scale(hidden, x0, w3))
     log("kernel vs plain: %s: %s %r; max |err| %r; repeat bit-equal"
@@ -1811,9 +1907,11 @@ def phase_cin_vs_plain(device):
              dict(B=1000, H=h0, O=o0), dict(B=1000, H=h1, O=o1,
                                             split_of=o0),
              dict(B=BATCH, H=o0, O=o1),                # split_half=False
+             dict(B=BATCH, H=h0, O=100),               # O no multiple of 8
              dict(B=37, H=5, O=7, D=3, F=3),
+             dict(B=64, H=400, O=72),
              # rows too wide for the tensor-core path's shared memory
-             dict(B=64, H=400, O=72)]
+             dict(B=64, H=1000, O=256)]
     with torch.no_grad():
         for i, case in enumerate(cases):
             for dtype in (torch.float32, torch.bfloat16):
@@ -1997,11 +2095,11 @@ def phase_xdeepfm_timing_bf16(device):
             hidden, x0, w3 = cin_inputs(BATCH, H, O, dtype, SEED + 440 + i,
                                         device, split_of=XD_CIN[0] if i
                                         else None)
-            wt = cin.kernel_weight(w3, dtype)
+            wt, wm = cin.kernel_weights(w3, dtype)
             M, K = BATCH * EMB_DIM, H * XD_FIELDS
             zf = (x0[..., :, None] * hidden[..., None, :]).reshape(M, K)
             timed = {
-                "kernel": lambda: cin.cin_mix(hidden, x0, w3, wt=wt),
+                "kernel": lambda: cin.cin_mix(hidden, x0, w3, wt=wt, wm=wm),
                 "plain": lambda: cin.cin_mix_ref(hidden, x0, w3),
                 # the library's product of a prebuilt z [M, K] (f-major,
                 # the kernel's K order) by the kernel's weight

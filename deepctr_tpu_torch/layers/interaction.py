@@ -8,7 +8,7 @@ from torch import nn
 from .. import config
 from ..ops import cin_mix, fm_cross
 from ..ops._args import ParamCache
-from ..ops.cin import kernel_weight
+from ..ops.cin import kernel_weights
 from .activation import activation_layer
 
 
@@ -39,8 +39,8 @@ class CIN(nn.Module):
     ``variance_scaling(1/3, "fan_in", "uniform")`` on shape ``(size,
     in_ch)`` (flax's fan-in of a 2-D kernel is its first axis), and
     ``conv_b_<i>`` starts at zero (the JAX layer's ``init_std`` is unused
-    there and has no counterpart).  On CUDA the kernel's weight layout is
-    kept between calls (``ops.cin.kernel_weight``), so inference casts and
+    there and has no counterpart).  On CUDA the kernel's weight layouts are
+    kept between calls (``ops.cin.kernel_weights``), so inference casts and
     transposes no weight a batch."""
 
     def __init__(self, field_size, layer_size=(128, 128), activation="relu",
@@ -91,11 +91,11 @@ class CIN(nn.Module):
             b = getattr(self, "conv_b_%d" % i)
             w3 = w.view(size, self.field_nums[i], F)
             if x0_t.is_cuda:
-                wt = self._wt[i].get([w], dtype,
-                                     lambda: kernel_weight(w3, dtype))
+                wt, wm = self._wt[i].get([w], dtype,
+                                         lambda: kernel_weights(w3, dtype))
             else:
-                w3, wt = w3.to(dtype), None
-            x = cin_mix(hidden, x0_t, w3, wt=wt) + b.to(dtype)
+                w3, wt, wm = w3.to(dtype), None, None
+            x = cin_mix(hidden, x0_t, w3, wt=wt, wm=wm) + b.to(dtype)
             curr = self.activation(x)                            # [B, E, size]
             if self.split_half and i != last:
                 hidden, direct = torch.split(curr, size // 2, dim=-1)

@@ -155,11 +155,15 @@ class BaseModule(nn.Module):
         return self.embedding_dict.gather(X, self.feature_index,
                                           self._shared_columns)
 
-    def input_from_feature_columns(self, X, feature_columns,
-                                   support_dense=True, rows=None):
-        """Canonical embed step: (sparse embeddings [B,1,E] list, then the
-        pooled varlen ones, dense values [B,d] list).  ``rows`` from
-        :meth:`shared_rows` lets the linear part share this gather."""
+    def embed_columns(self, X, feature_columns, support_dense=True,
+                      rows=None):
+        """Canonical embed step on a flat device batch X [B, input_dim]:
+        (sparse embeddings [B,1,E] list, then the pooled varlen ones, dense
+        values [B,d] list).  ``rows`` from :meth:`shared_rows` lets the
+        linear part share this gather.  The JAX module calls this step
+        ``input_from_feature_columns``; in the port that name is the
+        model's host-input hook (``BaseModel.input_from_feature_columns``),
+        since model and module are one object here."""
         sparse_feature_columns = [f for f in feature_columns
                                   if isinstance(f, SparseFeat)]
         dense_feature_columns = [f for f in feature_columns

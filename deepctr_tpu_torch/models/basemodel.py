@@ -628,6 +628,27 @@ class BaseModel(BaseModule):
                              % (X.shape[1], self.input_dim))
         return X
 
+    def input_from_feature_columns(self, x, feature_columns=None):
+        """Embed a raw input dict/list/matrix: returns
+        ``(sparse_embedding_list, dense_value_list)`` as numpy arrays, each
+        embedding ``[N, 1, E]`` (the sparse columns, then the pooled varlen
+        ones), each dense value ``[N, d]``.  ``feature_columns`` defaults to
+        ``dnn_feature_columns``.  The JAX wrapper's hook
+        (``deepctr_tpu/models/basemodel.py:289-306``); the forward's own
+        step on a device batch is :meth:`embed_columns`."""
+        if feature_columns is None:
+            feature_columns = self.dnn_feature_columns
+        X = torch.from_numpy(self._assemble_x(x)).to(self._device)
+        was_training = self.training
+        self.eval()
+        try:
+            with torch.no_grad():
+                se, dv = self.embed_columns(X, list(feature_columns))
+        finally:
+            self.train(was_training)
+        return ([e.float().cpu().numpy() for e in se],
+                [d.float().cpu().numpy() for d in dv])
+
     # ------------------------------------------------------------------
     # fit / evaluate / predict
     # ------------------------------------------------------------------

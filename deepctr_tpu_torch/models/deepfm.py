@@ -53,8 +53,7 @@ class DeepFM(BaseModel):
     def forward(self, X, training=False):
         rows = self.shared_rows(X)
         sparse_embedding_list, dense_value_list = (
-            self.input_from_feature_columns(X, self.dnn_feature_columns,
-                                            rows=rows))
+            self.embed_columns(X, self.dnn_feature_columns, rows=rows))
         logit = self.linear_model(X, rows=rows)
         if self.use_fm and len(sparse_embedding_list) > 0:
             fm_input = torch.cat(sparse_embedding_list, dim=1)

@@ -71,8 +71,7 @@ class xDeepFM(BaseModel):
     def forward(self, X, training=False):
         rows = self.shared_rows(X)
         sparse_embedding_list, dense_value_list = (
-            self.input_from_feature_columns(X, self.dnn_feature_columns,
-                                            rows=rows))
+            self.embed_columns(X, self.dnn_feature_columns, rows=rows))
         logit = self.linear_model(X, rows=rows)
         if self.use_cin:
             cin_output = self.cin(torch.cat(sparse_embedding_list, dim=1))

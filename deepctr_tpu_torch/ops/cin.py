@@ -15,6 +15,15 @@ autograd differentiates it.  The JAX package's ``cin_mix_supported`` gate
 (lane-aligned H, B a multiple of 8, a VMEM estimate) is a TPU tiling rule
 and has no counterpart here.
 
+bfloat16 operands whose rows fit the tensor-core kernel (``route``) take
+the weight as ``mma_weight`` lays it out: ``[Op, F*Hp]``, K contiguous,
+each field's H rows padded with zeros to a multiple of 16 and O to a
+multiple of 8, so that every 16-deep step of the product lies in one field
+and the rows meet TMA's 16-byte strides.  ``cin_mix_mma_ref`` is the plain
+version of the product in that layout.  float32, and bfloat16 rows too
+wide for the kernel's shared memory, take ``kernel_weight``'s ``[F*H, O]``
+in the FMA kernel.
+
 Unlike the JAX package, which runs its kernel only at inference unless
 ``set_use_pallas(True)``, the port runs it in training too: while autograd
 records, ``cin_mix`` runs as :class:`CinMix`, whose forward is the kernel
@@ -23,6 +32,7 @@ and whose backward is ``_cin_mix_bwd``'s explicit contractions
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -41,6 +51,64 @@ def kernel_weight(w3, dtype):
     w3[o, h, f]``, in ``dtype``, contiguous.  Differentiable."""
     O, H, F = w3.shape
     return w3.permute(2, 1, 0).reshape(F * H, O).to(dtype).contiguous()
+
+
+def _round_up(v, m):
+    return -(-v // m) * m
+
+
+def mma_weight(wt, H, F):
+    """The tensor-core kernel's weight layout from ``wt = kernel_weight(w3,
+    dtype)`` [F*H, O]: ``wm [Op, F*Hp]`` with ``wm[o, f*Hp + h] = wt[f*H +
+    h, o]`` for h < H and o < O, zeros elsewhere; Hp = H rounded up to 16,
+    Op = O rounded up to 8.  Contiguous, in wt's dtype."""
+    O = wt.shape[1]
+    Hp, Op = _round_up(H, 16), _round_up(O, 8)
+    w = wt.reshape(F, H, O).permute(2, 0, 1)                    # [O, F, H]
+    w = torch.nn.functional.pad(w, (0, Hp - H, 0, 0, 0, Op - O))
+    return w.reshape(Op, F * Hp).contiguous()
+
+
+def cin_mix_mma_ref(hidden_t, x0_t, wm, O):
+    """Plain version of the product in ``mma_weight``'s layout:
+    hidden_t [B, D, H] padded with zero maps to Hp, z = x * h rounded to
+    the operands' dtype, the float32 sum over F*Hp rounded once, the first
+    O columns."""
+    B, D, H = hidden_t.shape
+    F = x0_t.shape[2]
+    Hp = wm.shape[1] // F
+    h = torch.nn.functional.pad(hidden_t, (0, Hp - H))
+    z = (x0_t[..., :, None] * h[..., None, :]).reshape(B, D, F * Hp)
+    out = torch.matmul(z.float(), wm.float().t())[..., :O]
+    return out.to(hidden_t.dtype)
+
+
+def route(dtype, H, F, O):
+    """"mma" where the tensor-core kernel takes these shapes (bfloat16
+    rows that fit its shared memory), else "fma".  Builds the kernel
+    library at first use: a question for CUDA tensors only."""
+    return _route(_DTYPES.get(dtype, -1), H, F, O)
+
+
+@functools.lru_cache(maxsize=None)
+def _route(code, H, F, O):
+    fn = _build.load("cin_mix").cin_mix_route
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    return "mma" if fn(code, H, F, O) else "fma"
+
+
+def kernel_weights(w3, dtype):
+    """What the kernel of ``w3 [O, H, F]``'s route at ``dtype`` reads:
+    ``(kernel_weight, mma_weight or None)``, for a caller that keeps them
+    between calls on CUDA tensors.  The second carries no graph."""
+    O, H, F = w3.shape
+    wt = kernel_weight(w3, dtype)
+    wm = None
+    if route(dtype, H, F, O) == "mma":
+        with torch.no_grad():
+            wm = mma_weight(wt.detach(), H, F)
+    return wt, wm
 
 
 def _check(hidden_t, x0_t, w3):
@@ -73,19 +141,21 @@ def _rows(t):
     return ld if ld >= t.shape[2] else None
 
 
-def _kernel():
-    lib = _build.load("cin_mix")
-    fn = lib.cin_mix_fwd
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+def _kernel(name):
+    fn = getattr(_build.load("cin_mix"), name)
+    fn.argtypes = ([ctypes.c_int] if name == "cin_mix_fwd" else []) + [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(hidden_t, x0_t, wt):
-    """The kernel on CUDA tensors: -> [B, D, O] in hidden_t's dtype."""
+def _launch(hidden_t, x0_t, wt, wm=None):
+    """The kernel on CUDA tensors: -> [B, D, O] in hidden_t's dtype.  The
+    tensor-core route takes ``wm`` (``mma_weight`` of wt), built here when
+    None."""
     global CIN_MIX_LAUNCHES
     if hidden_t.device.type != "cuda":
         raise ValueError("no cin_mix kernel for device %s" % hidden_t.device)
@@ -108,11 +178,26 @@ def _launch(hidden_t, x0_t, wt):
     out = torch.empty(B, D, O, dtype=dtype, device=hidden_t.device)
     if B * D == 0:
         return out
+    args = (hidden_t.data_ptr(), ld_h, x0_t.data_ptr(), ld_x)
+    if route(dtype, H, F, O) == "mma":
+        if wm is None:
+            with torch.no_grad():
+                wm = mma_weight(wt.detach(), H, F)
+        shape = (_round_up(O, 8), F * _round_up(H, 16))
+        if (tuple(wm.shape) != shape or wm.dtype != dtype
+                or not wm.is_contiguous() or wm.data_ptr() % 16
+                or wm.device != hidden_t.device):
+            raise ValueError("cin_mix: the tensor-core weight must be "
+                             "contiguous %s %s on %s, 16-byte aligned, got "
+                             "%s %s" % (dtype, shape, hidden_t.device,
+                                        wm.dtype, tuple(wm.shape)))
+        fn, args = _kernel("cin_mix_mma_fwd"), args + (wm.data_ptr(),)
+    else:
+        fn = _kernel("cin_mix_fwd")
+        args = (_DTYPES[dtype],) + args + (wt.data_ptr(),)
     with torch.cuda.device(hidden_t.device):
         stream = torch.cuda.current_stream(hidden_t.device).cuda_stream
-        rc = _kernel()(_DTYPES[dtype], hidden_t.data_ptr(), ld_h,
-                       x0_t.data_ptr(), ld_x, wt.data_ptr(), out.data_ptr(),
-                       B * D, H, F, O, stream)
+        rc = fn(*args, out.data_ptr(), B * D, H, F, O, stream)
     if rc != 0:
         raise RuntimeError("cin_mix kernel launch failed with CUDA error %d"
                            % rc)
@@ -139,21 +224,22 @@ class CinMix(torch.autograd.Function):
     :func:`cin_mix_bwd` as its backward; saves only its inputs."""
 
     @staticmethod
-    def forward(ctx, hidden_t, x0_t, wt):
+    def forward(ctx, hidden_t, x0_t, wt, wm=None):
         ctx.save_for_backward(hidden_t, x0_t, wt)
-        return _launch(hidden_t, x0_t, wt)
+        return _launch(hidden_t, x0_t, wt, wm)
 
     @staticmethod
     def backward(ctx, g):
         hidden_t, x0_t, wt = ctx.saved_tensors
-        return cin_mix_bwd(hidden_t, x0_t, wt, g.to(hidden_t.dtype))
+        return cin_mix_bwd(hidden_t, x0_t, wt, g.to(hidden_t.dtype)) + (
+            None,)
 
 
-def cin_mix(hidden_t, x0_t, w3, wt=None):
+def cin_mix(hidden_t, x0_t, w3, wt=None, wm=None):
     """Fused CIN layer: hidden_t [B, D, H], x0_t [B, D, F], w3 [O, H, F] ->
     [B, D, O] in hidden_t's dtype (float32 or bfloat16, all three alike).
-    ``wt`` is ``kernel_weight(w3, dtype)`` from a caller that keeps it
-    between calls; it is built here when None.
+    ``wt`` and ``wm`` are ``kernel_weights(w3, dtype)`` from a caller that
+    keeps them between calls; they are built here when None.
 
     On CUDA tensors this launches the kernel (building it at first use),
     as :class:`CinMix` while autograd records, or raises.  hidden_t and
@@ -167,5 +253,5 @@ def cin_mix(hidden_t, x0_t, w3, wt=None):
         wt = kernel_weight(w3, hidden_t.dtype)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (hidden_t, x0_t, wt)):
-        return CinMix.apply(hidden_t, x0_t, wt)
-    return _launch(hidden_t, x0_t, wt)
+        return CinMix.apply(hidden_t, x0_t, wt, wm)
+    return _launch(hidden_t, x0_t, wt, wm)

@@ -15,11 +15,11 @@ def cin_layer(hidden, x0, w, b):
     return _ref.cin_layer_ref(hidden, x0, w, b)
 
 
-def cin_mix(hidden_t, x0_t, w3, wt=None):
+def cin_mix(hidden_t, x0_t, w3, wt=None, wm=None):
     # the kernel on CUDA tensors in training and at inference alike (the
     # JAX package runs its kernel at inference unless set_use_pallas(True));
     # the plain version on CPU tensors
-    return _cin.cin_mix(hidden_t, x0_t, w3, wt=wt)
+    return _cin.cin_mix(hidden_t, x0_t, w3, wt=wt, wm=wm)
 
 
 def din_attention(scores, keys, keys_masks, weight_normalization,

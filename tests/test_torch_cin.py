@@ -307,3 +307,56 @@ def test_cin_raises_where_the_jax_layer_does():
         PCIN(4, device="cpu")(torch.from_numpy(x[0]))
     with pytest.raises(NotImplementedError):
         PCIN(4, activation="dice", device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core kernel's weight layout (ops.cin.mma_weight)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(16, 26, 26, 256), (16, 128, 26, 128),
+                                   (3, 5, 3, 7), (4, 26, 26, 100)])
+def test_mma_weight_round_trips_to_w3(shape):
+    """[Op, F*Hp], K contiguous: w3[o, h, f] at (o, f*Hp + h), zeros in the
+    padding (H to a multiple of 16, O to a multiple of 8)."""
+    _, H, F, O = shape
+    w3 = np.random.default_rng(H).normal(0, 1, (O, H, F)).astype(np.float32)
+    for dtype in (torch.float32, torch.bfloat16):
+        wt = p_cin.kernel_weight(torch.from_numpy(w3), dtype)
+        wm = p_cin.mma_weight(wt, H, F)
+        Hp, Op = -(-H // 16) * 16, -(-O // 8) * 8
+        assert wm.dtype == dtype and wm.is_contiguous()
+        assert tuple(wm.shape) == (Op, F * Hp)
+        grid = wm.reshape(Op, F, Hp)
+        assert not grid[O:].any() and not grid[:, :, H:].any()
+        back = grid[:O, :, :H].permute(0, 2, 1)
+        np.testing.assert_array_equal(
+            back.float().numpy(),
+            torch.from_numpy(w3).to(dtype).float().numpy())
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", [(8, 16, 26, 26, 64), (4, 16, 128, 26, 32),
+                                   (5, 3, 5, 3, 7), (8, 4, 26, 26, 100)])
+def test_cin_mix_mma_ref_matches_jax(shape, dtype):
+    """The product in the tensor-core layout (padding included) against the
+    JAX ``cin_mix_ref`` and the Pallas kernel's layout."""
+    B, D, H, F, O = shape
+    (jh, jx, jw), (th, tx, tw) = _both(_inputs(shape, 11), dtype)
+    wm = p_cin.mma_weight(p_cin.kernel_weight(tw, th.dtype), H, F)
+    got = p_cin.cin_mix_mma_ref(th, tx, wm, O)
+    assert got.dtype == th.dtype and tuple(got.shape) == (B, D, O)
+    assert_agree(got, jref.cin_mix_ref(jh, jx, jw), dtype,
+                 _scales(th, tx, tw))
+    assert_agree(got, pref.cin_mix_ref(th, tx, tw), dtype,
+                 _scales(th, tx, tw))
+
+
+def test_cin_mix_mma_ref_matches_the_pallas_kernel():
+    shape = (8, 4, 128, 5, 16)
+    h, x, w3 = _inputs(shape, 12, w_std=0.1)
+    with pltpu.force_tpu_interpret_mode():
+        want = P.cin_mix(h, x, w3)
+    th, tx, tw = map(torch.from_numpy, (h, x, w3))
+    wm = p_cin.mma_weight(p_cin.kernel_weight(tw, torch.float32), 128, 5)
+    assert_agree(p_cin.cin_mix_mma_ref(th, tx, wm, 16), want, "float32",
+                 _scales(h, x, w3))

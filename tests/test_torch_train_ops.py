@@ -349,3 +349,151 @@ def test_train_kernel_sources_build_by_hash(name):
     src, lib = _build._paths(name)
     assert src.exists() and src.parent == _build.SRC_DIR
     assert lib.name.startswith("lib%s-" % name) and lib.suffix == ".so"
+
+
+# ---------------------------------------------------------------------------
+# the kernels' sort and two-level order (csrc/scatter_add_rows.cu), plain
+# ---------------------------------------------------------------------------
+
+def _long_run_case(seed, B=4096, W=17):
+    """A 3-row table read by every row in three fields (runs of ~4096), a
+    table of 5000 rows, a slot target, and an id out of range."""
+    rng = np.random.default_rng(seed)
+    small, big, slots = (torch.zeros(3, W), torch.zeros(5000, W),
+                         torch.zeros(700, W))
+    targets = [small, big, small, slots, small]
+    ids = np.stack([rng.integers(0, 3, B), rng.integers(0, 5000, B),
+                    rng.integers(0, 3, B), rng.integers(0, 700, B),
+                    rng.integers(0, 3, B)], axis=1)
+    ids[5, 1] = 5000                               # out of range
+    ids[7, 0] = -1
+    g = torch.from_numpy(rng.normal(0, 1, (B, 5, W)).astype(np.float32))
+    for t in (small, big, slots):
+        t.copy_(torch.from_numpy(rng.normal(0, 1, t.shape).astype(
+            np.float32)))
+    return g, targets, torch.from_numpy(ids.astype(np.int64))
+
+
+def _copies(targets):
+    copies = {}
+    return [copies.setdefault(t.data_ptr(), t.clone()) for t in targets]
+
+
+def test_sort_keys_ref_is_sort_contributions_permutation():
+    g, targets, rows = _long_run_case(0, B=300)
+    meta = SA.kernel_args(targets, rows.device)
+    keys, order = SA.sort_keys_ref(targets, rows, meta)
+    old_keys, old_order, _ = SA.sort_contributions(targets, rows, meta)
+    total = SA.total_rows(targets)
+    assert total == 3 + 5000 + 700
+    assert torch.equal(order, old_order)
+    bad = old_keys >= total
+    assert int(bad.sum()) == 2
+    assert torch.equal(keys[~bad], old_keys[~bad])
+    assert bool((keys[bad] == total).all())
+    assert bool((keys[1:] >= keys[:-1]).all())
+
+
+def test_chunk_heads_cut_runs_as_the_kernels_do():
+    C = SA.CHUNK
+    lengths = [1, C, C + 1, 3 * C + 5, 2, 2 * C - 1, 7 * C]
+    keys = torch.cat([torch.full((n,), k) for k, n in enumerate(lengths)])
+    keys = torch.cat([keys, torch.full((3,), 99)])     # rows out of range
+    heads, first = SA.chunk_heads_ref(keys, 99)
+    assert bool((heads[-3:] == -1).all())
+    start = 0
+    for n in lengths:
+        h = heads[start:start + n]
+        assert int(h[0]) == start and bool(first[start])
+        second = (start + 2 * C - 1) // C * C
+        for p in range(start, start + n):
+            want = start if p < second else p // C * C
+            assert int(heads[p]) == want
+        chunks = torch.unique(h)
+        sizes = [int((h == c).sum()) for c in chunks]
+        assert max(sizes) <= 2 * C - 1
+        if n <= C:
+            assert len(chunks) == 1            # one chunk: index_add_ order
+        start += n
+
+
+def test_chunked_ref_equals_index_add_on_short_runs_and_is_close_on_long():
+    """Rows with at most CHUNK contributions: bit-equal to ``index_add_``
+    on the CPU (the kernels' first chunk sums in that order); longer runs
+    within 1e-6 of the sum of their terms' magnitudes."""
+    g, targets, rows = _long_run_case(1)
+    got, want = _copies(targets), _copies(targets)
+    SA.scatter_add_rows_chunked_ref(g, got, rows)
+    SA.scatter_add_rows_ref(g, want, rows)
+    scale = _copies([t.abs() for t in targets])
+    SA.scatter_add_rows_ref(g.abs(), scale, rows)
+    counts = _copies([torch.zeros(t.shape[0]) for t in targets])
+    SA.scatter_add_rows_ref(torch.ones(*rows.shape, 1),
+                            [c[:, None] for c in counts], rows)
+    long_rows = 0
+    distinct = {a.data_ptr(): q for a, q in zip(
+        got, zip(got, want, scale, counts))}
+    for a, b, s, c in distinct.values():
+        short = c <= SA.CHUNK
+        assert torch.equal(a[short], b[short])
+        assert bool(((a - b).abs() <= 1e-6 * s).all())
+        long_rows += int((~short).sum())
+    assert long_rows == 3                   # the 3-row table's runs
+    assert not torch.equal(got[0], want[0])  # two levels: another order
+
+
+def test_chunked_ref_order_is_the_two_levels():
+    """Row 0 takes 10 contributions (sorted positions [0, 10)), row 1 a run
+    of 3 CHUNK + 5 at [10, 3 CHUNK + 15): its first chunk runs to the first
+    multiple of CHUNK at least CHUNK past its start, [10, 2 CHUNK), from
+    the target's value; then [2C, 3C) and [3C, 3C + 15); the chunk sums
+    are added in order."""
+    C = SA.CHUNK
+    n = 3 * C + 5
+    g = torch.from_numpy(np.random.default_rng(2).normal(
+        0, 1, (10 + n, 1, 2)).astype(np.float32)) * 1e4
+    rows = torch.ones(10 + n, 1, dtype=torch.int64)
+    rows[5:200:20] = 0                      # 10 contributions to row 0
+    t0 = torch.tensor([[0.25, 1.0], [0.5, -3.0]])
+    t = t0.clone()
+    SA.scatter_add_rows_chunked_ref(g, [t], rows)
+    v = g[rows[:, 0] == 1, 0].numpy()         # row 1's terms in (b, f) order
+    acc = t0.numpy()[1].copy()
+    bounds = [(10, 2 * C), (2 * C, 3 * C), (3 * C, 10 + n)]
+    for i in range(bounds[0][1] - 10):
+        acc = (acc + v[i]).astype(np.float32)
+    for lo, hi in bounds[1:]:
+        part = v[lo - 10].copy()
+        for i in range(lo - 10 + 1, hi - 10):
+            part = (part + v[i]).astype(np.float32)
+        acc = (acc + part).astype(np.float32)
+    np.testing.assert_array_equal(t.numpy()[1], acc)
+    want0 = t0.numpy()[0].copy()
+    for term in g[rows[:, 0] == 0, 0].numpy():
+        want0 = (want0 + term).astype(np.float32)
+    np.testing.assert_array_equal(t.numpy()[0], want0)
+
+
+@pytest.mark.parametrize("W", [1, 17])
+def test_chunked_ref_matches_jax_gather_bwd(W):
+    """The kernels' order against the JAX gather's transpose
+    (``zeros.at[ids].add(g)``) on dense targets with runs of ~1,365."""
+    rng = np.random.default_rng(10 + W)
+    vocabs = [3, 50, 1000]
+    B = 4096
+    field_table = [0, 1, 2, 0]
+    ids = np.stack([rng.integers(0, vocabs[t], B) for t in field_table],
+                   axis=1)
+    g = rng.normal(0, 1, (B, len(field_table), W)).astype(np.float32)
+    want = [np.zeros((v, W), np.float32) for v in vocabs]
+    for f, t in enumerate(field_table):
+        want[t] = want[t] + np.asarray(PG._gather_bwd(
+            (jnp.zeros((vocabs[t], W), jnp.float32),
+             jnp.asarray(ids[:, f])), jnp.asarray(g[:, f]))[0])
+    targets = [torch.zeros(v, W) for v in vocabs]
+    SA.scatter_add_rows_chunked_ref(torch.from_numpy(g),
+                                    [targets[t] for t in field_table],
+                                    torch.from_numpy(ids.astype(np.int64)))
+    for got, w in zip(targets, want):
+        # up to ~2,700 summands a row: f32 reassociation
+        np.testing.assert_allclose(got.numpy(), w, rtol=1e-5, atol=1e-4)
