@@ -12,7 +12,8 @@ holds every CUDA kernel of those paths against its plain PyTorch version.
 Serving first:
 
 1. build: compile every kernel under ``deepctr_tpu_torch/csrc/`` (one
-   ``nvcc`` a source, all started together) and print the build time;
+   ``nvcc`` a source, all started together) and print the build time, and
+   the SASS instruction counts (``cuobjdump -sass``) of the GRU kernels;
 2. kernel vs plain: ``gather_rows`` at the bench shape (B=4096, the 26
    Criteo tables, row width 17) must equal ``gather_rows_ref`` bit for
    bit, ids at V-1 and out-of-range ids (NaN rows) included;
@@ -64,8 +65,11 @@ rows with E=32, a dense field, the item and cate histories at maxlen 100
 sharing their tables) and batches of 1024, DNN 256-128, attention 64-16:
 
 9. kernels vs plain: ``gru_scan`` at T=100, H=64 in all three modes,
-   float32 and bfloat16 storage, B=1024 and a ragged B=1000, lengths over
-   [0, 100], and at H=256 (W_hh^T read through L2); ``din_attention_fused``
+   float32 and bfloat16 storage, B=1024 and a ragged B=1000, on prefix
+   masks (lengths over [0, 100]) and on masks with holes (holes inside the
+   histories, trailing padding, an empty and a full-length row), and with
+   holes at H=256 (the wide design, W_hh^T read through L2) and at an odd
+   H=13 with a ragged B=77 (the row-blocked design); ``din_attention_fused``
    at E=64, T=100, B=1024 and at E=512, T=200, layers 80-40 (the top of
    the layer's gate, also through ``AttentionSequencePoolingLayer``),
    sigmoid, relu and linear, weight normalisation on and off, float32 and
@@ -83,16 +87,18 @@ sharing their tables) and batches of 1024, DNN 256-128, attention 64-16:
 11. DIN predict, float32, the same way: ``att_activation`` Dice (no fused
     attention: the composition) and sigmoid (one launch a batch);
 12. timing, bfloat16 compute: predict of DIN (Dice, sigmoid) and DIEN (GRU,
-    AUGRU) in examples/s (CUDA events, median of 5 after warm-up) and idle
-    share (``torch.profiler``); both kernels and their plain versions in
-    device ms with a cold L2, ``torch.nn.GRU`` as the GRU's library
-    yardstick (timed only; the port never calls it), and each kernel's
-    bound from this run's inputs.
+    AUGRU) in examples/s (CUDA events, median of 5 after warm-up) beside
+    device busy time and idle share (``torch.profiler``); both kernels and
+    their plain versions in device ms with a cold L2 (the GRU's beside its
+    earlier design's time, and the steps its blocks walk),
+    ``torch.nn.GRU`` as the GRU's library yardstick (timed only; the port
+    never calls it), and each kernel's bound from this run's inputs.
 
 Then the sequence models' training path, at the same columns:
 
 13. the GRU backward kernel (``gru_scan_bwd``) against ``gru_scan_bwd_ref``
-    on the carries of the carry-saving forward, at the shapes of phase 9,
+    on the carries of the carry-saving forward, at the shapes and masks of
+    phase 9,
     all three modes, float32 and bfloat16 storage, with the output
     cotangents given and absent: dgi as phase 9 holds outputs; dW_hh,
     db_hh and d(att), sums over (t, b) or over the H units, within 1e-5
@@ -110,10 +116,11 @@ Then the sequence models' training path, at the same columns:
     exactly the touched rows and row 0 change); then card against CPU from
     the same weights at batches of 256: per-step losses within 1e-4
     relative;
-15. timing, bfloat16 compute: ``fit`` of both models in examples/s and idle
-    share; the backward kernel, its plain version and ``torch.nn.GRU``'s
-    backward in device ms with a cold L2, and its bound; the carry-saving
-    forward beside the inference forward.
+15. timing, bfloat16 compute: ``fit`` of both models in examples/s beside
+    device busy time and idle share; the backward kernel (beside its earlier
+    time; its reverse scan and its dW_hh product apart), its plain version
+    and ``torch.nn.GRU``'s backward in device ms with a cold L2, and its
+    bound; the carry-saving forward beside the inference forward.
 
 Then xDeepFM at the Criteo width of ``bench.py``'s xdeepfm leg (26 fields
 of 10,000 rows with E=16, 13 dense fields, DNN 400-400, CIN 256-128 with
@@ -160,7 +167,9 @@ Then the row scatter of the scatter micro-benchmark:
     leaves the dump row alone.  Then the micro-benchmark's run
     (``deepctr_tpu_torch/tools/scatter_micro.py``) with a few repeats, its
     lines printed, and each variant in device ms with a cold L2 beside the
-    plain version and the library's ``index_copy_`` of the valid rows.
+    plain version and the library's ``index_copy_`` of every slot (the
+    padding slots onto the dump row: the function the kernel computes) and,
+    a smaller function, of the valid rows alone.
 
 Launches in the kernels line are those of the main-path runs (phases 3,
 6, 10, 11, 14 and 17; for ``static_scatter``, the micro-benchmark's run
@@ -245,6 +254,10 @@ SEQ_STD = 0.3
 # W_hh^T to sit in shared memory
 WIDE_ATT = dict(B=256, T=200, E=512, hidden=(80, 40))
 WIDE_GRU = dict(B=300, T=50, H=256)
+# an odd width below the row-blocked design's top (H <= 64), a ragged B
+ODD_GRU = dict(B=77, T=30, H=13)
+# the GRU kernels' masks (gru_mask): prefixes, and histories with holes
+GRU_MASKS = ("prefix", "holes")
 # the GRU and attention kernels at the slice's shapes: H and E are the
 # item and cate embeddings side by side
 SEQ_H = 2 * SEQ_EMB
@@ -260,6 +273,10 @@ SEQ_H = 2 * SEQ_EMB
 KERNEL_F32_ATOL = 1e-5
 # H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12
+# H100 SXM dense TF32 tensor-core rate (NVIDIA data sheet); the GRU kernels
+# at H <= 64 run each float32 multiply-add as three TF32 products
+TF32_FLOP_PER_S = 495e12
+GRU_TF32_PRODUCTS = 3
 
 # the sequence models' training: steps of SEQ_BATCH on the card, and the
 # card-vs-CPU steps at a batch the CPU run takes in seconds
@@ -444,6 +461,7 @@ def phase_build():
         log("nvcc %s:\n%s" % (name, text.strip()))
     log("build: %d kernel source(s) compiled in %.2f s"
         % (len(logs), seconds))
+    log_gru_sass()
 
 
 def phase_kernel_vs_plain(model, X):
@@ -924,6 +942,15 @@ def profile_ms(fn, label, top=8):
     return total / 1e3
 
 
+def busy_line(busy_ms, wall_ms):
+    """``device busy`` text for a run's profile: its busy ms beside the
+    wall time and the idle share, or "not measured"."""
+    if busy_ms is None:
+        return "not measured (the profiler saw no kernel)"
+    return "%r ms of %r ms, idle share %r" % (busy_ms, wall_ms,
+                                              1 - busy_ms / wall_ms)
+
+
 def phase_train_timing_bf16(model, X_all):
     log("timing on: %s" % card_line())
     pt.set_compute_dtype("bfloat16")
@@ -1029,11 +1056,27 @@ def seq_lengths(n, gen, device, T=SEQ_MAXLEN):
     return lengths
 
 
-def gru_inputs(B, mode, dtype, seed, device, T=SEQ_MAXLEN, H=SEQ_H):
+def gru_mask(B, T, masks, gen, device):
+    """A [B, T] bool mask: ``"prefix"``, histories of lengths over [0, T]
+    (0, 1 and T among the first rows), as DIEN's GRUs get them; ``"holes"``,
+    the same histories with about 30% of their steps dropped inside them,
+    row 3 valid at every step and row 0 at none, so that one batch holds
+    holes, trailing padding, an empty row and a full-length row."""
+    lengths = seq_lengths(B, gen, device, T)
+    mask = torch.arange(T, device=device)[None, :] < lengths[:, None]
+    if masks == "holes":
+        mask &= torch.rand(B, T, generator=gen, device=device) < 0.7
+        mask[min(3, B - 1)] = True
+        mask[0] = False
+    return mask
+
+
+def gru_inputs(B, mode, dtype, seed, device, T=SEQ_MAXLEN, H=SEQ_H,
+               masks="prefix"):
     """``gru_scan``'s arguments as DIEN's GRUs give them (at maxlen 100 and
     H=64 by default): gi a [T, B, 3H] view of a [B, T, 3H] product,
-    weights rounded to ``dtype`` and held in float32, a bool mask of
-    lengths over [0, T].  The weights are at std 0.3 at H=64 and at
+    weights rounded to ``dtype`` and held in float32, a bool mask
+    (``gru_mask``).  The weights are at std 0.3 at H=64 and at
     0.3 * sqrt(64 / H) otherwise, the same scale of h @ W_hh^T: at std 0.3
     and H=256 the recurrence is chaotic, and the float32 plain version
     itself ends 0.22 away from a float64 one after 50 steps."""
@@ -1045,11 +1088,10 @@ def gru_inputs(B, mode, dtype, seed, device, T=SEQ_MAXLEN, H=SEQ_H):
                                device=device)).to(dtype).float()
     bhh = (std * torch.randn(3 * H, generator=gen,
                              device=device)).to(dtype).float()
-    lengths = seq_lengths(B, gen, device, T)
-    mask = torch.arange(T, device=device)[None, :] < lengths[:, None]
+    mask = gru_mask(B, T, masks, gen, device)
     att = (None if mode == "gru" else
            torch.rand(B, T, generator=gen, device=device).to(dtype))
-    return (gi, whh_t, bhh, mask, att), lengths
+    return gi, whh_t, bhh, mask, att
 
 
 def attention_inputs(B, dtype, seed, device, T=SEQ_MAXLEN, E=SEQ_H,
@@ -1134,20 +1176,22 @@ def compare(got, want, what, scale=None):
     return worst, diff.max().item()
 
 
-def check_gru_case(B, mode, dtype, seed, device, T=SEQ_MAXLEN, H=SEQ_H):
+def check_gru_case(B, mode, dtype, seed, device, T=SEQ_MAXLEN, H=SEQ_H,
+                   masks="prefix"):
     """One gru_scan case against its plain version; returns the largest
     |kernel - plain|."""
-    args, lengths = gru_inputs(B, mode, dtype, seed, device, T, H)
+    args = gru_inputs(B, mode, dtype, seed, device, T, H, masks)
     outs, h_last = gru.gru_scan(*args[:4], att=args[4], mode=mode)
     ref_outs, ref_h = gru.gru_scan_ref(*args[:4], att=args[4], mode=mode)
     torch.cuda.synchronize()
-    what = "gru_scan %s %s B=%d T=%d H=%d" % (mode, dtype, B, T, H)
+    what = "gru_scan %s %s B=%d T=%d H=%d %s masks" % (mode, dtype, B, T, H,
+                                                     masks)
     e1, a1 = compare(outs, ref_outs, what + " outs")
     e2, a2 = compare(h_last, ref_h, what + " h_last")
-    pad = torch.arange(T, device=device)[:, None] >= lengths[None, :]
-    check(bool((outs[pad] == 0).all()), what + ": a padded step emitted a "
-          "non-zero row")
-    check(bool((h_last[lengths == 0] == 0).all()),
+    mask = args[3]
+    check(bool((outs[~mask.t()] == 0).all()), what + ": a padded step "
+          "emitted a non-zero row")
+    check(bool((h_last[gru.last_valid_steps(mask) < 0] == 0).all()),
           what + ": an empty history left a non-zero state")
     log("kernel vs plain: %s: outs %s %r, h_last %r; max |err| %r, %r"
         % (what, "max |err| / max(1, |plain|)" if dtype == torch.float32
@@ -1229,17 +1273,21 @@ def phase_seq_kernels_vs_plain(device):
     dtypes = (torch.float32, torch.bfloat16)
     with torch.no_grad():
         for B in (SEQ_BATCH, 1000):
+            for masks in GRU_MASKS:
+                for mode in gru.MODES:
+                    for dtype in dtypes:
+                        seed += 1
+                        a = check_gru_case(B, mode, dtype, seed, device,
+                                           masks=masks)
+                        if dtype == torch.float32:
+                            errs["gru_scan"] = max(errs["gru_scan"], a)
+        for shape in (WIDE_GRU, ODD_GRU):
             for mode in gru.MODES:
                 for dtype in dtypes:
                     seed += 1
-                    a = check_gru_case(B, mode, dtype, seed, device)
-                    if dtype == torch.float32:
-                        errs["gru_scan"] = max(errs["gru_scan"], a)
-        for mode in gru.MODES:
-            for dtype in dtypes:
-                seed += 1
-                check_gru_case(WIDE_GRU["B"], mode, dtype, seed, device,
-                               T=WIDE_GRU["T"], H=WIDE_GRU["H"])
+                    check_gru_case(shape["B"], mode, dtype, seed, device,
+                                   T=shape["T"], H=shape["H"],
+                                   masks="holes")
         for shape in ({}, WIDE_ATT):
             for act in attention.ACTIVATIONS:
                 for wnorm in (False, True):
@@ -1350,21 +1398,33 @@ def phase_seq_predict_f32(kind, variant, per_batch, device):
     return launches
 
 
-def gru_bound(args, lengths):
+def block_steps_line(mask):
+    """The steps the GRU kernels' blocks of 8 rows walk (H <= 64): each
+    block's largest last valid step + 1, its mean and its most (the
+    kernel's serial length), over the rows of ``mask``."""
+    last = gru.last_valid_steps(mask)
+    pad = (-last.numel()) % 8
+    last = torch.cat([last, last.new_full((pad,), -1)])
+    steps = last.reshape(-1, 8).amax(dim=1) + 1
+    return "blocks of 8 rows walk %r steps on average, %d at most" % (
+        steps.float().mean().item(), int(steps.max()))
+
+
+def gru_bound(args, flop_rate):
     """(ms, "operations" or "bytes") for gru_scan on ``args``: the h @ W_hh
     products of the steps inside each history (the steps past it need no
-    arithmetic), against their gates read once, the [T, B, H] outputs and
-    h_last written once, the mask, W_hh and b_hh."""
+    arithmetic) at ``flop_rate``, against their gates read once, the
+    [T, B, H] outputs and h_last written once, the mask, W_hh and b_hh."""
     gi, whh_t, bhh, mask, att = args
     T, B, H3 = gi.shape
     H = H3 // 3
-    valid = int(lengths.sum())
+    valid = int(mask.sum())
     size = gi.element_size()
     flops = 2 * valid * H * H3
     n_bytes = (valid * H3 * size + T * B * H * size + B * H * size
                + mask.numel() * mask.element_size() + 4 * (H * H3 + H3)
                + (0 if att is None else att.numel() * att.element_size()))
-    return bound(n_bytes, flops)
+    return bound(n_bytes, flops, flop_rate)
 
 
 def attention_bound(q, k, m, layers, lengths, wnorm):
@@ -1394,9 +1454,9 @@ def attention_bound(q, k, m, layers, lengths, wnorm):
     return bound(n_bytes, flops)
 
 
-def bound(n_bytes, flops):
+def bound(n_bytes, flops, flop_rate=F32_FLOP_PER_S):
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / F32_FLOP_PER_S * 1e3
+    by_ops = flops / flop_rate * 1e3
     return ((by_ops, "operations") if by_ops >= by_bytes
             else (by_bytes, "bytes"))
 
@@ -1415,21 +1475,19 @@ def phase_seq_timing_bf16(device):
         check_predictions(model.predict(X, batch_size=SEQ_BATCH), n)
         run_ms = time_ms(lambda: model.predict(X, batch_size=SEQ_BATCH),
                          reps=1, runs=5)
-        log("predict bf16 %s, device input: %r examples/s (%r ms for %d)"
-            % (label, n / run_ms * 1e3, run_ms, n))
         busy_ms = profile_ms(lambda: model.predict(X, batch_size=SEQ_BATCH),
                              "predict %s" % label, top=5)
-        if busy_ms is not None:
-            log("predict bf16 %s: device busy %r ms of %r ms, idle share %r"
-                % (label, busy_ms, run_ms, 1 - busy_ms / run_ms))
+        log("predict bf16 %s, device input: %r examples/s (%r ms for %d); "
+            "device busy %s" % (label, n / run_ms * 1e3, run_ms, n,
+                                busy_line(busy_ms, run_ms)))
         del model, X
 
     out = {}
     with torch.no_grad():
         # float32 weights and a bool mask, as the layer keeps them: the
         # window holds the kernel's launch and its outputs' allocation
-        args, lengths = gru_inputs(SEQ_BATCH, "gru", torch.bfloat16,
-                                   SEED + 60, device)
+        args = gru_inputs(SEQ_BATCH, "gru", torch.bfloat16, SEED + 60,
+                          device)
         gi = args[0]
         H = SEQ_H
         # the library's GRU (cuDNN where it takes the type) over the [B, T,
@@ -1446,16 +1504,25 @@ def phase_seq_timing_bf16(device):
             "library": lambda: lib_gru(x),
         }
         ms = {k: device_ms(fn) for k, fn in timed.items()}
-        bound_ms, bound_by = gru_bound(args, lengths)
+        # the bound at the rate of the units the kernel uses (TF32 tensor
+        # cores, three products a multiply-add), beside the float32 FMA one
+        bound_ms, bound_by = gru_bound(
+            args, TF32_FLOP_PER_S / GRU_TF32_PRODUCTS)
+        f32_ms, f32_by = gru_bound(args, F32_FLOP_PER_S)
         out["gru_scan"] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
                                library_ms=ms["library"], bound_ms=bound_ms,
                                bound_by=bound_by)
         log("gru_scan (gru) at T=%d B=%d H=%d, bf16 storage, %d steps "
-            "inside the histories, device time, cold L2: kernel %r ms, plain "
-            "%r ms, library (torch.nn.GRU, full length, its own input "
-            "projection) %r ms; bound %r ms (%s)"
-            % (gi.shape[0], gi.shape[1], H, int(lengths.sum()),
-               ms["kernel"], ms["plain"], ms["library"], bound_ms, bound_by))
+            "inside the histories, %s; device time, cold L2: kernel %r ms "
+            "(earlier design: %r ms), plain %r ms, library (torch.nn.GRU, "
+            "full length, its own input projection) %r ms; bound %r ms "
+            "(%s; at the TF32 tensor rate, 3 products a multiply-add), %r "
+            "ms (%s) "
+            "at the float32 FMA rate"
+            % (gi.shape[0], gi.shape[1], H, int(args[3].sum()),
+               block_steps_line(args[3]), ms["kernel"],
+               EARLIER_MS["gru_scan"], ms["plain"], ms["library"], bound_ms,
+               bound_by, f32_ms, f32_by))
 
         q, k, m, layers, lengths = attention_inputs(SEQ_BATCH, torch.bfloat16,
                                                     SEED + 61, device)
@@ -1495,16 +1562,17 @@ def bits_equal(a, b):
                             b.contiguous().view(ints)))
 
 
-def bwd_inputs(B, mode, dtype, seed, device, T=SEQ_MAXLEN, H=SEQ_H):
+def bwd_inputs(B, mode, dtype, seed, device, T=SEQ_MAXLEN, H=SEQ_H,
+               masks="prefix"):
     """``gru_inputs`` and the cotangents of outs ([T, B, H], a view of a
     [B, T, H], as the layers hand it back) and h_last, normal from the
     seed, in the storage type."""
-    args, lengths = gru_inputs(B, mode, dtype, seed, device, T, H)
+    args = gru_inputs(B, mode, dtype, seed, device, T, H, masks)
     gen = torch.Generator(device=device).manual_seed(seed + 1000)
     douts = torch.randn(B, T, H, generator=gen, device=device).to(
         dtype).transpose(0, 1)
     dh_last = torch.randn(B, H, generator=gen, device=device).to(dtype)
-    return args, lengths, douts, dh_last
+    return args, douts, dh_last
 
 
 def gru_bwd_scales(args, carry, dgi):
@@ -1534,14 +1602,16 @@ def gru_bwd_scales(args, carry, dgi):
     return h.abs().t() @ d, d.sum(dim=0), scale_a
 
 
-def check_gru_bwd_case(B, mode, dtype, seed, device, T=SEQ_MAXLEN, H=SEQ_H):
+def check_gru_bwd_case(B, mode, dtype, seed, device, T=SEQ_MAXLEN, H=SEQ_H,
+                       masks="prefix"):
     """The carry-saving forward and gru_scan_bwd against their plain
     versions, with the output cotangents given and absent; returns the
     largest |kernel - plain| of the backward's outputs."""
-    args, lengths, douts, dh_last = bwd_inputs(B, mode, dtype, seed, device,
-                                               T, H)
+    args, douts, dh_last = bwd_inputs(B, mode, dtype, seed, device, T, H,
+                                      masks)
     gi, whh_t, bhh, mask, att = args
-    what = "gru_scan_bwd %s %s B=%d T=%d H=%d" % (mode, dtype, B, T, H)
+    what = "gru_scan_bwd %s %s B=%d T=%d H=%d %s masks" % (mode, dtype, B, T,
+                                                         H, masks)
     outs0, h0 = gru.gru_scan(gi, whh_t, bhh, mask, att=att, mode=mode)
     outs, h_last, carry = gru.gru_scan_with_carry(gi, whh_t, bhh, mask,
                                                   att=att, mode=mode)
@@ -1560,7 +1630,7 @@ def check_gru_bwd_case(B, mode, dtype, seed, device, T=SEQ_MAXLEN, H=SEQ_H):
     ec, _ = compare(carry, ref_carry, what + " carry")
     check(all(bits_equal(a, b) for a, b in zip(got, again)),
           what + ": a repeat launch gave other bits")
-    pad = torch.arange(T, device=device)[:, None] >= lengths[None, :]
+    pad = ~mask.t()
     worst, errs = 0.0, []
     for label, k, r in (("", got, want), (" (no cotangents)", bare,
                                           want_bare)):
@@ -1599,17 +1669,21 @@ def phase_gru_bwd_vs_plain(device):
     seed = SEED + 200
     with torch.no_grad():
         for B in (SEQ_BATCH, 1000):
+            for masks in GRU_MASKS:
+                for mode in gru.MODES:
+                    for dtype in (torch.float32, torch.bfloat16):
+                        seed += 1
+                        a = check_gru_bwd_case(B, mode, dtype, seed, device,
+                                               masks=masks)
+                        if dtype == torch.float32:
+                            err = max(err, a)
+        for shape in (WIDE_GRU, ODD_GRU):
             for mode in gru.MODES:
                 for dtype in (torch.float32, torch.bfloat16):
                     seed += 1
-                    a = check_gru_bwd_case(B, mode, dtype, seed, device)
-                    if dtype == torch.float32:
-                        err = max(err, a)
-        for mode in gru.MODES:
-            for dtype in (torch.float32, torch.bfloat16):
-                seed += 1
-                check_gru_bwd_case(WIDE_GRU["B"], mode, dtype, seed, device,
-                                   T=WIDE_GRU["T"], H=WIDE_GRU["H"])
+                    check_gru_bwd_case(shape["B"], mode, dtype, seed, device,
+                                       T=shape["T"], H=shape["H"],
+                                       masks="holes")
     return err
 
 
@@ -1723,7 +1797,7 @@ def phase_seq_fit_card_vs_cpu(kind, variant, device):
                  tc, tp))
 
 
-def gru_bwd_bound(args, lengths):
+def gru_bwd_bound(args, flop_rate):
     """(ms, "operations" or "bytes") for gru_scan_bwd on ``args``: a step
     inside a history does 3 products of H x 3H multiply-adds a row (the
     gates recomputed, dh, dW_hh); a step past it needs none.  Bytes: the
@@ -1733,12 +1807,99 @@ def gru_bwd_bound(args, lengths):
     gi, whh_t, bhh, mask, _ = args
     T, B, H3 = gi.shape
     H = H3 // 3
-    valid = int(lengths.sum())
+    valid = int(mask.sum())
     size = gi.element_size()
     n_bytes = (valid * (H3 + 2 * H) * size + B * H * size
                + mask.numel() * mask.element_size() + T * B * H3 * size
                + 2 * 4 * (H * H3 + H3))
-    return bound(n_bytes, 6 * valid * H * H3)
+    return bound(n_bytes, 6 * valid * H * H3, flop_rate)
+
+
+# K3's and K5's times at bf16, B=1024, T=100, H=64 with their earlier designs
+# (PERF.md section 6; NVIDIA H100 80GB HBM3, 700 W), printed in brackets
+# beside this run's
+EARLIER_MS = {"gru_scan": 0.3064, "gru_scan_bwd": 0.7126}
+# the SASS instruction classes counted in the GRU kernels
+SASS_OPS = ("LDS", "LDS.128", "LDS.64", "FFMA", "HMMA", "SHFL", "BAR", "LDG",
+            "STG", "MUFU")
+
+
+def sass_counts(name):
+    """{kernel function: {instruction class: count}} of the SASS of
+    ``csrc/<name>.cu``'s built library (``cuobjdump -sass``).  Static
+    counts: an instruction inside a loop counts once.  None where the
+    toolkit has no cuobjdump."""
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    lib = _build._paths(name)[1]
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in text.splitlines():
+        line = line.strip()
+        if line.startswith("Function :"):
+            fn = line.split(":", 1)[1].strip()
+            counts[fn] = dict.fromkeys(SASS_OPS + ("all",), 0)
+            continue
+        if fn is None or not line.startswith("/*") or "*/" not in line:
+            continue
+        words = line.split("*/", 1)[1].split()
+        if not words or words[0] == "/*":
+            continue
+        op = words[1] if words[0].startswith("@") and len(words) > 1 \
+            else words[0]
+        counts[fn]["all"] += 1
+        for cls in SASS_OPS:
+            if op == cls or op.startswith(cls + "."):
+                counts[fn][cls] += 1
+    return counts
+
+
+def log_gru_sass():
+    """The SASS instruction counts of the GRU kernels' bfloat16 gru-mode
+    instances (the timed case) and of the dW product's kernels."""
+    for name in ("gru_scan", "gru_scan_bwd"):
+        counts = sass_counts(name)
+        if counts is None:
+            log("sass %s: not measured (no cuobjdump)" % name)
+            continue
+        names = subprocess.run(["c++filt"], input="\n".join(counts),
+                               capture_output=True, text=True).stdout
+        pretty = (names.splitlines() if names.count("\n") >= len(counts) - 1
+                  and names else list(counts))
+        for (fn, c), label in zip(counts.items(), pretty):
+            label = label.replace("(anonymous namespace)::", "")
+            if ("bfloat16" in label and ", 0," in label) or "dw_" in label:
+                log("sass %s: %s: %s" % (name, label.split("(")[0], ", ".join(
+                    "%s %d" % kv for kv in c.items())))
+
+
+def gru_times(device):
+    """Device ms with a cold L2 (median of 20) of K3 and K5 at bf16,
+    B=1024, T=100, H=64, gru mode, prefix masks of lengths over [0, 100]:
+    the inference and carry-saving forwards; the backward whole, its
+    reverse scan alone and its dW_hh / db_hh product (partials and their
+    reduction) alone.  Returns (ms, gru_inputs' args, douts, dh_last,
+    carry)."""
+    args, douts, dh_last = bwd_inputs(SEQ_BATCH, "gru", torch.bfloat16,
+                                      SEED + 300, device)
+    gi, whh_t, bhh, mask, _ = args
+    with torch.no_grad():
+        _, _, carry = gru.gru_scan_with_carry(gi, whh_t, bhh, mask)
+        bwd = (gi, carry, whh_t, bhh, mask, None, douts, dh_last)
+        run, _ = gru.gru_scan_bwd_launcher(*bwd)
+        run(gru.BWD_SCAN)  # the d_gh the dW product reads
+        timed = {
+            "forward": lambda: gru.gru_scan(gi, whh_t, bhh, mask),
+            "carry-saving forward": lambda: gru.gru_scan_with_carry(
+                gi, whh_t, bhh, mask),
+            "backward": lambda: gru.gru_scan_bwd(*bwd),
+            "backward scan": lambda: run(gru.BWD_SCAN),
+            "backward dW": lambda: run(gru.BWD_DW),
+        }
+        ms = {k: device_ms(fn) for k, fn in timed.items()}
+    return ms, args, douts, dh_last, carry
 
 
 def phase_seq_train_timing_bf16(device):
@@ -1758,34 +1919,20 @@ def phase_seq_train_timing_bf16(device):
         def fit():
             model.fit(x, y, batch_size=SEQ_BATCH, epochs=1, verbose=0)
         fit_ms = time_ms(fit, reps=1, runs=3)
-        log("fit bf16 %s, host numpy input: %r examples/s (%r ms for %d "
-            "steps of %d)" % (label, n / fit_ms * 1e3, fit_ms,
-                              SEQ_TRAIN_STEPS, SEQ_BATCH))
         busy_ms = profile_ms(fit, "fit %s" % label)
-        if busy_ms is not None:
-            log("fit bf16 %s: device busy %r ms of %r ms, idle share %r"
-                % (label, busy_ms, fit_ms, 1 - busy_ms / fit_ms))
+        log("fit bf16 %s, host numpy input: %r examples/s (%r ms for %d "
+            "steps of %d); device busy %s"
+            % (label, n / fit_ms * 1e3, fit_ms, SEQ_TRAIN_STEPS, SEQ_BATCH,
+               busy_line(busy_ms, fit_ms)))
         del model
 
-    args, lengths, douts, dh_last = bwd_inputs(
-        SEQ_BATCH, "gru", torch.bfloat16, SEED + 300, device)
+    kms, args, douts, dh_last, carry = gru_times(device)
     gi, whh_t, bhh, mask, _ = args
     T, B, H3 = gi.shape
     H = H3 // 3
+    bwd = (gi, carry, whh_t, bhh, mask, None, douts, dh_last)
     with torch.no_grad():
-        _, _, carry = gru.gru_scan_with_carry(gi, whh_t, bhh, mask)
-        fwd = {
-            "inference forward": lambda: gru.gru_scan(gi, whh_t, bhh, mask),
-            "carry-saving forward": lambda: gru.gru_scan_with_carry(
-                gi, whh_t, bhh, mask),
-        }
-        fwd_ms = {k: device_ms(fn) for k, fn in fwd.items()}
-        bwd = (gi, carry, whh_t, bhh, mask, None, douts, dh_last)
-        timed = {
-            "kernel": lambda: gru.gru_scan_bwd(*bwd),
-            "plain": lambda: gru.gru_scan_bwd_ref(*bwd),
-        }
-        ms = {k: device_ms(fn) for k, fn in timed.items()}
+        ms = {"plain": device_ms(lambda: gru.gru_scan_bwd_ref(*bwd))}
     # the earlier yardsticks: autograd through the plain forward, and the
     # library's GRU (cuDNN where it takes the type) over the [B, T, H]
     # inputs DIEN's GRUs read, every row at its full length, its own input
@@ -1805,17 +1952,28 @@ def phase_seq_train_timing_bf16(device):
                 y, [x] + list(lib_gru.parameters()), dy, retain_graph=True),
         }
         ms.update({k: device_ms(fn) for k, fn in more.items()})
-    bound_ms, bound_by = gru_bwd_bound(args, lengths)
+    bound_ms, bound_by = gru_bwd_bound(args,
+                                       TF32_FLOP_PER_S / GRU_TF32_PRODUCTS)
+    f32_ms, f32_by = gru_bwd_bound(args, F32_FLOP_PER_S)
     log("gru_scan_bwd (gru) at T=%d B=%d H=%d, bf16 storage, %d steps inside "
-        "the histories, device time, cold L2: kernel %r ms, plain "
-        "(gru_scan_bwd_ref) %r ms, autograd through gru_scan_ref %r ms, "
+        "the histories, %s; device time, cold L2: kernel %r ms (earlier "
+        "design: %r ms): the reverse scan %r ms, the dW_hh / db_hh product "
+        "(partials and their reduction) %r ms; plain (gru_scan_bwd_ref) %r "
+        "ms, "
+        "autograd through gru_scan_ref %r ms, "
         "library (torch.nn.GRU backward, full length) %r ms; bound %r ms "
-        "(%s)" % (T, B, H, int(lengths.sum()), ms["kernel"], ms["plain"],
-                  ms["autograd"], ms["library"], bound_ms, bound_by))
+        "(%s; the products at the TF32 tensor rate, 3 products a "
+        "multiply-add), %r ms (%s) at the float32 FMA rate"
+        % (T, B, H, int(mask.sum()), block_steps_line(mask),
+           kms["backward"], EARLIER_MS["gru_scan_bwd"], kms["backward scan"],
+           kms["backward dW"], ms["plain"], ms["autograd"], ms["library"],
+           bound_ms, bound_by, f32_ms, f32_by))
     log("gru_scan forward at the same shape, device time, cold L2: "
-        "inference %r ms, carry-saving (training) %r ms"
-        % (fwd_ms["inference forward"], fwd_ms["carry-saving forward"]))
-    return dict(ms=ms["kernel"], plain_ms=ms["plain"],
+        "inference %r ms (earlier design: %r ms), carry-saving (training) "
+        "%r ms"
+        % (kms["forward"], EARLIER_MS["gru_scan"],
+           kms["carry-saving forward"]))
+    return dict(ms=kms["backward"], plain_ms=ms["plain"],
                 library_ms=ms["library"], bound_ms=bound_ms,
                 bound_by=bound_by)
 
@@ -2226,6 +2384,11 @@ def phase_static_scatter(device):
         dst = (starts[valid].long()[:, None]
                + torch.arange(L, device=device)).reshape(-1)
         src = vals.reshape(G, N, L, W)[valid].reshape(-1, W).contiguous()
+        # every slot, the padding slots onto the dump row, as the kernel
+        # copies them: the call that computes static_scatter's function
+        dst_all = (starts.reshape(-1).long()[:, None]
+                   + torch.arange(L, device=device)).reshape(-1)
+        src_all = vals.reshape(-1, W)
         timed = {"u%d" % u: (lambda u=u: scatter_rows.static_scatter(
             arena, vals, starts, unroll=u)) for u in scatter_rows.UNROLLS}
         timed.update({
@@ -2233,8 +2396,10 @@ def phase_static_scatter(device):
                 arena, vals, starts, nvs, L=L),
             "plain": lambda: scatter_rows.static_scatter_ref(arena, vals,
                                                              starts),
-            # the library's row copy of the valid rows, indices prebuilt
-            "library": lambda: arena.index_copy_(0, dst, src),
+            # the library's row copy of every slot, and (a smaller
+            # function) of the valid rows alone, indices prebuilt
+            "library": lambda: arena.index_copy_(0, dst_all, src_all),
+            "library valid": lambda: arena.index_copy_(0, dst, src),
         })
         ms = {k: device_ms(fn) for k, fn in timed.items()}
     best = min(scatter_rows.UNROLLS, key=lambda u: ms["u%d" % u])
@@ -2243,11 +2408,13 @@ def phase_static_scatter(device):
     dyn_bound = 2 * G * NV * L * W * 4 / HBM_BYTES_PER_S * 1e3
     log("static_scatter at the tool's shape, device time, cold L2: %s ms; "
         "dynamic (one launch) %r ms (bound %r ms); plain %r ms; library "
-        "(index_copy_ of the valid rows) %r ms; bound %r ms (%d bytes); "
-        "fastest unroll %d" % (", ".join("u%d %r" % (u, ms["u%d" % u])
-                                         for u in scatter_rows.UNROLLS),
-                               ms["dynamic"], dyn_bound, ms["plain"],
-                               ms["library"], bound_ms, n_bytes, best))
+        "(index_copy_ of every slot, the padding slots onto the dump row: "
+        "the same function) %r ms, and of the valid rows alone (a smaller "
+        "function) %r ms; bound %r ms (%d bytes); fastest unroll %d"
+        % (", ".join("u%d %r" % (u, ms["u%d" % u])
+                     for u in scatter_rows.UNROLLS),
+           ms["dynamic"], dyn_bound, ms["plain"], ms["library"],
+           ms["library valid"], bound_ms, n_bytes, best))
     return dict(max_abs_err=err, ms=ms["u%d" % best], plain_ms=ms["plain"],
                 library_ms=ms["library"], bound_ms=bound_ms,
                 bound_by="bytes")

@@ -51,6 +51,21 @@ def _gates(g, h, w, b, H):
     return r, z, n, gh[:, 2 * H:]
 
 
+def last_valid_steps(mask):
+    """The last step t with ``mask[b, t]`` set of every row b of a [B, T]
+    mask (0/1 or bool), -1 for a row with none: [B] int64.  Holes inside
+    a history count as any padded step does.  For H <= 64 the kernels walk
+    a block of 8 rows only up to (forward) or from (backward) the largest
+    of its rows' last valid steps, which they find from the mask as this
+    function does."""
+    valid = mask != 0
+    B, T = valid.shape
+    if T == 0:
+        return torch.full((B,), -1, dtype=torch.int64, device=valid.device)
+    steps = torch.arange(1, T + 1, device=valid.device)
+    return (valid * steps).amax(dim=1) - 1
+
+
 def gru_scan_ref(gi, whh_t, bhh, mask, att=None, mode="gru",
                  save_carry=False):
     """Plain PyTorch version: a loop over T in float32.  Arguments and
@@ -190,8 +205,10 @@ def _check_bwd(gi, carry, douts, dh_last):
                          % (gi.dtype, carry.dtype))
 
 
-def _kernel():
-    lib = _build.load("gru_scan")
+def _kernel(lib=None):
+    """gru_scan_fwd of ``lib`` (the built csrc/gru_scan.cu by default),
+    its argument types declared."""
+    lib = _build.load("gru_scan") if lib is None else lib
     fn = lib.gru_scan_fwd
     fn.argtypes = ([ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                     ctypes.c_longlong, ctypes.c_longlong]
@@ -203,14 +220,16 @@ def _kernel():
     return fn
 
 
-def _bwd_kernel():
-    lib = _build.load("gru_scan_bwd")
+def _bwd_kernel(lib=None):
+    """gru_scan_bwd_scratch and gru_scan_bwd of ``lib`` (the built
+    csrc/gru_scan_bwd.cu by default), their argument types declared."""
+    lib = _build.load("gru_scan_bwd") if lib is None else lib
     scratch = lib.gru_scan_bwd_scratch
     scratch.argtypes = [ctypes.c_int] * 3
     scratch.restype = ctypes.c_longlong
     fn = lib.gru_scan_bwd
     ll, ptr = ctypes.c_longlong, ctypes.c_void_p
-    fn.argtypes = ([ctypes.c_int, ctypes.c_int, ptr, ll, ll]
+    fn.argtypes = ([ctypes.c_int] * 3 + [ptr, ll, ll]
                    + [ptr] * 6 + [ctypes.c_int]
                    + [ptr, ll, ll, ptr, ll]
                    + [ctypes.c_int] * 3
@@ -328,10 +347,29 @@ def gru_scan_bwd(gi, carry, whh_t, bhh, mask, att=None, douts=None,
     kernel reads them, or None)``; dwhh and dbhh are summed in a fixed
     order, so a repeat gives the same bits.  On CPU tensors it is
     :func:`gru_scan_bwd_ref`."""
-    global GRU_SCAN_BWD_LAUNCHES
     if gi.device.type == "cpu":
         return gru_scan_bwd_ref(gi, carry, whh_t, bhh, mask, att, douts,
                                 dh_last, mode)
+    run, result = gru_scan_bwd_launcher(gi, carry, whh_t, bhh, mask, att,
+                                        douts, dh_last, mode)
+    run(BWD_SCAN | BWD_DW)
+    return result
+
+
+# the backward's launches, for gru_scan_bwd_launcher's ``run(parts)``: the
+# reverse scan (which writes dgi, d(att) and the d_gh scratch), and the
+# dW_hh product with its reduction (which reads that scratch)
+BWD_SCAN = 1
+BWD_DW = 2
+
+
+def gru_scan_bwd_launcher(gi, carry, whh_t, bhh, mask, att=None, douts=None,
+                          dh_last=None, mode="gru"):
+    """:func:`gru_scan_bwd` on CUDA tensors, split so that its launches can
+    be timed apart: returns ``(run, result)``, where ``run(parts)``
+    launches the parts named by ``parts`` (``BWD_SCAN``, ``BWD_DW`` or
+    both) into the outputs of ``result``, which hold the backward once
+    both have run, the scan first."""
     _check(gi, whh_t, bhh, mask, att, mode)
     _check_bwd(gi, carry, douts, dh_last)
     if gi.device.type != "cuda":
@@ -356,32 +394,40 @@ def gru_scan_bwd(gi, carry, whh_t, bhh, mask, att=None, douts=None,
     dbhh = torch.empty(H3, dtype=torch.float32, device=dev)
     datt = None if a is None else torch.empty(B, T, dtype=a.dtype,
                                               device=dev)
+    result = dgi, dwhh, dbhh, datt
     if B == 0:
         dwhh.zero_()
         dbhh.zero_()
-        return dgi, dwhh, dbhh, datt
+        return (lambda parts: None), result
     scratch_fn, fn = _bwd_kernel()
     scratch = torch.empty(scratch_fn(B, T, H), dtype=torch.float32,
                           device=dev)
     whh = w.t().contiguous()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(
-            _DTYPES[gi.dtype], MODES[mode], gi.data_ptr(), gi.stride(0),
-            gi.stride(1), carry.data_ptr(), w.data_ptr(), whh.data_ptr(),
-            b.data_ptr(), m.data_ptr(), None if a is None else a.data_ptr(),
-            int(a is not None and a.dtype == torch.bfloat16),
-            None if douts is None else douts.data_ptr(),
-            0 if douts is None else douts.stride(0),
-            0 if douts is None else douts.stride(1),
-            None if dh_last is None else dh_last.data_ptr(),
-            0 if dh_last is None else dh_last.stride(0), B, T, H,
-            dgi.data_ptr(), dgi.stride(0), dgi.stride(1), dwhh.data_ptr(),
-            dbhh.data_ptr(), None if datt is None else datt.data_ptr(),
-            scratch.data_ptr(), stream)
-    _raise_on(rc, "gru_scan_bwd", H)
-    GRU_SCAN_BWD_LAUNCHES += 1
-    return dgi, dwhh, dbhh, datt
+
+    def run(parts):
+        global GRU_SCAN_BWD_LAUNCHES
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = fn(
+                parts, _DTYPES[gi.dtype], MODES[mode], gi.data_ptr(),
+                gi.stride(0), gi.stride(1), carry.data_ptr(), w.data_ptr(),
+                whh.data_ptr(), b.data_ptr(), m.data_ptr(),
+                None if a is None else a.data_ptr(),
+                int(a is not None and a.dtype == torch.bfloat16),
+                None if douts is None else douts.data_ptr(),
+                0 if douts is None else douts.stride(0),
+                0 if douts is None else douts.stride(1),
+                None if dh_last is None else dh_last.data_ptr(),
+                0 if dh_last is None else dh_last.stride(0), B, T, H,
+                dgi.data_ptr(), dgi.stride(0), dgi.stride(1),
+                dwhh.data_ptr(), dbhh.data_ptr(),
+                None if datt is None else datt.data_ptr(),
+                scratch.data_ptr(), stream)
+        _raise_on(rc, "gru_scan_bwd", H)
+        if parts & BWD_SCAN:
+            GRU_SCAN_BWD_LAUNCHES += 1
+
+    return run, result
 
 
 class GruScan(torch.autograd.Function):

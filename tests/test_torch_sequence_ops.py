@@ -65,13 +65,26 @@ def _lengths(rng, B, T):
     return lengths
 
 
-def _gru_inputs(mode, B, T, H, seed):
+def _holes(rng, mask):
+    """The histories of ``mask`` with about 30% of their steps dropped, row
+    3 valid at every step and row 0 at none: holes inside histories,
+    trailing padding, an empty row and a full-length row in one batch."""
+    mask = mask & (rng.random(mask.shape) < 0.7)
+    mask[3] = True
+    mask[0] = False
+    return mask
+
+
+def _gru_inputs(mode, B, T, H, seed, masks="prefix"):
     rng = np.random.default_rng(seed)
     gi = rng.normal(0, 1, (T, B, 3 * H)).astype(np.float32)
     whh_t = rng.normal(0, 0.3, (H, 3 * H)).astype(np.float32)
     bhh = rng.normal(0, 0.3, (3 * H,)).astype(np.float32)
     lengths = _lengths(rng, B, T)
-    mask = (np.arange(T)[None, :] < lengths[:, None]).astype(np.float32)
+    mask = np.arange(T)[None, :] < lengths[:, None]
+    if masks == "holes":
+        mask = _holes(rng, mask)
+    mask = mask.astype(np.float32)
     att = (None if mode == "gru"
            else rng.random((B, T)).astype(np.float32))
     return [gi, whh_t, bhh, mask, att], lengths
@@ -102,6 +115,49 @@ def test_gru_scan_ref_matches_the_pallas_kernel(mode, dtype):
     pad = np.arange(12)[:, None] >= lengths[None, :]
     assert (outs.float().numpy()[pad] == 0).all()
     assert (h_last.float().numpy()[lengths == 0] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["gru", "agru", "augru"])
+def test_gru_scan_ref_matches_the_pallas_kernel_on_masks_with_holes(mode,
+                                                                    dtype):
+    """Masks that are not prefixes, as the kernels' early stop must take
+    them: holes inside histories, trailing padding, an empty row and a
+    full-length row in one batch (B=64, T=12)."""
+    jd, td = DTYPES[dtype]
+    args, _ = _gru_inputs(mode, 64, 12, 8, seed=11, masks="holes")
+    mask = args[3]
+    assert (mask[0] == 0).all() and (mask[3] == 1).all()
+    assert ((np.diff(mask, axis=1) > 0).any(axis=1)).any()   # a hole
+    j_args = [None if a is None else jnp.asarray(a, jd) for a in args]
+    want_outs, want_h = j_gru_scan(*j_args[:4], att=j_args[4], mode=mode,
+                                   interpret=True)
+    p_args = [None if a is None else torch.from_numpy(a).to(td)
+              for a in args]
+    outs, h_last = p_gru.gru_scan_ref(*p_args[:4], att=p_args[4], mode=mode)
+    assert_agree(outs, want_outs, dtype)
+    assert_agree(h_last, want_h, dtype)
+    pad = mask.T == 0
+    assert (outs.float().numpy()[pad] == 0).all()
+    assert (h_last.float().numpy()[0] == 0).all()
+
+
+def test_last_valid_steps_finds_each_rows_last_valid_step():
+    """The rows' last valid steps the kernels walk to (and from), against
+    a loop over the steps, on masks with holes, float and bool."""
+    rng = np.random.default_rng(12)
+    for B, T in ((64, 12), (9, 1), (5, 30)):
+        lengths = rng.integers(0, T + 1, B)
+        mask = _holes(rng, np.arange(T)[None, :] < lengths[:, None]) \
+            if B > 3 else np.arange(T)[None, :] < lengths[:, None]
+        want = np.array([max([t for t in range(T) if mask[b, t]],
+                             default=-1) for b in range(B)])
+        for m in (torch.from_numpy(mask), torch.from_numpy(
+                mask.astype(np.float32))):
+            got = p_gru.last_valid_steps(m)
+            assert got.dtype == torch.int64
+            np.testing.assert_array_equal(got.numpy(), want)
+    assert p_gru.last_valid_steps(torch.zeros(3, 0)).tolist() == [-1] * 3
 
 
 @pytest.mark.parametrize("mode", ["gru", "augru"])

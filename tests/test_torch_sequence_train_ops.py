@@ -85,15 +85,23 @@ def _lengths(rng, B, T):
     return lengths
 
 
-def _inputs(mode, B, T, H, seed):
+def _inputs(mode, B, T, H, seed, masks="prefix"):
     """gi, whh_t, bhh, mask, att, and the cotangents of outs and h_last,
-    from normal draws (the weights at std 0.3)."""
+    from normal draws (the weights at std 0.3).  ``masks="holes"`` drops
+    about 30% of the histories' steps, keeps row 3 valid at every step and
+    row 0 at none: holes, trailing padding, an empty row and a full-length
+    row in one batch."""
     rng = np.random.default_rng(seed)
     gi = rng.normal(0, 1, (T, B, 3 * H)).astype(np.float32)
     whh_t = rng.normal(0, 0.3, (H, 3 * H)).astype(np.float32)
     bhh = rng.normal(0, 0.3, (3 * H,)).astype(np.float32)
     lengths = _lengths(rng, B, T)
-    mask = (np.arange(T)[None, :] < lengths[:, None]).astype(np.float32)
+    mask = np.arange(T)[None, :] < lengths[:, None]
+    if masks == "holes":
+        mask = mask & (rng.random((B, T)) < 0.7)
+        mask[3] = True
+        mask[0] = False
+    mask = mask.astype(np.float32)
     att = None if mode == "gru" else rng.random((B, T)).astype(np.float32)
     douts = rng.normal(0, 1, (T, B, H)).astype(np.float32)
     dh_last = rng.normal(0, 1, (B, H)).astype(np.float32)
@@ -102,11 +110,11 @@ def _inputs(mode, B, T, H, seed):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_case(mode, dtype, seed):
-    """The inputs of ``_inputs(mode, 64, 12, 8, seed)`` and the Pallas
-    kernel's outputs and VJP on them (interpret mode is slow: the two tests
-    that read a case share it)."""
-    d = _inputs(mode, 64, 12, 8, seed)
+def _jax_case(mode, dtype, seed, masks="prefix"):
+    """The inputs of ``_inputs(mode, 64, 12, 8, seed, masks)`` and the
+    Pallas kernel's outputs and VJP on them (interpret mode is slow: the
+    two tests that read a case share it)."""
+    d = _inputs(mode, 64, 12, 8, seed, masks)
     return d, _jax_vjp(d, mode, DTYPES[dtype][0])
 
 
@@ -168,15 +176,13 @@ def _d_gh(d, carry, dgi, H):
     return np.concatenate([dgi[:, :, :2 * H], dgi[:, :, 2 * H:] * r], -1)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("mode", MODES)
-def test_gru_scan_bwd_ref_matches_the_pallas_kernel(mode, dtype):
-    """B=64 (the Pallas kernel's tiling gate), T=12 (not a multiple of its
-    time chunk, so it pads), lengths 0, 1 and T among the rows; the port's
-    backward from the carries the Pallas forward saved."""
+def _check_bwd_ref_against_pallas(mode, dtype, masks):
+    """gru_scan_bwd_ref from the carries the Pallas forward saved against
+    the Pallas kernel's VJP: dgi, d(att), zeros on padded steps, dW_hh and
+    db_hh against the sum of their terms' magnitudes."""
     jd, td = DTYPES[dtype]
     B, T, H = 64, 12, 8
-    d, (_, grads) = _jax_case(mode, dtype, 1)
+    d, (_, grads) = _jax_case(mode, dtype, 1, masks)
     carry = _jax_carry(d, mode, jd)
     gi, whh_t, bhh, mask, att, douts, dh_last = _port(
         d, td, "gi", "whh_t", "bhh", "mask", "att", "douts", "dh_last")
@@ -192,7 +198,7 @@ def test_gru_scan_bwd_ref_matches_the_pallas_kernel(mode, dtype):
         assert datt.dtype == td and datt.shape == (B, T)
         assert_agree(datt, grads[3], dtype)
     # padded steps give zero rows; an empty history no score cotangent
-    pad = np.arange(T)[:, None] >= d["lengths"][None, :]
+    pad = d["mask"].T == 0
     assert (_np(dgi)[pad] == 0).all()
     if datt is not None:
         assert (_np(datt)[pad.T] == 0).all()
@@ -210,11 +216,30 @@ def test_gru_scan_bwd_ref_matches_the_pallas_kernel(mode, dtype):
             assert_agree(got.to(td), want, dtype)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", MODES)
+def test_gru_scan_bwd_ref_matches_the_pallas_kernel(mode, dtype):
+    """B=64 (the Pallas kernel's tiling gate), T=12 (not a multiple of its
+    time chunk, so it pads), lengths 0, 1 and T among the rows; the port's
+    backward from the carries the Pallas forward saved."""
+    _check_bwd_ref_against_pallas(mode, dtype, "prefix")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", MODES)
+def test_gru_scan_bwd_ref_matches_the_pallas_kernel_on_masks_with_holes(
+        mode, dtype):
+    """Masks that are not prefixes, as the backward kernel's late start
+    must take them: holes inside histories, trailing padding, an empty row
+    and a full-length row in one batch."""
+    _check_bwd_ref_against_pallas(mode, dtype, "holes")
+
+
 @pytest.mark.parametrize("mode", MODES)
 def test_autograd_through_gru_scan_matches_the_pallas_kernel(mode):
     """On CPU tensors ``gru_scan`` is the plain version and autograd
     differentiates it: float32, the same cotangents."""
-    d, ((want_outs, want_h), grads) = _jax_case(mode, "float32", 1)
+    d, ((want_outs, want_h), grads) = _jax_case(mode, "float32", 1, "prefix")
     gi, whh_t, bhh, mask, att = _port(d, torch.float32, "gi", "whh_t", "bhh",
                                       "mask", "att")
     leaves = [t.requires_grad_() for t in (gi, whh_t, bhh, att)
