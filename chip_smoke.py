@@ -13,20 +13,26 @@ Serving first:
 
 1. build: compile every kernel under ``deepctr_tpu_torch/csrc/`` (one
    ``nvcc`` a source, all started together) and print the build time, and
-   the SASS instruction counts (``cuobjdump -sass``) of the GRU kernels;
+   the SASS instruction counts (``cuobjdump -sass``) of the GRU kernels
+   and of the attention kernel's bfloat16 relu instances (both designs);
 2. kernel vs plain: ``gather_rows`` at the bench shape (B=4096, the 26
    Criteo tables, row width 17) must equal ``gather_rows_ref`` bit for
-   bit, ids at V-1 and out-of-range ids (NaN rows) included;
+   bit, ids at V-1 and out-of-range ids (NaN rows) included, and so at
+   ``GATHER_CASES``: widths 1, 8, 17, 32 (16-byte rows and rows at a
+   4-byte offset) and 33 over B=77 x 3 fields (no multiple of 32 pairs),
+   and 300 fields (more than a block stages);
 3. DeepFM predict, float32: the 26 real Criteo vocabularies (33.8M rows),
    13 dense fields, DNN 400-400-400, weights drawn at std 0.05 from a
    seed; 8 batches of 4096 requests through the kernel (its launch count
    must rise), every prediction finite and in (0, 1), and the first batch
    within 1e-5 of the same model on the CPU;
 4. timing, bfloat16 compute: predict in examples/s (CUDA events, median
-   of 5 runs after warm-up) and its device time by kernel
-   (``torch.profiler``); the kernel, its plain version and a library
-   gather in ms of device time with a cold L2 and, apart, per call with
-   the host included; the kernel's bound from this run's bytes.
+   of 5 runs after warm-up) beside its device busy time, and its device
+   time by kernel (``torch.profiler``); the kernel (beside its earlier
+   design's time), its plain version and a library gather in ms of device
+   time with a cold L2 and, apart, per call with the host included; the
+   kernel on the same ids sorted within each field and with a warm L2;
+   the kernel's bound from this run's bytes.
 
 Then the training path, DeepFM ``compile``/``fit`` on the same model:
 
@@ -70,10 +76,19 @@ sharing their tables) and batches of 1024, DNN 256-128, attention 64-16:
    histories, trailing padding, an empty and a full-length row), and with
    holes at H=256 (the wide design, W_hh^T read through L2) and at an odd
    H=13 with a ragged B=77 (the row-blocked design); ``din_attention_fused``
-   at E=64, T=100, B=1024 and at E=512, T=200, layers 80-40 (the top of
-   the layer's gate, also through ``AttentionSequencePoolingLayer``),
-   sigmoid, relu and linear, weight normalisation on and off, float32 and
-   bfloat16 keys, every weight at std 0.3.  float32 within 1e-5 (relative
+   at E=64, T=100, B=1024, at a ragged B=1000 on masks with holes, at
+   E=13, T=30, B=77, layers 36-10 (widths no multiple of 8), at T=300
+   (histories longer than a window), at E=256, T=150, layers 32-8
+   (smaller windows), at E=64, layers 64-32-16 (three hidden layers), all
+   on the tensor-core design's instance of up to 8 n tiles, at E=64,
+   layers 80-40 (DIN's default, also through
+   ``AttentionSequencePoolingLayer``), at E=32, layers 128-64 (its widest)
+   and at E=64, one layer of 100, on its instance of up to 16, and at
+   E=512, T=200, layers 80-40 (the top of the layer's gate, on the FMA
+   design, also through the layer), sigmoid, relu and linear, weight
+   normalisation on and off, float32 and bfloat16 keys, every weight at
+   std 0.3; both instances and the FMA design must be among the cases.
+   float32 within 1e-5 (relative
    above 1; the attention against a float64 evaluation, relative to
    sum_t |s_t k_t| above 1, or within twice the plain version's own error
    where that is larger), bfloat16 within one bf16 ulp; padded steps and
@@ -89,10 +104,15 @@ sharing their tables) and batches of 1024, DNN 256-128, attention 64-16:
 12. timing, bfloat16 compute: predict of DIN (Dice, sigmoid) and DIEN (GRU,
     AUGRU) in examples/s (CUDA events, median of 5 after warm-up) beside
     device busy time and idle share (``torch.profiler``); both kernels and
-    their plain versions in device ms with a cold L2 (the GRU's beside its
-    earlier design's time, and the steps its blocks walk),
+    their plain versions in device ms with a cold L2 (each beside its
+    earlier design's time; the GRU's with the steps its blocks walk),
     ``torch.nn.GRU`` as the GRU's library yardstick (timed only; the port
-    never calls it), and each kernel's bound from this run's inputs.
+    never calls it), and each kernel's bound from this run's inputs (the
+    attention's at the TF32 tensor rate, 2-3 products a multiply-add,
+    beside the float32 FMA one); the attention at every history length 0,
+    every length 100 and uniform lengths; the gather at the sequence
+    shape (B=1024, DIEN's 203 predict and 403 training fields of W=32)
+    beside its bytes bound.
 
 Then the sequence models' training path, at the same columns:
 
@@ -254,6 +274,21 @@ SEQ_STD = 0.3
 # W_hh^T to sit in shared memory
 WIDE_ATT = dict(B=256, T=200, E=512, hidden=(80, 40))
 WIDE_GRU = dict(B=300, T=50, H=256)
+# widths no multiple of 8 (E padded to 16, the layers to 40 and 16), a
+# ragged B and masks with holes; histories longer than the tensor-core
+# design's window of 128 steps; and E=256 with layers 32-8, whose key rows
+# take windows of 64 (bfloat16) and 32 (float32) steps
+ODD_ATT = dict(B=77, T=30, E=13, hidden=(36, 10), masks="holes")
+LONG_ATT = dict(B=256, T=300, masks="holes")
+WINDOW_ATT = dict(B=128, T=150, E=256, hidden=(32, 8), masks="holes")
+# the tensor-core design's instance of up to 16 n tiles (hidden widths 72
+# to 128): DIN's default attention 80-40 at the slice's E, the widest
+# layers it takes, and one hidden layer; and three hidden layers on the
+# instance of up to 8
+DEFAULT_ATT = dict(B=512, T=100, hidden=(80, 40), masks="holes")
+TOP_ATT = dict(B=128, T=60, E=32, hidden=(128, 64))
+ONE_ATT = dict(B=256, T=50, hidden=(100,), masks="holes")
+THREE_ATT = dict(B=256, T=50, hidden=(64, 32, 16), masks="holes")
 # an odd width below the row-blocked design's top (H <= 64), a ragged B
 ODD_GRU = dict(B=77, T=30, H=13)
 # the GRU kernels' masks (gru_mask): prefixes, and histories with holes
@@ -313,6 +348,16 @@ XD_TRAIN_LAUNCHES = {"gather_rows": 1, "scatter_add_rows": 1, "cin_mix": 2,
 # arena
 SCATTER_REPEATS = 5
 GUARD_ROWS = 64
+
+# the earlier designs' times (PERF.md section 6; NVIDIA H100 80GB HBM3,
+# 700 W), printed in brackets beside this run's: K3 and K5 at bf16,
+# B=1024, T=100, H=64; K4 at bf16 keys, relu with softmax, B=1024, T=100,
+# E=64; the gather at B=4096, the 26 Criteo tables, W=17, and at the
+# sequence shape, B=1024, 203 and 403 fields of W=32
+EARLIER_MS = {"gru_scan": 0.3064, "gru_scan_bwd": 0.7126,
+              "din_attention": 0.1388, "gather_rows": 0.01726,
+              "gather_rows_seq_203": 0.03406,
+              "gather_rows_seq_403": 0.06024}
 
 KERNELS = {
     "gather_rows": {
@@ -461,11 +506,55 @@ def phase_build():
         log("nvcc %s:\n%s" % (name, text.strip()))
     log("build: %d kernel source(s) compiled in %.2f s"
         % (len(logs), seconds))
-    log_gru_sass()
+    log_sass()
+
+
+# phase 2's other gather cases: (row width, fields, rows, tables cut at a
+# 4-byte offset): every instance of the kernel (W = 1 and 17 as templates,
+# 32 as 8 16-byte units, 8 as generic 16-byte units, 33 and an unaligned
+# 32 generic), a pair count no multiple of 32 (77 x 3), and more fields
+# than a block stages
+GATHER_CASES = ((1, 3, 77, False), (8, 3, 77, False), (17, 3, 77, False),
+                (32, 3, 77, False), (32, 3, 77, True), (33, 3, 77, False),
+                (32, 300, 5, False))
+
+
+def check_gather_case(width, n_fields, B, shifted, device, seed):
+    """gather_rows against gather_rows_ref, bit for bit, on ids uniform
+    over [-2, V + 2) (out-of-range ids give NaN rows) with V - 1, V, -1
+    and 0.9 in the first rows, tables of 50, 1000 and 7 rows in turn."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    vocabs = [(50, 1000, 7)[f % 3] for f in range(n_fields)]
+    tables = []
+    for v in vocabs:
+        t = torch.randn(v * width + 1, generator=gen, device=device)
+        tables.append((t[1:] if shifted else t[:-1]).view(v, width))
+    V = torch.tensor(vocabs, dtype=torch.float32, device=device)
+    X = torch.floor(torch.rand(B, n_fields, generator=gen, device=device)
+                    * (V + 4) - 2)
+    X[0], X[1], X[2], X[3] = V - 1, V, -1.0, 0.9
+    X = torch.cat([torch.rand(B, 1, generator=gen, device=device), X], 1)
+    cols = list(range(1, n_fields + 1))
+    got = gather.gather_rows(X, tables, cols)
+    want = gather.gather_rows_ref(X, tables, cols)
+    torch.cuda.synchronize()
+    what = ("gather_rows B=%d F=%d W=%d (%s rows)" % (
+        B, n_fields, width, "16-byte" if gather.vector_rows(tables)
+        else "float"))
+    check(same_bits(got, want), what + " differs from its plain version")
+    for f, t in enumerate(tables):
+        check(torch.equal(got[0, f], t[-1]), what + ": id V-1 of field %d"
+              % f)
+        check(torch.equal(got[3, f], t[0]), what + ": id 0.9 of field %d"
+              % f)
+    check(bool(torch.isnan(got[1:3]).all()), what + ": out-of-range ids "
+          "must give NaN rows")
+    return what
 
 
 def phase_kernel_vs_plain(model, X):
-    """gather_rows against gather_rows_ref at the main path's shapes."""
+    """gather_rows against gather_rows_ref at the main path's shapes, and
+    at GATHER_CASES."""
     tables = [model.embedding_dict.tables["C%d" % i]
               for i in range(len(CRITEO_KAGGLE_VOCABS))]
     cols = list(range(len(tables)))
@@ -494,6 +583,10 @@ def phase_kernel_vs_plain(model, X):
             check(torch.equal(got_e[3, f], t[0]), "id 0.9 of field %d" % f)
         check(torch.isnan(got_e[1:3]).all(), "out-of-range ids must give "
               "NaN rows")
+        cases = [check_gather_case(*case, X.device, SEED + 80 + i)
+                 for i, case in enumerate(GATHER_CASES)]
+    log("kernel vs plain: bit-equal, NaN rows and edge ids included: %s"
+        % "; ".join(cases))
     finite = ~torch.isnan(want)
     err = (got[finite] - want[finite]).abs().max().item()
     log("kernel vs plain: gather_rows bit-equal at B=%d F=%d W=%d "
@@ -531,13 +624,14 @@ def phase_predict_f32(model, X_all):
     return launches
 
 
-def device_ms(fn, runs=20):
+def device_ms(fn, runs=20, cold=True):
     """Device time of ``fn``'s kernels with a cold L2, median of ``runs``.
 
     Before each run the stream is stalled (``torch.cuda._sleep``) for
     longer than the host takes to enqueue ``fn``, so host overhead is not
     timed, and a 128 MB write evicts the 50 MB L2, as a new batch finds
-    the rows of 2.3 GB of tables cold."""
+    the rows of 2.3 GB of tables cold.  With ``cold=False`` nothing is
+    evicted: the run finds in L2 what the run before it left there."""
     flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
     fn()
     torch.cuda.synchronize()
@@ -549,7 +643,8 @@ def device_ms(fn, runs=20):
     events = []
     for _ in range(runs):
         torch.cuda._sleep(stall_cycles)
-        flush.fill_(1.0)
+        if cold:
+            flush.fill_(1.0)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -572,15 +667,12 @@ def phase_timing_bf16(model, X_all):
     host = X_all.cpu().numpy()
     host_ms = time_ms(lambda: model.predict(host, batch_size=BATCH),
                       reps=3)
-    log("predict bf16, device input: %r examples/s (%r ms for %d)"
-        % (n / dev_ms * 1e3, dev_ms, n))
-    log("predict bf16, host numpy input: %r examples/s (%r ms for %d)"
-        % (n / host_ms * 1e3, host_ms, n))
     busy_ms = profile_ms(lambda: model.predict(X_all, batch_size=BATCH),
                          "predict", top=6)
-    if busy_ms is not None:
-        log("predict bf16, device input: device busy %r ms of %r ms, idle "
-            "share %r" % (busy_ms, dev_ms, 1 - busy_ms / dev_ms))
+    log("predict bf16, device input: %r examples/s (%r ms for %d); device "
+        "busy %s" % (n / dev_ms * 1e3, dev_ms, n, busy_line(busy_ms, dev_ms)))
+    log("predict bf16, host numpy input: %r examples/s (%r ms for %d)"
+        % (n / host_ms * 1e3, host_ms, n))
 
     X = X_all[:BATCH].contiguous()
     tables = [model.embedding_dict.tables["C%d" % i]
@@ -608,15 +700,31 @@ def phase_timing_bf16(model, X_all):
     n_bytes = (4 * X.shape[0] * len(tables) + 4 * width * unique_rows
                + 4 * X.shape[0] * len(tables) * width)
     bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    log("gather_rows at B=%d F=%d W=%d, device time, cold L2: kernel %r ms, "
-        "plain %r ms, library (index_select per table) %r ms; bound %r ms "
-        "(%d bytes: %d unique rows, at %.3g B/s)"
-        % (X.shape[0], len(tables), width, ms["kernel"], ms["plain"],
-           ms["library"], bound_ms, n_bytes, unique_rows, HBM_BYTES_PER_S))
+    log("gather_rows at B=%d F=%d W=%d, device time, cold L2: kernel %r ms "
+        "(earlier design: %r ms), plain %r ms, library (index_select per "
+        "table) %r ms; bound %r ms (%d bytes: %d unique rows, at %.3g B/s)"
+        % (X.shape[0], len(tables), width, ms["kernel"],
+           EARLIER_MS["gather_rows"], ms["plain"], ms["library"], bound_ms,
+           n_bytes, unique_rows, HBM_BYTES_PER_S))
     log("gather_rows at B=%d F=%d W=%d, back-to-back calls, host included: "
         "kernel %r ms, plain %r ms, library %r ms a call"
         % (X.shape[0], len(tables), width, call_ms["kernel"],
            call_ms["plain"], call_ms["library"]))
+    # the same ids sorted within each field (neighbouring pairs of a field
+    # read neighbouring rows), and the uniform ids with a warm L2: what the
+    # cost of random rows in device memory adds to the kernel's own
+    X_sorted = X.clone()
+    X_sorted[:, cols] = torch.sort(X[:, cols], dim=0).values
+    with torch.no_grad():
+        sorted_ms = device_ms(lambda: gather.gather_rows(
+            X_sorted, tables, cols, args=args))
+        warm_ms = device_ms(lambda: gather.gather_rows(
+            X, tables, cols, args=args), cold=False)
+    log("gather_rows at B=%d F=%d W=%d, device time: kernel %r ms on "
+        "uniform ids with a cold L2, %r ms on the same ids sorted within "
+        "each field, cold L2, %r ms on the uniform ids with a warm L2"
+        % (X.shape[0], len(tables), width, ms["kernel"], sorted_ms,
+           warm_ms))
     return {"ms": ms["kernel"], "plain_ms": ms["plain"],
             "library_ms": ms["library"], "bound_ms": bound_ms,
             "bound_by": "bytes"}
@@ -1095,16 +1203,18 @@ def gru_inputs(B, mode, dtype, seed, device, T=SEQ_MAXLEN, H=SEQ_H,
 
 
 def attention_inputs(B, dtype, seed, device, T=SEQ_MAXLEN, E=SEQ_H,
-                     hidden=SEQ_ATT):
+                     hidden=SEQ_ATT, masks="prefix"):
     """``din_attention_fused``'s arguments (at E=64, T=100 and layers
-    256-64-16-1 by default), lengths over [0, T]; the query, the keys and
-    every weight and bias at std 0.3."""
+    256-64-16-1 by default), the mask as ``gru_mask`` draws it (lengths
+    over [0, T], an empty and a full row; with ``"holes"`` steps dropped
+    inside the histories), and each row's count of valid steps; the query,
+    the keys and every weight and bias at std 0.3."""
     gen = torch.Generator(device=device).manual_seed(seed)
     query = SEQ_STD * torch.randn(B, 1, E, generator=gen, device=device)
     keys = (SEQ_STD * torch.randn(B, T, E, generator=gen,
                                   device=device)).to(dtype)
-    lengths = seq_lengths(B, gen, device, T)
-    mask = torch.arange(T, device=device)[None, :] < lengths[:, None]
+    mask = gru_mask(B, T, masks, gen, device)
+    lengths = mask.sum(dim=1)
     widths = (4 * E,) + tuple(hidden) + (1,)
     layers = [(SEQ_STD * torch.randn(i, o, generator=gen, device=device),
                SEQ_STD * torch.randn(o, generator=gen, device=device))
@@ -1200,16 +1310,19 @@ def check_gru_case(B, mode, dtype, seed, device, T=SEQ_MAXLEN, H=SEQ_H,
 
 
 def check_attention_case(act, wnorm, dtype, seed, device, B=SEQ_BATCH,
-                         T=SEQ_MAXLEN, E=SEQ_H, hidden=SEQ_ATT):
+                         T=SEQ_MAXLEN, E=SEQ_H, hidden=SEQ_ATT,
+                         masks="prefix"):
     """One din_attention_fused case against its plain version; returns the
     largest |kernel - plain|."""
     q, k, m, layers, lengths = attention_inputs(B, dtype, seed, device, T, E,
-                                                hidden)
+                                                hidden, masks)
     got = attention.din_attention_fused(q, k, m, layers, act, wnorm)
     want = attention.din_attention_fused_ref(q, k, m, layers, act, wnorm)
     torch.cuda.synchronize()
-    what = ("din_attention %s wnorm=%s %s B=%d T=%d E=%d layers %s"
-            % (act, wnorm, dtype, B, T, E, hidden))
+    what = ("din_attention (%s design) %s wnorm=%s %s B=%d T=%d E=%d layers "
+            "%s, %s masks" % (attention.route(E, tuple(hidden) + (1,), dtype),
+                              act,
+                              wnorm, dtype, B, T, E, hidden, masks))
     if not wnorm:
         check(bool((got[lengths == 0] == 0).all()),
               what + ": an empty history gave a non-zero readout")
@@ -1228,16 +1341,16 @@ def check_attention_case(act, wnorm, dtype, seed, device, B=SEQ_BATCH,
     return a
 
 
-def check_wide_attention_layer(device):
-    """AttentionSequencePoolingLayer at WIDE_ATT on the card: inference
+def check_attention_layer(device, shape, seed):
+    """AttentionSequencePoolingLayer at ``shape`` on the card: inference
     takes the fused kernel (one launch), which agrees with the plain
     version of the layer's readout."""
-    w = WIDE_ATT
+    w = dict(dict(B=SEQ_BATCH, T=SEQ_MAXLEN, E=SEQ_H), **shape)
     layer = AttentionSequencePoolingLayer(
         att_hidden_units=w["hidden"], att_activation="relu",
         weight_normalization=True, embedding_dim=w["E"], device=device)
-    gen = torch.Generator(device=device).manual_seed(SEED + 70)
-    q, k, m, _, lengths = attention_inputs(w["B"], torch.float32, SEED + 71,
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, m, _, lengths = attention_inputs(w["B"], torch.float32, seed + 1,
                                            device, w["T"], w["E"],
                                            w["hidden"])
     with torch.no_grad():
@@ -1253,8 +1366,10 @@ def check_wide_attention_layer(device):
         want = attention.din_attention_fused_ref(q, k, m, params, "relu",
                                                  True)
         truth, scale = attention_f64(q, k, m, params, "relu", True)
-    what = ("AttentionSequencePoolingLayer relu, softmax, B=%d T=%d E=%d "
-            "layers %s" % (w["B"], w["T"], w["E"], w["hidden"]))
+    what = ("AttentionSequencePoolingLayer (%s design) relu, softmax, B=%d "
+            "T=%d E=%d layers %s" % (
+                attention.route(w["E"], tuple(w["hidden"]) + (1,)), w["B"],
+                w["T"], w["E"], w["hidden"]))
     check(launches == 1, "%s: the fused kernel launched %d times, want 1"
           % (what, launches))
     e, p, a = check_attention_f32(got, want, truth, scale, what)
@@ -1271,6 +1386,9 @@ def phase_seq_kernels_vs_plain(device):
     errs = {"gru_scan": 0.0, "din_attention": 0.0}
     seed = SEED + 20
     dtypes = (torch.float32, torch.bfloat16)
+    att_shapes = ({}, dict(B=1000, masks="holes"), ODD_ATT, LONG_ATT,
+                  WINDOW_ATT, DEFAULT_ATT, TOP_ATT, ONE_ATT, THREE_ATT,
+                  WIDE_ATT)
     with torch.no_grad():
         for B in (SEQ_BATCH, 1000):
             for masks in GRU_MASKS:
@@ -1288,7 +1406,7 @@ def phase_seq_kernels_vs_plain(device):
                     check_gru_case(shape["B"], mode, dtype, seed, device,
                                    T=shape["T"], H=shape["H"],
                                    masks="holes")
-        for shape in ({}, WIDE_ATT):
+        for shape in att_shapes:
             for act in attention.ACTIVATIONS:
                 for wnorm in (False, True):
                     for dtype in dtypes:
@@ -1298,7 +1416,15 @@ def phase_seq_kernels_vs_plain(device):
                         if dtype == torch.float32 and not shape:
                             errs["din_attention"] = max(
                                 errs["din_attention"], a)
-    check_wide_attention_layer(device)
+    routes = {attention.route(shape.get("E", SEQ_H),
+                              tuple(shape.get("hidden", SEQ_ATT)) + (1,),
+                              dtype)
+              for shape in att_shapes for dtype in dtypes}
+    check(routes == {"mma8", "mma16", "fma"}, "phase 9's attention shapes "
+          "took the designs %s, want both tensor-core instances and the "
+          "FMA design" % sorted(routes))
+    check_attention_layer(device, WIDE_ATT, SEED + 70)
+    check_attention_layer(device, DEFAULT_ATT, SEED + 72)
     return errs
 
 
@@ -1427,11 +1553,15 @@ def gru_bound(args, flop_rate):
     return bound(n_bytes, flops, flop_rate)
 
 
-def attention_bound(q, k, m, layers, lengths, wnorm):
+def attention_bound(q, k, m, layers, lengths, wnorm,
+                    flop_rate=F32_FLOP_PER_S, products=(1, 1)):
     """(ms, bound) for din_attention_fused, counting what the function
-    needs.  Operations: per sample with a valid step, the query's part of
-    the first layer and the fold of q into its key weights (2 E n1
-    multiply-adds, since [q, k, q - k, q * k] W_0 = q (A + C) + k (B - C +
+    needs, at ``flop_rate``, each multiply-add of the first layer's key
+    product counted ``products[0]`` times and every other one
+    ``products[1]`` times (the TF32 split of the tensor-core design: 2 and
+    3 at bfloat16 keys, 3 and 3 at float32).  Operations: per sample
+    with a valid step, the query's part of the first layer and the fold
+    of q into its key weights (2 E n1 multiply-adds, since [q, k, q - k, q * k] W_0 = q (A + C) + k (B - C +
     diag(q) D)); per valid step, E n1 for the first layer, the later layers
     and E for the weighted sum; a step past the history needs no MLP, and
     an empty history reads as zeros (no softmax) or the mean of its T keys
@@ -1442,16 +1572,17 @@ def attention_bound(q, k, m, layers, lengths, wnorm):
     later = sum(w.shape[0] * w.shape[1] for w, _ in layers[1:])
     valid = int(lengths.sum())
     rows = int((lengths > 0).sum())
-    flops = 2 * (rows * 2 * E * n1 + valid * (E * n1 + later + E))
+    flops = 2 * (products[0] * valid * E * n1 + products[1] * (
+        rows * 2 * E * n1 + valid * (later + E)))
     steps_read = valid
     if wnorm:
-        flops += (B - rows) * T * E
+        flops += products[1] * (B - rows) * T * E
         steps_read += (B - rows) * T
     n_bytes = (steps_read * E * k.element_size()
                + q.numel() * q.element_size() + m.numel() * m.element_size()
                + 4 * sum(w.numel() + b.numel() for w, b in layers)
                + B * E * k.element_size())
-    return bound(n_bytes, flops)
+    return bound(n_bytes, flops, flop_rate)
 
 
 def bound(n_bytes, flops, flop_rate=F32_FLOP_PER_S):
@@ -1459,6 +1590,91 @@ def bound(n_bytes, flops, flop_rate=F32_FLOP_PER_S):
     by_ops = flops / flop_rate * 1e3
     return ((by_ops, "operations") if by_ops >= by_bytes
             else (by_bytes, "bytes"))
+
+
+def gather_bytes(X, tables, cols):
+    """The bytes gather_rows must move: the id of every (b, f), every row
+    the ids touch once (a table shared by several fields counts its rows
+    once), the [B, F, W] output."""
+    ids = {}
+    for t, c in zip(tables, cols):
+        ids.setdefault(t.data_ptr(), []).append(
+            X[:, c].to(torch.int32).to(torch.int64))
+    unique_rows = sum(int(torch.unique(torch.cat(v)).numel())
+                      for v in ids.values())
+    B, F, W = X.shape[0], len(tables), tables[0].shape[1]
+    return 4 * B * F + 4 * W * unique_rows + 4 * B * F * W, unique_rows
+
+
+def seq_gather_fields(model, neg):
+    """The tables and id columns of the sequence model's one gather
+    launch, as ``EmbeddingDict.gather`` builds them: predict's fields, and
+    with ``neg`` a training forward's (the ``neg_hist_*`` spans too)."""
+    tables, cols = [], []
+    for fc in model._shared_columns:
+        if fc.name.startswith("neg_") and not neg:
+            continue
+        start, end = model.feature_index[fc.name]
+        if not isinstance(fc, pt.VarLenSparseFeat):
+            end = start + 1
+        tables += [model.embedding_dict.tables[fc.embedding_name]] * (
+            end - start)
+        cols += range(start, end)
+    check(len({t.shape[1] for t in tables}) == 1, "the sequence model's "
+          "gather has more than one row width")
+    return tables, cols
+
+
+def seq_gather_times(device):
+    """gather_rows at the sequence paths' shape: DIEN AUGRU+neg's columns
+    at B=SEQ_BATCH, predict's fields and a training forward's, device ms
+    with a cold L2 beside the bytes bound.  Returns {fields: (ms,
+    bound_ms)}."""
+    model = seq_model("dien", "AUGRU", device)
+    X = seq_requests(model, SEQ_BATCH, SEED + 55, device)
+    out = {}
+    with torch.no_grad():
+        for neg in (False, True):
+            tables, cols = seq_gather_fields(model, neg)
+            args = gather.GatherArgs()
+            ms = device_ms(lambda: gather.gather_rows(X, tables, cols,
+                                                      args=args))
+            n_bytes, unique_rows = gather_bytes(X, tables, cols)
+            bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+            out[len(cols)] = (ms, bound_ms)
+            log("gather_rows at the sequence shape (%s), B=%d F=%d W=%d: "
+                "kernel %r ms, device time, cold L2 (earlier design: %r ms); "
+                "bound %r ms (%d bytes: %d unique rows, %d output bytes), "
+                "%.3gx the bound" % (
+                    "a training forward" if neg else "predict", X.shape[0],
+                    len(cols), tables[0].shape[1], ms,
+                    EARLIER_MS["gather_rows_seq_%d" % len(cols)], bound_ms,
+                    n_bytes, unique_rows,
+                    4 * X.shape[0] * len(cols) * tables[0].shape[1],
+                    ms / bound_ms))
+    del model, X
+    return out
+
+
+def attention_length_times(device):
+    """K4 at bf16, relu with softmax, B=SEQ_BATCH, T=SEQ_MAXLEN, E=SEQ_H:
+    device ms with a cold L2 at every length 0, at every length T and at
+    lengths uniform over [0, T]; they split a sample's fixed cost from the
+    cost of a valid step."""
+    q, k, m, layers, lengths = attention_inputs(SEQ_BATCH, torch.bfloat16,
+                                                SEED + 62, device)
+    packed = attention.pack_params(layers)
+    out = {}
+    with torch.no_grad():
+        for label, mm in (("lengths 0", torch.zeros_like(m)),
+                          ("lengths %d" % SEQ_MAXLEN, torch.ones_like(m)),
+                          ("uniform lengths", m)):
+            out[label] = device_ms(lambda: attention.din_attention_fused(
+                q, k, mm, layers, "relu", True, packed=packed))
+    log("din_attention (relu, softmax) at B=%d T=%d E=%d, bf16 keys, device "
+        "time, cold L2: %s" % (SEQ_BATCH, SEQ_MAXLEN, SEQ_H, ", ".join(
+            "%r ms at %s" % (v, k_) for k_, v in out.items())))
+    return out
 
 
 def phase_seq_timing_bf16(device):
@@ -1536,15 +1752,27 @@ def phase_seq_timing_bf16(device):
                 q, k, m, layers, "relu", True),
         }
         ms = {k_: device_ms(fn) for k_, fn in timed.items()}
-        bound_ms, bound_by = attention_bound(q, k, m, layers, lengths, True)
+        # the bound at the units the kernel uses (TF32 tensor cores: the
+        # first layer's key product 2 products a multiply-add at bf16 keys,
+        # the rest 3), beside the float32 FMA one
+        bound_ms, bound_by = attention_bound(q, k, m, layers, lengths, True,
+                                             TF32_FLOP_PER_S, (2, 3))
+        f32_ms, f32_by = attention_bound(q, k, m, layers, lengths, True)
         out["din_attention"] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
                                     library_ms=None, bound_ms=bound_ms,
                                     bound_by=bound_by)
-        log("din_attention (relu, softmax) at B=%d T=%d E=%d, bf16 keys, "
-            "device time, cold L2: kernel %r ms, plain %r ms, no library "
-            "call; bound %r ms (%s)" % (SEQ_BATCH, SEQ_MAXLEN, SEQ_H,
-                                        ms["kernel"], ms["plain"], bound_ms,
-                                        bound_by))
+        log("din_attention (%s design; relu, softmax) at B=%d T=%d E=%d, "
+            "bf16 keys, %d valid steps, device time, cold L2: kernel %r ms "
+            "(earlier design: %r ms), plain %r ms, no library call; bound %r "
+            "ms (%s; at the TF32 tensor rate, 2-3 products a multiply-add), "
+            "%r ms (%s) at the float32 FMA rate" % (
+                attention.route(SEQ_H, SEQ_ATT + (1,), torch.bfloat16),
+                SEQ_BATCH,
+                SEQ_MAXLEN, SEQ_H, int(lengths.sum()), ms["kernel"],
+                EARLIER_MS["din_attention"], ms["plain"], bound_ms, bound_by,
+                f32_ms, f32_by))
+    attention_length_times(device)
+    seq_gather_times(device)
     return out
 
 
@@ -1815,11 +2043,7 @@ def gru_bwd_bound(args, flop_rate):
     return bound(n_bytes, 6 * valid * H * H3, flop_rate)
 
 
-# K3's and K5's times at bf16, B=1024, T=100, H=64 with their earlier designs
-# (PERF.md section 6; NVIDIA H100 80GB HBM3, 700 W), printed in brackets
-# beside this run's
-EARLIER_MS = {"gru_scan": 0.3064, "gru_scan_bwd": 0.7126}
-# the SASS instruction classes counted in the GRU kernels
+# the SASS instruction classes counted in the kernels of SASS_PICK
 SASS_OPS = ("LDS", "LDS.128", "LDS.64", "FFMA", "HMMA", "SHFL", "BAR", "LDG",
             "STG", "MUFU")
 
@@ -1856,10 +2080,21 @@ def sass_counts(name):
     return counts
 
 
-def log_gru_sass():
-    """The SASS instruction counts of the GRU kernels' bfloat16 gru-mode
-    instances (the timed case) and of the dW product's kernels."""
-    for name in ("gru_scan", "gru_scan_bwd"):
+# the instances whose SASS counts phase 1 prints: the GRU kernels'
+# bfloat16 gru-mode instances (the timed case) and the dW product's
+# kernels; the attention's bfloat16 instances of the timed case (relu)
+SASS_PICK = {
+    "gru_scan": lambda label: "bfloat16" in label and ", 0," in label,
+    "gru_scan_bwd": lambda label: ("bfloat16" in label and ", 0," in label
+                                   or "dw_" in label),
+    "din_attention": lambda label: "bfloat16" in label and (
+        "mma" in label or ", 1>" in label),
+}
+
+
+def log_sass():
+    """The SASS instruction counts of the instances of SASS_PICK."""
+    for name, pick in SASS_PICK.items():
         counts = sass_counts(name)
         if counts is None:
             log("sass %s: not measured (no cuobjdump)" % name)
@@ -1870,7 +2105,7 @@ def log_gru_sass():
                   and names else list(counts))
         for (fn, c), label in zip(counts.items(), pretty):
             label = label.replace("(anonymous namespace)::", "")
-            if ("bfloat16" in label and ", 0," in label) or "dw_" in label:
+            if pick(label):
                 log("sass %s: %s: %s" % (name, label.split("(")[0], ", ".join(
                     "%s %d" % kv for kv in c.items())))
 

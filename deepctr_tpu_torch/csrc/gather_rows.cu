@@ -16,19 +16,34 @@
 // 273-285 (big tables).  On this card a plain row copy serves every table,
 // and the rows come back in exact float32.
 //
-// What bounds it: device-memory bytes.  It does no arithmetic; it reads
-// B*F ids and B*F*W*4 bytes of rows and writes the same number of bytes.
-// At B=4096, F=26, W=17 that is about 15 MB, a few microseconds at
-// 3.35 TB/s.
+// What bounds it: device-memory bytes, at least.  It does no arithmetic;
+// it reads B*F ids and the rows they name and writes B*F*W*4 bytes.  At
+// B=4096, F=26, W=17 that is about 11 MB, 3.4 us at 3.35 TB/s.  Measured
+// on an H100 80GB HBM3 at 700 W (PERF.md): the earlier design, one thread
+// an output float, took 0.0174 ms there, the same on ids sorted within
+// each field and 0.0121 ms with a warm L2, so neither the DRAM's cost of
+// random rows nor its rate bound it but the latency of each warp's few
+// rows in flight.  This design takes about 0.0128 ms (0.0091 with a warm
+// L2): the launch is one wave whose warps all wait out the same chain of
+// dependent loads (the fields' arguments, the id, the row) before their
+// stores; at the sequence models' 203-403 fields of W=32 it is within
+// 1.5-1.9x of its bytes.
 //
-// What the design does about that: one thread per output float, so
-// neighbouring threads write neighbouring addresses and every store is
-// fully coalesced, and the threads of one row read that row's W
-// consecutive floats together (one or two 32-byte sectors).  Loads are
-// 4 bytes wide because a width-17 row is 68 bytes and not 16-byte aligned.
-// One launch covers every field of a width, so a forward pays one launch,
-// not one per table.  Wider loads from padded rows, and fetching ids once
-// per row instead of once per float, are later work.
+// The design: the (b, f) pairs are numbered b * F + f, and a warp takes a
+// run of 32 consecutive pairs, whose outputs are one contiguous run of
+// 32 W floats.  Lane j loads pair j's id once, truncates it, checks its
+// range and forms its row pointer (null out of range); the per-field
+// arguments come from shared memory, staged once a block where there are
+// at most 256 fields (else each lane reads its field's own).  Then the warp issues all its row
+// loads before any store: the run's float i (lane + 32 k, k < W) belongs
+// to pair i / W, whose row pointer the lane takes from the owning lane by
+// shuffle, so every lane has W loads in flight and the warp 32 rows.  The
+// stores are coalesced over the run.  W is a template argument for the
+// widths the paths use (17: Criteo DeepFM and xDeepFM with the fused wide
+// column; 1: linear tables; 32, the sequence models', as 8 units of 16
+// bytes), so i / W is a multiply; any other width takes a generic loop
+// with 8 loads in flight a lane.  Where W % 4 == 0 and the tables are
+// 16-byte aligned the runs move 16-byte units.
 //
 // The per-field arguments come in one int64 device array `meta` of
 // 3 * n_fields entries: table base pointers, id column indices, vocab
@@ -38,47 +53,155 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // a block: 8 runs of 32 pairs
+constexpr int kGeneric = 0;    // W (or W / 4) known only at run time
+constexpr int kBatch = 8;      // loads in flight a lane in the generic loop
+constexpr unsigned kFull = 0xffffffffu;
 
+template <bool VEC>
+struct Unit;  // what one load moves: a float, or 4 of them
+template <>
+struct Unit<false> {
+  using T = float;
+  __device__ static T load(const T* p) { return __ldg(p); }
+  __device__ static T nan() { return __int_as_float(0x7fc00000); }
+};
+template <>
+struct Unit<true> {
+  using T = float4;
+  __device__ static T load(const T* p) { return __ldg(p); }
+  __device__ static T nan() {
+    const float v = __int_as_float(0x7fc00000);
+    return make_float4(v, v, v, v);
+  }
+};
+
+// UNITS: a row's units (W, or W / 4 with VEC), kGeneric for `units`
+template <int UNITS, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 gather_rows_kernel(const float* __restrict__ x, long long ld_x,
                    const long long* __restrict__ meta, unsigned n_fields,
-                   unsigned width, unsigned total, float* __restrict__ out) {
-  const unsigned i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= total) return;
-  const unsigned pair = i / width;  // b * n_fields + f
-  const unsigned w = i - pair * width;
-  const unsigned b = pair / n_fields;
-  const unsigned f = pair - b * n_fields;
-  const float* table = reinterpret_cast<const float*>(meta[f]);
-  const long long col = meta[n_fields + f];
-  const long long vocab = meta[2 * n_fields + f];
-  // truncation toward zero, as float32 -> int32 in the JAX package
-  const long long id =
-      __float2int_rz(__ldg(x + static_cast<long long>(b) * ld_x + col));
-  float v = __int_as_float(0x7fc00000);  // NaN row for an id out of range
-  if (id >= 0 && id < vocab) v = __ldg(table + id * width + w);
-  out[i] = v;
+                   unsigned units, unsigned n_pairs,
+                   float* __restrict__ out) {
+  using U = Unit<VEC>;
+  using T = typename U::T;
+  __shared__ long long s_meta[3 * kThreads];
+  const unsigned row_units = UNITS != kGeneric ? UNITS : units;
+  const bool staged = n_fields <= kThreads;
+  if (staged) {
+    for (unsigned i = threadIdx.x; i < 3 * n_fields; i += kThreads) {
+      s_meta[i] = __ldg(meta + i);
+    }
+    __syncthreads();
+  }
+  const unsigned lane = threadIdx.x & 31;
+  const unsigned pair = blockIdx.x * kThreads + threadIdx.x;
+  const unsigned run0 = pair - lane;
+  if (run0 >= n_pairs) return;  // the whole warp: no barrier follows
+
+  // this lane's pair: its row, or null out of range
+  const T* row = nullptr;
+  if (pair < n_pairs) {
+    const unsigned b = pair / n_fields;
+    const unsigned f = pair - b * n_fields;
+    const long long table =
+        staged ? s_meta[f] : __ldg(meta + f);
+    const long long col =
+        staged ? s_meta[n_fields + f] : __ldg(meta + n_fields + f);
+    const long long vocab =
+        staged ? s_meta[2 * n_fields + f] : __ldg(meta + 2 * n_fields + f);
+    // truncation toward zero, as float32 -> int32 in the JAX package
+    const long long id =
+        __float2int_rz(__ldg(x + static_cast<long long>(b) * ld_x + col));
+    if (id >= 0 && id < vocab) {
+      row = reinterpret_cast<const T*>(table) + id * row_units;
+    }
+  }
+  const unsigned pairs = min(32u, n_pairs - run0);
+  const unsigned n_units = pairs * row_units;  // the run's units
+  T* dst = reinterpret_cast<T*>(out) +
+           static_cast<long long>(run0) * row_units;
+  const unsigned long long mine = reinterpret_cast<unsigned long long>(row);
+
+  if constexpr (UNITS != kGeneric) {
+    // all UNITS loads, then all UNITS stores
+    T v[UNITS];
+#pragma unroll
+    for (int k = 0; k < UNITS; ++k) {
+      const unsigned i = lane + 32 * k;
+      const unsigned src = i / UNITS;
+      const T* p = reinterpret_cast<const T*>(
+          __shfl_sync(kFull, mine, src & 31));
+      v[k] = p != nullptr ? U::load(p + (i - src * UNITS)) : U::nan();
+    }
+#pragma unroll
+    for (int k = 0; k < UNITS; ++k) {
+      const unsigned i = lane + 32 * k;
+      if (i < n_units) dst[i] = v[k];
+    }
+  } else {
+    for (unsigned k0 = 0; k0 < row_units; k0 += kBatch) {
+      T v[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const unsigned i = lane + 32 * (k0 + k);
+        if (k0 + k < row_units) {
+          const unsigned src = i / row_units;
+          const T* p = reinterpret_cast<const T*>(
+              __shfl_sync(kFull, mine, src & 31));
+          v[k] = p != nullptr ? U::load(p + (i - src * row_units)) : U::nan();
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const unsigned i = lane + 32 * (k0 + k);
+        if (k0 + k < row_units && i < n_units) dst[i] = v[k];
+      }
+    }
+  }
+}
+
+template <int UNITS, bool VEC>
+void launch(const float* x, long long ld_x, const long long* meta,
+            unsigned n_fields, unsigned units, unsigned n_pairs, float* out,
+            cudaStream_t stream) {
+  const unsigned blocks = (n_pairs + kThreads - 1) / kThreads;
+  gather_rows_kernel<UNITS, VEC><<<blocks, kThreads, 0, stream>>>(
+      x, ld_x, meta, n_fields, units, n_pairs, out);
 }
 
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 // The caller checks shapes and types, allocates `out` [n_rows, n_fields,
-// width] and keeps `meta` alive until the kernel has run.
+// width] and keeps `meta` alive until the kernel has run; `vec` (1 or 0)
+// says that width % 4 == 0 and every table is 16-byte aligned.
 extern "C" int gather_rows_f32(const float* x, long long n_rows,
                                long long ld_x, const long long* meta,
-                               int n_fields, int width, float* out,
+                               int n_fields, int width, int vec, float* out,
                                void* stream) {
   const long long total = n_rows * n_fields * width;
-  if (n_rows <= 0 || n_fields <= 0 || width <= 0 || total >= (1LL << 31)) {
+  if (n_rows <= 0 || n_fields <= 0 || width <= 0 || total >= (1LL << 31) ||
+      (vec && width % 4 != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) /
-                                                kThreads);
-  gather_rows_kernel<<<blocks, kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      x, ld_x, meta, static_cast<unsigned>(n_fields),
-      static_cast<unsigned>(width), static_cast<unsigned>(total), out);
+  const unsigned pairs = static_cast<unsigned>(n_rows * n_fields);
+  const unsigned f = static_cast<unsigned>(n_fields);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec) {
+    const unsigned units = static_cast<unsigned>(width / 4);
+    if (units == 8) {
+      launch<8, true>(x, ld_x, meta, f, units, pairs, out, s);
+    } else {
+      launch<kGeneric, true>(x, ld_x, meta, f, units, pairs, out, s);
+    }
+  } else if (width == 1) {
+    launch<1, false>(x, ld_x, meta, f, 1, pairs, out, s);
+  } else if (width == 17) {
+    launch<17, false>(x, ld_x, meta, f, 17, pairs, out, s);
+  } else {
+    launch<kGeneric, false>(x, ld_x, meta, f, static_cast<unsigned>(width),
+                            pairs, out, s);
+  }
   return static_cast<int>(cudaGetLastError());
 }

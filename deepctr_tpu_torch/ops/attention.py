@@ -18,7 +18,11 @@ in the TPU kernel; only the result is rounded to the keys' type.
 ``din_attention_fused`` launches the CUDA kernel in
 ``csrc/din_attention.cu`` for CUDA tensors, or raises; it takes the plain
 version ``din_attention_fused_ref`` only because its tensors lie on the
-CPU.  It has no backward: training runs the layer composition.
+CPU.  It has no backward: training runs the layer composition.  The
+kernel has two designs, chosen by shape (:func:`route`): the MLP on the
+tensor cores in a TF32 split that keeps float32 accuracy, and float32
+FMAs for shapes whose weights do not fit in a block's shared memory or
+whose hidden layers are wider than 128; both read :func:`pack_params`.
 """
 
 import ctypes
@@ -138,15 +142,19 @@ def _check_packed(packed, keys, layer_params):
         i * o + o for i, o in zip(widths[:-1], widths[1:]))
     if (packed.dtype != torch.float32 or packed.device != keys.device
             or packed.dim() != 1 or packed.numel() != n
-            or not packed.is_contiguous()):
+            or not packed.is_contiguous() or packed.data_ptr() % 16):
         raise ValueError("packed must be pack_params(layer_params): %d "
-                         "contiguous float32 values on %s, got %s %s on %s"
+                         "contiguous float32 values on %s from a 16-byte "
+                         "boundary (the kernel copies them 16 bytes at a "
+                         "time), got %s %s on %s"
                          % (n, keys.device, packed.dtype,
                             tuple(packed.shape), packed.device))
 
 
-def _kernel():
-    lib = _build.load("din_attention")
+def _kernel(lib=None):
+    """din_attention_fwd of ``lib`` (the built csrc/din_attention.cu by
+    default), its argument types declared."""
+    lib = _build.load("din_attention") if lib is None else lib
     fn = lib.din_attention_fwd
     fn.argtypes = ([ctypes.c_int] * 3
                    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
@@ -156,6 +164,25 @@ def _kernel():
                    + [ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def route(E, layer_widths, dtype=torch.float32):
+    """The kernel's design for keys of ``dtype``, E and the widths of
+    ``layer_params``' layers (the hidden widths, then 1): ``"mma8"`` or
+    ``"mma16"`` (the tensor cores, the instance of up to 8 or 16 n tiles:
+    hidden widths up to 64, up to 128) or ``"fma"`` (float32 FMAs); asks
+    the built kernel, so it needs the CUDA toolkit."""
+    lib = _build.load("din_attention")
+    fn = lib.din_attention_route
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    widths = [4 * E] + list(layer_widths)
+    c_widths = (ctypes.c_int * len(widths))(*widths)
+    rc = fn(_DTYPES[dtype], len(widths) - 1, ctypes.addressof(c_widths), E)
+    if rc not in (0, 8, 16):
+        raise ValueError("no din_attention design takes E=%d with layers "
+                         "%s (code %d)" % (E, widths, rc))
+    return "mma%d" % rc if rc else "fma"
 
 
 def din_attention_fused(query, keys, mask, layer_params, activation,

@@ -57,15 +57,19 @@ class GatherArgs:
     def __init__(self):
         self._key = None
         self._meta = None
+        # whether the kernel moves these tables' rows in 16-byte units
+        self.vector = False
 
     def meta(self, tables, cols, device):
         ptrs = [t.data_ptr() for t in tables]
         vocabs = [t.shape[0] for t in tables]
-        key = (device, tuple(ptrs), tuple(vocabs), tuple(cols))
+        key = (device, tuple(ptrs), tuple(vocabs), tuple(cols),
+               tables[0].shape[1])
         if key != self._key:
             host = torch.tensor(ptrs + list(cols) + vocabs, dtype=torch.int64)
             self._meta = host.to(device)
             self._key = key
+            self.vector = vector_rows(tables)
         return self._meta
 
 
@@ -92,10 +96,18 @@ def _check(X, tables, cols):
                              % (c, X.shape[1]))
 
 
+def vector_rows(tables):
+    """Whether the kernel moves the rows of ``tables`` in 16-byte units:
+    their width is a multiple of 4 floats and every table starts on a
+    16-byte boundary (a contiguous table then has every row aligned)."""
+    return (tables[0].shape[1] % 4 == 0
+            and all(t.data_ptr() % 16 == 0 for t in tables))
+
+
 def _kernel():
     fn = _build.load("gather_rows").gather_rows_f32
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -159,13 +171,13 @@ def _gather(X, tables, cols, args):
                       device=X.device)
     if n_rows == 0:
         return out
-    meta = (args if args is not None else GatherArgs()).meta(
-        tables, list(cols), X.device)
+    args = args if args is not None else GatherArgs()
+    meta = args.meta(tables, list(cols), X.device)
     fn = _kernel()
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
         rc = fn(X.data_ptr(), n_rows, X.stride(0), meta.data_ptr(),
-                n_fields, width, out.data_ptr(), stream)
+                n_fields, width, int(args.vector), out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError("gather_rows kernel launch failed with CUDA "
                            "error %d" % rc)

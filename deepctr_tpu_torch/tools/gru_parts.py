@@ -73,13 +73,15 @@ VARIANTS = {
 }
 
 
-def build_variants():
-    """{(kernel, without): loaded library}, one nvcc for each build, all
-    started together, into ``_build/parts/``."""
+def build_variants(variants=None):
+    """{key: loaded library} for ``variants`` ({key: (name, [(text,
+    replacement)])}, ``csrc/<name>.cu`` edited; VARIANTS by default), one
+    nvcc for each build, all started together, into ``_build/parts/``."""
+    variants = VARIANTS if variants is None else variants
     out_dir = _build.BUILD_DIR / "parts"
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for i, (key, (name, edits)) in enumerate(VARIANTS.items()):
+    for i, (key, (name, edits)) in enumerate(variants.items()):
         text = (_build.SRC_DIR / ("%s.cu" % name)).read_text()
         for old, new in edits:
             if old not in text:

@@ -101,6 +101,24 @@ def test_gather_args_rebuilt_only_when_a_table_moves():
     assert m2 is not m1 and m2[1].item() == t[1].data_ptr()
 
 
+def test_vector_rows_needs_a_width_of_four_floats_and_aligned_tables():
+    """The kernel moves 16-byte units only where every row is 16-byte
+    aligned: a width that is a multiple of 4 and tables that start on 16
+    bytes (a table cut from another at an odd offset does not)."""
+    big = torch.zeros(11, 32)
+    assert G.vector_rows([big, torch.zeros(5, 32)])
+    assert not G.vector_rows([torch.zeros(5, 17)])
+    assert not G.vector_rows([torch.zeros(5, 2)])
+    shifted = big.view(-1)[2:2 + 4 * 10].view(10, 4)
+    assert shifted.is_contiguous() and not G.vector_rows([shifted])
+    assert G.vector_rows([big.view(-1)[4:4 + 4 * 10].view(10, 4)])
+    args = G.GatherArgs()
+    args.meta([big], [0], torch.device("cpu"))
+    assert args.vector
+    args.meta([shifted], [0], torch.device("cpu"))
+    assert not args.vector
+
+
 def test_kernel_build_names_the_library_by_source_hash_and_needs_nvcc(
         monkeypatch, tmp_path):
     src, lib = _build._paths("gather_rows")

@@ -21,10 +21,12 @@ from deepctr_tpu.ops.pallas_attention import (
     din_attention_fused as j_fused)
 from deepctr_tpu.ops.pallas_gru import gru_scan as j_gru_scan
 from deepctr_tpu_torch import config as pt_config
+from deepctr_tpu_torch.ops import _build
 from deepctr_tpu_torch.ops import attention as p_att
 from deepctr_tpu_torch.ops._args import ParamCache
 from deepctr_tpu_torch.ops import gru as p_gru
 from deepctr_tpu_torch.ops import reference as pref
+from deepctr_tpu_torch.tools import attention_parts
 
 F32_ATOL = 1e-5
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -300,6 +302,49 @@ def test_pack_params_folds_the_first_layer():
     torch.testing.assert_close(folded, want, rtol=0, atol=F32_ATOL)
     rest = torch.cat([x.reshape(-1) for wb in params[1:] for x in wb])
     assert torch.equal(packed[3 * E * n1 + n1:], rest)
+
+
+@pytest.mark.parametrize("wnorm", [False, True])
+@pytest.mark.parametrize("hidden", [(20,), (40, 20), (16, 12, 6)])
+def test_din_attention_fused_ref_matches_the_pallas_kernel_at_other_depths(
+        hidden, wnorm):
+    """One hidden layer, two wider than 32 units, and three: the plain
+    version against the Pallas kernel in interpret mode (relu)."""
+    q, k, m, layers, _ = _attention_inputs(6, 12, 8, hidden, seed=14)
+    with pltpu.force_tpu_interpret_mode():
+        want = j_fused(jnp.asarray(q), jnp.asarray(k), jnp.asarray(m),
+                       [(jnp.asarray(w), jnp.asarray(b)) for w, b in layers],
+                       "relu", wnorm)
+    t = torch.from_numpy
+    got = p_att.din_attention_fused_ref(
+        t(q), t(k), t(m), [(t(w), t(b)) for w, b in layers], "relu", wnorm)
+    assert got.shape == (6, 1, 8)
+    assert_agree(got, want, "float32")
+
+
+def test_din_attention_fused_refuses_packed_weights_off_a_16_byte_boundary():
+    """The kernel copies the packed buffer 16 bytes at a time: a buffer
+    that starts elsewhere is refused, on the CPU as on the card."""
+    q, k, m, layers, _ = _attention_inputs(3, 4, 4, (8,), seed=13)
+    t = torch.from_numpy
+    args = [t(q), t(k), t(m), [(t(w), t(b)) for w, b in layers]]
+    packed = p_att.pack_params(args[3])
+    shifted = torch.cat([packed.new_zeros(1), packed])[1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        p_att.din_attention_fused(*args, "relu", False, packed=shifted)
+    torch.testing.assert_close(
+        p_att.din_attention_fused(*args, "relu", False, packed=packed),
+        p_att.din_attention_fused_ref(*args, "relu", False), rtol=0, atol=0)
+
+
+def test_attention_parts_finds_every_part_in_the_kernel_source():
+    """tools/attention_parts.py cuts parts out of csrc/din_attention.cu by
+    editing its text: every text it replaces is in the source once."""
+    for without, (name, edits) in attention_parts.VARIANTS.items():
+        source = (_build.SRC_DIR / ("%s.cu" % name)).read_text()
+        for old, new in edits:
+            assert source.count(old) == 1, (without, old)
+            assert old != new
 
 
 @pytest.mark.parametrize("wnorm", [False, True])
