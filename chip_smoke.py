@@ -13,8 +13,9 @@ Serving first:
 
 1. build: compile every kernel under ``deepctr_tpu_torch/csrc/`` (one
    ``nvcc`` a source, all started together) and print the build time, and
-   the SASS instruction counts (``cuobjdump -sass``) of the GRU kernels
-   and of the attention kernel's bfloat16 relu instances (both designs);
+   the SASS instruction counts (``cuobjdump -sass``) of the GRU kernels,
+   of the attention kernel's bfloat16 relu instances (both designs) and
+   of every ``row_update`` instance (optimizer x route);
 2. kernel vs plain: ``gather_rows`` at the bench shape (B=4096, the 26
    Criteo tables, row width 17) must equal ``gather_rows_ref`` bit for
    bit, ids at V-1 and out-of-range ids (NaN rows) included, and so at
@@ -48,7 +49,13 @@ Then the training path, DeepFM ``compile``/``fit`` on the same model:
    sum of the terms' magnitudes on the others; a repeat gives the same
    bits (``index_add_`` on the card adds with atomics, so it is only
    reported); ``row_update`` must equal ``row_update_ref`` on the card bit
-   for bit for sgd, adagrad, rmsprop and adam;
+   for bit for sgd, adagrad, rmsprop and adam, every table and state, and
+   change no row but the touched ones, at three cases: the bench shape
+   (W=17), DIEN's sparse shape (the touched rows of a batch of 1024 in its
+   three W=32 tables, on the route of 16-byte units) and 46 tables of
+   widths 1-128 (more W=17 tables than a launch holds, a table one float
+   past a 16-byte boundary, some with no touched row), each call with the
+   launches its plan (``launch_plan``) counts;
 6. ``compile("adagrad")`` + ``fit`` at full width, float32, a few steps
    of 4096: the 8 tables of >= 16384 rows go sparse, each kernel
    launches once a step, the loss is finite, and in every sparse table
@@ -63,7 +70,11 @@ Then the training path, DeepFM ``compile``/``fit`` on the same model:
    device idle share (``torch.profiler``); both train kernels, their
    plain versions and a library call in device ms with a cold L2 and per
    call, ``scatter_add_rows``' sort and sums apart, and their bounds from
-   this run's bytes.
+   this run's bytes; ``row_update`` for every optimizer, the whole call
+   and the kernel alone (its argument structs built beforehand), each with
+   a cold and a warm L2, beside its bytes bound and its bound in 32-byte
+   sectors; and the floor of this timing, one launch of a one-element
+   ``add_``.
 
 Then the sequence models' serving path, at the columns of
 ``tools/seq_train_bench.py`` (user 1000, item_id 10000 and cate_id 100
@@ -136,11 +147,14 @@ Then the sequence models' training path, at the same columns:
     exactly the touched rows and row 0 change); then card against CPU from
     the same weights at batches of 256: per-step losses within 1e-4
     relative;
-15. timing, bfloat16 compute: ``fit`` of both models in examples/s beside
-    device busy time and idle share; the backward kernel (beside its earlier
-    time; its reverse scan and its dW_hh product apart), its plain version
-    and ``torch.nn.GRU``'s backward in device ms with a cold L2, and its
-    bound; the carry-saving forward beside the inference forward.
+15. timing, bfloat16 compute: ``fit`` of both models, and of DIEN with
+    ``sparse_table_updates=True``, in examples/s beside device busy time
+    and idle share; ``row_update`` at DIEN's sparse shape for every
+    optimizer as in phase 8; the backward kernel (beside its earlier
+    time; its reverse scan and its dW_hh product apart, the product beside
+    its own bound), its plain version and ``torch.nn.GRU``'s backward in
+    device ms with a cold L2, and its bound; the carry-saving forward
+    beside the inference forward.
 
 Then xDeepFM at the Criteo width of ``bench.py``'s xdeepfm leg (26 fields
 of 10,000 rows with E=16, 13 dense fields, DNN 400-400, CIN 256-128 with
@@ -353,11 +367,13 @@ GUARD_ROWS = 64
 # 700 W), printed in brackets beside this run's: K3 and K5 at bf16,
 # B=1024, T=100, H=64; K4 at bf16 keys, relu with softmax, B=1024, T=100,
 # E=64; the gather at B=4096, the 26 Criteo tables, W=17, and at the
-# sequence shape, B=1024, 203 and 403 fields of W=32
+# sequence shape, B=1024, 203 and 403 fields of W=32; K2, adagrad, over
+# the touched rows of a batch of 4096 in the 8 sparse Criteo tables (W=17),
+# the whole call
 EARLIER_MS = {"gru_scan": 0.3064, "gru_scan_bwd": 0.7126,
               "din_attention": 0.1388, "gather_rows": 0.01726,
               "gather_rows_seq_203": 0.03406,
-              "gather_rows_seq_403": 0.06024}
+              "gather_rows_seq_403": 0.06024, "row_update": 0.02306}
 
 KERNELS = {
     "gather_rows": {
@@ -373,7 +389,11 @@ KERNELS = {
     "row_update": {
         "route": "cuda",
         "source": "deepctr_tpu_torch/csrc/row_update.cu",
-        "replaces": "deepctr_tpu/ops/pallas_update.py:146",
+        "replaces": "deepctr_tpu/ops/pallas_update.py:146; "
+                    "deepctr_tpu/ops/pallas_update.py:357; "
+                    "deepctr_tpu/ops/pallas_update.py:455; "
+                    "deepctr_tpu/ops/pallas_update.py:520; "
+                    "deepctr_tpu/ops/pallas_update.py:571",
     },
     "gru_scan": {
         "route": "cuda",
@@ -848,6 +868,174 @@ def check_scatter_case(grad, targets, idx, what):
     return err
 
 
+# row_update's optimizers, each timed and checked
+OPTIMIZERS = ("sgd", "adagrad", "rmsprop", "adam")
+
+
+def k2_states(opt, tables, gen):
+    """Uniform [0, 1) state tensors for ``opt``, shaped like ``tables``."""
+    return [tuple(torch.rand(t.shape, generator=gen, device=t.device)
+                  for _ in range(rowup.MODES[opt][1])) for t in tables]
+
+
+def k2_bias(opt, n_tables):
+    return ([rowup.adam_bias_corrections(3)] * n_tables if opt == "adam"
+            else None)
+
+
+def k2_bounds(opt, tables, states, rows, counts):
+    """row_update's least times: ``(bytes ms, sectors ms, bytes, sector
+    bytes)``.  Bytes: every touched element's table and state read and
+    written once, its gradient read once, each row id once.  Sectors: the
+    same, but each touched row of a table or state array counted as the
+    32-byte sectors its span covers at its address in this run (a 68-byte
+    row at a 4-byte offset always covers three)."""
+    n_bytes = sec_bytes = 0
+    for w, st, r, n in zip(tables, states, rows, counts):
+        width = w.shape[1]
+        arrays = (w,) + tuple(st)
+        n_bytes += n * width * 4 * (2 * len(arrays) + 1) + n * 8
+        sec_bytes += n * width * 4 + n * 8
+        for a in arrays:
+            start = a.data_ptr() % 32 + r[:n] * (width * 4)
+            sectors = (start + width * 4 - 1) // 32 - start // 32 + 1
+            sec_bytes += 2 * 32 * int(sectors.sum())
+    return (n_bytes / HBM_BYTES_PER_S * 1e3,
+            sec_bytes / HBM_BYTES_PER_S * 1e3, n_bytes, sec_bytes)
+
+
+def k2_times(opt, upd, bias):
+    """row_update's device ms (median of 20): the whole call and the
+    kernel alone (its argument structs built beforehand), each with a cold
+    and a warm L2."""
+    device = upd[0][0].device
+    launches = rowup.kernel_args(opt, *upd, bias)
+    timed = {"call": lambda: rowup.row_update(opt, *upd, bias),
+             "alone": lambda: rowup.launch(launches, device)}
+    with torch.no_grad():
+        return {"%s %s" % (k, heat): device_ms(fn, cold=heat == "cold")
+                for k, fn in timed.items() for heat in ("cold", "warm")}
+
+
+def k2_line(opt, what, times, bounds):
+    return ("row_update (%s) at %s, device time: whole call %r ms cold L2, "
+            "%r ms warm; the kernel alone %r ms cold, %r ms warm; bounds "
+            "%r ms (bytes, %d) and %r ms (sectors, %d)"
+            % (opt, what, times["call cold"], times["call warm"],
+               times["alone cold"], times["alone warm"], bounds[0],
+               bounds[2], bounds[1], bounds[3]))
+
+
+def dien_sparse_args(device, seed=SEED + 85):
+    """row_update's tables, touched rows and l2 vectors at DIEN AUGRU's
+    ``sparse_table_updates=True`` shape: the three tables (user, item_id,
+    cate_id; W=32) and the rows one batch of SEQ_BATCH touches, histories
+    and negative samples included, as phase 14's fit builds them; the
+    gradients normal from ``seed``.  Returns (model, tables, touched, l2
+    vectors)."""
+    pt.set_compute_dtype("float32")
+    model = seq_model("dien", "AUGRU", device)
+    model.compile("adagrad", "binary_crossentropy",
+                  sparse_table_updates=True)
+    x, _ = seq_train_data(model, SEQ_BATCH, seed)
+    X = torch.from_numpy(x).to(device)
+    tables = model._tables()
+    paths = [p for p, _, _ in model._sparse_specs]
+    touched = _TouchedRows(X, model._sparse_specs, tables)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for g in touched.grads:
+        g.normal_(generator=gen)
+    return (model, [tables[p].detach() for p in paths], touched,
+            [model._table_l2_vec(p) for p in paths])
+
+
+def check_row_update_case(base, grads, rows, counts, l2s, what, seed):
+    """row_update against row_update_ref on copies of ``base``, for every
+    optimizer with states uniform from ``seed``: every table and state bit
+    for bit, no row but the first ``counts[t]`` of ``rows[t]`` changed in
+    any table or state, one launch for each of launch_plan's.  Returns max
+    |err|."""
+    gen = torch.Generator(device=base[0].device).manual_seed(seed)
+    untouched = []
+    for w, r, n in zip(base, rows, counts):
+        u = torch.ones(w.shape[0], dtype=torch.bool, device=w.device)
+        u[r[:n]] = False
+        untouched.append(u)
+    err = 0.0
+    for opt in OPTIMIZERS:
+        plain_w = [t.clone() for t in base]
+        plain_s = k2_states(opt, base, gen)
+        kern_w = [same_offset_copy(t) for t in base]
+        kern_s = [tuple(s.clone() for s in st) for st in plain_s]
+        first_s = [tuple(s.clone() for s in st) for st in plain_s]
+        want_launches = len(rowup.launch_plan(counts, rowup.table_routes(
+            kern_w, kern_s, grads, rows, l2s)))
+        args = (grads, rows, counts, l2s, 0.01, k2_bias(opt, len(base)))
+        before = rowup.ROW_UPDATE_LAUNCHES
+        rowup.row_update(opt, kern_w, kern_s, *args)
+        launches = rowup.ROW_UPDATE_LAUNCHES - before
+        check(launches == want_launches, "row_update (%s) launched %d times "
+              "at %s, its plan %d" % (opt, launches, what, want_launches))
+        rowup.row_update_ref(opt, plain_w, plain_s, *args)
+        torch.cuda.synchronize()
+        for a, b in zip(kern_w + [s for st in kern_s for s in st],
+                        plain_w + [s for st in plain_s for s in st]):
+            check(same_bits(a, b), "row_update (%s) differs from its plain "
+                  "version at %s" % (opt, what))
+            err = max(err, (a - b).abs().max().item())
+        for w, w0, st, st0, u in zip(kern_w, base, kern_s, first_s,
+                                     untouched):
+            for a, a0 in ((w, w0),) + tuple(zip(st, st0)):
+                check(same_bits(a[u], a0[u]), "row_update (%s) changed "
+                      "other rows than the touched ones at %s" % (opt, what))
+        del plain_w, plain_s, kern_w, kern_s, first_s
+    log("kernel vs plain: row_update bit-equal for %s at %s (max_abs_err "
+        "%r), only the touched rows changed, %d launch(es) a call as "
+        "planned" % (", ".join(OPTIMIZERS), what, err, want_launches))
+    return err
+
+
+def same_offset_copy(t):
+    """A copy of ``t`` at the same offset from a 16-byte boundary (a clone
+    would start on one), so that it takes the same route."""
+    off = (t.data_ptr() % 16) // t.element_size()
+    buf = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    return buf[off:].view(t.shape).copy_(t)
+
+
+# the many-table case after its CAPACITY + 6 W=17 tables, more than a
+# launch holds: a table on each other route, W=32, 128, 8 and 4 in 16-byte
+# units, 1 and 33 in floats, and a W=32 table one float past a 16-byte
+# boundary in floats
+MANY_OTHER_WIDTHS = (32, 1, 128, 8, 33, 4, "32+1", 32)
+
+
+def many_tables_case(device, seed):
+    """row_update's arguments over 46 tables of 300-2,000 rows (W=17, then
+    MANY_OTHER_WIDTHS), each with some of its rows touched (n_valid below
+    the rows given for some, none for every ninth), tables and gradients
+    normal from ``seed``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tables, grads, rows, counts, l2s = [], [], [], [], []
+    widths = (17,) * (rowup.CAPACITY + 6) + MANY_OTHER_WIDTHS
+    for i, kind in enumerate(widths):
+        width = 32 if kind == "32+1" else kind
+        V = 300 + 37 * i
+        if kind == "32+1":
+            t = torch.randn(V * width + 1, generator=gen,
+                            device=device)[1:].view(V, width)
+        else:
+            t = torch.randn(V, width, generator=gen, device=device)
+        n = int(torch.randint(1, V // 3, (1,), generator=gen,
+                              device=device))
+        tables.append(t)
+        rows.append(torch.randperm(V, generator=gen, device=device)[:n])
+        grads.append(torch.randn(n, width, generator=gen, device=device))
+        counts.append(0 if i % 9 == 5 else n - (i % 3) * (n // 4))
+        l2s.append(torch.rand(width, generator=gen, device=device) * 1e-3)
+    return tables, grads, rows, counts, l2s
+
+
 def phase_train_kernels_vs_plain(model, X):
     """scatter_add_rows and row_update against their plain versions at the
     main path's shapes."""
@@ -876,38 +1064,28 @@ def phase_train_kernels_vs_plain(model, X):
 
         tables = model._tables()
         paths = [p for p, _, _ in model._sparse_specs]
-        l2s = [model._table_l2_vec(p) for p in paths]
-        gen = torch.Generator(device=X.device).manual_seed(SEED + 6)
-        k2_err = 0.0
-        for opt in ("sgd", "adagrad", "rmsprop", "adam"):
-            n_state = rowup.MODES[opt][1]
-            base = [tables[p].detach() for p in paths]
-            plain_w = [t.clone() for t in base]
-            plain_s = [tuple(torch.rand(t.shape, generator=gen,
-                                        device=X.device)
-                             for _ in range(n_state)) for t in base]
-            kern_w = [t.clone() for t in base]
-            kern_s = [tuple(s.clone() for s in st) for st in plain_s]
-            bias = ([rowup.adam_bias_corrections(3)] * len(paths)
-                    if opt == "adam" else None)
-            args = (touched.grads, touched.rows, touched.counts, l2s, 0.01,
-                    bias)
-            rowup.row_update(opt, kern_w, kern_s, *args)
-            rowup.row_update_ref(opt, plain_w, plain_s, *args)
-            torch.cuda.synchronize()
-            for a, b in zip(kern_w + [s for st in kern_s for s in st],
-                            plain_w + [s for st in plain_s for s in st]):
-                check(same_bits(a, b), "row_update (%s) differs from its "
-                      "plain version at the bench shape" % opt)
-                k2_err = max(k2_err, (a - b).abs().max().item())
-            for w, w0, r in zip(kern_w, base, touched.rows):
-                changed = (w != w0).any(dim=1).nonzero().view(-1)
-                check(torch.equal(changed, r), "row_update (%s) changed "
-                      "other rows than the touched ones" % opt)
-            del plain_w, plain_s, kern_w, kern_s
-        log("kernel vs plain: row_update bit-equal for sgd, adagrad, "
-            "rmsprop and adam over the 8 sparse tables (max_abs_err %r), "
-            "only the touched rows changed" % k2_err)
+        k2_err = check_row_update_case(
+            [tables[p].detach() for p in paths], touched.grads,
+            touched.rows, touched.counts,
+            [model._table_l2_vec(p) for p in paths], "the bench shape",
+            SEED + 6)
+        dien, w, dtouched, l2s = dien_sparse_args(X.device)
+        check(rowup.table_routes(w, [(t,) for t in w], dtouched.grads,
+                                 dtouched.rows, l2s) == [rowup.VEC] * len(w),
+              "DIEN's sparse tables are not on the route of 16-byte units")
+        k2_err = max(k2_err, check_row_update_case(
+            w, dtouched.grads, dtouched.rows, dtouched.counts, l2s,
+            "DIEN's sparse shape", SEED + 11))
+        del dien, w, dtouched
+        case = many_tables_case(X.device, SEED + 12)
+        routes = rowup.table_routes(case[0], [()] * len(case[0]), case[1],
+                                    case[2], case[4])
+        check(len(rowup.launch_plan(case[3], routes)) > len(set(routes)),
+              "the many-table case should take two launches on a route")
+        k2_err = max(k2_err, check_row_update_case(
+            *case, "%d tables (%d touched), widths %s" % (
+                len(case[0]), sum(n > 0 for n in case[3]),
+                sorted({t.shape[1] for t in case[0]})), SEED + 13))
     return k1_err, k2_err
 
 
@@ -1059,6 +1237,50 @@ def busy_line(busy_ms, wall_ms):
                                               1 - busy_ms / wall_ms)
 
 
+def k2_criteo_times(model, touched):
+    """row_update at the Criteo shape (the touched rows of a batch of 4096
+    in the 8 sparse tables, W=17), every optimizer: device ms and bounds;
+    adagrad's plain version and per-call times too.  Returns adagrad's
+    entry of the kernels line."""
+    tables = model._tables()
+    paths = [p for p, _, _ in model._sparse_specs]
+    w = [tables[p].detach() for p in paths]
+    l2s = [model._table_l2_vec(p) for p in paths]
+    what = "Criteo (%d touched rows of %d tables, W=%d)" % (
+        sum(touched.counts), len(paths), w[0].shape[1])
+    one = torch.zeros(1, device=w[0].device)
+    log("device_ms' floor: one launch of a one-element add_, %r ms with a "
+        "cold L2, %r ms warm" % (device_ms(lambda: one.add_(1.0)),
+                                 device_ms(lambda: one.add_(1.0),
+                                           cold=False)))
+    gen = torch.Generator(device=w[0].device).manual_seed(SEED + 9)
+    for opt in OPTIMIZERS:
+        states = ([model._table_state[p] for p in paths]
+                  if opt == "adagrad" else k2_states(opt, w, gen))
+        upd = (w, states, touched.grads, touched.rows, touched.counts, l2s,
+               0.01)
+        times = k2_times(opt, upd, k2_bias(opt, len(paths)))
+        bounds = k2_bounds(opt, w, states, touched.rows, touched.counts)
+        log(k2_line(opt, what, times, bounds))
+        if opt != "adagrad":
+            continue
+        with torch.no_grad():
+            plain_ms = device_ms(lambda: rowup.row_update_ref(opt, *upd))
+            call_ms = {"kernel": time_ms(lambda: rowup.row_update(
+                opt, *upd), reps=20), "plain": time_ms(
+                lambda: rowup.row_update_ref(opt, *upd), reps=20)}
+        entry = dict(ms=times["call cold"], plain_ms=plain_ms,
+                     library_ms=None, bound_ms=bounds[0], bound_by="bytes",
+                     sector_bound_ms=bounds[1])
+        log("row_update (adagrad) at %s, device time, cold L2: kernel %r ms "
+            "(earlier design: %r ms), plain %r ms, no library call; bound "
+            "%r ms (bytes), %r ms (sectors); per call, host included: "
+            "kernel %r, plain %r ms"
+            % (what, times["call cold"], EARLIER_MS["row_update"], plain_ms,
+               bounds[0], bounds[1], call_ms["kernel"], call_ms["plain"]))
+    return entry
+
+
 def phase_train_timing_bf16(model, X_all):
     log("timing on: %s" % card_line())
     pt.set_compute_dtype("bfloat16")
@@ -1124,31 +1346,7 @@ def phase_train_timing_bf16(model, X_all):
                n_bytes, n_pairs, call_ms["kernel"], call_ms["plain"],
                call_ms["library"], sort_ms, alone_ms))
 
-        tables = model._tables()
-        paths = [p for p, _, _ in model._sparse_specs]
-        upd = ([tables[p].detach() for p in paths],
-               [model._table_state[p] for p in paths], touched.grads,
-               touched.rows, touched.counts,
-               [model._table_l2_vec(p) for p in paths], 0.01)
-        timed = {
-            "kernel": lambda: rowup.row_update("adagrad", *upd),
-            "plain": lambda: rowup.row_update_ref("adagrad", *upd),
-        }
-        ms = {k: device_ms(fn) for k, fn in timed.items()}
-        call_ms = {k: time_ms(fn, reps=20) for k, fn in timed.items()}
-        # per touched float: w, acc, g read, w, acc written; a row id each
-        rows = sum(touched.counts)
-        n_bytes = rows * width * 5 * 4 + rows * 8
-        out["row_update"] = dict(
-            ms=ms["kernel"], plain_ms=ms["plain"], library_ms=None,
-            bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
-        log("row_update (adagrad) over %d touched rows of %d tables, device "
-            "time, cold L2: kernel %r ms, plain %r ms, no library call; "
-            "bound %r ms (%d bytes); per call, host included: kernel %r, "
-            "plain %r ms"
-            % (rows, len(paths), ms["kernel"], ms["plain"],
-               out["row_update"]["bound_ms"], n_bytes, call_ms["kernel"],
-               call_ms["plain"]))
+        out["row_update"] = k2_criteo_times(model, touched)
     return out
 
 
@@ -2043,9 +2241,24 @@ def gru_bwd_bound(args, flop_rate):
     return bound(n_bytes, 6 * valid * H * H3, flop_rate)
 
 
+def gru_dw_bound(args, flop_rate=F32_FLOP_PER_S):
+    """(ms, "operations" or "bytes") for gru_scan_bwd's dW_hh / db_hh
+    product alone (its own kernels, on float32 FMAs) on ``args``: over the
+    steps inside the histories, H x 3H multiply-adds a row for dW_hh and 3H
+    adds for db_hh.  Bytes: those steps' carries (storage type) and float32
+    d_gh rows and the mask read once, dW_hh and db_hh written once."""
+    gi, _, _, mask, _ = args
+    H3 = gi.shape[2]
+    H = H3 // 3
+    valid = int(mask.sum())
+    n_bytes = (valid * (H * gi.element_size() + H3 * 4)
+               + mask.numel() * mask.element_size() + 4 * (H * H3 + H3))
+    return bound(n_bytes, 2 * valid * H * H3 + valid * H3, flop_rate)
+
+
 # the SASS instruction classes counted in the kernels of SASS_PICK
 SASS_OPS = ("LDS", "LDS.128", "LDS.64", "FFMA", "HMMA", "SHFL", "BAR", "LDG",
-            "STG", "MUFU")
+            "STG", "MUFU", "LDC")
 
 
 def sass_counts(name):
@@ -2082,13 +2295,15 @@ def sass_counts(name):
 
 # the instances whose SASS counts phase 1 prints: the GRU kernels'
 # bfloat16 gru-mode instances (the timed case) and the dW product's
-# kernels; the attention's bfloat16 instances of the timed case (relu)
+# kernels; the attention's bfloat16 instances of the timed case (relu);
+# every instance of row_update (one an optimizer)
 SASS_PICK = {
     "gru_scan": lambda label: "bfloat16" in label and ", 0," in label,
     "gru_scan_bwd": lambda label: ("bfloat16" in label and ", 0," in label
                                    or "dw_" in label),
     "din_attention": lambda label: "bfloat16" in label and (
         "mma" in label or ", 1>" in label),
+    "row_update": lambda label: True,
 }
 
 
@@ -2137,29 +2352,59 @@ def gru_times(device):
     return ms, args, douts, dh_last, carry
 
 
+# phase 15's fits: (model, variant, sparse_table_updates)
+SEQ_FIT_TIMED = (("dien", "AUGRU", False), ("din", "dice", False),
+                 ("dien", "AUGRU", True))
+
+
+def seq_fit_timing(kind, variant, sparse, device):
+    """fit at bf16, SEQ_TRAIN_STEPS steps of SEQ_BATCH from host arrays:
+    examples/s (CUDA events, median of 3) and device busy time
+    (torch.profiler)."""
+    pt.set_compute_dtype("bfloat16")
+    n = SEQ_BATCH * SEQ_TRAIN_STEPS
+    label = "%s %s%s" % (kind.upper(), variant,
+                         ", sparse tables" if sparse else "")
+    model = seq_model(kind, variant, device)
+    model.compile("adagrad", "binary_crossentropy",
+                  sparse_table_updates=sparse)
+    x, y = seq_train_data(model, n, SEED + 95)
+
+    def fit():
+        model.fit(x, y, batch_size=SEQ_BATCH, epochs=1, verbose=0)
+    fit_ms = time_ms(fit, reps=1, runs=3)
+    busy_ms = profile_ms(fit, "fit %s" % label)
+    log("fit bf16 %s, host numpy input: %r examples/s (%r ms for %d steps "
+        "of %d); device busy %s"
+        % (label, n / fit_ms * 1e3, fit_ms, SEQ_TRAIN_STEPS, SEQ_BATCH,
+           busy_line(busy_ms, fit_ms)))
+
+
+def k2_dien_times(device):
+    """row_update at DIEN AUGRU's sparse shape (dien_sparse_args), every
+    optimizer: device ms and bounds."""
+    model, w, touched, l2s = dien_sparse_args(device)
+    what = "DIEN sparse (%d touched rows of %d tables, W=%d)" % (
+        sum(touched.counts), len(w), w[0].shape[1])
+    gen = torch.Generator(device=device).manual_seed(SEED + 10)
+    for opt in OPTIMIZERS:
+        states = k2_states(opt, w, gen)
+        upd = (w, states, touched.grads, touched.rows, touched.counts, l2s,
+               0.01)
+        log(k2_line(opt, what, k2_times(opt, upd, k2_bias(opt, len(w))),
+                    k2_bounds(opt, w, states, touched.rows, touched.counts)))
+    del model
+
+
 def phase_seq_train_timing_bf16(device):
     """fit of DIEN AUGRU+neg and DIN Dice at bf16 (examples/s, idle share);
     the backward kernel against its plain version and torch.nn.GRU's
     backward, and the carry-saving forward against the inference one, in
     device ms."""
     log("timing on: %s" % card_line())
-    pt.set_compute_dtype("bfloat16")
-    n = SEQ_BATCH * SEQ_TRAIN_STEPS
-    for kind, variant in SEQ_TRAIN_LAUNCHES:
-        label = "%s %s" % (kind.upper(), variant)
-        model = seq_model(kind, variant, device)
-        model.compile("adagrad", "binary_crossentropy")
-        x, y = seq_train_data(model, n, SEED + 95)
-
-        def fit():
-            model.fit(x, y, batch_size=SEQ_BATCH, epochs=1, verbose=0)
-        fit_ms = time_ms(fit, reps=1, runs=3)
-        busy_ms = profile_ms(fit, "fit %s" % label)
-        log("fit bf16 %s, host numpy input: %r examples/s (%r ms for %d "
-            "steps of %d); device busy %s"
-            % (label, n / fit_ms * 1e3, fit_ms, SEQ_TRAIN_STEPS, SEQ_BATCH,
-               busy_line(busy_ms, fit_ms)))
-        del model
+    k2_dien_times(device)
+    for kind, variant, sparse in SEQ_FIT_TIMED:
+        seq_fit_timing(kind, variant, sparse, device)
 
     kms, args, douts, dh_last, carry = gru_times(device)
     gi, whh_t, bhh, mask, _ = args
@@ -2190,19 +2435,20 @@ def phase_seq_train_timing_bf16(device):
     bound_ms, bound_by = gru_bwd_bound(args,
                                        TF32_FLOP_PER_S / GRU_TF32_PRODUCTS)
     f32_ms, f32_by = gru_bwd_bound(args, F32_FLOP_PER_S)
+    dw_ms, dw_by = gru_dw_bound(args)
     log("gru_scan_bwd (gru) at T=%d B=%d H=%d, bf16 storage, %d steps inside "
         "the histories, %s; device time, cold L2: kernel %r ms (earlier "
         "design: %r ms): the reverse scan %r ms, the dW_hh / db_hh product "
-        "(partials and their reduction) %r ms; plain (gru_scan_bwd_ref) %r "
-        "ms, "
+        "(partials and their reduction) %r ms (its bound %r ms, %s, at the "
+        "float32 FMA rate); plain (gru_scan_bwd_ref) %r ms, "
         "autograd through gru_scan_ref %r ms, "
         "library (torch.nn.GRU backward, full length) %r ms; bound %r ms "
         "(%s; the products at the TF32 tensor rate, 3 products a "
         "multiply-add), %r ms (%s) at the float32 FMA rate"
         % (T, B, H, int(mask.sum()), block_steps_line(mask),
            kms["backward"], EARLIER_MS["gru_scan_bwd"], kms["backward scan"],
-           kms["backward dW"], ms["plain"], ms["autograd"], ms["library"],
-           bound_ms, bound_by, f32_ms, f32_by))
+           kms["backward dW"], dw_ms, dw_by, ms["plain"], ms["autograd"],
+           ms["library"], bound_ms, bound_by, f32_ms, f32_by))
     log("gru_scan forward at the same shape, device time, cold L2: "
         "inference %r ms (earlier design: %r ms), carry-saving (training) "
         "%r ms"

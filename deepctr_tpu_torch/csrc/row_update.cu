@@ -1,5 +1,5 @@
 // Fused optimizer step on the touched rows of every sparse table, for
-// Hopper (sm_90a), in one launch:
+// Hopper (sm_90a):
 //
 //   for j < n_valid_t:   r = rows_t[j]
 //     g' = g_t[j] + 2 * l2_t * w_t[r]                (lazy L2, per column)
@@ -12,113 +12,343 @@
 // The table and its state rows are updated IN PLACE (the JAX package
 // returns new buffers through input_output_aliases; here the tensors are
 // simply overwritten).  Rows past n_valid_t are never read or written, and
-// a row that no batch touched keeps its bits.
+// a row that no batch touched keeps its bits.  The row ids of a table are
+// distinct (the caller's dedup), so no two threads touch one element.
 //
 // What it replaces: the TPU's fused read-modify-write row update
-// (deepctr_tpu/ops/pallas_update.py:fused_row_update, sgd and adagrad) and
-// the write-back kernels the JAX package pairs with XLA math for adagrad
-// and adam (pallas_update.py:scatter_rows with L=2 and L=3, and its
-// multi-table and arena variants), plus the rmsprop step
-// (deepctr_tpu/models/basemodel.py:1222-1258).  On this card there is no
-// per-row DMA issue cost to design around, so one kernel reads, computes
-// and writes every touched element of every table.
+// (deepctr_tpu/ops/pallas_update.py:146 fused_row_update, kernel :45, call
+// :190; sgd and adagrad) and the write-back kernels the JAX package pairs
+// with XLA math for adagrad, rmsprop and adam: scatter_rows (:357, kernel
+// :273, call :408), multi_scatter_rows (:455, kernel :419, call :480),
+// arena_scatter_rows (:520, kernel :491, call :551) and
+// fused_row_update_combined (:571, kernel :219, call :602), with the
+// rmsprop and adam row math of deepctr_tpu/models/basemodel.py:1205-1258.
+// On this card there is no per-row DMA issue cost to design around, so
+// one kernel reads, computes and writes every touched element.
 //
 // Numerics: each operation rounds once, in the order the JAX package
 // writes it (IEEE sqrt and division, no contraction into FMAs: the __*_rn
 // intrinsics), so the kernel equals its plain PyTorch version bit for bit.
 // Adam's bias corrections 1 - beta^t come per table from the host.
 //
-// What bounds it: device-memory bytes.  Per touched element it reads
-// w, g and the state and writes w and the state: 5 floats for adagrad and
-// rmsprop, 7 for adam, 3 for sgd.  At B=4096 over the 8 big Criteo tables
-// (about 33k touched rows of 17 floats) that is about 11 MB for adagrad,
-// some 3.4 us at 3.35 TB/s.
+// What bounds it: device-memory bytes.  Per touched element it reads w, g
+// and the state and writes w and the state: 5 floats for adagrad and
+// rmsprop, 7 for adam, 3 for sgd, and a row id a row.  At B=4096 over the
+// 8 big Criteo tables (about 32.6k touched rows of 17 floats) that is
+// about 11.3 MB for adagrad, 3.4 us at 3.35 TB/s.  Counted in the 32-byte
+// sectors the memory moves, a 68-byte row at a random 4-byte offset
+// always covers three (96 bytes): about 15.0 MB, 4.5 us.  DIEN's W=32 rows
+// are whole sectors.
 //
-// What the design does about that: one thread per touched element, so
-// the W threads of a row read and write its W neighbouring floats
-// together, and every table of the step goes in one launch.
+// The earlier design (one thread a float, its arguments in a device array
+// walked from table 0 and uploaded by the host every call) waited out a
+// chain of four dependent loads before the first table byte, with two or
+// three loads in flight a thread, behind two uploads.  Here:
 //
-// Per-table arguments come in one int64 device array `meta` of
-// kMeta * n_tables entries: pointers to w, state 1, state 2, g, rows and
-// the [W] l2 vector, then n_valid and W; `offsets` holds n_tables + 1
-// prefix sums of n_valid * W, and `bias` two floats per table.
+// 1. Arguments by value.  Every table's pointers, n_valid, W and adam's
+//    bias pair, and the first run of each table, come in one
+//    __grid_constant__ struct in the launch's parameter space (constant
+//    bank 0): the host allocates and copies nothing.  A warp finds its
+//    run's table by counting the first runs at or before it, 31 compares
+//    with constant operands and no load; the table's fields are then
+//    constant-cache reads.  More tables than kMaxTables of one route go
+//    in further launches (ops/row_update.py:launch_plan).
+// 2. Rows in flight.  A warp takes a run of kRunRows = 8 touched rows of
+//    one table: lanes 0-7 load their row ids (one coalesced load), the
+//    run's gradient (contiguous) is asked for at once, and then every lane
+//    issues its share of all the run's table and state loads before any
+//    arithmetic: unit i = lane + 32 k of the run belongs to row i / W,
+//    whose id the lane takes from lane i / W by shuffle.  At W=17 a lane
+//    has 4-5 floats of each array in flight; at W=32 with 16-byte aligned
+//    arrays, 2 float4 units of each.  So the chain before the table bytes
+//    is two loads long (the row id, then the rows).  Runs of 16 and 32
+//    rows were slower (tools/row_update_parts.py): what the card needs in
+//    flight is bytes an SM, not a warp, and short runs spread each run's
+//    divisions and square roots over more warps.  A route (W=17, other
+//    widths in floats, widths of 4k floats in 16-byte units) is a kernel
+//    instance of its own, so that each holds only its own registers
+//    (53-90, no spills).  Criteo's W=17 has its own: with the row's units
+//    a constant, i / W is a multiply and a lane's 5 units need no batch
+//    checks, 7% faster than the instance for any width in floats
+//    (adagrad, cold L2; tools/row_update_parts.py).
+// 3. One wave.  The grid is at most the blocks the card holds at once
+//    (the occupancy calculator's count times the SMs), and warps stride
+//    over the runs.  By Little's law the card needs about 3.4 MB in flight
+//    (3.35 TB/s x about 1 us), 25 KB an SM: Criteo's 32.6k rows are about
+//    4,100 runs, and the card holds 28-32 warps an SM, each with about
+//    1.6 KB of adagrad's bytes in flight: 45-50 KB an SM.
+//
+// Measured on an H100 80GB HBM3 at 700 W (PERF.md): about 0.016 ms at
+// Criteo's adagrad shape with a cold L2, against 0.0236 ms for the earlier
+// design's call; an empty launch timed the same way takes about 0.005 ms,
+// and with a cold L2 the stores to random rows and the reads behind them
+// take most of the rest.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <type_traits>
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMeta = 8;
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRunRows = 8;     // touched rows a warp takes at a time
+constexpr int kMaxTables = 32;  // tables one launch's arguments hold
+constexpr int kBatch = 8;       // floats in flight a lane on generic routes
+constexpr int kMaxDevices = 64;
+constexpr unsigned kFull = 0xffffffffu;
 
 enum Mode { kSgd = 0, kAdagrad = 1, kRmsprop = 2, kAdam = 3 };
+// how a launch's tables move their rows: W=17 floats; any W as floats;
+// W % 4 == 0 as float4 units (every array on a 16-byte boundary)
+enum Route { kW17 = 0, kScalar = 1, kVec = 2 };
 
-__global__ void __launch_bounds__(kThreads)
-row_update_kernel(const long long* __restrict__ meta,
-                  const long long* __restrict__ offsets,
-                  const float* __restrict__ bias, int n_tables, int mode,
-                  float lr, float eps, float d1, float c1, float d2,
-                  float c2) {
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads +
-                      threadIdx.x;
-  if (i >= offsets[n_tables]) return;
-  int t = 0;
-  while (i >= offsets[t + 1]) ++t;
-  const long long* m = meta + kMeta * t;
-  const long long width = m[7];
-  const long long e = i - offsets[t];
-  const long long j = e / width;
-  const long long col = e - j * width;
-  float* w = reinterpret_cast<float*>(m[0]);
-  float* s1 = reinterpret_cast<float*>(m[1]);
-  float* s2 = reinterpret_cast<float*>(m[2]);
-  const float* g = reinterpret_cast<const float*>(m[3]);
-  const long long* rows = reinterpret_cast<const long long*>(m[4]);
-  const float* l2 = reinterpret_cast<const float*>(m[5]);
+// one table's arguments (mirrored by ops/row_update.py:_Table)
+struct Table {
+  float* w;
+  float* s1;  // null for sgd
+  float* s2;  // adam's v; null otherwise
+  const float* g;
+  const long long* rows;
+  const float* l2;
+  int n_valid;  // > 0
+  int width;
+  float bc1, bc2;  // adam's 1 - b1^t, 1 - b2^t
+};
 
-  const long long idx = rows[j] * width + col;
-  const float wv = w[idx];
-  const float gp = __fadd_rn(g[e], __fmul_rn(__fmul_rn(2.0f, l2[col]), wv));
+// one launch's arguments (mirrored by ops/row_update.py:_Args)
+struct Args {
+  int first_run[kMaxTables];  // INT_MAX past n_tables
+  Table table[kMaxTables];
+  int n_tables;
+  int n_runs;
+  int mode;
+  int route;  // every table's
+  float lr, eps, d1, c1, d2, c2;
+};
+static_assert(sizeof(Args) <= 4096,
+              "the arguments must fit the classic 4 KB parameter space");
+
+struct Consts {
+  float lr, eps, d1, c1, d2, c2, bc1, bc2;
+};
+
+template <int M>
+__device__ __forceinline__ float update(float w, float g, float l2,
+                                        float& s1, float& s2,
+                                        const Consts& k) {
+  const float gp = __fadd_rn(g, __fmul_rn(__fmul_rn(2.0f, l2), w));
   float step;
-  if (mode == kSgd) {
-    step = __fmul_rn(lr, gp);
-  } else if (mode == kAdagrad || mode == kRmsprop) {
+  if (M == kSgd) {
+    step = __fmul_rn(k.lr, gp);
+  } else if (M == kAdagrad || M == kRmsprop) {
     float a = __fmul_rn(gp, gp);
-    a = mode == kAdagrad ? __fadd_rn(s1[idx], a)
-                         : __fadd_rn(__fmul_rn(d1, s1[idx]), __fmul_rn(c1, a));
-    s1[idx] = a;
-    step = __fdiv_rn(__fmul_rn(lr, gp), __fadd_rn(__fsqrt_rn(a), eps));
+    a = M == kAdagrad ? __fadd_rn(s1, a)
+                      : __fadd_rn(__fmul_rn(k.d1, s1), __fmul_rn(k.c1, a));
+    s1 = a;
+    step = __fdiv_rn(__fmul_rn(k.lr, gp), __fadd_rn(__fsqrt_rn(a), k.eps));
   } else {
-    const float mv = __fadd_rn(__fmul_rn(d1, s1[idx]), __fmul_rn(c1, gp));
-    const float vv = __fadd_rn(__fmul_rn(d2, s2[idx]),
-                               __fmul_rn(c2, __fmul_rn(gp, gp)));
-    s1[idx] = mv;
-    s2[idx] = vv;
-    const float m_hat = __fdiv_rn(mv, bias[2 * t]);
-    const float v_hat = __fdiv_rn(vv, bias[2 * t + 1]);
-    step = __fdiv_rn(__fmul_rn(lr, m_hat), __fadd_rn(__fsqrt_rn(v_hat), eps));
+    const float mv = __fadd_rn(__fmul_rn(k.d1, s1), __fmul_rn(k.c1, gp));
+    const float vv =
+        __fadd_rn(__fmul_rn(k.d2, s2), __fmul_rn(k.c2, __fmul_rn(gp, gp)));
+    s1 = mv;
+    s2 = vv;
+    const float m_hat = __fdiv_rn(mv, k.bc1);
+    const float v_hat = __fdiv_rn(vv, k.bc2);
+    step = __fdiv_rn(__fmul_rn(k.lr, m_hat),
+                     __fadd_rn(__fsqrt_rn(v_hat), k.eps));
   }
-  w[idx] = __fsub_rn(wv, step);
+  return __fsub_rn(w, step);
+}
+
+template <int M>
+__device__ __forceinline__ float4 update(float4 w, float4 g, float4 l2,
+                                         float4& s1, float4& s2,
+                                         const Consts& k) {
+  return make_float4(update<M>(w.x, g.x, l2.x, s1.x, s2.x, k),
+                     update<M>(w.y, g.y, l2.y, s1.y, s2.y, k),
+                     update<M>(w.z, g.z, l2.z, s1.z, s2.z, k),
+                     update<M>(w.w, g.w, l2.w, s1.w, s2.w, k));
+}
+
+// What one access moves: a float, or 4 of them (route "vec").
+template <bool VEC>
+using Unit = typename std::conditional<VEC, float4, float>::type;
+
+// A lane's units k0 .. k0 + K - 1 of the run: all loads, then the updates
+// and all stores.  Unit i = lane + 32 k of the run is column i % units of
+// the run's row i / units, whose id `row` holds in lane i / units.  UNITS
+// is the row's units where the instance fixes it, else 0 and `units` says.
+template <int M, bool VEC, int UNITS, int K>
+__device__ __forceinline__ void update_units(const Table& tb,
+                                             const Consts& k, int units,
+                                             int k0, int j0, int n,
+                                             long long row, int lane) {
+  using T = Unit<VEC>;
+  if (UNITS != 0) units = UNITS;  // a constant: i / units is a multiply
+  const int n_units = n * units;
+  T* const w = reinterpret_cast<T*>(tb.w);
+  T* const s1 = reinterpret_cast<T*>(tb.s1);
+  T* const s2 = reinterpret_cast<T*>(tb.s2);
+  const T* const g =
+      reinterpret_cast<const T*>(tb.g) + static_cast<long long>(j0) * units;
+  const T* const l2 = reinterpret_cast<const T*>(tb.l2);
+  // unit i's element offset in the table, from its row's id in lane
+  // i / units (a shuffle: recomputed for the stores rather than held)
+  const auto offset = [&](int i) {
+    const int src = i / units;
+    const long long r = __shfl_sync(kFull, row, src & 31);
+    return r * units + (i - src * units);
+  };
+  // the generic routes' batches end where the run does (warp-uniform)
+  const auto past = [&](int u) {
+    return UNITS == 0 && 32 * (k0 + u) >= n_units;
+  };
+
+  T gv[K], wv[K], av[K], bv[K];
+  // the gradient first: contiguous over the run, it needs no row id
+#pragma unroll
+  for (int u = 0; u < K; ++u) {
+    const int i = lane + 32 * (k0 + u);
+    if (i < n_units) gv[u] = __ldg(g + i);
+  }
+  // then every table and state load of these units
+#pragma unroll
+  for (int u = 0; u < K; ++u) {
+    if (past(u)) break;
+    const int i = lane + 32 * (k0 + u);
+    const long long at = offset(i);
+    if (i < n_units) {
+      wv[u] = w[at];
+      if (M != kSgd) av[u] = s1[at];
+      if (M == kAdam) bv[u] = s2[at];
+    }
+  }
+  // the updates and all stores (l2 is a few floats, in L1 after a run)
+#pragma unroll
+  for (int u = 0; u < K; ++u) {
+    if (past(u)) break;
+    const int i = lane + 32 * (k0 + u);
+    const long long at = offset(i);
+    if (i < n_units) {
+      w[at] = update<M>(wv[u], gv[u], __ldg(l2 + i % units), av[u], bv[u],
+                        k);
+      if (M != kSgd) s1[at] = av[u];
+      if (M == kAdam) s2[at] = bv[u];
+    }
+  }
+}
+
+template <int M, bool VEC, int UNITS>
+__device__ __forceinline__ void update_run(const Table& tb, const Consts& k,
+                                           int j0, int n, long long row,
+                                           int lane) {
+  if constexpr (UNITS != 0) {
+    update_units<M, VEC, UNITS, (kRunRows * UNITS + 31) / 32>(
+        tb, k, UNITS, 0, j0, n, row, lane);
+  } else {
+    constexpr int K = VEC ? kBatch / 4 : kBatch;
+    const int units = VEC ? tb.width >> 2 : tb.width;
+    for (int k0 = 0; 32 * k0 < n * units; k0 += K) {
+      update_units<M, VEC, 0, K>(tb, k, units, k0, j0, n, row, lane);
+    }
+  }
+}
+
+template <int M, int R>
+__global__ void __launch_bounds__(kThreads)
+row_update_kernel(const __grid_constant__ Args a) {
+  const int n_warps = gridDim.x * kWarps;
+  for (int run = blockIdx.x * kWarps + (threadIdx.x >> 5); run < a.n_runs;
+       run += n_warps) {
+    // opaque to the compiler, so that it does not hoist the per-unit
+    // indices out of the loop and hold them all in registers
+    int lane = threadIdx.x & 31;
+    asm volatile("" : "+r"(lane));
+    // the run's table: the last whose first run is at or before it
+    int t = 0;
+#pragma unroll
+    for (int i = 1; i < kMaxTables; ++i) t += a.first_run[i] <= run;
+    const Table& tb = a.table[t];
+    const int j0 = (run - a.first_run[t]) * kRunRows;
+    const int n = min(kRunRows, tb.n_valid - j0);
+    const long long row = lane < n ? __ldg(tb.rows + j0 + lane) : 0;
+    const Consts k{a.lr, a.eps, a.d1, a.c1, a.d2, a.c2, tb.bc1, tb.bc2};
+    update_run<M, R == kVec, R == kW17 ? 17 : 0>(tb, k, j0, n, row, lane);
+  }
+}
+
+// the blocks of row_update_kernel<M, R> the current device holds at once
+template <int M, int R>
+int resident_blocks() {
+  static int cached[kMaxDevices];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < kMaxDevices && cached[dev] > 0) return cached[dev];
+  int sms = 0, per_sm = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, row_update_kernel<M, R>, kThreads, 0) != cudaSuccess) {
+    return 0;
+  }
+  const int blocks = sms * per_sm;
+  if (dev < kMaxDevices) cached[dev] = blocks;
+  return blocks;
+}
+
+template <int M, int R>
+int launch(const Args& a, cudaStream_t stream) {
+  const int resident = resident_blocks<M, R>();
+  if (resident <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int blocks = std::min((a.n_runs + kWarps - 1) / kWarps, resident);
+  row_update_kernel<M, R><<<blocks, kThreads, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int M>
+int launch_route(const Args& a, cudaStream_t stream) {
+  switch (a.route) {
+    case kW17:
+      return launch<M, kW17>(a, stream);
+    case kScalar:
+      return launch<M, kScalar>(a, stream);
+    case kVec:
+      return launch<M, kVec>(a, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-// `total` is offsets[n_tables], the number of elements to update; the
-// caller checks shapes and types, and keeps every buffer alive until the
-// kernel has run.
-extern "C" int row_update_f32(const long long* meta, const long long* offsets,
-                              const float* bias, int n_tables,
-                              long long total, int mode, float lr, float eps,
-                              float d1, float c1, float d2, float c2,
-                              void* stream) {
-  if (n_tables <= 0 || total < 0 || mode < kSgd || mode > kAdam) {
+// The layout the host mirrors: sizeof(Args), kMaxTables and kRunRows.
+extern "C" int row_update_args_bytes() { return sizeof(Args); }
+extern "C" int row_update_capacity() { return kMaxTables; }
+extern "C" int row_update_run_rows() { return kRunRows; }
+
+// Launches one kernel over `args` (a host struct, copied into the launch's
+// parameters) on `stream` and returns cudaGetLastError() (0 on success).
+// The caller checks shapes, types and alignment, plans the tables' runs
+// and keeps every buffer alive until the kernel has run.
+extern "C" int row_update_f32(const void* args_ptr, void* stream) {
+  const Args* args = static_cast<const Args*>(args_ptr);
+  if (args == nullptr || args->n_tables <= 0 ||
+      args->n_tables > kMaxTables || args->n_runs <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (total == 0) return 0;
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  row_update_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      meta, offsets, bias, n_tables, mode, lr, eps, d1, c1, d2, c2);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (args->mode) {
+    case kSgd:
+      return launch_route<kSgd>(*args, s);
+    case kAdagrad:
+      return launch_route<kAdagrad>(*args, s);
+    case kRmsprop:
+      return launch_route<kRmsprop>(*args, s);
+    case kAdam:
+      return launch_route<kAdam>(*args, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

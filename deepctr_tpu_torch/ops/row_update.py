@@ -15,13 +15,15 @@ Per table ``t`` and touched row ``j < n_valid[t]``::
 
 Tables and state are updated in place; rows that are not touched keep
 their bits.  ``row_update`` launches the CUDA kernel in
-``csrc/row_update.cu`` (every table in one launch) for CUDA tensors, or
-raises; it takes the plain version ``row_update_ref`` only because its
-tensors lie on the CPU.  The two round the same operations in the same
+``csrc/row_update.cu`` for CUDA tensors (up to ``CAPACITY`` tables a
+launch, their arguments passed by value: ``launch_plan``,
+``kernel_args``), or raises; it takes the plain version ``row_update_ref``
+only because its tensors lie on the CPU.  The two round the same operations in the same
 order, so they agree bit for bit.
 """
 
 import ctypes
+import struct
 
 import numpy as np
 import torch
@@ -142,19 +144,166 @@ def _check(optimizer, tables, states, grads, rows, n_valid, l2s, bias):
                          % sorted(map(str, devices)))
 
 
+# the kernel's layout (csrc/row_update.cu: kMaxTables, kRunRows, Args),
+# checked against the built library at first use
+CAPACITY = 32     # tables one launch's argument struct holds
+RUN_ROWS = 8      # touched rows a warp takes at a time
+_INT_MAX = 2 ** 31 - 1
+# how a table's rows move (csrc/row_update.cu: Route), each route a kernel
+# instance: W=17 floats, any W as floats, W % 4 == 0 as 16-byte units
+W17, SCALAR, VEC = range(3)
+
+
+def route_of(width, aligned):
+    """The route of a table of ``width`` floats: 16-byte units where W is
+    a multiple of 4 and ``aligned`` (every array read in them starts on a
+    16-byte boundary), else floats."""
+    if width % 4 == 0 and aligned:
+        return VEC
+    return W17 if width == 17 else SCALAR
+
+
+def launch_plan(n_valid, routes, capacity=CAPACITY):
+    """The kernel's launches for tables of ``n_valid`` touched rows on
+    ``routes``: a list of ``(route, [(table, first_run, runs), ...])``,
+    one entry a launch.  The tables of a route go together, in order, the
+    routes in the order of their first tables, at most ``capacity`` tables
+    a launch.  A table's rows go in runs of RUN_ROWS (the last one
+    shorter), numbered from 0 in each launch; a table of no touched rows
+    is left out.  No tables to update, no launch."""
+    by_route = {}
+    for t, (n, route) in enumerate(zip(n_valid, routes)):
+        if n > 0:
+            by_route.setdefault(route, []).append(t)
+    plan = []
+    for route, ts in by_route.items():
+        for c in range(0, len(ts), capacity):
+            planned, first = [], 0
+            for t in ts[c:c + capacity]:
+                runs = -(-n_valid[t] // RUN_ROWS)
+                planned.append((t, first, runs))
+                first += runs
+            plan.append((route, planned))
+    return plan
+
+
+def _pointers(w, st, g, r, l2):
+    """A table's (w, s1, s2, g, rows, l2) pointers, 0 for a state it does
+    not carry, and its route: 16-byte units need every array read in them
+    (all but the row ids) on a 16-byte boundary."""
+    s1 = st[0].data_ptr() if st else 0
+    s2 = st[1].data_ptr() if len(st) > 1 else 0
+    ptrs = (w.data_ptr(), s1, s2, g.data_ptr(), r.data_ptr(), l2.data_ptr())
+    aligned = (ptrs[0] | s1 | s2 | ptrs[3] | ptrs[5]) % 16 == 0
+    return ptrs, route_of(w.shape[1], aligned)
+
+
+def table_routes(tables, states, grads, rows, l2s):
+    """Each table's route (arguments as :func:`row_update`)."""
+    return [_pointers(*a)[1] for a in zip(tables, states, grads, rows, l2s)]
+
+
+class _Table(ctypes.Structure):
+    _fields_ = ([(name, ctypes.c_void_p)
+                 for name in ("w", "s1", "s2", "g", "rows", "l2")]
+                + [(name, ctypes.c_int) for name in ("n_valid", "width")]
+                + [("bc1", ctypes.c_float), ("bc2", ctypes.c_float)])
+
+
+class _Args(ctypes.Structure):
+    _fields_ = ([("first_run", ctypes.c_int * CAPACITY),
+                 ("table", _Table * CAPACITY)]
+                + [(name, ctypes.c_int) for name in ("n_tables", "n_runs",
+                                                     "mode", "route")]
+                + [(name, ctypes.c_float)
+                   for name in ("lr", "eps", "d1", "c1", "d2", "c2")])
+
+
+# the same fields packed straight into an _Args (a ctypes struct is a
+# writable buffer): a table, the first runs, and n_tables .. c2
+_TABLE = struct.Struct("<6Q2i2f")
+_FIRST = struct.Struct("<%di" % CAPACITY)
+_HEAD = struct.Struct("<4i6f")
+
+
+_KERNEL = None
+
+
 def _kernel():
-    fn = _build.load("row_update").row_update_f32
-    fn.argtypes = ([ctypes.c_void_p] * 3
-                   + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
-                   + [ctypes.c_float] * 6 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    global _KERNEL
+    if _KERNEL is None:
+        lib = _build.load("row_update")
+        layout = []
+        for name in ("row_update_args_bytes", "row_update_capacity",
+                     "row_update_run_rows"):
+            fn = getattr(lib, name)
+            fn.argtypes = []
+            fn.restype = ctypes.c_int
+            layout.append(fn())
+        layout = tuple(layout)
+        if layout != (ctypes.sizeof(_Args), CAPACITY, RUN_ROWS):
+            raise RuntimeError("row_update's argument layout (bytes, "
+                               "capacity, run rows) is %s in the kernel, %s "
+                               "here" % (layout, (ctypes.sizeof(_Args),
+                                                  CAPACITY, RUN_ROWS)))
+        # the struct is copied into the launch's parameters during the
+        # call: nothing of it need outlive the call
+        fn = lib.row_update_f32
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _KERNEL = fn
+    return _KERNEL
+
+
+def kernel_args(optimizer, tables, states, grads, rows, n_valid, l2s, lr,
+                bias=None):
+    """The kernel's argument structs, one a launch of
+    :func:`launch_plan`, in host memory: nothing is allocated on or copied
+    to the device.  Arguments as :func:`row_update`, already checked."""
+    mode, _ = MODES[optimizer]
+    if optimizer == "adam":
+        consts = (ADAM_B1, 1 - ADAM_B1, ADAM_B2, 1 - ADAM_B2)
+    else:
+        consts = (RMS_DECAY, 1 - RMS_DECAY, 0.0, 0.0)
+    out = []
+    ptrs, routes = zip(*map(_pointers, tables, states, grads, rows, l2s))
+    for route, planned in launch_plan(n_valid, routes):
+        a = _Args()
+        first = [_INT_MAX] * CAPACITY
+        for i, (t, first_run, runs) in enumerate(planned):
+            first[i] = first_run
+            bc1, bc2 = bias[t] if bias is not None else (1.0, 1.0)
+            _TABLE.pack_into(a, _Args.table.offset + i * _TABLE.size,
+                             *ptrs[t], n_valid[t], tables[t].shape[1], bc1,
+                             bc2)
+        _FIRST.pack_into(a, _Args.first_run.offset, *first)
+        _HEAD.pack_into(a, _Args.n_tables.offset, len(planned),
+                        first_run + runs, mode, route, lr, _eps(optimizer),
+                        *consts)
+        out.append(a)
+    return out
+
+
+def launch(args, device):
+    """Launches the kernel once for each struct of ``args``
+    (:func:`kernel_args`) on ``device``'s current stream."""
+    global ROW_UPDATE_LAUNCHES
+    fn = _kernel()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        for a in args:
+            rc = fn(ctypes.addressof(a), stream)
+            if rc != 0:
+                raise RuntimeError("row_update kernel launch failed with "
+                                   "CUDA error %d" % rc)
+            ROW_UPDATE_LAUNCHES += 1
 
 
 def row_update(optimizer, tables, states, grads, rows, n_valid, l2s, lr,
                bias=None):
     """One optimizer step on the first ``n_valid[t]`` rows of ``rows[t]``
-    of every table, in one launch.
+    of every table, in the launches of :func:`launch_plan` (one for up to
+    CAPACITY tables of one route).
 
     ``tables`` [V_t, W_t] float32 and ``states`` (a tuple per table: none
     for sgd, ``(acc,)`` for adagrad and rmsprop, ``(m, v)`` for adam, each
@@ -164,8 +313,8 @@ def row_update(optimizer, tables, states, grads, rows, n_valid, l2s, lr,
     column, ``bias`` a ``(1-b1^t, 1-b2^t)`` pair per table for adam.
 
     On CUDA tensors this launches the kernel (building it at first use) or
-    raises.  Returns ``tables``."""
-    global ROW_UPDATE_LAUNCHES
+    raises; on CPU tensors it runs ``row_update_ref``.  Returns
+    ``tables``."""
     n_valid = [int(n) for n in n_valid]
     _check(optimizer, tables, states, grads, rows, n_valid, l2s, bias)
     device = tables[0].device
@@ -177,34 +326,6 @@ def row_update(optimizer, tables, states, grads, rows, n_valid, l2s, lr,
     arrays = list(tables) + [s for st in states for s in st] + list(grads)
     if any(not a.is_contiguous() for a in arrays + list(rows) + list(l2s)):
         raise ValueError("row_update needs contiguous tensors")
-    mode, _ = MODES[optimizer]
-    meta, offsets = [], [0]
-    for w, st, g, r, nv, l2 in zip(tables, states, grads, rows, n_valid,
-                                   l2s):
-        s1 = st[0].data_ptr() if st else 0
-        s2 = st[1].data_ptr() if len(st) > 1 else 0
-        meta += [w.data_ptr(), s1, s2, g.data_ptr(), r.data_ptr(),
-                 l2.data_ptr(), nv, w.shape[1]]
-        offsets.append(offsets[-1] + nv * w.shape[1])
-    total = offsets[-1]
-    if total == 0:
-        return tables
-    meta_d = device_array(meta + offsets, torch.int64, device)
-    bias_d = device_array(
-        [c for pair in (bias or [(1.0, 1.0)] * len(tables)) for c in pair],
-        torch.float32, device)
-    if optimizer == "adam":
-        consts = (ADAM_B1, 1 - ADAM_B1, ADAM_B2, 1 - ADAM_B2)
-    else:
-        consts = (RMS_DECAY, 1 - RMS_DECAY, 0.0, 0.0)
-    fn = _kernel()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(meta_d.data_ptr(), meta_d.data_ptr() + 8 * len(meta),
-                bias_d.data_ptr(), len(tables), total, mode, float(lr),
-                _eps(optimizer), *consts, stream)
-    if rc != 0:
-        raise RuntimeError("row_update kernel launch failed with CUDA error "
-                           "%d" % rc)
-    ROW_UPDATE_LAUNCHES += 1
+    launch(kernel_args(optimizer, tables, states, grads, rows, n_valid, l2s,
+                       lr, bias), device)
     return tables

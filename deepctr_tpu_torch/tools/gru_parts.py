@@ -104,16 +104,18 @@ def build_variants(variants=None):
     return libs
 
 
-def device_ms(fn, runs=20):
-    """Median device time of ``fn`` over ``runs`` runs, each after a 128 MB
-    write that evicts the L2 and a stall longer than the host's enqueue."""
+def device_ms(fn, runs=20, cold=True):
+    """Median device time of ``fn`` over ``runs`` runs, each after a stall
+    longer than the host's enqueue and, with ``cold``, a 128 MB write that
+    evicts the L2."""
     flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
     fn()
     torch.cuda.synchronize()
     events = []
     for _ in range(runs):
         torch.cuda._sleep(2_000_000)
-        flush.fill_(1.0)
+        if cold:
+            flush.fill_(1.0)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()

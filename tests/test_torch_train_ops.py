@@ -179,13 +179,19 @@ def _port_update(opt, w, states, g, rows, n_valid, l2, lr, bias=None):
 
 def _jax_rows_math(opt, w, states, g, rows, n_valid, l2, lr, t=3):
     """The separate-leaf row update of deepctr_tpu/models/basemodel.py:
-    1222-1258, in jnp, for the first n_valid rows."""
+    1221-1258, in jnp, for the first n_valid rows."""
     from deepctr_tpu.models import basemodel as B
     r = jnp.asarray(rows[:n_valid])
     w_rows = jnp.asarray(w)[r]
     gp = jnp.asarray(g[:n_valid]) + 2.0 * jnp.asarray(l2)[None, :] * w_rows
     new = [np.asarray(s).copy() for s in states]
-    if opt == "rmsprop":
+    if opt == "sgd":
+        step = lr * gp
+    elif opt == "adagrad":
+        a = jnp.asarray(states[0])[r] + jnp.square(gp)
+        step = lr * gp / (jnp.sqrt(a) + B._ADAGRAD_EPS)
+        new[0][rows[:n_valid]] = np.asarray(a)
+    elif opt == "rmsprop":
         a = (B._RMS_DECAY * jnp.asarray(states[0])[r]
              + (1 - B._RMS_DECAY) * jnp.square(gp))
         step = lr * gp / (jnp.sqrt(a) + B._RMS_EPS)
