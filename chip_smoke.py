@@ -50,12 +50,14 @@ Then the training path, DeepFM ``compile``/``fit`` on the same model:
    bits (``index_add_`` on the card adds with atomics, so it is only
    reported); ``row_update`` must equal ``row_update_ref`` on the card bit
    for bit for sgd, adagrad, rmsprop and adam, every table and state, and
-   change no row but the touched ones, at three cases: the bench shape
-   (W=17), DIEN's sparse shape (the touched rows of a batch of 1024 in its
-   three W=32 tables, on the route of 16-byte units) and 46 tables of
-   widths 1-128 (more W=17 tables than a launch holds, a table one float
-   past a 16-byte boundary, some with no touched row), each call with the
-   launches its plan (``launch_plan``) counts;
+   change no row but the touched ones, the padding of each table's fixed
+   capacity (row ids past the table) dropped, at three cases: the bench
+   shape (W=17, the train step's touched rows), DIEN's sparse shape (the
+   touched rows of a batch of 1024 in its three W=32 tables, on the route
+   of 16-byte units) and 46 tables of widths 1-128 (more W=17 tables than
+   a launch holds, a table one float past a 16-byte boundary, some with no
+   row, some with padding), each call with the launches its plan
+   (``launch_plan``) counts;
 6. ``compile("adagrad")`` + ``fit`` at full width, float32, a few steps
    of 4096: the 8 tables of >= 16384 rows go sparse, each kernel
    launches once a step, the loss is finite, and in every sparse table
@@ -205,11 +207,34 @@ Then the row scatter of the scatter micro-benchmark:
     padding slots onto the dump row: the function the kernel computes) and,
     a smaller function, of the valid rows alone.
 
+Then the device-resident loops (``fit`` on a device tensor, each step a
+replay of one captured CUDA graph; ``predict``, each batch a replay), for
+DeepFM at Criteo width (8 x 4096, the 8 sparse tables), DIEN AUGRU with
+negative sampling and its tables sparse (8 x 1024), DIN sigmoid and
+xDeepFM (2 batches each):
+
+20. float32: ``predict`` graphed against the eager forward bit for bit,
+    before and after a ``fit``; ``fit(assemble_device_input(x))``
+    graphed (the first step the capture's warm-up, the rest replays)
+    against the same steps run through ``_train_step`` on a twin from the
+    same seed, bit for bit in per-step losses, every weight, every dense
+    and sparse optimizer state; every step, warm-up and replay under
+    ``torch.cuda.set_sync_debug_mode("error")``, so that any host read
+    fails the run; each kernel launched its count a step or batch; for
+    DIEN, the loop re-captured after ``set_weights`` and after
+    ``compile`` gives the first fit's bits;
+21. timing, bfloat16: each loop against the host-array ``fit`` on the
+    same data, alternating, in examples/s (median of 5 with the spread),
+    device busy and idle share (``torch.profiler``), device operations a
+    step, graph replays and port kernels a step, host ms a step; DeepFM's
+    and DIEN's graphed ``predict`` against the eager forward.
+
 Launches in the kernels line are those of the main-path runs (phases 3,
-6, 10, 11, 14 and 17; for ``static_scatter``, the micro-benchmark's run
-in phase 19), each counted from 0 just before the run and read just
+6, 10, 11, 14, 17 and 20; for ``static_scatter``, the micro-benchmark's
+run in phase 19), each counted from 0 just before the run and read just
 after; the runs that compare a kernel with its plain version, time it or
-check the card against the CPU are not counted.
+check the card against the CPU are not counted.  A graph replay adds the
+launches its capture recorded.
 
 Any failure exits non-zero.  Without a CUDA device it fails at once and
 runs nothing on the CPU.  The last two lines before the final one are the
@@ -217,6 +242,7 @@ card (``nvidia-smi`` name and power limit) and a JSON line describing each
 kernel; the last line is ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -232,9 +258,9 @@ sys.path.insert(0, str(HERE))
 
 import deepctr_tpu_torch as pt  # noqa: E402
 from deepctr_tpu_torch.models import DIEN, DIN, DeepFM, xDeepFM  # noqa: E402
+from deepctr_tpu_torch.models import graphs  # noqa: E402
 from deepctr_tpu_torch.layers.sequence import (  # noqa: E402
     AttentionSequencePoolingLayer)
-from deepctr_tpu_torch.models.basemodel import _TouchedRows  # noqa: E402
 from deepctr_tpu_torch.ops import _build  # noqa: E402
 from deepctr_tpu_torch.ops import attention  # noqa: E402
 from deepctr_tpu_torch.ops import cin  # noqa: E402
@@ -369,11 +395,11 @@ GUARD_ROWS = 64
 # E=64; the gather at B=4096, the 26 Criteo tables, W=17, and at the
 # sequence shape, B=1024, 203 and 403 fields of W=32; K2, adagrad, over
 # the touched rows of a batch of 4096 in the 8 sparse Criteo tables (W=17),
-# the whole call
+# the whole call over the touched rows alone, before the fixed capacity
 EARLIER_MS = {"gru_scan": 0.3064, "gru_scan_bwd": 0.7126,
               "din_attention": 0.1388, "gather_rows": 0.01726,
               "gather_rows_seq_203": 0.03406,
-              "gather_rows_seq_403": 0.06024, "row_update": 0.02306}
+              "gather_rows_seq_403": 0.06024, "row_update": 0.01568}
 
 KERNELS = {
     "gather_rows": {
@@ -764,14 +790,23 @@ def train_kernel_args(model, X, seed):
     field's target (a zero dense gradient, or the touched rows') and
     row."""
     tables = model._tables()
-    touched = _TouchedRows(X, model._sparse_specs, tables)
+    touched = model._touched_rows(X)
+    plan = model._step_plan(X.shape[0])
+    for g in plan.dense_grads.values():
+        g.zero_()
     fcs = model._shared_columns
     gen = torch.Generator(device=X.device).manual_seed(seed)
     grad = torch.randn(X.shape[0], len(fcs), tables[EXPECTED_SPARSE[0]]
                        .shape[1], generator=gen, device=X.device)
-    targets, idx = model._scatter_targets(X, "embedding_dict/", fcs, tables,
-                                          touched, torch.zeros_like)
+    targets, idx, _ = model._scatter_targets(X, "embedding_dict/", fcs,
+                                             touched, plan)
     return touched, grad, targets, idx
+
+
+def valid_counts(rows, tables):
+    """The touched rows of each table among its fixed-capacity row list
+    (the rest is padding past the table)."""
+    return [int((r < w.shape[0]).sum()) for r, w in zip(rows, tables)]
 
 
 def distinct_copies(targets, device=None, fn=None):
@@ -878,26 +913,34 @@ def k2_states(opt, tables, gen):
                   for _ in range(rowup.MODES[opt][1])) for t in tables]
 
 
-def k2_bias(opt, n_tables):
-    return ([rowup.adam_bias_corrections(3)] * n_tables if opt == "adam"
-            else None)
+def k2_bias(opt, n_tables, device):
+    """adam's (1 - b1^3, 1 - b2^3) on the device for every table, else
+    None."""
+    if opt != "adam":
+        return None
+    return [torch.tensor(rowup.adam_bias_corrections(3),
+                         device=device)] * n_tables
 
 
-def k2_bounds(opt, tables, states, rows, counts):
+def k2_bounds(opt, tables, states, rows):
     """row_update's least times: ``(bytes ms, sectors ms, bytes, sector
     bytes)``.  Bytes: every touched element's table and state read and
-    written once, its gradient read once, each row id once.  Sectors: the
-    same, but each touched row of a table or state array counted as the
-    32-byte sectors its span covers at its address in this run (a 68-byte
-    row at a 4-byte offset always covers three)."""
+    written once, its gradient read once, each row id of the fixed
+    capacity once (the padding past the table needs nothing else).
+    Sectors: the same, but each touched row of a table or state array
+    counted as the 32-byte sectors its span covers at its address in this
+    run (a 68-byte row at a 4-byte offset always covers three)."""
     n_bytes = sec_bytes = 0
-    for w, st, r, n in zip(tables, states, rows, counts):
+    for w, st, r in zip(tables, states, rows):
         width = w.shape[1]
         arrays = (w,) + tuple(st)
-        n_bytes += n * width * 4 * (2 * len(arrays) + 1) + n * 8
-        sec_bytes += n * width * 4 + n * 8
+        valid = r[r < w.shape[0]]
+        n = valid.numel()
+        n_bytes += (n * width * 4 * (2 * len(arrays) + 1)
+                    + r.numel() * 8)
+        sec_bytes += n * width * 4 + r.numel() * 8
         for a in arrays:
-            start = a.data_ptr() % 32 + r[:n] * (width * 4)
+            start = a.data_ptr() % 32 + valid * (width * 4)
             sectors = (start + width * 4 - 1) // 32 - start // 32 + 1
             sec_bytes += 2 * 32 * int(sectors.sum())
     return (n_bytes / HBM_BYTES_PER_S * 1e3,
@@ -941,7 +984,7 @@ def dien_sparse_args(device, seed=SEED + 85):
     X = torch.from_numpy(x).to(device)
     tables = model._tables()
     paths = [p for p, _, _ in model._sparse_specs]
-    touched = _TouchedRows(X, model._sparse_specs, tables)
+    touched = model._touched_rows(X)
     gen = torch.Generator(device=device).manual_seed(seed)
     for g in touched.grads:
         g.normal_(generator=gen)
@@ -949,17 +992,17 @@ def dien_sparse_args(device, seed=SEED + 85):
             [model._table_l2_vec(p) for p in paths])
 
 
-def check_row_update_case(base, grads, rows, counts, l2s, what, seed):
+def check_row_update_case(base, grads, rows, l2s, what, seed):
     """row_update against row_update_ref on copies of ``base``, for every
     optimizer with states uniform from ``seed``: every table and state bit
-    for bit, no row but the first ``counts[t]`` of ``rows[t]`` changed in
-    any table or state, one launch for each of launch_plan's.  Returns max
-    |err|."""
+    for bit, no row changed in any table or state but those ``rows[t]``
+    lists inside the table (its padding past the table is dropped), one
+    launch for each of launch_plan's.  Returns max |err|."""
     gen = torch.Generator(device=base[0].device).manual_seed(seed)
     untouched = []
-    for w, r, n in zip(base, rows, counts):
+    for w, r in zip(base, rows):
         u = torch.ones(w.shape[0], dtype=torch.bool, device=w.device)
-        u[r[:n]] = False
+        u[r[r < w.shape[0]]] = False
         untouched.append(u)
     err = 0.0
     for opt in OPTIMIZERS:
@@ -968,9 +1011,11 @@ def check_row_update_case(base, grads, rows, counts, l2s, what, seed):
         kern_w = [same_offset_copy(t) for t in base]
         kern_s = [tuple(s.clone() for s in st) for st in plain_s]
         first_s = [tuple(s.clone() for s in st) for st in plain_s]
-        want_launches = len(rowup.launch_plan(counts, rowup.table_routes(
-            kern_w, kern_s, grads, rows, l2s)))
-        args = (grads, rows, counts, l2s, 0.01, k2_bias(opt, len(base)))
+        want_launches = len(rowup.launch_plan(
+            [len(r) for r in rows],
+            rowup.table_routes(kern_w, kern_s, grads, rows, l2s)))
+        args = (grads, rows, l2s, 0.01,
+                k2_bias(opt, len(base), base[0].device))
         before = rowup.ROW_UPDATE_LAUNCHES
         rowup.row_update(opt, kern_w, kern_s, *args)
         launches = rowup.ROW_UPDATE_LAUNCHES - before
@@ -989,9 +1034,11 @@ def check_row_update_case(base, grads, rows, counts, l2s, what, seed):
                 check(same_bits(a[u], a0[u]), "row_update (%s) changed "
                       "other rows than the touched ones at %s" % (opt, what))
         del plain_w, plain_s, kern_w, kern_s, first_s
+    n_pad = sum(len(r) for r in rows) - sum(valid_counts(rows, base))
     log("kernel vs plain: row_update bit-equal for %s at %s (max_abs_err "
-        "%r), only the touched rows changed, %d launch(es) a call as "
-        "planned" % (", ".join(OPTIMIZERS), what, err, want_launches))
+        "%r), only the touched rows changed (%d padding slots past their "
+        "tables dropped), %d launch(es) a call as planned"
+        % (", ".join(OPTIMIZERS), what, err, n_pad, want_launches))
     return err
 
 
@@ -1012,11 +1059,11 @@ MANY_OTHER_WIDTHS = (32, 1, 128, 8, 33, 4, "32+1", 32)
 
 def many_tables_case(device, seed):
     """row_update's arguments over 46 tables of 300-2,000 rows (W=17, then
-    MANY_OTHER_WIDTHS), each with some of its rows touched (n_valid below
-    the rows given for some, none for every ninth), tables and gradients
-    normal from ``seed``."""
+    MANY_OTHER_WIDTHS), each with some of its rows touched (padding past
+    the table at the end of the rows given for some, no row for every
+    ninth), tables and gradients normal from ``seed``."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    tables, grads, rows, counts, l2s = [], [], [], [], []
+    tables, grads, rows, l2s = [], [], [], []
     widths = (17,) * (rowup.CAPACITY + 6) + MANY_OTHER_WIDTHS
     for i, kind in enumerate(widths):
         width = 32 if kind == "32+1" else kind
@@ -1029,11 +1076,14 @@ def many_tables_case(device, seed):
         n = int(torch.randint(1, V // 3, (1,), generator=gen,
                               device=device))
         tables.append(t)
-        rows.append(torch.randperm(V, generator=gen, device=device)[:n])
-        grads.append(torch.randn(n, width, generator=gen, device=device))
-        counts.append(0 if i % 9 == 5 else n - (i % 3) * (n // 4))
+        r = torch.randperm(V, generator=gen, device=device)[:n]
+        g = torch.randn(n, width, generator=gen, device=device)
+        count = 0 if i % 9 == 5 else n - (i % 3) * (n // 4)
+        rows.append(torch.cat([r[:count], V + torch.arange(
+            n - count, device=device)]) if count else r[:0])
+        grads.append(g if count else g[:0])
         l2s.append(torch.rand(width, generator=gen, device=device) * 1e-3)
-    return tables, grads, rows, counts, l2s
+    return tables, grads, rows, l2s
 
 
 def phase_train_kernels_vs_plain(model, X):
@@ -1054,37 +1104,38 @@ def phase_train_kernels_vs_plain(model, X):
                           for t, c in zip(targets, on_card))
         n_pairs = sum(int(torch.unique(idx[:, f]).numel())
                       for f in range(idx.shape[1]))
+        tables = model._tables()
+        paths = [p for p, _, _ in model._sparse_specs]
         log("kernel vs plain: scatter_add_rows at B=%d F=%d W=%d (%d target "
-            "rows, sparse tables %s touched rows); index_add_ on the card "
-            "(atomics) differs by at most %r"
+            "rows, sparse tables %s touched rows of capacities %s); "
+            "index_add_ on the card (atomics) differs by at most %r"
             % (grad.shape[0], grad.shape[1], grad.shape[2], n_pairs,
-               touched.counts, atomics_err))
+               valid_counts(touched.rows, [tables[p] for p in paths]),
+               [len(r) for r in touched.rows], atomics_err))
         check_scatter_case(*long_run_case(X.device, SEED + 8),
                            "the long-run case")
 
-        tables = model._tables()
-        paths = [p for p, _, _ in model._sparse_specs]
         k2_err = check_row_update_case(
             [tables[p].detach() for p in paths], touched.grads,
-            touched.rows, touched.counts,
-            [model._table_l2_vec(p) for p in paths], "the bench shape",
-            SEED + 6)
+            touched.rows, [model._table_l2_vec(p) for p in paths],
+            "the bench shape", SEED + 6)
         dien, w, dtouched, l2s = dien_sparse_args(X.device)
         check(rowup.table_routes(w, [(t,) for t in w], dtouched.grads,
                                  dtouched.rows, l2s) == [rowup.VEC] * len(w),
               "DIEN's sparse tables are not on the route of 16-byte units")
         k2_err = max(k2_err, check_row_update_case(
-            w, dtouched.grads, dtouched.rows, dtouched.counts, l2s,
-            "DIEN's sparse shape", SEED + 11))
+            w, dtouched.grads, dtouched.rows, l2s, "DIEN's sparse shape",
+            SEED + 11))
         del dien, w, dtouched
         case = many_tables_case(X.device, SEED + 12)
         routes = rowup.table_routes(case[0], [()] * len(case[0]), case[1],
-                                    case[2], case[4])
-        check(len(rowup.launch_plan(case[3], routes)) > len(set(routes)),
+                                    case[2], case[3])
+        check(len(rowup.launch_plan([len(r) for r in case[2]], routes))
+              > len(set(routes)),
               "the many-table case should take two launches on a route")
         k2_err = max(k2_err, check_row_update_case(
             *case, "%d tables (%d touched), widths %s" % (
-                len(case[0]), sum(n > 0 for n in case[3]),
+                len(case[0]), sum(len(r) > 0 for r in case[2]),
                 sorted({t.shape[1] for t in case[0]})), SEED + 13))
     return k1_err, k2_err
 
@@ -1246,8 +1297,9 @@ def k2_criteo_times(model, touched):
     paths = [p for p, _, _ in model._sparse_specs]
     w = [tables[p].detach() for p in paths]
     l2s = [model._table_l2_vec(p) for p in paths]
-    what = "Criteo (%d touched rows of %d tables, W=%d)" % (
-        sum(touched.counts), len(paths), w[0].shape[1])
+    what = "Criteo (%d touched rows in %d slots of %d tables, W=%d)" % (
+        sum(valid_counts(touched.rows, w)),
+        sum(len(r) for r in touched.rows), len(paths), w[0].shape[1])
     one = torch.zeros(1, device=w[0].device)
     log("device_ms' floor: one launch of a one-element add_, %r ms with a "
         "cold L2, %r ms warm" % (device_ms(lambda: one.add_(1.0)),
@@ -1257,10 +1309,9 @@ def k2_criteo_times(model, touched):
     for opt in OPTIMIZERS:
         states = ([model._table_state[p] for p in paths]
                   if opt == "adagrad" else k2_states(opt, w, gen))
-        upd = (w, states, touched.grads, touched.rows, touched.counts, l2s,
-               0.01)
-        times = k2_times(opt, upd, k2_bias(opt, len(paths)))
-        bounds = k2_bounds(opt, w, states, touched.rows, touched.counts)
+        upd = (w, states, touched.grads, touched.rows, l2s, 0.01)
+        times = k2_times(opt, upd, k2_bias(opt, len(paths), w[0].device))
+        bounds = k2_bounds(opt, w, states, touched.rows)
         log(k2_line(opt, what, times, bounds))
         if opt != "adagrad":
             continue
@@ -2384,15 +2435,16 @@ def k2_dien_times(device):
     """row_update at DIEN AUGRU's sparse shape (dien_sparse_args), every
     optimizer: device ms and bounds."""
     model, w, touched, l2s = dien_sparse_args(device)
-    what = "DIEN sparse (%d touched rows of %d tables, W=%d)" % (
-        sum(touched.counts), len(w), w[0].shape[1])
+    what = "DIEN sparse (%d touched rows in %d slots of %d tables, W=%d)" % (
+        sum(valid_counts(touched.rows, w)),
+        sum(len(r) for r in touched.rows), len(w), w[0].shape[1])
     gen = torch.Generator(device=device).manual_seed(SEED + 10)
     for opt in OPTIMIZERS:
         states = k2_states(opt, w, gen)
-        upd = (w, states, touched.grads, touched.rows, touched.counts, l2s,
-               0.01)
-        log(k2_line(opt, what, k2_times(opt, upd, k2_bias(opt, len(w))),
-                    k2_bounds(opt, w, states, touched.rows, touched.counts)))
+        upd = (w, states, touched.grads, touched.rows, l2s, 0.01)
+        log(k2_line(opt, what, k2_times(opt, upd,
+                                        k2_bias(opt, len(w), device)),
+                    k2_bounds(opt, w, states, touched.rows)))
     del model
 
 
@@ -2900,6 +2952,399 @@ def phase_static_scatter(device):
                 library_ms=ms["library"], bound_ms=bound_ms,
                 bound_by="bytes")
 
+# ---------------------------------------------------------------------------
+# the device-resident loops: fit on a device tensor (each step a replay of
+# one captured graph) and predict (each batch a replay)
+# ---------------------------------------------------------------------------
+
+LOOP_STEPS = 8      # the graphed fits' steps: 8 x 4096, DIEN 8 x 1024
+LOOP_RUNS = 5       # timed runs of each loop: median and spread
+
+
+@contextlib.contextmanager
+def no_host_sync():
+    """Any call in the enclosed work that waits for the device (a host
+    read, a blocking copy) raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@contextlib.contextmanager
+def strict_loops():
+    """Every graph replay, and every run of a loop's step (the capture's
+    warm-up and the capture itself), under no_host_sync."""
+    replay, step = graphs._Captured.replay, graphs.StepGraph.step
+
+    def strict_replay(self):
+        with no_host_sync():
+            replay(self)
+
+    def strict_step(self):
+        with no_host_sync():
+            step(self)
+    graphs._Captured.replay = strict_replay
+    graphs.StepGraph.step = strict_step
+    try:
+        yield
+    finally:
+        graphs._Captured.replay, graphs.StepGraph.step = replay, step
+
+
+def tensor_bits_equal(a, b):
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        view = {4: torch.int32, 2: torch.int16, 8: torch.int64}[
+            a.element_size()]
+        return torch.equal(a.view(view), b.view(view))
+    return torch.equal(a, b)
+
+
+def training_state(model):
+    """Every tensor training moves: the weights, the dense parameters'
+    optimizer state and the sparse tables' state, by name."""
+    out = dict(model.state_dict())
+    sparse = set(model._table_state)
+    dense = [p for p, _ in model._named_params() if p not in sparse]
+    for path, st in zip(dense, model._dense_opt.state):
+        for j, a in enumerate(st):
+            out["%s (state %d)" % (path, j)] = a
+    for path, st in model._table_state.items():
+        for j, a in enumerate(st):
+            out["%s (state %d)" % (path, j)] = a
+    return out
+
+
+def check_same_state(got, want, what):
+    check(set(got) == set(want), "%s: other tensors" % what)
+    for k in want:
+        check(tensor_bits_equal(got[k], want[k]), "%s: %s differs"
+              % (what, k))
+
+
+def loop_fit(model, X, y, B):
+    """fit(X) in the device-resident loop, every step and replay under
+    no_host_sync: returns (history, the loop, its launches, replays)."""
+    reset_counts()
+    graphs.GRAPH_REPLAYS = 0
+    with strict_loops():
+        hist = model.fit(X, y, batch_size=B, epochs=1, verbose=0,
+                         shuffle=False)
+    counts = read_counts()
+    loop = [g for k, g in model._graphs.items() if k[0] == "fit"]
+    check(len(loop) == 1, "one captured fit loop, found %d" % len(loop))
+    return hist, loop[0], counts, graphs.GRAPH_REPLAYS
+
+
+def graph_vs_eager_fit(graphed, eager, X, y, B, label, per_step):
+    """``graphed.fit(X)`` (the first step the capture's warm-up, every
+    other a replay) against the same steps run one by one through
+    ``eager._train_step`` on a twin from the same weights, each under
+    no_host_sync: per-step losses, every weight, optimizer state and
+    sparse table state bit for bit; each kernel of ``per_step`` launched
+    that many times a step."""
+    steps = X.shape[0] // B
+    _, loop, counts, replays = loop_fit(graphed, X, y, B)
+    check(replays == steps - 1, "%s: %d replays in %d steps" % (
+        label, replays, steps))
+    for name, n in per_step.items():
+        check(counts[name] == n * steps, "%s: %s launched %d times in %d "
+              "graphed steps, want %d a step" % (label, name, counts[name],
+                                                 steps, n))
+    y_dev = torch.as_tensor(y, device=X.device).view(-1, 1)
+    sw = torch.ones(B, device=X.device)
+    eager._begin_steps(steps)
+    totals = []
+    for i in range(steps):
+        with no_host_sync():
+            _, total, _ = eager._train_step(X[i * B:(i + 1) * B],
+                                            y_dev[i * B:(i + 1) * B], sw)
+        totals.append(total)
+    eager_losses = torch.stack(totals)
+    check(tensor_bits_equal(loop.losses, eager_losses), "%s: graphed losses "
+          "%s, eager %s" % (label, loop.losses.tolist(),
+                            eager_losses.tolist()))
+    check_same_state(training_state(graphed), training_state(eager),
+                     "%s: graphed vs eager" % label)
+    log("graphed fit %s: %d steps of %d (1 eager warm-up, %d replays), "
+        "launches %s; losses, weights and every optimizer and table state "
+        "bit-equal to the same steps run eagerly; no host sync in any step "
+        "or replay; losses %s" % (label, steps, B, replays, counts,
+                                  loop.losses.tolist()))
+    return counts
+
+
+def eager_predict(model, X, B):
+    """The eager forward of every batch, the last padded with zero rows,
+    as predict batches it."""
+    outs = []
+    with torch.no_grad():
+        for start in range(0, X.shape[0], B):
+            xb = X[start:start + B]
+            n = xb.shape[0]
+            if n < B:
+                xb = torch.cat([xb, xb.new_zeros(B - n, xb.shape[1])])
+            outs.append(model(xb, training=False).float()[:n])
+    return torch.cat(outs).cpu().numpy().astype("float64")
+
+
+def graph_vs_eager_predict(model, X, B, label, per_batch):
+    """predict(X) (every batch a replay under no_host_sync, the first the
+    capture's warm-up where the model has no graph yet) against the eager
+    forward: bit for bit; each kernel of ``per_batch`` launched that many
+    times a batch."""
+    n_batches = -(-X.shape[0] // B)
+    fresh = not any(k[0] == "predict" for k in model._graphs)
+    reset_counts()
+    graphs.GRAPH_REPLAYS = 0
+    with strict_loops():
+        got = model.predict(X, B)
+    counts = read_counts()
+    check(graphs.GRAPH_REPLAYS == n_batches - fresh, "%s predict: %d "
+          "replays for %d batches" % (label, graphs.GRAPH_REPLAYS,
+                                      n_batches))
+    for name, n in per_batch.items():
+        check(counts[name] == n * n_batches, "%s predict: %s launched %d "
+              "times in %d batches" % (label, name, counts[name], n_batches))
+    want = eager_predict(model, X, B)
+    check(got.shape == want.shape and np.array_equal(got, want),
+          "%s: graphed predict differs from the eager forward (max |d| %r)"
+          % (label, float(np.abs(got - want).max())))
+    check_predictions(got, X.shape[0])
+    return counts
+
+
+def loop_models(device):
+    """The four models the loops run, each with its inputs, labels, batch,
+    graph-vs-eager twin maker and launches: ``{label: dict}``."""
+    def deepfm():
+        cols = criteo_columns()
+        return DeepFM(cols, cols, dnn_hidden_units=HIDDEN, init_std=INIT_STD,
+                      seed=SEED, device=device)
+
+    def dien():
+        return seq_model("dien", "AUGRU", device)
+
+    def din():
+        return seq_model("din", "sigmoid", device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 500)
+    X_criteo = criteo_requests(BATCH * LOOP_STEPS, gen, device)
+    probe = dien()
+    X_seq = seq_requests(probe, SEQ_BATCH * LOOP_STEPS, SEED + 501, device)
+    del probe
+    probe = din()
+    X_din = seq_requests(probe, SEQ_BATCH * 2, SEED + 502, device)
+    del probe
+    return {
+        "DeepFM Criteo": dict(
+            make=deepfm, X=X_criteo, B=BATCH, sparse="auto",
+            y=criteo_labels(BATCH * LOOP_STEPS, SEED + 503),
+            predict={"gather_rows": 1},
+            fit={"gather_rows": 1, "scatter_add_rows": 1, "row_update": 1}),
+        "DIEN AUGRU+neg, sparse tables": dict(
+            make=dien, X=X_seq, B=SEQ_BATCH, sparse=True,
+            y=seq_labels(SEQ_BATCH * LOOP_STEPS, SEED + 504),
+            predict={"gather_rows": 1, "gru_scan": 2},
+            fit={"gather_rows": 1, "scatter_add_rows": 1, "gru_scan": 2,
+                 "gru_scan_bwd": 2, "row_update": 1}),
+        "DIN sigmoid": dict(
+            make=din, X=X_din, B=SEQ_BATCH, sparse="auto",
+            y=seq_labels(SEQ_BATCH * 2, SEED + 505),
+            predict={"gather_rows": 1, "din_attention": 1},
+            fit={"gather_rows": 1, "scatter_add_rows": 1}),
+        "xDeepFM": dict(
+            make=lambda: xdeepfm_model(device),
+            X=xdeepfm_requests(BATCH * 2, SEED + 506, device), B=BATCH,
+            sparse="auto", y=criteo_labels(BATCH * 2, SEED + 507),
+            predict={"gather_rows": 1, "cin_mix": 2},
+            fit={"gather_rows": 1, "scatter_add_rows": 1, "cin_mix": 2}),
+    }
+
+
+def phase_loops_f32(device):
+    """phase 20: for each model, predict graphed vs eager, fit in the
+    device-resident loop graphed vs eager steps on a twin (DeepFM and DIEN
+    at LOOP_STEPS steps), predict again (the in-place updates must reach
+    the replayed forward); for DIEN, the loop re-captured after
+    set_weights and after compile gives the first fit's bits."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pt.set_compute_dtype("float32")
+    for label, m in loop_models(device).items():
+        X, y, B = m["X"], m["y"], m["B"]
+        graphed, eager = m["make"](), m["make"]()
+        for model in (graphed, eager):
+            model.compile("adagrad", "binary_crossentropy",
+                          sparse_table_updates=m["sparse"])
+        check_same_state(training_state(graphed), training_state(eager),
+                         "%s: the twins from one seed" % label)
+        start = graphed.get_weights() if label.startswith("DIEN") else None
+        graph_vs_eager_predict(graphed, X, B, label + " before fit",
+                               m["predict"])
+        graph_vs_eager_fit(graphed, eager, X, y, B, label, m["fit"])
+        graph_vs_eager_predict(graphed, X, B, label + " after fit",
+                               m["predict"])
+        log("graphed predict %s before and after the fit bit-equal to the "
+            "eager forward; %d batches of %d" % (label, -(-X.shape[0] // B),
+                                                 B))
+        if start is not None:
+            first = {k: v.clone() for k, v in training_state(graphed).items()}
+            for change in ("set_weights", "compile"):
+                graphed.set_weights(start)
+                if change == "compile":
+                    graphed.compile("adagrad", "binary_crossentropy",
+                                    sparse_table_updates=m["sparse"])
+                check(not graphed._graphs, "%s: graphs kept after %s"
+                      % (label, change))
+                graph_vs_eager_predict(graphed, X, B, "%s after %s"
+                                       % (label, change), m["predict"])
+                loop_fit(graphed, X, y, B)
+                check_same_state(training_state(graphed), first,
+                                 "%s: re-captured after %s" % (label, change))
+            log("graphed fit %s re-captured after set_weights and after "
+                "compile: bit-equal to the first fit" % label)
+        del graphed, eager
+        torch.cuda.empty_cache()
+
+
+def run_ms(fn, runs=LOOP_RUNS):
+    """Per-run ms of ``fn`` by CUDA events, after one warm-up run."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def rate_line(n, times):
+    """examples/s: the median, and the spread over the runs."""
+    rates = sorted(n / t * 1e3 for t in times)
+    return "%r examples/s (median of %d; %r-%r)" % (
+        statistics.median(rates), len(rates), rates[0], rates[-1])
+
+
+def profile_launches(fn):
+    """(device busy ms or None, kernels launched) of ``fn`` by
+    torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+    rows = [(ev.self_device_time_total, ev.count)
+            for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
+    busy = sum(us for us, _ in rows) / 1e3
+    return (busy if busy > 0 else None), sum(c for _, c in rows)
+
+
+def loop_timing(label, model, X, y, B):
+    """The device-resident loop against the host-array loop on the same
+    data, alternating, bf16: examples/s, device busy and idle share,
+    kernels a step (the profiler's count; the port's own by their
+    counters), graph replays a step, host ms a step."""
+    steps = X.shape[0] // B
+    n = X.shape[0]
+    x_host = X.cpu().numpy()
+
+    def device_fit():
+        model.fit(X, y, batch_size=B, epochs=1, verbose=0)
+
+    def host_fit():
+        model.fit(x_host, y, batch_size=B, epochs=1, verbose=0)
+    device_fit()
+    host_fit()
+    times = {"device": [], "host": []}
+    for _ in range(LOOP_RUNS):
+        for name, fn in (("device", device_fit), ("host", host_fit)):
+            times[name] += run_ms(fn, runs=1)
+    reset_counts()
+    graphs.GRAPH_REPLAYS = 0
+    device_fit()
+    counts = read_counts()
+    replays = graphs.GRAPH_REPLAYS
+    loop = [g for k, g in model._graphs.items() if k[0] == "fit"][0]
+    gen = torch.Generator(device=X.device).manual_seed(SEED)
+    host_ms = []
+    for _ in range(LOOP_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop.run_epoch(gen)
+        host_ms.append((time.perf_counter() - t0) * 1e3 / steps)
+        torch.cuda.synchronize()
+    out = {}
+    for name, fn in (("device", device_fit), ("host", host_fit)):
+        busy, kernels = profile_launches(fn)
+        wall = statistics.median(times[name])
+        out[name] = dict(busy=busy, kernels=kernels, wall=wall)
+        log("fit bf16 %s, %s loop, %d steps of %d: %s; device busy %s; %r "
+            "device operations a step (profiler: kernels and copies)" % (
+                label, "device-resident" if name == "device" else
+                "host-array", steps, B, rate_line(n, times[name]),
+                busy_line(busy, wall), kernels / steps))
+    host_step = statistics.median(
+        t / steps for t in times["host"])
+    log("fit bf16 %s: device loop %r graph replays a step, port kernels a "
+        "step %s, host ms a step (enqueueing an epoch) %r (runs %s); "
+        "host-array loop %r ms a step of wall time; device busy a step "
+        "%r ms (device loop) vs %r ms (host-array loop, eager steps)"
+        % (label, replays / steps,
+           {k: v / steps for k, v in counts.items() if v},
+           statistics.median(host_ms), host_ms, host_step,
+           (out["device"]["busy"] or float("nan")) / steps,
+           (out["host"]["busy"] or float("nan")) / steps))
+    return out
+
+
+def predict_timing(label, model, X, B):
+    """Graphed predict against the eager forward on the same batches,
+    bf16: examples/s and device busy."""
+    n = X.shape[0]
+    fns = {"graphed": lambda: model.predict(X, B),
+           "eager": lambda: eager_predict(model, X, B)}
+    times = {k: [] for k in fns}
+    for k, fn in fns.items():
+        fn()
+    for _ in range(LOOP_RUNS):
+        for k, fn in fns.items():
+            times[k] += run_ms(fn, runs=1)
+    parts = []
+    for k, fn in fns.items():
+        busy, kernels = profile_launches(fn)
+        wall = statistics.median(times[k])
+        parts.append("%s %s, device busy %s, %r device operations a "
+                     "batch" % (
+            k, rate_line(n, times[k]), busy_line(busy, wall),
+            kernels / -(-n // B)))
+    log("predict bf16 %s, %d batches of %d: %s" % (
+        label, -(-n // B), B, "; ".join(parts)))
+
+
+def phase_loops_timing_bf16(device):
+    """phase 21: each loop at bf16 beside the host-array loop and the
+    eager forward in the same call."""
+    log("timing on: %s" % card_line())
+    pt.set_compute_dtype("bfloat16")
+    for label, m in loop_models(device).items():
+        model = m["make"]()
+        model.compile("adagrad", "binary_crossentropy",
+                      sparse_table_updates=m["sparse"])
+        X, B = m["X"], m["B"]
+        if label.startswith("DeepFM") or label.startswith("DIEN"):
+            predict_timing(label, model, X, B)
+        loop_timing(label, model, X, m["y"], B)
+        del model
+        torch.cuda.empty_cache()
+
 
 def main():
     if not torch.cuda.is_available():
@@ -2962,6 +3407,10 @@ def main():
     cin_timing = phase_xdeepfm_timing_bf16(device)
     torch.cuda.empty_cache()
     scatter = phase_static_scatter(device)
+    torch.cuda.empty_cache()
+
+    phase_loops_f32(device)
+    phase_loops_timing_bf16(device)
 
     log(card_line())
     measured = {"gather_rows": dict(max_abs_err=err, **timing),

@@ -1,19 +1,23 @@
 // Fused optimizer step on the touched rows of every sparse table, for
 // Hopper (sm_90a):
 //
-//   for j < n_valid_t:   r = rows_t[j]
+//   for j < capacity_t:  r = rows_t[j], skipped unless 0 <= r < vocab_t
 //     g' = g_t[j] + 2 * l2_t * w_t[r]                (lazy L2, per column)
 //     sgd:      w_t[r] -= lr * g'
 //     adagrad:  a = acc_t[r] + g'^2;             w_t[r] -= lr * g' / (sqrt(a) + eps)
 //     rmsprop:  v = d1 * acc_t[r] + c1 * g'^2;   w_t[r] -= lr * g' / (sqrt(v) + eps)
 //     adam:     m = d1 * m_t[r] + c1 * g';  v = d2 * v_t[r] + c2 * g'^2;
-//               w_t[r] -= lr * (m / bc1_t) / (sqrt(v / bc2_t) + eps)
+//               w_t[r] -= lr * (m / bc1) / (sqrt(v / bc2) + eps)
 //
 // The table and its state rows are updated IN PLACE (the JAX package
 // returns new buffers through input_output_aliases; here the tensors are
-// simply overwritten).  Rows past n_valid_t are never read or written, and
-// a row that no batch touched keeps its bits.  The row ids of a table are
-// distinct (the caller's dedup), so no two threads touch one element.
+// simply overwritten).  A table's row list has a fixed capacity: the
+// caller pads it past the table (row ids at or past vocab_t), as the JAX
+// package pads its dedup with out-of-bounds rows, and such a slot is never
+// read or written.  So the launch depends on no count the host would have
+// to read back from the device.  A row that no batch touched keeps its
+// bits.  The row ids of a table are distinct (the caller's dedup), so no
+// two threads touch one element.
 //
 // What it replaces: the TPU's fused read-modify-write row update
 // (deepctr_tpu/ops/pallas_update.py:146 fused_row_update, kernel :45, call
@@ -29,7 +33,9 @@
 // Numerics: each operation rounds once, in the order the JAX package
 // writes it (IEEE sqrt and division, no contraction into FMAs: the __*_rn
 // intrinsics), so the kernel equals its plain PyTorch version bit for bit.
-// Adam's bias corrections 1 - beta^t come per table from the host.
+// Adam's bias corrections (1 - b1^t, 1 - b2^t) are read from device
+// memory through a pointer in the table's arguments, so that a launch
+// captured in a CUDA graph takes each replay's step.
 //
 // What bounds it: device-memory bytes.  Per touched element it reads w, g
 // and the state and writes w and the state: 5 floats for adagrad and
@@ -45,8 +51,9 @@
 // chain of four dependent loads before the first table byte, with two or
 // three loads in flight a thread, behind two uploads.  Here:
 //
-// 1. Arguments by value.  Every table's pointers, n_valid, W and adam's
-//    bias pair, and the first run of each table, come in one
+// 1. Arguments by value.  Every table's pointers (adam's bias pair's
+//    among them), vocabulary, capacity and W, and the first run of each
+//    table, come in one
 //    __grid_constant__ struct in the launch's parameter space (constant
 //    bank 0): the host allocates and copies nothing.  A warp finds its
 //    run's table by counting the first runs at or before it, 31 compares
@@ -112,9 +119,10 @@ struct Table {
   const float* g;
   const long long* rows;
   const float* l2;
-  int n_valid;  // > 0
+  const float* bias;  // adam's (1 - b1^t, 1 - b2^t); null otherwise
+  long long vocab;    // the table's rows: a row id past them is padding
+  int capacity;       // row ids listed, > 0
   int width;
-  float bc1, bc2;  // adam's 1 - b1^t, 1 - b2^t
 };
 
 // one launch's arguments (mirrored by ops/row_update.py:_Args)
@@ -178,13 +186,15 @@ using Unit = typename std::conditional<VEC, float4, float>::type;
 
 // A lane's units k0 .. k0 + K - 1 of the run: all loads, then the updates
 // and all stores.  Unit i = lane + 32 k of the run is column i % units of
-// the run's row i / units, whose id `row` holds in lane i / units.  UNITS
-// is the row's units where the instance fixes it, else 0 and `units` says.
+// the run's row i / units, whose id `row` holds in lane i / units; bit r
+// of `live` says whether the run's row r lies in the table.  UNITS is the
+// row's units where the instance fixes it, else 0 and `units` says.
 template <int M, bool VEC, int UNITS, int K>
 __device__ __forceinline__ void update_units(const Table& tb,
                                              const Consts& k, int units,
                                              int k0, int j0, int n,
-                                             long long row, int lane) {
+                                             long long row, unsigned live,
+                                             int lane) {
   using T = Unit<VEC>;
   if (UNITS != 0) units = UNITS;  // a constant: i / units is a multiply
   const int n_units = n * units;
@@ -205,6 +215,10 @@ __device__ __forceinline__ void update_units(const Table& tb,
   const auto past = [&](int u) {
     return UNITS == 0 && 32 * (k0 + u) >= n_units;
   };
+  // a unit of a row that lies in the table (a padding row is skipped)
+  const auto in_table = [&](int i) {
+    return i < n_units && ((live >> (i / units)) & 1u);
+  };
 
   T gv[K], wv[K], av[K], bv[K];
   // the gradient first: contiguous over the run, it needs no row id
@@ -219,7 +233,7 @@ __device__ __forceinline__ void update_units(const Table& tb,
     if (past(u)) break;
     const int i = lane + 32 * (k0 + u);
     const long long at = offset(i);
-    if (i < n_units) {
+    if (in_table(i)) {
       wv[u] = w[at];
       if (M != kSgd) av[u] = s1[at];
       if (M == kAdam) bv[u] = s2[at];
@@ -231,7 +245,7 @@ __device__ __forceinline__ void update_units(const Table& tb,
     if (past(u)) break;
     const int i = lane + 32 * (k0 + u);
     const long long at = offset(i);
-    if (i < n_units) {
+    if (in_table(i)) {
       w[at] = update<M>(wv[u], gv[u], __ldg(l2 + i % units), av[u], bv[u],
                         k);
       if (M != kSgd) s1[at] = av[u];
@@ -243,15 +257,16 @@ __device__ __forceinline__ void update_units(const Table& tb,
 template <int M, bool VEC, int UNITS>
 __device__ __forceinline__ void update_run(const Table& tb, const Consts& k,
                                            int j0, int n, long long row,
-                                           int lane) {
+                                           unsigned live, int lane) {
   if constexpr (UNITS != 0) {
     update_units<M, VEC, UNITS, (kRunRows * UNITS + 31) / 32>(
-        tb, k, UNITS, 0, j0, n, row, lane);
+        tb, k, UNITS, 0, j0, n, row, live, lane);
   } else {
     constexpr int K = VEC ? kBatch / 4 : kBatch;
     const int units = VEC ? tb.width >> 2 : tb.width;
     for (int k0 = 0; 32 * k0 < n * units; k0 += K) {
-      update_units<M, VEC, 0, K>(tb, k, units, k0, j0, n, row, lane);
+      update_units<M, VEC, 0, K>(tb, k, units, k0, j0, n, row, live,
+                                 lane);
     }
   }
 }
@@ -272,10 +287,20 @@ row_update_kernel(const __grid_constant__ Args a) {
     for (int i = 1; i < kMaxTables; ++i) t += a.first_run[i] <= run;
     const Table& tb = a.table[t];
     const int j0 = (run - a.first_run[t]) * kRunRows;
-    const int n = min(kRunRows, tb.n_valid - j0);
+    const int n = min(kRunRows, tb.capacity - j0);
     const long long row = lane < n ? __ldg(tb.rows + j0 + lane) : 0;
-    const Consts k{a.lr, a.eps, a.d1, a.c1, a.d2, a.c2, tb.bc1, tb.bc2};
-    update_run<M, R == kVec, R == kW17 ? 17 : 0>(tb, k, j0, n, row, lane);
+    // the run's rows that lie in the table: padding rows are dropped
+    const unsigned live = __ballot_sync(
+        kFull, lane < n && static_cast<unsigned long long>(row) <
+                               static_cast<unsigned long long>(tb.vocab));
+    if (live == 0) continue;  // warp-uniform: a run of padding only
+    Consts k{a.lr, a.eps, a.d1, a.c1, a.d2, a.c2, 1.0f, 1.0f};
+    if (M == kAdam) {
+      k.bc1 = __ldg(tb.bias);
+      k.bc2 = __ldg(tb.bias + 1);
+    }
+    update_run<M, R == kVec, R == kW17 ? 17 : 0>(tb, k, j0, n, row, live,
+                                                 lane);
   }
 }
 

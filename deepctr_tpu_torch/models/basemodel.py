@@ -5,16 +5,19 @@ Counterpart of ``deepctr_tpu/models/basemodel.py``: ``__init__``
 (:144-210), regularization rules (:186-194, :215-287), ``compile``
 (:311-367), the sparse-table gate (:374-479), lane masks and lazy L2
 (:650-722), the active-rows train step (:724-1277) and the train step
-(:1331-1378), ``_assemble_x`` (:1413-1444), ``fit`` on host arrays
-(:1846-1991), ``evaluate`` (:1993-2018), ``predict`` (:2020-2053) and
-``get_weights``/``set_weights`` (:2125-2134).  The model is the
-``nn.Module`` itself; its ``state_dict`` is its weights.
+(:1331-1378), ``_assemble_x`` (:1413-1444), ``assemble_device_input``
+(:1446-1451), ``fit`` on host arrays (:1846-1991) and on a device tensor
+(``_fit_device``, :1509-1656), ``evaluate`` (:1993-2018), ``predict``
+(:2020-2053) and ``get_weights``/``set_weights`` (:2125-2134).  The model
+is the ``nn.Module`` itself; its ``state_dict`` is its weights.
 
-A train step, per batch:
+A train step, per batch, on the device alone (it uploads nothing and reads
+nothing back, so that a CUDA graph can replay it: ``graphs.py``):
 
-1. the touched rows of every sparse table: the unique ids of the batch's
-   id columns for that table plus a synthetic id 0, from one library
-   sort (``torch.unique``) over all sparse tables;
+1. the touched rows of every sparse table: the distinct ids of the
+   batch's id columns for that table plus a synthetic id 0, from one sort
+   over all sparse tables (``_TouchedRows``), at a fixed capacity a table
+   and padded past it;
 2. the forward, whose gathers run without a graph back to the tables
    (``EmbeddingDict._capture``): the gathered rows are leaves;
 3. loss + the eager L1/L2 of the dense parameters + the model's auxiliary
@@ -25,7 +28,16 @@ A train step, per batch:
    is ``maxlen`` fields of its table);
 5. the dense optimizer on the dense parameters, and one ``row_update``
    launch on the touched rows of every sparse table (lazy L2 and the
-   optimizer's row step, in place).
+   optimizer's row step, in place; adam's bias corrections for the step
+   read on the device from a table uploaded once for the steps ahead,
+   ``_begin_steps``).
+
+``fit`` on host arrays runs these steps eagerly, uploading each batch and
+reading its loss.  ``fit`` on a device tensor is the device-resident loop:
+the padded data, the permutation and every step stay on the device, each
+step a replay of one captured graph on the card (``graphs.StepGraph``),
+and the host reads one loss vector an epoch.  ``predict`` replays a
+captured forward a batch on the card (``graphs.ForwardGraph``).
 
 Unlike the JAX package, which stores tables of >= 131072 rows packed into
 128-lane rows and updates them by packed row, the port updates logical
@@ -35,6 +47,7 @@ rows; see ``ROADMAP.md`` section 3.
 import re
 import time
 import warnings
+from itertools import accumulate
 
 import numpy as np
 import torch
@@ -44,17 +57,19 @@ try:
 except ImportError:  # pragma: no cover
     tqdm = None
 
+from .. import config
 from ..callbacks import CallbackList, History
 from ..features import SparseFeat, VarLenSparseFeat
 from ..layers.utils import slice_arrays
 from ..losses import resolve_loss
 from ..ops import row_update as _row_update
-from ..ops._args import device_array
+from ..ops._args import DeviceArgs, device_array
 from ..ops.row_update import adam_bias_corrections, row_update
 from ..ops.scatter_add import scatter_add_rows
 from ..utils.jax_weights import jax_path
 from ..utils.metrics import resolve_metrics
 from .base_module import BaseModule, fused_wide_names
+from .graphs import ForwardGraph, StepGraph
 
 # torch-default learning rates, as deepctr_tpu/models/basemodel.py:52-53;
 # one source for the dense parameters and the sparse tables
@@ -86,10 +101,13 @@ class DenseOptimizer:
     - sgd: ``p += -lr * g``;
     - adagrad: ``a += g^2; p += -lr * g / (sqrt(a) + 1e-10)``;
     - rmsprop: ``v = 0.99 v + 0.01 g^2; p += -lr * g / (sqrt(v) + 1e-8)``;
-    - adam: ``m, v`` moments, bias corrections from a step count,
+    - adam: ``m, v`` moments, bias corrections ``bias`` (a float32 [2]
+      on the device, the step's ``(1 - b1^t, 1 - b2^t)``),
       ``p += -lr * m_hat / (sqrt(v_hat) + 1e-8)``.
 
     A parameter without a gradient steps with a zero one, as optax does.
+    ``count`` is the steps taken, and those made ready on the device
+    (``BaseModel._begin_steps``).
     """
 
     def __init__(self, name, lr, params):
@@ -102,14 +120,12 @@ class DenseOptimizer:
         self.count = 0
 
     @torch.no_grad()
-    def step(self):
-        self.count += 1
+    def step(self, bias=None):
         lr = self.lr
         if self.name == "adam" and self.params:
             # device tensors: CUDA divides by a host scalar as a multiply
             # by its reciprocal
-            bc1, bc2 = device_array(adam_bias_corrections(self.count),
-                                    torch.float32, self.params[0].device)
+            bc1, bc2 = bias[0], bias[1]
         for p, st in zip(self.params, self.state):
             g = p.grad if p.grad is not None else torch.zeros_like(p)
             if self.name == "sgd":
@@ -132,52 +148,111 @@ class DenseOptimizer:
             p.add_(u)
 
 
-class _TouchedRows:
-    """The rows a batch touches in each sparse table, from one sort.
+class _StepPlan:
+    """What a train step at batch size ``B`` needs beside its batch, built
+    once on the device and kept, so that a step uploads nothing and its
+    buffers stay where a captured graph found them.
 
-    ``rows[t]`` are table t's touched row ids (sorted, unique, row 0
-    always among them), ``grads[t]`` a zero ``[len(rows[t]), W_t]``
-    gradient for them, and ``slots[:, c]`` the position in its table's
-    ``rows`` of the id in the c-th sparse id column of X."""
+    For the sparse tables (``specs``): their id columns ``cols`` [C], each
+    column's table ``tcol`` [C] and first key ``col_base`` [C] (the tables'
+    rows laid end to end from ``bases`` [T + 1]), the table of each key of
+    a step's sort ``key_table`` [T + C*B], each table's capacity
+    ``cap_t = min(1 + B * C_t, V_t)`` (its synthetic row 0 and every id of
+    its C_t columns, or all its rows) and first slot ``slot_base`` [T] in
+    one flat row list, the padding of that list ``pad_rows``
+    (``V_t, V_t + 1, ...`` for each table, and a last slot that takes the
+    sort's repeats), and the touched rows' gradients ``grads`` [cap_t, W_t],
+    views of one buffer.  For the dense tables, their gradients
+    ``dense_grads``.  For each gather of the forward, the scatter's targets
+    and rows (``groups``, filled by the first step)."""
 
-    def __init__(self, X, specs, tables):
-        device = X.device
+    def __init__(self, model, B, device):
+        tables = model._tables()
+        specs = model._sparse_specs
+        self.index = {p: t for t, (p, _, _) in enumerate(specs)}
+        self.dense_grads = {
+            p: torch.zeros_like(w) for p, w in tables.items()
+            if p not in self.index}
+        self.groups = {}
+        self.caps = []
+        if not specs:
+            return
         cols, table_of_col = [], []
         for t, (_, spans, _) in enumerate(specs):
             for s, e in spans:
                 cols.extend(range(s, e))
                 table_of_col.extend([t] * (e - s))
         self.col_index = {c: i for i, c in enumerate(cols)}
-        starts = np.concatenate([[0], np.cumsum([n for _, _, n in specs])]
-                                ).tolist()       # tables laid end to end
-        bases = device_array(starts, torch.int64, device)
-        tcol = device_array(table_of_col, torch.int64, device)
-        ids = X[:, cols].to(torch.int32).to(torch.int64)          # [B, C]
-        keys = ids + bases[tcol]
-        # the synthetic id 0 of every table first, then the id columns
-        all_keys = torch.cat([bases[:-1], keys.t().reshape(-1)])
-        uniq, inv = torch.unique(all_keys, sorted=True, return_inverse=True)
-        lo_d = torch.searchsorted(uniq, bases)
-        bad = ((ids < 0) | (ids >= (bases[1:] - bases[:-1])[tcol])).any()
-        host = torch.cat([lo_d, bad.view(1).to(torch.int64)]).tolist()
-        if host[-1]:
-            raise ValueError("a sparse id lies outside its table's "
-                             "vocabulary")
-        lo = host[:-1]
-        n_tables = len(specs)
-        self.slots = (inv[n_tables:].view(len(cols), -1).t()
-                      - lo_d[:-1][tcol])                          # [B, C]
-        self.counts = [lo[t + 1] - lo[t] for t in range(n_tables)]
+        vocabs = [n for _, _, n in specs]
+        starts = list(accumulate(vocabs, initial=0))
+        self.caps = [min(1 + B * table_of_col.count(t), v)
+                     for t, v in enumerate(vocabs)]
+        offs = list(accumulate(self.caps, initial=0))
+        self.offs = offs[:-1]
         widths = [tables[p].shape[1] for p, _, _ in specs]
-        self.rows = [uniq[lo[t]:lo[t + 1]] - starts[t]
-                     for t in range(n_tables)]
-        flat = torch.zeros(sum(n * w for n, w in zip(self.counts, widths)),
-                           dtype=torch.float32, device=device)
+        i64 = torch.int64
+        self.cols = device_array(cols, i64, device)
+        self.tcol = device_array(table_of_col, i64, device)
+        self.bases = device_array(starts, i64, device)
+        self.col_base = device_array([starts[t] for t in table_of_col], i64,
+                                     device)
+        self.key_table = device_array(
+            list(range(len(specs))) + [t for t in table_of_col
+                                       for _ in range(B)], i64, device)
+        self.slot_base = device_array(self.offs, i64, device)
+        self.pad_rows = device_array(
+            [v + k for v, c in zip(vocabs, self.caps) for k in range(c)]
+            + [0], i64, device)
+        self.dump = offs[-1]
+        self.grad_flat = torch.zeros(
+            sum(c * w for c, w in zip(self.caps, widths)), device=device)
         self.grads, off = [], 0
-        for n, w in zip(self.counts, widths):
-            self.grads.append(flat[off:off + n * w].view(n, w))
-            off += n * w
-        self.index = {p: t for t, (p, _, _) in enumerate(specs)}
+        for c, w in zip(self.caps, widths):
+            self.grads.append(self.grad_flat[off:off + c * w].view(c, w))
+            off += c * w
+
+
+class _TouchedRows:
+    """The rows a batch touches in each sparse table, at the fixed sizes of
+    its :class:`_StepPlan`, from one sort of the ``T + B*C`` keys (the
+    JAX package sorts them with ``jax.lax.sort``, ``basemodel.py:812-901``):
+    first-of-run flags, a ``cumsum`` for the runs, and a compaction of each
+    run's row into its table's slot.  No count leaves the device.
+
+    ``rows[t]`` [cap_t] are table t's touched row ids, ascending (row 0
+    always among them), then padding past the table (``V_t + k``), which
+    ``row_update`` drops; ``grads[t]`` the plan's zeroed [cap_t, W_t]
+    gradient for them; ``slots[:, c]`` the position in its table's
+    ``rows`` of the id in the c-th sparse id column of X.  Every id must lie
+    in its table (``BaseModel._check_sparse_ids``)."""
+
+    def __init__(self, X, plan):
+        n_tables = len(plan.caps)
+        ids = X.index_select(1, plan.cols).to(torch.int32).to(torch.int64)
+        keys = ids + plan.col_base                                # [B, C]
+        # the synthetic id 0 of every table first, then the id columns
+        all_keys = torch.cat([plan.bases[:-1], keys.t().reshape(-1)])
+        sorted_keys, order = torch.sort(all_keys)
+        first = torch.ones_like(sorted_keys, dtype=torch.bool)
+        first[1:] = sorted_keys[1:] != sorted_keys[:-1]
+        run = torch.cumsum(first, 0) - 1
+        inv = torch.empty_like(run).scatter_(0, order, run)
+        lo = inv[:n_tables]               # the run of each table's row 0
+        table = plan.key_table.index_select(0, order)
+        slot = run - lo.index_select(0, table)
+        # each run's first key writes its row into its table's slot; the
+        # repeats write into the last slot, which no table owns
+        dst = torch.where(first, plan.slot_base.index_select(0, table) + slot,
+                          plan.dump)
+        flat = plan.pad_rows.clone()
+        flat.scatter_(0, dst, sorted_keys - plan.bases.index_select(0, table))
+        self.rows = [flat[o:o + c] for o, c in zip(plan.offs, plan.caps)]
+        self.slots = (inv[n_tables:].view(-1, X.shape[0]).t()
+                      - lo.index_select(0, plan.tcol))            # [B, C]
+        plan.grad_flat.zero_()
+        self.grads = plan.grads
+        self.index = plan.index
+        self.col_index = plan.col_index
 
 
 class BaseModel(BaseModule):
@@ -229,6 +304,10 @@ class BaseModel(BaseModule):
         self.add_regularization_rule(r"^embedding_dict/",
                                      l2=l2_reg_linear, part="wide")
         self.add_regularization_rule(r"^linear_model/", l2=l2_reg_linear)
+        # what captured graphs and train steps hold the addresses of:
+        # {key: StepGraph or ForwardGraph}, {batch size: _StepPlan}
+        self._graphs = {}
+        self._plans = {}
 
     # ------------------------------------------------------------------
     # regularization
@@ -246,6 +325,36 @@ class BaseModel(BaseModule):
     @property
     def _device(self):
         return next(self.parameters()).device
+
+    @staticmethod
+    def _graph_key(*parts):
+        """A captured graph's cache key: ``parts``, and the global settings
+        that a capture bakes in (the compute dtype, TF32 matmuls)."""
+        return parts + (config.compute_dtype(),
+                        torch.backends.cuda.matmul.allow_tf32)
+
+    def _drop_graphs(self):
+        """Drop every captured graph: they hold the addresses of tensors
+        that are being replaced."""
+        for g in getattr(self, "_graphs", {}).values():
+            g.release()
+        self._graphs = {}
+
+    def _invalidate_graphs(self):
+        """Drop every captured graph and step plan."""
+        self._drop_graphs()
+        self._plans = {}
+
+    def _apply(self, fn, *args, **kwargs):
+        # .to(), .cuda(), .float(): new parameter tensors
+        out = super()._apply(fn, *args, **kwargs)
+        self._invalidate_graphs()
+        return out
+
+    def load_state_dict(self, *args, **kwargs):
+        out = super().load_state_dict(*args, **kwargs)
+        self._invalidate_graphs()
+        return out
 
     def _named_params(self):
         """``[(JAX path, parameter)]`` sorted by path, as the JAX package
@@ -305,8 +414,8 @@ class BaseModel(BaseModule):
                             deep if part == "deep" else deep + wide)
                     if not mask.any():
                         continue
-                    mask = (None if mask.all()
-                            else torch.from_numpy(mask).to(w.device))
+                    mask = (None if mask.all() else
+                            device_array(mask, torch.float32, w.device))
                 elif part == "wide":
                     continue
                 else:
@@ -348,7 +457,7 @@ class BaseModel(BaseModule):
                 vec += l2 * deep
             else:
                 vec += l2 * (deep + wide)
-        return torch.from_numpy(vec).to(self._tables()[path].device)
+        return device_array(vec, torch.float32, self._tables()[path].device)
 
     # ------------------------------------------------------------------
     # compile
@@ -397,7 +506,40 @@ class BaseModel(BaseModule):
             p: tuple(torch.zeros_like(tables[p]) for _ in range(n_state))
             for p, _, _ in self._sparse_specs}
         self._table_t = {p: 0 for p, _, _ in self._sparse_specs}
+        # the step within the steps made ready by _begin_steps, on the
+        # device, and adam's bias corrections for those steps
+        self._step_i = torch.zeros(1, dtype=torch.int64, device=self._device)
+        self._bias_table = None
         self._step_rules = None
+        self._invalidate_graphs()
+
+    def _begin_steps(self, n):
+        """Ready the device for the next ``n`` train steps: the step
+        counter at 0 and, for adam, the ``(1 - b1^t, 1 - b2^t)`` of those
+        steps (``adam_bias_corrections``, the JAX package's float32
+        formula) uploaded at once, which the steps read on the device.
+        Each ``fit`` epoch calls it; so must a caller of ``_train_step``."""
+        t0 = self._dense_opt.count
+        self._dense_opt.count += n
+        for p in self._table_t:
+            self._table_t[p] += n
+        self._step_i.zero_()
+        if self._optimizer_name != "adam":
+            return
+        device = self._device
+        if self._bias_table is None or self._bias_table.shape[0] < n:
+            self._drop_graphs()         # they read the old table
+            self._bias_table = torch.empty(n, 2, device=device)
+        values = [c for t in range(t0 + 1, t0 + n + 1)
+                  for c in adam_bias_corrections(t)]
+        self._bias_table[:n].copy_(
+            device_array(values, torch.float32, device).view(n, 2))
+
+    def _step_plan(self, B):
+        plan = self._plans.get(B)
+        if plan is None:
+            plan = self._plans[B] = _StepPlan(self, B, self._device)
+        return plan
 
     def _ensure_compiled(self):
         """The eager regularization term and the sparse tables' lazy L2,
@@ -511,10 +653,17 @@ class BaseModel(BaseModule):
 
     def _train_step(self, X, y, sw):
         """One step on a device batch: X [B, input_dim] float32, y [B, 1],
-        sw [B].  Returns (data loss, total loss, predictions), detached."""
+        sw [B].  Returns (data loss, total loss, predictions), detached.
+
+        It uploads nothing and reads nothing back (a CUDA graph replays
+        it): its index arrays and gradient buffers come from the batch
+        size's :class:`_StepPlan`, adam's bias corrections from the table
+        ``_begin_steps`` uploaded, at the device step counter, which the
+        step advances."""
+        reg, l2_vecs = self._ensure_compiled()
+        plan = self._step_plan(X.shape[0])
         tables = self._tables()
-        touched = (_TouchedRows(X, self._sparse_specs, tables)
-                   if self._sparse_specs else None)
+        touched = _TouchedRows(X, plan) if self._sparse_specs else None
         captures = {}
         for prefix, ed in self._embedding_dicts():
             ed._capture = captures.setdefault(prefix, [])
@@ -525,79 +674,120 @@ class BaseModel(BaseModule):
             for _, ed in self._embedding_dicts():
                 ed._capture = None
             aux, self.aux_loss = self.aux_loss, None
-        reg, _ = self._ensure_compiled()
         data_loss = self._compute_loss(y_pred.float(), y, sw)
         total = data_loss + self._reg_loss(reg)
         if aux is not None:
             total = total + aux
         for p in self._dense_opt.params:
             p.grad = None
+        # a dense table's gradient is the plan's buffer: the L2 term's
+        # gradient adds into it in place, then the rows' cotangents
+        for path, g in plan.dense_grads.items():
+            tables[path].grad = g.zero_()
         total.backward()
         with torch.no_grad():
-            self._scatter_row_grads(X, captures, tables, touched)
-            self._dense_opt.step()
+            self._scatter_row_grads(X, captures, touched, plan)
+            bias = None
+            if self._optimizer_name == "adam":
+                if self._bias_table is None:
+                    raise RuntimeError("adam's train step reads its bias "
+                                       "corrections from _begin_steps")
+                bias = self._bias_table.index_select(
+                    0, self._step_i).view(2)
+            self._dense_opt.step(bias)
             if touched is not None:
-                self._update_touched_rows(tables, touched)
+                self._update_touched_rows(tables, touched, l2_vecs, bias)
+            self._step_i.add_(1)
         return data_loss.detach(), total.detach(), y_pred.detach()
 
-    def _scatter_row_grads(self, X, captures, tables, touched):
-        """One ``scatter_add_rows`` launch for each gather of the forward:
-        a dense table's rows into its ``.grad``, a sparse table's into the
-        gradient of its touched rows, at their slots."""
-        def dense_grad(table):
-            if table.grad is None:
-                table.grad = torch.zeros_like(table)
-            return table.grad
+    def _touched_rows(self, X):
+        """The touched rows of the batch ``X``, as a train step builds
+        them."""
+        return _TouchedRows(X, self._step_plan(X.shape[0]))
 
+    def _scatter_row_grads(self, X, captures, touched, plan):
+        """One ``scatter_add_rows`` launch for each gather of the forward:
+        a dense table's rows into its gradient, a sparse table's into the
+        gradient of its touched rows, at their slots."""
         for prefix, groups in captures.items():
             for fcs, rows in groups:
                 if rows.grad is None:
                     continue
-                targets, idx = self._scatter_targets(X, prefix, fcs, tables,
-                                                     touched, dense_grad)
-                scatter_add_rows(rows.grad, targets, idx)
+                targets, idx, args = self._scatter_targets(X, prefix, fcs,
+                                                           touched, plan)
+                scatter_add_rows(rows.grad, targets, idx, args)
 
-    def _scatter_targets(self, X, prefix, fcs, tables, touched, dense_target):
-        """``scatter_add_rows``'s targets and ``[B, F]`` rows for the fields
-        of one gather of the columns ``fcs``, in the gather's field order
-        (a ``VarLenSparseFeat`` is ``maxlen`` fields, one an id column):
-        ``dense_target(table)`` indexed by id for a dense table, the
-        touched rows' gradient indexed by slot for a sparse one."""
-        targets, cols, fields, slot_cols = [], [], [], []
-        for fc in fcs:
-            path = prefix + fc.embedding_name
-            start, end = self.feature_index[fc.name]
-            if not isinstance(fc, VarLenSparseFeat):
-                end = start + 1
-            sparse = touched is not None and path in touched.index
-            target = (touched.grads[touched.index[path]] if sparse
-                      else dense_target(tables[path]))
-            for col in range(start, end):
-                if sparse:
-                    fields.append(len(cols))
-                    slot_cols.append(touched.col_index[col])
-                cols.append(col)
-                targets.append(target)
-        idx = X[:, cols].to(torch.int32).to(torch.int64)
-        if fields:
-            idx[:, fields] = touched.slots[:, slot_cols]
-        return targets, idx
+    def _scatter_targets(self, X, prefix, fcs, touched, plan):
+        """``scatter_add_rows``' targets, ``[B, F]`` rows and cached
+        argument array for the fields of one gather of the columns ``fcs``,
+        in the gather's field order (a ``VarLenSparseFeat`` is ``maxlen``
+        fields, one an id column): the plan's gradient of a dense table
+        indexed by id, the touched rows' gradient of a sparse one indexed
+        by slot."""
+        key = (prefix, tuple(fc.name for fc in fcs))
+        group = plan.groups.get(key)
+        if group is None:
+            targets, cols, slot_cols, sparse_fields = [], [], [], []
+            for fc in fcs:
+                path = prefix + fc.embedding_name
+                start, end = self.feature_index[fc.name]
+                if not isinstance(fc, VarLenSparseFeat):
+                    end = start + 1
+                sparse = touched is not None and path in touched.index
+                target = (touched.grads[touched.index[path]] if sparse
+                          else plan.dense_grads[path])
+                for col in range(start, end):
+                    cols.append(col)
+                    targets.append(target)
+                    slot_cols.append(touched.col_index[col] if sparse else 0)
+                    sparse_fields.append(sparse)
+            device = X.device
+            slots = None
+            if any(sparse_fields):
+                slots = (device_array(slot_cols, torch.int64, device),
+                         device_array(sparse_fields, torch.bool, device))
+            group = (targets, device_array(cols, torch.int64, device), slots,
+                     DeviceArgs())
+            plan.groups[key] = group
+        targets, cols, slots, args = group
+        idx = X.index_select(1, cols).to(torch.int32).to(torch.int64)
+        if slots is not None:
+            idx = torch.where(slots[1], touched.slots.index_select(1, slots[0]),
+                              idx)
+        return targets, idx, args
 
-    def _update_touched_rows(self, tables, touched):
+    def _update_touched_rows(self, tables, touched, l2_vecs, bias):
         """One ``row_update`` launch over every sparse table."""
         paths = [p for p, _, _ in self._sparse_specs]
-        _, l2_vecs = self._ensure_compiled()
-        bias = None
-        if self._optimizer_name == "adam":
-            bias = []
-            for p in paths:
-                self._table_t[p] += 1
-                bias.append(adam_bias_corrections(self._table_t[p]))
         row_update(self._optimizer_name, [tables[p] for p in paths],
                    [self._table_state[p] for p in paths], touched.grads,
-                   touched.rows, touched.counts,
-                   [l2_vecs[p] for p in paths], self._learning_rate,
-                   bias)
+                   touched.rows, [l2_vecs[p] for p in paths],
+                   self._learning_rate,
+                   None if bias is None else [bias] * len(paths))
+
+    def _check_sparse_ids(self, X):
+        """Raise ValueError if an id in a sparse table's columns of ``X``
+        (a numpy matrix, or a tensor: one reduction on its device and one
+        read) lies outside the table, truncated as a step reads it."""
+        cols, vocabs = [], []
+        for _, spans, n in self._sparse_specs:
+            for s, e in spans:
+                cols.extend(range(s, e))
+                vocabs.extend([n] * (e - s))
+        if not cols:
+            return
+        if isinstance(X, torch.Tensor):
+            ids = X.index_select(1, torch.tensor(cols, device=X.device))
+            ids = ids.to(torch.int32).to(torch.int64)
+            bad = bool(((ids < 0) | (ids >= torch.tensor(
+                vocabs, device=X.device))).any())
+        else:
+            with np.errstate(invalid="ignore"):
+                ids = X[:, cols].astype(np.int32).astype(np.int64)
+            bad = bool(((ids < 0) | (ids >= np.asarray(vocabs))).any())
+        if bad:
+            raise ValueError("a sparse id lies outside its table's "
+                             "vocabulary")
 
     # ------------------------------------------------------------------
     # data plumbing
@@ -656,17 +846,18 @@ class BaseModel(BaseModule):
             initial_epoch=0, validation_split=0., validation_data=None,
             shuffle=True, callbacks=None, profile=None,
             steps_per_epoch=None):
-        """Keras-style training loop over host arrays; returns the
-        ``History``.  Batches have a fixed size; the last is padded with
-        sample 0 at sample weight 0.  The shuffle is
+        """Keras-style training loop; returns the ``History``.
+
+        ``x`` a dict/list of host arrays: an eager loop that uploads each
+        batch and reads its loss.  Batches have a fixed size; the last is
+        padded with sample 0 at sample weight 0.  The shuffle is
         ``np.random.default_rng(seed).permutation``, as the JAX package's.
 
-        Not ported yet, and raising: a tensor or a callable ``x``
-        (device-resident and streaming fits), ``profile`` and
-        ``steps_per_epoch``."""
-        if isinstance(x, torch.Tensor):
-            raise NotImplementedError("fit on a device tensor is not ported "
-                                      "yet: pass host arrays")
+        ``x`` a flat [N, input_dim] tensor (``assemble_device_input``):
+        the device-resident loop, :meth:`_fit_device`.
+
+        Not ported yet, and raising: a callable ``x`` (streaming fit),
+        ``profile`` and ``steps_per_epoch``."""
         if callable(x):
             raise NotImplementedError("streaming fit (a callable x) is not "
                                       "ported yet")
@@ -676,6 +867,10 @@ class BaseModel(BaseModule):
             raise NotImplementedError("steps_per_epoch goes with streaming "
                                       "fit, which is not ported yet")
         self._ensure_compiled()
+        if isinstance(x, torch.Tensor):
+            return self._fit_device(x, y, batch_size, epochs, verbose,
+                                    initial_epoch, validation_split,
+                                    validation_data, shuffle, callbacks)
         if isinstance(x, dict):
             x = [x[feature] for feature in self.feature_index]
         if isinstance(x, np.ndarray):
@@ -717,6 +912,7 @@ class BaseModel(BaseModule):
                 % (X.shape[0], y.shape[0]))
         if batch_size is None:
             batch_size = 256
+        self._check_sparse_ids(X)
 
         device = self._device
         rng_shuffle = np.random.default_rng(self.seed)
@@ -742,6 +938,7 @@ class BaseModel(BaseModule):
 
             order = (rng_shuffle.permutation(sample_num) if shuffle
                      else np.arange(sample_num))
+            self._begin_steps(steps_per_epoch)
             iterator = range(steps_per_epoch)
             if verbose == 1 and tqdm is not None:
                 iterator = tqdm(iterator, disable=False)
@@ -801,10 +998,116 @@ class BaseModel(BaseModule):
         callbacks.on_train_end()
         return self.history
 
+    def assemble_device_input(self, x):
+        """dict/list of host arrays -> one flat [N, input_dim] float32
+        tensor on the model's device.  Feed it to :meth:`fit` and
+        :meth:`predict` for the device-resident loops: one upload, and no
+        host traffic a step."""
+        return torch.from_numpy(self._assemble_x(x)).to(self._device)
+
+    def _fit_device(self, X, y, batch_size, epochs, verbose, initial_epoch,
+                    validation_split, validation_data, shuffle, callbacks):
+        """The device-resident training loop (``deepctr_tpu/models/
+        basemodel.py:1509-1656``): ``X`` a flat [N, input_dim] tensor
+        (column order = ``feature_index``), moved once to the model's
+        device.  The data is padded to ``steps * B`` rows with zero rows at
+        sample weight 0, an epoch's permutation is drawn on the device
+        (``torch.randperm`` from a generator seeded with ``seed``), and
+        every step gathers its batch and trains on the device: on the card
+        a replay of one captured graph (``graphs.StepGraph``).  The host
+        reads one loss vector an epoch; the epoch loss is its sum over N.
+
+        As the JAX package's loop: train metrics (``verbose > 0``) are
+        computed once over the epoch's predictions, not averaged over
+        batches; epoch callbacks, History, EarlyStopping and validation
+        are kept."""
+        if batch_size is None:
+            batch_size = 256
+        device = self._device
+        if X.dim() != 2 or X.shape[1] != self.input_dim:
+            raise ValueError("tensor input must be [N, %d], got %r"
+                             % (self.input_dim, tuple(X.shape)))
+        X = X.to(device, torch.float32)
+        y = torch.as_tensor(y if isinstance(y, torch.Tensor)
+                            else np.asarray(y)).to(device, torch.float32)
+        if y.dim() == 1:
+            y = y[:, None]
+        if y.shape[0] != X.shape[0]:
+            raise ValueError(
+                "x and y have different sample counts: %d vs %d"
+                % (X.shape[0], y.shape[0]))
+
+        do_validation = False
+        val_x, val_y = [], []
+        if validation_data:
+            do_validation = True
+            val_x, val_y = validation_data[:2]
+        elif validation_split and 0. < validation_split < 1.:
+            do_validation = True
+            split_at = int(X.shape[0] * (1. - validation_split))
+            X, val_x = X[:split_at], X[split_at:]
+            y, val_y = y[:split_at], y[split_at:]
+
+        B = batch_size
+        sample_num = X.shape[0]
+        steps_per_epoch = (sample_num - 1) // B + 1
+        n_pad = steps_per_epoch * B
+        need_preds = bool(verbose > 0 and self.metrics)
+        self._check_sparse_ids(X)
+        key = self._graph_key("fit", B, steps_per_epoch, n_pad,
+                              bool(shuffle), need_preds)
+        loop = self._graphs.get(key)
+        if loop is None:
+            loop = self._graphs[key] = StepGraph(
+                self, B, steps_per_epoch, n_pad, y.shape[1], bool(shuffle),
+                need_preds)
+        loop.load(X, y)
+        generator = torch.Generator(device=device)
+        generator.manual_seed(self.seed)
+
+        callbacks = CallbackList((callbacks or []) + [self.history])
+        callbacks.set_model(self)
+        callbacks.on_train_begin()
+        self.stop_training = False
+
+        if verbose > 0:
+            print("Train on {0} samples, validate on {1} samples, {2} steps "
+                  "per epoch (device-resident loop)".format(
+                      sample_num, len(val_y), steps_per_epoch))
+
+        for epoch in range(initial_epoch, epochs):
+            callbacks.on_epoch_begin(epoch)
+            start_time = time.time()
+            losses = loop.run_epoch(generator)
+            epoch_logs = {"loss": float(losses.sum()) / sample_num}
+            if need_preds:
+                y_np = y[:sample_num].cpu().numpy()
+                p_np = loop.preds[:sample_num].cpu().numpy().astype(
+                    "float64")
+                if self.num_tasks == 1:
+                    y_np, p_np = y_np.reshape(-1), p_np.reshape(-1)
+                for name, metric_fun in self.metrics.items():
+                    epoch_logs[name] = metric_fun(y_np, p_np)
+            if do_validation:
+                for name, result in self.evaluate(val_x, val_y,
+                                                  batch_size).items():
+                    epoch_logs["val_" + name] = result
+            if verbose > 0:
+                print("Epoch {0}/{1} - {2}s - loss: {3:.4f}".format(
+                    epoch + 1, epochs, int(time.time() - start_time),
+                    epoch_logs["loss"]) +
+                    "".join(" - %s: %.4f" % (k, v)
+                            for k, v in epoch_logs.items() if k != "loss"))
+            callbacks.on_epoch_end(epoch, epoch_logs)
+            if self.stop_training:
+                break
+        callbacks.on_train_end()
+        return self.history
+
     def evaluate(self, x, y, batch_size=256):
         """``{metric: value}`` over the predictions of ``x``."""
         pred_ans = self.predict(x, batch_size)
-        y = np.asarray(y)
+        y = y.cpu().numpy() if isinstance(y, torch.Tensor) else np.asarray(y)
         return {name: metric_fun(y.reshape(-1), pred_ans.reshape(-1))
                 for name, metric_fun in self.metrics.items()}
 
@@ -812,8 +1115,12 @@ class BaseModel(BaseModule):
         """Batched inference -> float64 ndarray [N, out_dim].
 
         ``x`` is a dict/list of host arrays, or a flat [N, input_dim]
-        float32 tensor (which may already be on the model's device).
-        """
+        tensor on any device.  Every batch has ``batch_size`` rows, the
+        last padded with zero rows, as the JAX package's
+        (``basemodel.py:2020-2053``).  On the card each batch is copied
+        into a static buffer and replays one captured forward
+        (``graphs.ForwardGraph``); the predictions are read back once at
+        the end."""
         device = self._device
         if isinstance(x, torch.Tensor):
             X = x
@@ -822,11 +1129,25 @@ class BaseModel(BaseModule):
                                  % (self.input_dim, tuple(X.shape)))
         else:
             X = torch.from_numpy(self._assemble_x(x))
+        forward = None
+        if device.type == "cuda":
+            key = self._graph_key("predict", batch_size)
+            forward = self._graphs.get(key)
+            if forward is None:
+                forward = self._graphs[key] = ForwardGraph(self, batch_size)
         outs = []
         with torch.no_grad():
             for start in range(0, X.shape[0], batch_size):
-                xb = X[start:start + batch_size].to(device, torch.float32)
-                outs.append(self(xb, training=False).float())
+                xb = X[start:start + batch_size]
+                n = xb.shape[0]
+                if forward is not None:
+                    outs.append(forward.run(xb)[:n].clone())
+                    continue
+                xb = xb.to(device, torch.float32)
+                if n < batch_size:
+                    xb = torch.cat([xb, xb.new_zeros(batch_size - n,
+                                                     xb.shape[1])])
+                outs.append(self(xb, training=False).float()[:n])
         out = torch.cat(outs).cpu().numpy().astype("float64")
         if out.ndim == 1:
             out = out[:, None]

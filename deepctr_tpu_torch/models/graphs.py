@@ -1,0 +1,191 @@
+"""The device-resident loops' bodies, captured into CUDA graphs.
+
+The JAX package compiles a train step, and a whole epoch of them inside
+one ``lax.fori_loop``, into one XLA program (``deepctr_tpu/models/
+basemodel.py:1509-1656``); ``predict`` runs one compiled forward a batch.
+Here the counterpart of those programs is a captured CUDA graph:
+
+- :class:`StepGraph` is one step of the epoch loop: it reads the model's
+  device step counter, gathers its batch from the epoch's permutation of
+  static ``X``/``y``/``sw`` buffers, runs ``BaseModel._train_step`` (which
+  advances the counter) and stores the step's loss, and its predictions
+  where train metrics need them.  Replaying it ``steps`` times is the
+  JAX loop at one graph launch a step; the host reads one loss vector an
+  epoch.  On a CPU model the same body runs eagerly.
+- :class:`ForwardGraph` is ``model(x, training=False)`` on a static batch;
+  the first batch is the capture's warm-up, every later one a replay.
+
+A capture follows the whole-network pattern: the body runs once on a side
+stream (which builds every kernel and every cached argument array; for a
+step it is the epoch's first step, run for real), the dense gradients are
+set to None, and ``torch.cuda.graph`` records the body.  A capture that
+fails raises.  A replay runs no host code, so the wrappers' launch
+counters, which count at the Python call, do not move: each graph counts
+the launches its capture recorded and adds them once a replay.
+
+A graph holds the addresses of every tensor it read at capture: the model
+drops its graphs (``BaseModel._invalidate_graphs``) whenever it makes new
+ones (``compile``, ``set_weights``, ``load_state_dict``, ``.to()``, a new
+optimizer state or a larger table of adam's bias corrections).
+"""
+
+import torch
+
+from ..ops import attention, cin, gather, gru, row_update, scatter_add
+
+# every kernel wrapper's launch counter: (module, name)
+COUNTERS = ((gather, "GATHER_LAUNCHES"),
+            (scatter_add, "SCATTER_ADD_LAUNCHES"),
+            (row_update, "ROW_UPDATE_LAUNCHES"),
+            (gru, "GRU_SCAN_LAUNCHES"), (gru, "GRU_SCAN_BWD_LAUNCHES"),
+            (attention, "DIN_ATTENTION_LAUNCHES"),
+            (cin, "CIN_MIX_LAUNCHES"))
+
+# graph replays since import (or since a caller reset it to 0)
+GRAPH_REPLAYS = 0
+
+
+def _counts():
+    return [getattr(m, name) for m, name in COUNTERS]
+
+
+class _Captured:
+    """A CUDA graph of ``body`` on ``device`` and the kernel launches it
+    holds; ``warm`` is what the warm-up run of ``body`` returned, ``out``
+    what each replay overwrites."""
+
+    def __init__(self, body, device):
+        with torch.cuda.device(device):
+            current = torch.cuda.current_stream()
+            side = torch.cuda.Stream()
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                self.warm = body()
+            current.wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            before = _counts()
+            try:
+                with torch.cuda.graph(self.graph):
+                    self.out = body()
+            finally:
+                after = _counts()
+                for (m, name), n in zip(COUNTERS, before):
+                    setattr(m, name, n)
+        self.launches = [a - b for a, b in zip(after, before)]
+
+    def replay(self):
+        global GRAPH_REPLAYS
+        self.graph.replay()
+        GRAPH_REPLAYS += 1
+        for (m, name), n in zip(COUNTERS, self.launches):
+            if n:
+                setattr(m, name, getattr(m, name) + n)
+
+
+class StepGraph:
+    """The epoch loop of ``fit`` on a device tensor at one geometry:
+    batch ``B``, ``steps`` a epoch over ``n_pad = steps * B`` padded rows,
+    with or without a shuffle, with or without the epoch's predictions."""
+
+    def __init__(self, model, B, steps, n_pad, n_out, shuffle, need_preds):
+        device = model._device
+        self.model, self.B, self.steps = model, B, steps
+        self.shuffle = shuffle
+        self.X = torch.zeros(n_pad, model.input_dim, device=device)
+        self.y = torch.zeros(n_pad, n_out, device=device)
+        self.sw = torch.zeros(n_pad, device=device)
+        self.perm = torch.arange(n_pad, device=device)
+        self.losses = torch.zeros(steps, device=device)
+        self.preds = (torch.zeros(n_pad, n_out, device=device)
+                      if need_preds else None)
+        self.captured = None
+
+    def load(self, X, y):
+        """The training data, ``X`` [N, D] and ``y`` [N, n_out] on the
+        model's device, into the static buffers: padding rows are zeros
+        at sample weight 0."""
+        n = X.shape[0]
+        self.X[:n].copy_(X)
+        self.X[n:].zero_()
+        self.y[:n].copy_(y)
+        self.y[n:].zero_()
+        self.sw[:n].fill_(1.0)
+        self.sw[n:].zero_()
+
+    def step(self):
+        """One step of the loop, on the device alone: the batch of step
+        ``i`` (the model's step counter), one train step, its total loss
+        into ``losses[i]`` and its predictions at their samples."""
+        i = self.model._step_i.clone()
+        idx = self.perm.view(self.steps, self.B).index_select(0, i).view(-1)
+        _, total, y_pred = self.model._train_step(
+            self.X.index_select(0, idx), self.y.index_select(0, idx),
+            self.sw.index_select(0, idx))
+        self.losses.index_copy_(0, i, total.view(1))
+        if self.preds is not None:
+            self.preds.index_copy_(0, idx,
+                                   y_pred.reshape(self.B, -1).float())
+
+    def run_epoch(self, generator):
+        """One epoch: the permutation (drawn from ``generator`` with a
+        shuffle), the step counter at 0, ``steps`` steps (graph replays on
+        the card, after a capture whose warm-up is the first step).
+        Returns the per-step losses, still on the device."""
+        m = self.model
+        if self.shuffle:
+            self.perm.copy_(torch.randperm(self.perm.shape[0],
+                                           generator=generator,
+                                           device=self.perm.device))
+        m._begin_steps(self.steps)
+        first = 0
+        if self.X.device.type != "cuda":
+            for _ in range(self.steps):
+                self.step()
+            return self.losses
+        if self.captured is None:
+            self.captured = _Captured(self._capture_body, self.X.device)
+            first = 1
+        for _ in range(first, self.steps):
+            self.captured.replay()
+        return self.losses
+
+    def _capture_body(self):
+        """The step, with the dense gradients set to None before the
+        capture (the warm-up left them in memory outside the graph's)."""
+        if torch.cuda.is_current_stream_capturing():
+            for p in self.model.parameters():
+                p.grad = None
+        self.step()
+
+    def release(self):
+        self.captured = None
+
+
+class ForwardGraph:
+    """``model(x, training=False)`` on a static ``[B, input_dim]`` batch."""
+
+    def __init__(self, model, B):
+        self.model = model
+        self.x = torch.zeros(B, model.input_dim, device=model._device)
+        self.captured = None
+
+    def _forward(self):
+        with torch.no_grad():
+            return self.model(self.x, training=False).float()
+
+    def run(self, xb):
+        """The forward of the rows ``xb`` (at most B, any device), the
+        batch padded with zero rows: the capture's warm-up on the first
+        call, a replay after.  Returns the output, which the next call
+        overwrites."""
+        n = xb.shape[0]
+        self.x[:n].copy_(xb, non_blocking=True)
+        self.x[n:].zero_()
+        if self.captured is None:
+            self.captured = _Captured(self._forward, self.x.device)
+            return self.captured.warm
+        self.captured.replay()
+        return self.captured.out
+
+    def release(self):
+        self.captured = None

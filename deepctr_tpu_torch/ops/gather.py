@@ -22,6 +22,7 @@ import ctypes
 import torch
 
 from . import _build
+from ._args import DeviceArgs
 from .scatter_add import scatter_add_rows
 
 # kernel launches since import (or since a caller reset it to 0); counts
@@ -46,7 +47,7 @@ def gather_rows_ref(X, tables, cols):
     return torch.stack(rows, dim=1)
 
 
-class GatherArgs:
+class GatherArgs(DeviceArgs):
     """The kernel's per-field argument array for one group of tables:
     ``[table pointers | id columns | vocab sizes]`` as int64 on the device.
 
@@ -55,22 +56,17 @@ class GatherArgs:
     ``load_state_dict`` into new storage) or the fields change."""
 
     def __init__(self):
-        self._key = None
-        self._meta = None
+        super().__init__()
         # whether the kernel moves these tables' rows in 16-byte units
         self.vector = False
 
     def meta(self, tables, cols, device):
         ptrs = [t.data_ptr() for t in tables]
         vocabs = [t.shape[0] for t in tables]
-        key = (device, tuple(ptrs), tuple(vocabs), tuple(cols),
-               tables[0].shape[1])
-        if key != self._key:
-            host = torch.tensor(ptrs + list(cols) + vocabs, dtype=torch.int64)
-            self._meta = host.to(device)
-            self._key = key
-            self.vector = vector_rows(tables)
-        return self._meta
+        key = (tuple(ptrs), tuple(vocabs), tuple(cols), tables[0].shape[1])
+        self.vector = vector_rows(tables)
+        return self.get(key, lambda: ptrs + list(cols) + vocabs,
+                        torch.int64, device)
 
 
 def _check(X, tables, cols):

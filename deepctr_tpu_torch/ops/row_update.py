@@ -4,7 +4,8 @@ The port's counterpart of ``deepctr_tpu/ops/pallas_update.py``:
 ``fused_row_update`` (sgd, adagrad) and the ``scatter_rows`` family that
 writes back the adagrad and adam rows the JAX package computes in XLA,
 with the rmsprop step of ``deepctr_tpu/models/basemodel.py:1222-1258``.
-Per table ``t`` and touched row ``j < n_valid[t]``::
+Per table ``t`` and listed row ``r = rows[t][j]`` that lies in the table
+(``0 <= r < V_t``)::
 
     g' = g[j] + 2 * l2 * w[rows[j]]            lazy L2
     sgd      w -= lr * g'
@@ -14,12 +15,17 @@ Per table ``t`` and touched row ``j < n_valid[t]``::
              w -= lr * (m / bc1) / (sqrt(v / bc2) + 1e-8)
 
 Tables and state are updated in place; rows that are not touched keep
-their bits.  ``row_update`` launches the CUDA kernel in
+their bits.  A table's row list has a fixed capacity, its unused slots
+padded with row ids past the table, which are dropped (the JAX package's
+out-of-bounds dedup padding, ``basemodel.py:892-901``), and adam's
+``(1 - b1^t, 1 - b2^t)`` lie on the device: what a launch needs depends
+on no count the host would read back, so a train step captured in a CUDA
+graph replays it as it is.  ``row_update`` launches the CUDA kernel in
 ``csrc/row_update.cu`` for CUDA tensors (up to ``CAPACITY`` tables a
 launch, their arguments passed by value: ``launch_plan``,
 ``kernel_args``), or raises; it takes the plain version ``row_update_ref``
-only because its tensors lie on the CPU.  The two round the same operations in the same
-order, so they agree bit for bit.
+only because its tensors lie on the CPU.  The two round the same
+operations in the same order, so they agree bit for bit.
 """
 
 import ctypes
@@ -29,7 +35,6 @@ import numpy as np
 import torch
 
 from . import _build
-from ._args import device_array
 
 # kernel launches since import (or since a caller reset it to 0); counts
 # only launches of the CUDA kernel, never the plain version
@@ -46,7 +51,9 @@ MODES = {"sgd": (0, 0), "adagrad": (1, 1), "rmsprop": (2, 1), "adam": (3, 2)}
 
 def adam_bias_corrections(t):
     """``(1 - b1^t, 1 - b2^t)`` in float32, as the JAX package computes
-    them from a float32 step count (``basemodel.py:1242-1250``)."""
+    them from a float32 step count (``basemodel.py:1242-1250``).  The
+    training engine uploads them for an epoch's steps at once; a step
+    reads its pair on the device."""
     tf = np.float32(t)
     one = np.float32(1.0)
     return (float(one - np.float32(ADAM_B1) ** tf),
@@ -59,16 +66,17 @@ def _eps(optimizer):
 
 
 @torch.no_grad()
-def row_update_ref(optimizer, tables, states, grads, rows, n_valid, l2s, lr,
+def row_update_ref(optimizer, tables, states, grads, rows, l2s, lr,
                    bias=None):
-    """Plain PyTorch version, one table at a time: gather the touched rows,
-    the update math in the JAX package's order, ``index_copy_`` back.
-    Arguments as :func:`row_update`."""
+    """Plain PyTorch version, one table at a time: drop the padding rows,
+    gather the touched ones, the update math in the JAX package's order,
+    ``index_copy_`` back.  Arguments as :func:`row_update`."""
     eps = _eps(optimizer)
-    for t, (w, st, g, r, nv, l2) in enumerate(zip(tables, states, grads,
-                                                  rows, n_valid, l2s)):
-        r = r[:nv]
-        g = g[:nv]
+    for t, (w, st, g, r, l2) in enumerate(zip(tables, states, grads, rows,
+                                              l2s)):
+        keep = (r >= 0) & (r < w.shape[0])
+        r = r[keep]
+        g = g[keep]
         w_rows = w.index_select(0, r)
         gp = g + (2.0 * l2)[None, :] * w_rows
         if optimizer == "sgd":
@@ -91,7 +99,7 @@ def row_update_ref(optimizer, tables, states, grads, rows, n_valid, l2s, lr,
             v_state.index_copy_(0, r, v)
             # divide by device tensors: CUDA divides by a host scalar as a
             # multiply by its reciprocal, which rounds otherwise
-            bc = device_array(bias[t], torch.float32, w.device)
+            bc = bias[t]
             m_hat = m / bc[0]
             v_hat = v / bc[1]
             step = lr * m_hat / (torch.sqrt(v_hat) + eps)
@@ -101,19 +109,27 @@ def row_update_ref(optimizer, tables, states, grads, rows, n_valid, l2s, lr,
     return tables
 
 
-def _check(optimizer, tables, states, grads, rows, n_valid, l2s, bias):
+def _check(optimizer, tables, states, grads, rows, l2s, bias):
     if optimizer not in MODES:
         raise ValueError("row_update supports %s, got %r"
                          % (sorted(MODES), optimizer))
     n_state = MODES[optimizer][1]
-    lists = (tables, states, grads, rows, n_valid, l2s)
+    lists = (tables, states, grads, rows, l2s)
     if len({len(a) for a in lists}) != 1 or not tables:
         raise ValueError("row_update needs one table, state tuple, gradient, "
-                         "row list, n_valid and l2 vector per table")
-    if optimizer == "adam" and (bias is None or len(bias) != len(tables)):
-        raise ValueError("adam needs one (1-b1^t, 1-b2^t) pair per table")
+                         "row list and l2 vector per table")
+    if optimizer == "adam":
+        if bias is None or len(bias) != len(tables):
+            raise ValueError("adam needs one (1-b1^t, 1-b2^t) pair per "
+                             "table")
+        for b in bias:
+            if tuple(b.shape) != (2,) or b.dtype != torch.float32 or \
+                    not b.is_contiguous():
+                raise ValueError("adam's (1-b1^t, 1-b2^t) must be a "
+                                 "contiguous float32 [2] tensor, got %s %s"
+                                 % (b.dtype, tuple(b.shape)))
     devices = set()
-    for w, st, g, r, nv, l2 in zip(*lists):
+    for w, st, g, r, l2 in zip(*lists):
         width = w.shape[1] if w.dim() == 2 else -1
         if len(st) != n_state:
             raise ValueError("%s carries %d state tensors a table, got %d"
@@ -131,14 +147,15 @@ def _check(optimizer, tables, states, grads, rows, n_valid, l2s, bias):
         if r.dim() != 1 or r.dtype != torch.int64:
             raise ValueError("rows must be int64 [n], got %s %s"
                              % (r.dtype, tuple(r.shape)))
-        if not 0 <= nv <= min(r.shape[0], g.shape[0]):
-            raise ValueError("n_valid %d outside [0, %d]"
-                             % (nv, min(r.shape[0], g.shape[0])))
+        if r.shape[0] != g.shape[0]:
+            raise ValueError("%d row ids for %d gradient rows"
+                             % (r.shape[0], g.shape[0]))
         if tuple(l2.shape) != (width,) or l2.dtype != torch.float32:
             raise ValueError("l2 must be float32 [%d], got %s %s"
                              % (width, l2.dtype, tuple(l2.shape)))
         devices |= {w.device, g.device, r.device, l2.device}
         devices |= {s.device for s in st}
+    devices |= {b.device for b in bias or ()}
     if len(devices) != 1:
         raise ValueError("row_update's tensors must be on one device, got %s"
                          % sorted(map(str, devices)))
@@ -163,16 +180,16 @@ def route_of(width, aligned):
     return W17 if width == 17 else SCALAR
 
 
-def launch_plan(n_valid, routes, capacity=CAPACITY):
-    """The kernel's launches for tables of ``n_valid`` touched rows on
-    ``routes``: a list of ``(route, [(table, first_run, runs), ...])``,
-    one entry a launch.  The tables of a route go together, in order, the
-    routes in the order of their first tables, at most ``capacity`` tables
-    a launch.  A table's rows go in runs of RUN_ROWS (the last one
-    shorter), numbered from 0 in each launch; a table of no touched rows
-    is left out.  No tables to update, no launch."""
+def launch_plan(caps, routes, capacity=CAPACITY):
+    """The kernel's launches for tables of ``caps`` listed rows (touched or
+    padding) on ``routes``: a list of ``(route, [(table, first_run, runs),
+    ...])``, one entry a launch.  The tables of a route go together, in
+    order, the routes in the order of their first tables, at most
+    ``capacity`` tables a launch.  A table's rows go in runs of RUN_ROWS
+    (the last one shorter), numbered from 0 in each launch; a table of no
+    listed rows is left out.  No tables to update, no launch."""
     by_route = {}
-    for t, (n, route) in enumerate(zip(n_valid, routes)):
+    for t, (n, route) in enumerate(zip(caps, routes)):
         if n > 0:
             by_route.setdefault(route, []).append(t)
     plan = []
@@ -180,7 +197,7 @@ def launch_plan(n_valid, routes, capacity=CAPACITY):
         for c in range(0, len(ts), capacity):
             planned, first = [], 0
             for t in ts[c:c + capacity]:
-                runs = -(-n_valid[t] // RUN_ROWS)
+                runs = -(-caps[t] // RUN_ROWS)
                 planned.append((t, first, runs))
                 first += runs
             plan.append((route, planned))
@@ -190,7 +207,7 @@ def launch_plan(n_valid, routes, capacity=CAPACITY):
 def _pointers(w, st, g, r, l2):
     """A table's (w, s1, s2, g, rows, l2) pointers, 0 for a state it does
     not carry, and its route: 16-byte units need every array read in them
-    (all but the row ids) on a 16-byte boundary."""
+    (all but the row ids and adam's pair) on a 16-byte boundary."""
     s1 = st[0].data_ptr() if st else 0
     s2 = st[1].data_ptr() if len(st) > 1 else 0
     ptrs = (w.data_ptr(), s1, s2, g.data_ptr(), r.data_ptr(), l2.data_ptr())
@@ -205,9 +222,9 @@ def table_routes(tables, states, grads, rows, l2s):
 
 class _Table(ctypes.Structure):
     _fields_ = ([(name, ctypes.c_void_p)
-                 for name in ("w", "s1", "s2", "g", "rows", "l2")]
-                + [(name, ctypes.c_int) for name in ("n_valid", "width")]
-                + [("bc1", ctypes.c_float), ("bc2", ctypes.c_float)])
+                 for name in ("w", "s1", "s2", "g", "rows", "l2", "bias")]
+                + [("vocab", ctypes.c_longlong)]
+                + [(name, ctypes.c_int) for name in ("capacity", "width")])
 
 
 class _Args(ctypes.Structure):
@@ -221,7 +238,7 @@ class _Args(ctypes.Structure):
 
 # the same fields packed straight into an _Args (a ctypes struct is a
 # writable buffer): a table, the first runs, and n_tables .. c2
-_TABLE = struct.Struct("<6Q2i2f")
+_TABLE = struct.Struct("<7Qq2i")
 _FIRST = struct.Struct("<%di" % CAPACITY)
 _HEAD = struct.Struct("<4i6f")
 
@@ -255,8 +272,7 @@ def _kernel():
     return _KERNEL
 
 
-def kernel_args(optimizer, tables, states, grads, rows, n_valid, l2s, lr,
-                bias=None):
+def kernel_args(optimizer, tables, states, grads, rows, l2s, lr, bias=None):
     """The kernel's argument structs, one a launch of
     :func:`launch_plan`, in host memory: nothing is allocated on or copied
     to the device.  Arguments as :func:`row_update`, already checked."""
@@ -266,16 +282,17 @@ def kernel_args(optimizer, tables, states, grads, rows, n_valid, l2s, lr,
     else:
         consts = (RMS_DECAY, 1 - RMS_DECAY, 0.0, 0.0)
     out = []
+    caps = [r.shape[0] for r in rows]
     ptrs, routes = zip(*map(_pointers, tables, states, grads, rows, l2s))
-    for route, planned in launch_plan(n_valid, routes):
+    for route, planned in launch_plan(caps, routes):
         a = _Args()
         first = [_INT_MAX] * CAPACITY
         for i, (t, first_run, runs) in enumerate(planned):
             first[i] = first_run
-            bc1, bc2 = bias[t] if bias is not None else (1.0, 1.0)
+            b = bias[t].data_ptr() if bias is not None else 0
             _TABLE.pack_into(a, _Args.table.offset + i * _TABLE.size,
-                             *ptrs[t], n_valid[t], tables[t].shape[1], bc1,
-                             bc2)
+                             *ptrs[t], b, tables[t].shape[0], caps[t],
+                             tables[t].shape[1])
         _FIRST.pack_into(a, _Args.first_run.offset, *first)
         _HEAD.pack_into(a, _Args.n_tables.offset, len(planned),
                         first_run + runs, mode, route, lr, _eps(optimizer),
@@ -299,33 +316,33 @@ def launch(args, device):
             ROW_UPDATE_LAUNCHES += 1
 
 
-def row_update(optimizer, tables, states, grads, rows, n_valid, l2s, lr,
-               bias=None):
-    """One optimizer step on the first ``n_valid[t]`` rows of ``rows[t]``
-    of every table, in the launches of :func:`launch_plan` (one for up to
-    CAPACITY tables of one route).
+def row_update(optimizer, tables, states, grads, rows, l2s, lr, bias=None):
+    """One optimizer step on the rows ``rows[t]`` lists of every table, in
+    the launches of :func:`launch_plan` (one for up to CAPACITY tables of
+    one route).
 
     ``tables`` [V_t, W_t] float32 and ``states`` (a tuple per table: none
     for sgd, ``(acc,)`` for adagrad and rmsprop, ``(m, v)`` for adam, each
-    shaped like its table) are updated in place.  ``grads`` [n_t, W_t]
-    float32 are the summed gradients of the touched rows, ``rows`` [n_t]
-    int64 their unique row ids, ``l2s`` [W_t] float32 the lazy L2 per
-    column, ``bias`` a ``(1-b1^t, 1-b2^t)`` pair per table for adam.
+    shaped like its table) are updated in place.  ``rows`` [cap_t] int64
+    are distinct row ids, a slot past the table (``>= V_t``) padding that
+    is dropped; ``grads`` [cap_t, W_t] float32 the summed gradients of
+    those rows; ``l2s`` [W_t] float32 the lazy L2 per column; ``bias`` for
+    adam one float32 [2] tensor ``(1-b1^t, 1-b2^t)`` per table, on the
+    tables' device (one tensor may serve every table).
 
     On CUDA tensors this launches the kernel (building it at first use) or
     raises; on CPU tensors it runs ``row_update_ref``.  Returns
     ``tables``."""
-    n_valid = [int(n) for n in n_valid]
-    _check(optimizer, tables, states, grads, rows, n_valid, l2s, bias)
+    _check(optimizer, tables, states, grads, rows, l2s, bias)
     device = tables[0].device
     if device.type == "cpu":
-        return row_update_ref(optimizer, tables, states, grads, rows,
-                              n_valid, l2s, lr, bias)
+        return row_update_ref(optimizer, tables, states, grads, rows, l2s,
+                              lr, bias)
     if device.type != "cuda":
         raise ValueError("no row-update kernel for device %s" % device)
     arrays = list(tables) + [s for st in states for s in st] + list(grads)
     if any(not a.is_contiguous() for a in arrays + list(rows) + list(l2s)):
         raise ValueError("row_update needs contiguous tensors")
-    launch(kernel_args(optimizer, tables, states, grads, rows, n_valid, l2s,
-                       lr, bias), device)
+    launch(kernel_args(optimizer, tables, states, grads, rows, l2s, lr,
+                       bias), device)
     return tables

@@ -95,18 +95,27 @@ def _kernel():
     return fn
 
 
-def kernel_args(targets, device):
+def kernel_args(targets, device, cache=None):
     """The per-field argument array, ``[target pointers | target row
     counts | target bases]`` as int64 on ``device``.  A target's base is
-    where its rows start when the distinct targets are laid end to end."""
-    bases, base = {}, 0
-    for t in targets:
-        if t.data_ptr() not in bases:
-            bases[t.data_ptr()] = base
-            base += t.shape[0]
+    where its rows start when the distinct targets are laid end to end.
+    With ``cache`` (a :class:`~._args.DeviceArgs` the caller keeps) the
+    array is uploaded only when the targets' pointers or row counts
+    change."""
     ptrs = [t.data_ptr() for t in targets]
-    return device_array(ptrs + [t.shape[0] for t in targets]
-                        + [bases[p] for p in ptrs], torch.int64, device)
+    counts = [t.shape[0] for t in targets]
+
+    def values():
+        bases, base = {}, 0
+        for p, n in zip(ptrs, counts):
+            if p not in bases:
+                bases[p] = base
+                base += n
+        return ptrs + counts + [bases[p] for p in ptrs]
+    if cache is None:
+        return device_array(values(), torch.int64, device)
+    return cache.get((tuple(ptrs), tuple(counts)), values, torch.int64,
+                     device)
 
 
 def total_rows(targets):
@@ -216,14 +225,16 @@ def scatter_add_rows_chunked_ref(grad, targets, rows):
     return targets
 
 
-def scatter_add_rows(grad, targets, rows):
+def scatter_add_rows(grad, targets, rows, args=None):
     """``targets[f][rows[b, f]] += grad[b, f]`` for every ``(b, f)``, in
     one call: grad ``[B, F, W]`` float32, ``targets`` F tensors
     ``[R_f, W]`` float32 (one tensor may serve several fields), rows
     ``[B, F]`` int64.  Adds in place and returns ``targets``.
 
     On CUDA tensors this launches the kernels (building them at first
-    use) or raises."""
+    use) or raises.  ``args`` is a :class:`~._args.DeviceArgs` that the
+    caller keeps so that the per-field argument array is not copied to the
+    device on every call (a captured train step needs it so)."""
     _check(grad, targets, rows)
     if grad.device.type == "cpu":
         return scatter_add_rows_ref(grad, targets, rows)
@@ -235,7 +246,7 @@ def scatter_add_rows(grad, targets, rows):
         return targets
     grad = grad.contiguous()
     rows = rows.contiguous()
-    meta = kernel_args(targets, grad.device)
+    meta = kernel_args(targets, grad.device, args)
     total = total_rows(targets)
     launch(grad, rows, meta, total, workspace(rows.numel(), grad.shape[2],
                                               grad.device))

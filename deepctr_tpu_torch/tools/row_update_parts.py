@@ -9,8 +9,9 @@ with one part taken out, and times each build on two shapes: Criteo's
 Criteo tables of at least 16384 rows, W=17) and DIEN's sparse one (the
 rows a batch of 1024 touches in the user, item and cate tables of
 1000 / 10000 / 100 rows, W=32, histories of 100 and their negative
-samples included), for sgd, adagrad and adam, with a cold and a warm L2,
-in device ms, median of 20.  The parts:
+samples included), each table's rows at the train step's fixed capacity
+``min(1 + ids, V)``, padded past the table, for sgd, adagrad and adam,
+with a cold and a warm L2, in device ms, median of 20.  The parts:
 
 - ``arithmetic``: the optimizer's math (a unit stores w + l2 g; the state
   goes back unchanged);
@@ -79,7 +80,8 @@ GENERIC_ROUTES = {RU.W17: RU.SCALAR}
 
 def make_shape(tables_ids, width, gen):
     """Tables of the given rows (normal), the distinct rows the ids touch
-    (row 0 included), their gradients (normal) and l2 vectors, on the
+    (row 0 included) padded past the table to the train step's capacity
+    ``min(1 + ids, V)``, their gradients (normal) and l2 vectors, on the
     card."""
     tables, rows, grads, l2s = [], [], [], []
     for vocab, n_ids in tables_ids:
@@ -88,6 +90,9 @@ def make_shape(tables_ids, width, gen):
         ids = torch.randint(0, vocab, (n_ids,), generator=gen,
                             device="cuda")
         r = torch.unique(torch.cat([ids.new_zeros(1), ids]))
+        cap = min(1 + n_ids, vocab)
+        r = torch.cat([r, vocab + torch.arange(cap - r.numel(),
+                                               device="cuda")])
         rows.append(r)
         grads.append(torch.randn(r.numel(), width, generator=gen,
                                  device="cuda"))
@@ -122,18 +127,18 @@ def run(seed=0):
             fn.restype = ctypes.c_int
             RU.RUN_ROWS = run_rows
             for shape, (tables, rows, grads, l2s) in shapes.items():
-                counts = [r.numel() for r in rows]
                 for opt in OPTIMIZERS:
                     states = [tuple(torch.rand_like(t) for _ in range(
                         RU.MODES[opt][1])) for t in tables]
-                    bias = ([RU.adam_bias_corrections(3)] * len(tables)
+                    bias = ([torch.tensor(RU.adam_bias_corrections(3),
+                                          device="cuda")] * len(tables)
                             if opt == "adam" else None)
                     timed = [(build, {})]
                     if build == "as is":
                         timed.append(("generic routes", GENERIC_ROUTES))
                     for label, routes in timed:
                         args = RU.kernel_args(opt, tables, states, grads,
-                                              rows, counts, l2s, 0.01, bias)
+                                              rows, l2s, 0.01, bias)
                         for a in args:
                             a.route = routes.get(a.route, a.route)
 

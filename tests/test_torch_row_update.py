@@ -133,7 +133,7 @@ def test_the_kernel_source_declares_the_layout_the_host_mirrors():
     assert "const __grid_constant__ Args" in src
     table = re.search(r"struct Table \{(.*?)\};", src, re.S).group(1)
     table = re.sub(r"//[^\n]*", "", table)
-    fields = re.findall(r"(\w+);", table.replace("bc1, bc2", "bc1; bc2"))
+    fields = re.findall(r"(\w+);", table)
     assert fields == [name for name, _ in RU._Table._fields_]
     # what kernel_args packs covers the ctypes layout without a gap
     assert RU._TABLE.size == ctypes.sizeof(RU._Table)
@@ -165,17 +165,21 @@ def _tables(seed, widths, rows=(40, 90), offsets=None, touched=None):
 
 
 def test_kernel_args_pass_every_table_by_value():
-    """One host struct a launch: its route, each table's pointers,
-    n_valid, W and bias pair, first runs padded with INT_MAX, the
-    optimizer's constants; nothing on a device."""
+    """One host struct a launch: its route, each table's pointers (adam's
+    bias pair's among them), rows, capacity and W, first runs padded with
+    INT_MAX, the optimizer's constants; nothing on a device."""
     widths = [17] * (RU.CAPACITY + 6) + [32, 32, 1, 128]
     d = _tables(3, widths, offsets=[1 if t == len(widths) - 3 else 0
                                     for t in range(len(widths))])
-    n_valid = [0 if t % 9 == 4 else len(r) for t, r in enumerate(d["r"])]
+    # every ninth table from the fifth lists no row
+    for key in ("r", "g"):
+        d[key] = [a[:0] if t % 9 == 4 else a for t, a in enumerate(d[key])]
+    n_valid = [len(r) for r in d["r"]]
     states = [(torch.zeros_like(w), torch.zeros_like(w)) for w in d["w"]]
-    bias = [(0.5 + t / 100, 0.25 + t / 100) for t in range(len(widths))]
-    args = RU.kernel_args("adam", d["w"], states, d["g"], d["r"], n_valid,
-                          d["l2"], 0.01, bias)
+    bias = [torch.tensor([0.5 + t / 100, 0.25 + t / 100])
+            for t in range(len(widths))]
+    args = RU.kernel_args("adam", d["w"], states, d["g"], d["r"], d["l2"],
+                          0.01, bias)
     routes = RU.table_routes(d["w"], states, d["g"], d["r"], d["l2"])
     # the table one float past a 16-byte boundary takes floats
     assert routes[-4:] == [RU.VEC, RU.SCALAR, RU.SCALAR, RU.VEC]
@@ -193,19 +197,21 @@ def test_kernel_args_pass_every_table_by_value():
         for i, (t, _, _) in enumerate(launch):
             s = a.table[i]
             w = d["w"][t]
-            assert (s.w, s.s1, s.s2, s.g, s.rows, s.l2) == (
+            assert (s.w, s.s1, s.s2, s.g, s.rows, s.l2, s.bias) == (
                 w.data_ptr(), states[t][0].data_ptr(),
                 states[t][1].data_ptr(), d["g"][t].data_ptr(),
-                d["r"][t].data_ptr(), d["l2"][t].data_ptr())
-            assert (s.n_valid, s.width) == (n_valid[t], w.shape[1])
-            assert (s.bc1, s.bc2) == pytest.approx(bias[t])
+                d["r"][t].data_ptr(), d["l2"][t].data_ptr(),
+                bias[t].data_ptr())
+            assert (s.vocab, s.capacity, s.width) == (
+                w.shape[0], n_valid[t], w.shape[1])
 
 
 @pytest.mark.parametrize("opt", ["sgd", "adagrad", "rmsprop", "adam"])
 def test_row_update_past_the_capacity_matches_jax_table_by_table(opt):
     """More W=17 tables than a launch holds and a table of each other
     route (widths 1 to 128), some with no touched row and some with
-    n_valid below their rows: ``row_update`` in one call equals the JAX
+    padding past the table among their rows: ``row_update`` in one call
+    equals the JAX
     package's row math (deepctr_tpu/models/basemodel.py:1221-1258) on each
     table alone, to the rtol 1e-6 of tests/test_torch_train_ops.py (XLA's
     float32 pow for adam's bias correction may differ by an ulp), and
@@ -215,17 +221,22 @@ def test_row_update_past_the_capacity_matches_jax_table_by_table(opt):
     d = _tables(7, widths, rows=(64, 65), touched=40)
     n_valid = [0 if t % 7 == 2 else len(r) - (t % 3) * (len(r) // 4)
                for t, r in enumerate(d["r"])]
-    plan = RU.launch_plan(n_valid, [RU.route_of(W, True) for W in widths])
+    # the rows past n_valid become padding past the table; a table of no
+    # touched row lists none
+    rows = [torch.cat([r[:n], w.shape[0] + torch.arange(len(r) - n)])
+            if n else r[:0] for r, n, w in zip(d["r"], n_valid, d["w"])]
+    grads = [g if n else g[:0] for g, n in zip(d["g"], n_valid)]
+    plan = RU.launch_plan([len(r) for r in rows],
+                          [RU.route_of(W, True) for W in widths])
     assert [r for r, _ in plan].count(RU.W17) == 2
     rng = np.random.default_rng(8)
     states = [tuple(torch.from_numpy(rng.random(w.shape).astype(np.float32))
                     for _ in range(RU.MODES[opt][1])) for w in d["w"]]
-    bias = ([RU.adam_bias_corrections(t + 1) for t in range(len(widths))]
-            if opt == "adam" else None)
+    bias = ([torch.tensor(RU.adam_bias_corrections(t + 1))
+             for t in range(len(widths))] if opt == "adam" else None)
     got_w = [w.clone() for w in d["w"]]
     got_s = [tuple(s.clone() for s in st) for st in states]
-    RU.row_update(opt, got_w, got_s, d["g"], d["r"], n_valid, d["l2"], 0.01,
-                  bias)
+    RU.row_update(opt, got_w, got_s, grads, rows, d["l2"], 0.01, bias)
     for t in range(len(widths)):
         want_w, want_s = _jax_rows_math(
             opt, d["w"][t].numpy(), [s.numpy() for s in states[t]],

@@ -565,8 +565,7 @@ def test_unported_fit_options_raise():
     with pytest.raises(RuntimeError, match="compile"):
         pm.fit(x, y, verbose=0)
     pm.compile("sgd", "binary_crossentropy")
-    X = torch.from_numpy(pm._assemble_x(x))
-    for kw in ({"x": X}, {"x": lambda: iter(())}, {"x": x, "profile": "d"},
+    for kw in ({"x": lambda: iter(())}, {"x": x, "profile": "d"},
                {"x": x, "steps_per_epoch": 2}):
         kw.setdefault("y", y)
         with pytest.raises(NotImplementedError):

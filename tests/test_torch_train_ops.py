@@ -169,11 +169,15 @@ def _row_setup(R=1024, W=128, n=_ROWS_PER_STEP, n_valid=600, seed=0):
 
 
 def _port_update(opt, w, states, g, rows, n_valid, l2, lr, bias=None):
+    """``row_update`` on the first ``n_valid`` rows: the rest of ``rows``
+    lies past the table (``_row_setup``'s padding), which it drops."""
     tw = torch.from_numpy(w.copy())
     ts = tuple(torch.from_numpy(s.copy()) for s in states)
+    rows = rows.astype(np.int64).copy()
+    rows[n_valid:] = w.shape[0] + np.arange(len(rows) - n_valid)
     RU.row_update(opt, [tw], [ts], [torch.from_numpy(g)],
-                  [torch.from_numpy(rows.astype(np.int64))], [n_valid],
-                  [torch.from_numpy(l2)], lr, bias)
+                  [torch.from_numpy(rows)], [torch.from_numpy(l2)], lr,
+                  None if bias is None else [torch.tensor(b) for b in bias])
     return tw.numpy(), [s.numpy() for s in ts]
 
 
@@ -275,8 +279,11 @@ def test_row_update_covers_several_tables_of_several_widths():
     l2s = [np.full(s[1], 1e-3, np.float32) for s in shapes]
     tw = [torch.from_numpy(w.copy()) for w in ws]
     ta = [(torch.from_numpy(a.copy()),) for a in accs]
+    # the second table's last 6 rows are padding past it
+    padded = [r.copy() for r in rows]
+    padded[1][4:] = shapes[1][0] + np.arange(6)
     RU.row_update("adagrad", tw, ta, [torch.from_numpy(g) for g in gs],
-                  [torch.from_numpy(r) for r in rows], [10, 4, 10],
+                  [torch.from_numpy(r) for r in padded],
                   [torch.from_numpy(l) for l in l2s], 0.01)
     for i in range(3):
         nv = [10, 4, 10][i]
@@ -305,7 +312,7 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch(
     t = torch.zeros(3, 2)
     SA.scatter_add_rows(torch.ones(2, 1, 2), [t], torch.tensor([[0], [2]]))
     RU.row_update("sgd", [t], [()], [torch.ones(2, 2)],
-                  [torch.tensor([0, 2])], [2], [torch.zeros(2)], 0.1)
+                  [torch.tensor([0, 2])], [torch.zeros(2)], 0.1)
     assert (SA.SCATTER_ADD_LAUNCHES, RU.ROW_UPDATE_LAUNCHES) == before
     np.testing.assert_allclose(t.numpy(), [[0.9, 0.9], [0, 0], [0.9, 0.9]])
 
@@ -327,23 +334,23 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch(
     lambda: RU.row_update("lamb", [torch.zeros(3, 2)], [()],
                           [torch.zeros(1, 2)], [torch.zeros(1,
                                                             dtype=torch.int64)],
-                          [1], [torch.zeros(2)], 0.1),
+                          [torch.zeros(2)], 0.1),
     # adagrad without its accumulator
     lambda: RU.row_update("adagrad", [torch.zeros(3, 2)], [()],
                           [torch.zeros(1, 2)], [torch.zeros(1,
                                                             dtype=torch.int64)],
-                          [1], [torch.zeros(2)], 0.1),
-    # n_valid past the rows
+                          [torch.zeros(2)], 0.1),
+    # more row ids than gradient rows
     lambda: RU.row_update("sgd", [torch.zeros(3, 2)], [()],
-                          [torch.zeros(1, 2)], [torch.zeros(1,
+                          [torch.zeros(1, 2)], [torch.zeros(2,
                                                             dtype=torch.int64)],
-                          [2], [torch.zeros(2)], 0.1),
+                          [torch.zeros(2)], 0.1),
     # adam without bias corrections
     lambda: RU.row_update("adam", [torch.zeros(3, 2)],
                           [(torch.zeros(3, 2), torch.zeros(3, 2))],
                           [torch.zeros(1, 2)], [torch.zeros(1,
                                                             dtype=torch.int64)],
-                          [1], [torch.zeros(2)], 0.1),
+                          [torch.zeros(2)], 0.1),
 ])
 def test_train_kernels_reject_bad_arguments(call):
     with pytest.raises(ValueError):
