@@ -2,13 +2,15 @@
 
     python3 chip_smoke.py
 
-Drives the port's main paths, DeepFM and xDeepFM serving and training at
-Criteo width and DIN/DIEN serving and training at the sequence bench's
-width, through the entry points a user calls (``DeepFM(...)``,
-``xDeepFM(...)``, ``DIN(...)``, ``DIEN(...)``, ``model.predict``,
-``model.compile``, ``model.fit``, ``model.evaluate``), and the scatter
-micro-benchmark (``python -m deepctr_tpu_torch.tools.scatter_micro``), and
-holds every CUDA kernel of those paths against its plain PyTorch version.
+Drives the port's main paths, DeepFM, xDeepFM and the zoo (WDL, NFM, DCN,
+DCNMix, AutoInt, AFM, FiBiNET, PNN) serving and training at Criteo width
+and DIN/DIEN serving and training at the sequence bench's width, through
+the entry points a user calls (``DeepFM(...)``, ``xDeepFM(...)``,
+``DCN(...)`` and the other zoo models, ``DIN(...)``, ``DIEN(...)``,
+``model.predict``, ``model.compile``, ``model.fit``, ``model.evaluate``),
+and the scatter micro-benchmark (``python -m
+deepctr_tpu_torch.tools.scatter_micro``), and holds every CUDA kernel of
+those paths against its plain PyTorch version.
 Serving first:
 
 1. build: compile every kernel under ``deepctr_tpu_torch/csrc/`` (one
@@ -229,9 +231,31 @@ xDeepFM (2 batches each):
     step, graph replays and port kernels a step, host ms a step; DeepFM's
     and DIEN's graphed ``predict`` against the eager forward.
 
+Then the zoo: WDL, NFM, DCN, DCNMix, AutoInt, AFM, FiBiNET and PNN at
+``bench.py``'s Criteo layout (26 fields of 10,000 rows with E=16, 13 dense
+fields, batches of 4096, adagrad; each at its constructor's defaults, PNN
+with both product layers), and DCN at the 26 Criteo Kaggle cardinalities
+(33.8M rows; 8 tables on the sparse path), tables drawn at std 0.3 and
+DNN kernels at 1/sqrt(fan_in) from a seed:
+
+22. float32: graphed ``predict`` of 8 batches (one gather a batch), every
+    prediction finite and in (0, 1), the first batch within 1e-5 of the
+    same model on the CPU;
+23. float32: phase 20's checks, 3 steps each: graphed ``predict`` and the
+    device-resident ``fit`` bit-equal to the eager forward and to the same
+    steps on a twin (losses, weights, every optimizer and table state),
+    no host sync in any step or replay, one gather and one scatter a step
+    and, for DCN Kaggle only, one ``row_update``;
+24. timing, bfloat16: the device-resident ``fit`` (8 x 4096) and graphed
+    ``predict`` in examples/s (median of 5, alternating, with the
+    spread), device busy and idle share, and the device time by kernel of
+    one replayed train step (``torch.profiler``).
+
+The command's total seconds are printed before the kernels line.
+
 Launches in the kernels line are those of the main-path runs (phases 3,
-6, 10, 11, 14, 17 and 20; for ``static_scatter``, the micro-benchmark's
-run in phase 19), each counted from 0 just before the run and read just
+6, 10, 11, 14, 17, 20, 22 and 23; for ``static_scatter``, the
+micro-benchmark's run in phase 19), each counted from 0 just before the run and read just
 after; the runs that compare a kernel with its plain version, time it or
 check the card against the CPU are not counted.  A graph replay adds the
 launches its capture recorded.
@@ -257,7 +281,9 @@ HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE))
 
 import deepctr_tpu_torch as pt  # noqa: E402
-from deepctr_tpu_torch.models import DIEN, DIN, DeepFM, xDeepFM  # noqa: E402
+from deepctr_tpu_torch.models import (  # noqa: E402
+    AFM, DCN, DIEN, DIN, NFM, PNN, WDL, AutoInt, DCNMix, DeepFM, FiBiNET,
+    xDeepFM)
 from deepctr_tpu_torch.models import graphs  # noqa: E402
 from deepctr_tpu_torch.layers.sequence import (  # noqa: E402
     AttentionSequencePoolingLayer)
@@ -3170,10 +3196,16 @@ def phase_loops_f32(device):
     at LOOP_STEPS steps), predict again (the in-place updates must reach
     the replayed forward); for DIEN, the loop re-captured after
     set_weights and after compile gives the first fit's bits."""
+    loops_f32(loop_models(device))
+
+
+def loops_f32(models):
+    """Graphed predict and fit against eager on twins, at float32, for
+    each of ``models`` (``loop_models``' form)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     pt.set_compute_dtype("float32")
-    for label, m in loop_models(device).items():
+    for label, m in models.items():
         X, y, B = m["X"], m["y"], m["B"]
         graphed, eager = m["make"](), m["make"]()
         for model in (graphed, eager):
@@ -3346,6 +3378,157 @@ def phase_loops_timing_bf16(device):
         torch.cuda.empty_cache()
 
 
+# the zoo (ROADMAP section 1 item 5) at bench.py's Criteo layout
+# (bench.py:28-36: 26 fields of 10,000 rows, E=16, 13 dense fields,
+# batches of 4096, adagrad), each model at its JAX constructor's defaults
+# but PNN, which runs both product layers (use_outter, kernel "mat"); and
+# DCN at the 26 Criteo Kaggle cardinalities (bench.py:43-46), where
+# adagrad's "auto" puts 8 tables on the sparse path
+ZOO = {"WDL": (WDL, {}), "NFM": (NFM, {}), "DCN": (DCN, {}),
+       "DCNMix": (DCNMix, {}), "AutoInt": (AutoInt, {}), "AFM": (AFM, {}),
+       "FiBiNET": (FiBiNET, {}), "PNN": (PNN, {"use_outter": True})}
+ZOO_KAGGLE = "DCN Criteo Kaggle"
+ZOO_EMB_STD = 0.3
+ZOO_STEPS = 3           # phase 23's graphed fits: 3 x 4096
+
+
+def zoo_model(name, device):
+    """A zoo model (``ZOO``, or DCN at the Kaggle cardinalities for
+    ``ZOO_KAGGLE``) with its weights redrawn from a seed so that
+    predictions spread: the tables (deep and wide columns) from
+    normal(0.3), the DNN's kernels at 1/sqrt(fan_in); the interaction
+    layers and the head at their init.  AFM's deep columns are the sparse
+    ones (its interaction takes no dense field); PNN takes only deep
+    columns."""
+    kaggle = name == ZOO_KAGGLE
+    cols = criteo_columns() if kaggle else xdeepfm_columns()
+    cls, kw = ZOO["DCN" if kaggle else name]
+    if cls is PNN:
+        model = cls(cols, seed=SEED, device=device, **kw)
+    else:
+        deep = ([c for c in cols if isinstance(c, pt.SparseFeat)]
+                if cls is AFM else cols)
+        model = cls(cols, deep, seed=SEED, device=device, **kw)
+    gen = torch.Generator(device=device).manual_seed(SEED + 600)
+    with torch.no_grad():
+        for key, p in model.named_parameters():
+            if key.startswith("dnn.") and p.dim() == 2:
+                p.normal_(0.0, p.shape[1] ** -0.5, generator=gen)
+            elif "embedding_dict" in key:
+                p.normal_(0.0, ZOO_EMB_STD, generator=gen)
+    return model
+
+
+def zoo_requests(name, n, seed, device):
+    if name == ZOO_KAGGLE:
+        return criteo_requests(
+            n, torch.Generator(device=device).manual_seed(seed), device)
+    return xdeepfm_requests(n, seed, device)
+
+
+def zoo_loop_models(device, steps):
+    """The zoo's models in ``loop_models``' form, ``steps`` batches each:
+    tables dense under "auto" (one gather and one scatter a step), but
+    DCN Kaggle's 8 sparse tables (and one ``row_update`` a step)."""
+    out = {}
+    for i, name in enumerate(list(ZOO) + [ZOO_KAGGLE]):
+        sparse = name == ZOO_KAGGLE
+        out[name] = dict(
+            make=lambda name=name: zoo_model(name, device),
+            X=zoo_requests(name, BATCH * steps, SEED + 610 + i, device),
+            B=BATCH, sparse="auto",
+            y=criteo_labels(BATCH * steps, SEED + 630 + i),
+            predict={"gather_rows": 1},
+            fit={"gather_rows": 1, "scatter_add_rows": 1,
+                 "row_update": int(sparse)})
+    return out
+
+
+def phase_zoo_f32(device):
+    """phase 22: each zoo model's predict at float32, graphed: 8 batches
+    of 4096, one gather a batch, every prediction finite and in (0, 1),
+    the first batch within 1e-5 of the same model on the CPU."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pt.set_compute_dtype("float32")
+    n = BATCH * N_BATCHES
+    for i, name in enumerate(list(ZOO) + [ZOO_KAGGLE]):
+        model = zoo_model(name, device)
+        X = zoo_requests(name, n, SEED + 650 + i, device)
+        reset_counts()
+        pred = model.predict(X, batch_size=BATCH)
+        counts = read_counts()
+        check(counts["gather_rows"] == N_BATCHES, "%s predict: %d gathers "
+              "in %d batches" % (name, counts["gather_rows"], N_BATCHES))
+        check_predictions(pred, n)
+        model.to("cpu")
+        pred_cpu = model.predict(X[:BATCH].cpu(), batch_size=BATCH)
+        diff = float(np.abs(pred[:BATCH] - pred_cpu).max())
+        check(diff <= ATOL_CPU, "%s: card vs CPU max |dp| %r > %r"
+              % (name, diff, ATOL_CPU))
+        log("predict f32 %s: %d requests in %d batches, launches %s, "
+            "predictions in [%.6f, %.6f], std %.6f; first batch vs CPU max "
+            "|dp| = %r (atol %r)" % (name, n, N_BATCHES, counts, pred.min(),
+                                     pred.max(), pred.std(), diff, ATOL_CPU))
+        del model
+        torch.cuda.empty_cache()
+
+
+def phase_zoo_loops_f32(device):
+    """phase 23: phase 20's checks for each zoo model, ZOO_STEPS steps."""
+    loops_f32(zoo_loop_models(device, ZOO_STEPS))
+
+
+def zoo_timing(label, model, X, y, B):
+    """Device-loop fit and graphed predict at bf16: examples/s (median of
+    LOOP_RUNS, alternating, with the spread), device busy and idle share,
+    and the device time by kernel of one replayed train step."""
+    n, steps = X.shape[0], X.shape[0] // B
+    fns = {"fit": lambda: model.fit(X, y, batch_size=B, epochs=1,
+                                    verbose=0),
+           "predict": lambda: model.predict(X, B)}
+    for fn in fns.values():
+        fn()
+    times = {k: [] for k in fns}
+    for _ in range(LOOP_RUNS):
+        for k, fn in fns.items():
+            times[k] += run_ms(fn, runs=1)
+    out = {}
+    for k, fn in fns.items():
+        busy, kernels = profile_launches(fn)
+        wall = statistics.median(times[k])
+        out[k] = dict(rate=n / wall * 1e3, busy=busy, wall=wall)
+        log("%s bf16 %s, %d %s of %d: %s; device busy %s; %r device "
+            "operations a %s" % (
+                "fit (device-resident loop)" if k == "fit" else
+                "predict (graphed)", label, steps,
+                "steps" if k == "fit" else "batches", B,
+                rate_line(n, times[k]), busy_line(busy, wall),
+                kernels / steps, "step" if k == "fit" else "batch"))
+    loop = [g for key, g in model._graphs.items() if key[0] == "fit"][0]
+    # the profiler now and then records none of a lone replay's kernels:
+    # a second profile of the same step then reads them
+    for _ in range(2):
+        model._begin_steps(1)
+        if profile_ms(loop.captured.replay,
+                      "%s one replayed train step" % label) is not None:
+            break
+    return out
+
+
+def phase_zoo_timing_bf16(device):
+    """phase 24: each zoo model, and DCN Kaggle, timed at bf16."""
+    log("timing on: %s" % card_line())
+    pt.set_compute_dtype("bfloat16")
+    for label, m in zoo_loop_models(device, LOOP_STEPS).items():
+        model = m["make"]()
+        model.compile("adagrad", "binary_crossentropy",
+                      sparse_table_updates=m["sparse"])
+        zoo_timing(label, model, m["X"], m["y"], m["B"])
+        del model
+        torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -3355,6 +3538,7 @@ def main():
         print("chip_smoke: deepctr_tpu_torch must come from this checkout, "
               "not %s" % pt.__file__, file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     device = torch.device("cuda")
     log("torch %s, CUDA %s, %s" % (torch.__version__, torch.version.cuda,
                                    torch.cuda.get_device_name(0)))
@@ -3411,6 +3595,11 @@ def main():
 
     phase_loops_f32(device)
     phase_loops_timing_bf16(device)
+    torch.cuda.empty_cache()
+
+    phase_zoo_f32(device)
+    phase_zoo_loops_f32(device)
+    phase_zoo_timing_bf16(device)
 
     log(card_line())
     measured = {"gather_rows": dict(max_abs_err=err, **timing),
@@ -3428,6 +3617,7 @@ def main():
               "path" % name)
         kernels.append(dict(name=name, launches=MAIN_PATH_LAUNCHES[name],
                             **measured[name], **KERNELS[name]))
+    log("chip_smoke: %.1f s in all" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,6 @@ import time.  The training kernels live in ``ops.scatter_add`` and
 scatter of the scatter micro-benchmark in ``ops.scatter_rows``."""
 
 from .reference import (fm_cross_ref, cin_layer_ref, cin_mix_ref,
-                        din_attention_ref)
-from .dispatch import fm_cross, cin_layer, cin_mix, din_attention
+                        cross_net_ref, din_attention_ref)
+from .dispatch import fm_cross, cin_layer, cin_mix, cross_net, din_attention
 from .gather import gather_rows, gather_rows_ref

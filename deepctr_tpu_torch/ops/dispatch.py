@@ -22,6 +22,11 @@ def cin_mix(hidden_t, x0_t, w3, wt=None, wm=None):
     return _cin.cin_mix(hidden_t, x0_t, w3, wt=wt, wm=wm)
 
 
+def cross_net(x, kernels, bias, parameterization="vector"):
+    # no kernel, as in the JAX package: two small products a layer
+    return _ref.cross_net_ref(x, kernels, bias, parameterization)
+
+
 def din_attention(scores, keys, keys_masks, weight_normalization,
                   return_score):
     # the composition the fused kernel (ops/attention.py) stands in for at

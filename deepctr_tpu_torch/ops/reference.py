@@ -42,6 +42,21 @@ def cin_mix_ref(hidden_t, x0_t, w3):
     return out.to(hidden_t.dtype)
 
 
+def cross_net_ref(x, kernels, bias, parameterization="vector"):
+    """DCN cross stack: x [B,n]; kernels [L,n,1] or [L,n,n]; bias [L,n,1].
+
+    vector: x_{l+1} = x0 * (x_l . w_l) + b_l + x_l
+    matrix: x_{l+1} = x0 * (W_l x_l + b_l) + x_l"""
+    x0 = xl = x
+    for i in range(kernels.shape[0]):
+        b = bias[i][:, 0][None]
+        if parameterization == "vector":
+            xl = x0 * (xl @ kernels[i]) + b + xl
+        else:
+            xl = x0 * (xl @ kernels[i].t() + b) + xl
+    return xl
+
+
 def din_attention_ref(scores, keys, keys_masks, weight_normalization,
                       return_score):
     """Masked (optionally softmax) attention readout over history.

@@ -20,7 +20,19 @@ JAX leaf                               port key
 ``cin/conv_w_<i>`` ``[size, in_ch]``   ``cin.conv_w_<i>`` (not transposed)
 ``cin/conv_b_<i>``                     ``cin.conv_b_<i>``
 ``cin_linear/kernel``                  ``cin_linear.weight`` (transposed)
+``crossnet/{kernels,bias}``            ``crossnet.{kernels,bias}``
+``crossnet/{U,V,C}_list``, ``gating``  ``crossnet.{U,V,C}_list``, ``.gating``
+``int_layer_<i>/W_{Query,key,...}``    ``int_layer_<i>.W_{Query,key,...}``
+``fm/attention_{W,b}``                 ``fm.attention_{W,b}``
+``fm/projection_{h,p}``                ``fm.projection_{h,p}``
+``SE/{reduce,expand}/kernel``          ``SE.{reduce,expand}.weight`` (transposed)
+``Bilinear/kernel`` ``[P|F, E, E]``    ``Bilinear.kernel`` (not transposed)
+``outterproduct/kernel``               ``outterproduct.kernel`` (not transposed)
 =====================================  =====================================
+
+A leaf whose path with dots for slashes is a port key keeps its layout
+(the stacked and square parameters of the interaction layers, the CIN's,
+the GRUs'); any other ``kernel`` is a ``Dense`` layer's, transposed.
 
 ``batch_stats`` leaves map the same way onto buffers: Dice's running
 ``.../Dice_<i>/bn/{mean,var}`` onto ``....Dice_<i>.bn.{mean,var}``, a DNN
@@ -65,7 +77,9 @@ def _flatten(tree, prefix=""):
 
 
 def port_key(path):
-    """JAX leaf path (``a/b/c``) -> the port's ``state_dict`` key."""
+    """JAX leaf path (``a/b/c``) -> the port's ``state_dict`` key, a
+    ``kernel`` taken as a ``Dense`` layer's (``jax_to_state_dict`` first
+    looks for the path as it is)."""
     parts = path.split("/")
     if len(parts) >= 2 and parts[-2] == "embedding_dict":
         return ".".join(parts[:-1] + ["tables", parts[-1]])
@@ -99,10 +113,12 @@ def jax_to_state_dict(weights, target_shapes):
         weights = weights["params"]
     out = {}
     for path, value in list(_flatten(weights)) + leaves:
-        key = port_key(path)
         value = np.asarray(value)
-        if path.split("/")[-1] == "kernel":
-            value = value.T
+        key = path.replace("/", ".")
+        if key not in target_shapes:
+            key = port_key(path)
+            if path.split("/")[-1] == "kernel":
+                value = value.T
         if key not in target_shapes:
             raise KeyError("JAX leaf %r has no counterpart in the port "
                            "(looked for %r)" % (path, key))
@@ -137,7 +153,10 @@ def jax_batch_stats(model):
     ``batch_stats`` tree of numpy arrays, as ``get_weights()["batch_stats"]``
     gives it."""
     tree = {}
+    persistent = model.state_dict()
     for key, buf in model.named_buffers():
+        if key not in persistent:
+            continue
         node = tree
         parts = jax_path(key).split("/")
         for part in parts[:-1]:
