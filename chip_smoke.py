@@ -7,8 +7,9 @@ DCNMix, AutoInt, AFM, FiBiNET, PNN) serving and training at Criteo width
 and DIN/DIEN serving and training at the sequence bench's width, through
 the entry points a user calls (``DeepFM(...)``, ``xDeepFM(...)``,
 ``DCN(...)`` and the other zoo models, ``DIN(...)``, ``DIEN(...)``,
-``model.predict``, ``model.compile``, ``model.fit``, ``model.evaluate``),
-and the scatter micro-benchmark (``python -m
+``model.predict``, ``model.compile``, ``model.fit``, ``model.evaluate``,
+``save_checkpoint``/``load_checkpoint``, ``save``/``load_model``,
+``ModelCheckpoint``), and the scatter micro-benchmark (``python -m
 deepctr_tpu_torch.tools.scatter_micro``), and holds every CUDA kernel of
 those paths against its plain PyTorch version.
 Serving first:
@@ -251,10 +252,55 @@ DNN kernels at 1/sqrt(fan_in) from a seed:
     spread), device busy and idle share, and the device time by kernel of
     one replayed train step (``torch.profiler``).
 
+Then the rest of the engine:
+
+25. ``cin_mix`` with bfloat16 operands and a float32 output (the CIN's
+    ``carry`` mode) against ``cin_mix_ref(out_dtype=float32)`` at both
+    xDeepFM layers (B=4096), a ragged B=1000 and H=1000 (the FMA route):
+    within 1e-5 of sum_k |w z|, a repeat bit-equal; its device ms with a
+    cold L2 (median of 20) beside the bfloat16-output route's, and its
+    bound;
+26. checkpoint resume at Criteo width (DeepFM, 26 x 10,000 rows, DNN
+    400-400-400, B=4096, ``dnn_dropout=0.5``, every table sparse), adagrad
+    and adam: two epochs of 4 steps through the device-resident loop
+    (shuffled) against one epoch, ``save_checkpoint``, a fresh model's
+    ``load_checkpoint`` and ``fit(initial_epoch=1)``: bit-equal weights,
+    dense and table optimizer states and step counts; one gather,
+    scatter and ``row_update`` a step;
+27. a checkpoint at the Criteo Kaggle size (DeepFM, 33.8M rows, adagrad
+    "auto", ``dnn_dropout=0.5``) after 2 steps: the loaded state and the
+    next step of both models bit-equal; the file's bytes and the seconds
+    to save and to load; the file deleted;
+28. dropout in the graphed loops, float32: DeepFM Kaggle (phase 27's
+    twins) and DIEN AUGRU+neg at the sequence bench (adam, tables sparse,
+    ``dnn_dropout=0.6``), 3 steps graphed against 3 eager steps on the
+    twin, bit for bit, no host sync in a step; every mask recorded: the
+    graphed ones equal the eager ones, each step draws a new one, the keep
+    fraction within 5 sigma of 1 - rate; then both in bf16 beside the same
+    model at rate 0 (examples/s, median of 5, alternating, with the
+    spread);
+29. ``save`` and ``load_model`` on the card for DIN sigmoid (the fused
+    attention at inference), xDeepFM and DCN: the loaded model's graphed
+    ``predict`` bit-equal to the saved one's; DeepFM at Criteo width
+    through the device-resident loop with ``EarlyStopping`` and
+    ``ModelCheckpoint(save_best_only=True)``, the best epoch's file
+    reloaded;
+30. optimizer objects, DeepFM at Criteo width: ``torch.optim.Adam(...,
+    capturable=True)`` captured, ``torch.optim.Adagrad`` (no such option)
+    run eagerly on the card with one warning, each bit-equal to the same
+    steps through ``_train_step`` on a twin; each route's examples/s in
+    bf16;
+31. the CIN's modes, xDeepFM at Criteo width (CIN 256-128, DNN 400-400,
+    B=4096), bf16 compute: under ``bf16``, ``carry`` and ``f32`` the
+    graphed fit bit-equal to eager steps on a twin, 2 ``cin_mix``
+    launches a step; then one model's device-loop fit in each mode
+    (alternating; the mode is part of a graph's key): examples/s and
+    device busy ms a step.
+
 The command's total seconds are printed before the kernels line.
 
 Launches in the kernels line are those of the main-path runs (phases 3,
-6, 10, 11, 14, 17, 20, 22 and 23; for ``static_scatter``, the
+6, 10, 11, 14, 17, 20, 22, 23, 26, 28, 29, 30 and 31; for ``static_scatter``, the
 micro-benchmark's run in phase 19), each counted from 0 just before the run and read just
 after; the runs that compare a kernel with its plain version, time it or
 check the card against the CPU are not counted.  A graph replay adds the
@@ -268,10 +314,12 @@ kernel; the last line is ``{"ok": true, "device": {...}}``.
 
 import contextlib
 import json
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -281,10 +329,12 @@ HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE))
 
 import deepctr_tpu_torch as pt  # noqa: E402
+from deepctr_tpu_torch import callbacks as pcb  # noqa: E402
 from deepctr_tpu_torch.models import (  # noqa: E402
     AFM, DCN, DIEN, DIN, NFM, PNN, WDL, AutoInt, DCNMix, DeepFM, FiBiNET,
     xDeepFM)
 from deepctr_tpu_torch.models import graphs  # noqa: E402
+from deepctr_tpu_torch.layers import core as pcore  # noqa: E402
 from deepctr_tpu_torch.layers.sequence import (  # noqa: E402
     AttentionSequencePoolingLayer)
 from deepctr_tpu_torch.ops import _build  # noqa: E402
@@ -1734,10 +1784,10 @@ def seq_requests(model, n, seed, device):
     return torch.from_numpy(model._assemble_x(x)).to(device)
 
 
-def seq_model(kind, variant, device):
+def seq_model(kind, variant, device, **kw):
     """DIEN (``variant`` its gru_type; AUGRU with negative sampling, as
     bench.py runs it) or DIN (``variant`` its att_activation) at the bench
-    width.  Every weight is redrawn from normal(0.3), seeded, but the
+    width, with the constructor's further arguments ``kw``.  Every weight is redrawn from normal(0.3), seeded, but the
     prediction tower's (``dnn``, ``dnn_linear``) at 1/sqrt(fan_in), so that
     no float32 sigmoid saturates to exactly 1; Dice's running mean from
     normal(0.3), its variance from uniform[0.5, 1.5)."""
@@ -1746,11 +1796,11 @@ def seq_model(kind, variant, device):
         model = DIEN(seq_columns(neg), ["item_id", "cate_id"],
                      gru_type=variant, use_negsampling=neg,
                      dnn_hidden_units=SEQ_HIDDEN, att_hidden_units=SEQ_ATT,
-                     seed=SEED, device=device)
+                     seed=SEED, device=device, **kw)
     else:
         model = DIN(seq_columns(False), ["item_id", "cate_id"],
                     dnn_hidden_units=SEQ_HIDDEN, att_hidden_size=SEQ_ATT,
-                    att_activation=variant, seed=SEED, device=device)
+                    att_activation=variant, seed=SEED, device=device, **kw)
     gen = torch.Generator(device=device).manual_seed(SEED + 30)
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -3310,7 +3360,7 @@ def loop_timing(label, model, X, y, B):
     for _ in range(LOOP_RUNS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loop.run_epoch(gen)
+        loop.run_epoch(gen, 0)
         host_ms.append((time.perf_counter() - t0) * 1e3 / steps)
         torch.cuda.synchronize()
     out = {}
@@ -3529,6 +3579,533 @@ def phase_zoo_timing_bf16(device):
         torch.cuda.empty_cache()
 
 
+
+# ---------------------------------------------------------------------------
+# the rest of the engine: the CIN kernel's float32 output, checkpoints,
+# dropout in the graphed loops, load_model, optimizer objects, CIN modes
+# ---------------------------------------------------------------------------
+
+# phase 25: the float32-output route at the slice's layers (B=4096), a
+# ragged B and bfloat16 rows too wide for the tensor cores (the FMA route)
+CIN_F32_OUT_CASES = ((dict(B=BATCH, H=XD_LAYERS[0][0], O=XD_LAYERS[0][1])),
+                     dict(B=BATCH, H=XD_LAYERS[1][0], O=XD_LAYERS[1][1],
+                          split_of=XD_LAYERS[0][1]),
+                     dict(B=1000, H=XD_LAYERS[0][0], O=XD_LAYERS[0][1]),
+                     dict(B=64, H=1000, O=256))
+# phases 26-28: the dropout rates of the runs (DeepFM's dnn_dropout in
+# tests/models/DeepFM_test.py:26, DIEN's in examples/run_dien.py:66-69)
+DEEPFM_DROPOUT = 0.5
+DIEN_DROPOUT = 0.6
+RESUME_STEPS = 4        # phase 26: steps an epoch of the resumed fits
+DROPOUT_STEPS = 3       # phase 28: graphed steps against eager ones
+
+
+def scratch_dir(name):
+    """A directory for this run's files under the checkout's build
+    directory (gitignored), emptied first."""
+    path = HERE / "deepctr_tpu_torch" / "_build" / "chip_smoke" / name
+    shutil.rmtree(path, ignore_errors=True)
+    path.mkdir(parents=True)
+    return path
+
+
+def phase_cin_f32_output(device):
+    """phase 25: cin_mix with bfloat16 operands and a float32 output (the
+    CIN's carry mode) against cin_mix_ref(out_dtype=float32): within 1e-5
+    of sum_k |w z| (relative above 1), a repeat bit-equal; device ms with
+    a cold L2 (median of 20) beside the bfloat16-output route's at both
+    layers.  Returns the largest |kernel - plain| and the float32-output
+    route's times and bounds."""
+    err, seed, out = 0.0, SEED + 700, {}
+    for case in CIN_F32_OUT_CASES:
+        seed += 1
+        hidden, x0, w3 = cin_inputs(dtype=torch.bfloat16, seed=seed,
+                                    device=device, **case)
+        wt, wm = cin.kernel_weights(w3, torch.bfloat16)
+        with torch.no_grad():
+            got = cin.cin_mix(hidden, x0, w3, wt=wt, wm=wm,
+                              out_dtype=torch.float32)
+            again = cin.cin_mix(hidden, x0, w3, wt=wt, wm=wm,
+                                out_dtype=torch.float32)
+            want = cin.cin_mix_ref(hidden, x0, w3, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        B, H, O = case["B"], case["H"], case["O"]
+        what = ("cin_mix bf16 -> float32 B=%d H=%d O=%d, %s route"
+                % (B, H, O, cin.route(torch.bfloat16, H, XD_FIELDS, O)))
+        check(got.dtype == torch.float32, what + ": output %s" % got.dtype)
+        check(bits_equal(got, again), what + ": a repeat gave other bits")
+        e, a = compare(got, want, what, cin_scale(hidden, x0, w3))
+        err = max(err, a)
+        log("kernel vs plain: %s: max |err| / max(1, sum_k |w z|) %r; max "
+            "|err| %r; repeat bit-equal" % (what, e, a))
+        if B != BATCH:
+            continue
+        times = {}
+        for name, dtype in (("float32 out", torch.float32),
+                            ("bf16 out", None)):
+            times[name] = device_ms(lambda dtype=dtype: cin.cin_mix(
+                hidden, x0, w3, wt=wt, wm=wm, out_dtype=dtype))
+        bound_ms, bound_by = cin_bound(B, H, O, 2, BF16_FLOP_PER_S)
+        out["layer H=%d O=%d" % (H, O)] = dict(ms=times["float32 out"],
+                                               bound_ms=bound_ms)
+        log("cin_mix bf16 operands, B=%d H=%d O=%d: float32 output %r ms, "
+            "bfloat16 output %r ms (device, cold L2, median of 20); bound "
+            "%r ms by %s" % (B, H, O, times["float32 out"],
+                             times["bf16 out"], bound_ms, bound_by))
+    return err, out
+
+
+def resume_model(opt, device):
+    """DeepFM at the xDeepFM leg's Criteo width with dnn_dropout, every
+    table on the sparse path, compiled."""
+    cols = xdeepfm_columns()
+    model = DeepFM(cols, cols, dnn_hidden_units=HIDDEN, init_std=INIT_STD,
+                   dnn_dropout=DEEPFM_DROPOUT, seed=SEED, device=device)
+    model.compile(opt, "binary_crossentropy", sparse_table_updates=True)
+    return model
+
+
+def check_same_counts(got, want, what):
+    check(got._dense_opt.count == want._dense_opt.count
+          and got._table_t == want._table_t,
+          "%s: step counts %r %r vs %r %r" % (
+              what, got._dense_opt.count, got._table_t,
+              want._dense_opt.count, want._table_t))
+
+
+def phase_checkpoint_resume(device):
+    """phase 26: for adagrad and adam, two epochs of RESUME_STEPS steps
+    through the device-resident loop (shuffled, dropout on) against one
+    epoch, save_checkpoint, a fresh model's load_checkpoint and
+    fit(initial_epoch=1): bit-equal weights, dense and table optimizer
+    states and step counts; one gather, scatter and row_update a step."""
+    pt.set_compute_dtype("float32")
+    n = BATCH * RESUME_STEPS
+    X = xdeepfm_requests(n, SEED + 710, device)
+    y = criteo_labels(n, SEED + 711)
+    for opt in ("adagrad", "adam"):
+        ref = resume_model(opt, device)
+        reset_counts()
+        with strict_loops():
+            ref.fit(X, y, batch_size=BATCH, epochs=2, verbose=0)
+        counts = read_counts()
+        for name in ("gather_rows", "scatter_add_rows", "row_update"):
+            check(counts[name] == 2 * RESUME_STEPS, "resume %s: %s launched "
+                  "%d times in %d steps" % (opt, name, counts[name],
+                                            2 * RESUME_STEPS))
+        first = resume_model(opt, device)
+        first.fit(X, y, batch_size=BATCH, epochs=1, verbose=0)
+        path = scratch_dir("resume")
+        first.save_checkpoint(str(path))
+        resumed = resume_model(opt, device)
+        resumed.load_checkpoint(str(path))
+        check_same_state(training_state(resumed), training_state(first),
+                         "resume %s: the loaded state" % opt)
+        with strict_loops():
+            resumed.fit(X, y, batch_size=BATCH, epochs=2, initial_epoch=1,
+                        verbose=0)
+        check_same_state(training_state(resumed), training_state(ref),
+                         "resume %s: resumed vs uninterrupted" % opt)
+        check_same_counts(resumed, ref, "resume %s" % opt)
+        shutil.rmtree(path)
+        log("checkpoint resume %s, DeepFM Criteo width (26 x %d rows, every "
+            "table sparse, dnn_dropout %r), device-resident loop: 2 epochs "
+            "of %d steps of %d bit-equal to 1 epoch, save_checkpoint, "
+            "load_checkpoint into a fresh model and fit(initial_epoch=1): "
+            "weights, dense and table optimizer states, step counts %r %r; "
+            "launches of the uninterrupted fit %s"
+            % (opt, XD_VOCAB, DEEPFM_DROPOUT, RESUME_STEPS, BATCH,
+               ref._dense_opt.count, sorted(set(ref._table_t.values())),
+               {k: v for k, v in counts.items() if v}))
+        del ref, first, resumed
+        torch.cuda.empty_cache()
+
+
+def kaggle_deepfm(device, dropout):
+    cols = criteo_columns()
+    model = DeepFM(cols, cols, dnn_hidden_units=HIDDEN, init_std=INIT_STD,
+                   dnn_dropout=dropout, seed=SEED, device=device)
+    model.compile("adagrad", "binary_crossentropy")
+    return model
+
+
+def phase_checkpoint_kaggle(device):
+    """phase 27: DeepFM at the Criteo Kaggle cardinalities (33.8M rows;
+    adagrad "auto": 8 tables sparse) with dnn_dropout, 2 graphed steps,
+    save_checkpoint, and load_checkpoint into a fresh model: the loaded
+    state bit-equal, and the next step of each bit-equal.  The file's
+    bytes and the seconds to save and to load; the file is deleted.
+    Returns both models, twins, for phase 28."""
+    pt.set_compute_dtype("float32")
+    X = criteo_requests(BATCH * 3, torch.Generator(device=device)
+                        .manual_seed(SEED + 720), device)
+    y = criteo_labels(BATCH * 3, SEED + 721)
+    model = kaggle_deepfm(device, DEEPFM_DROPOUT)
+    check(sorted(p for p, _, _ in model._sparse_specs) == EXPECTED_SPARSE,
+          "Kaggle DeepFM: sparse tables %s" % model._sparse_specs)
+    model.fit(X[:2 * BATCH], y[:2 * BATCH], batch_size=BATCH, verbose=0,
+              shuffle=False)
+    path = scratch_dir("kaggle")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.save_checkpoint(str(path))
+    save_s = time.perf_counter() - t0
+    size = sum(f.stat().st_size for f in path.iterdir())
+    twin = kaggle_deepfm(device, DEEPFM_DROPOUT)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    twin.load_checkpoint(str(path))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    shutil.rmtree(path)
+    check_same_state(training_state(twin), training_state(model),
+                     "Kaggle checkpoint: the loaded state")
+    check_same_counts(twin, model, "Kaggle checkpoint")
+    for m in (model, twin):
+        with strict_loops():
+            m.fit(X[2 * BATCH:], y[2 * BATCH:], batch_size=BATCH, verbose=0,
+                  shuffle=False)
+    check_same_state(training_state(twin), training_state(model),
+                     "Kaggle checkpoint: the next step")
+    log("checkpoint DeepFM Criteo Kaggle (%d table rows, adagrad, 8 sparse "
+        "tables, dnn_dropout %r) after 2 steps of %d: %d bytes, "
+        "save_checkpoint %r s, load_checkpoint into a fresh model %r s "
+        "(%s); the loaded state and the next step of both bit-equal; file "
+        "deleted" % (sum(CRITEO_KAGGLE_VOCABS), DEEPFM_DROPOUT, BATCH,
+                     size, save_s, load_s, card_line()))
+    return model, twin
+
+
+@contextlib.contextmanager
+def recorded_masks(masks):
+    """Every dropout mask drawn in the enclosed work, appended to
+    ``masks`` as a device copy: an eager draw (a step or a capture's
+    warm-up) as it is drawn, a captured one after each replay (the graph
+    rewrites the mask it captured).  The enclosed work replays one graph
+    that draws masks."""
+    keep_mask, replay = pcore.Dropout.keep_mask, graphs._Captured.replay
+    live = []
+
+    def record(self, x):
+        mask = keep_mask(self, x)
+        if torch.cuda.is_current_stream_capturing():
+            live.append(mask)
+        else:
+            masks.append(mask.clone())
+        return mask
+
+    def replay_and_read(self):
+        replay(self)
+        masks.extend(m.clone() for m in live)
+    pcore.Dropout.keep_mask = record
+    graphs._Captured.replay = replay_and_read
+    try:
+        yield masks
+    finally:
+        pcore.Dropout.keep_mask = keep_mask
+        graphs._Captured.replay = replay
+
+
+def check_masks(masks, per_step, steps, rate, label):
+    """The graphed steps' masks (the first ``steps * per_step``) equal the
+    eager twin's (the rest); each step's first mask differs from the step
+    before it; the keep fraction lies within 5 sigma of 1 - rate."""
+    check(len(masks) == 2 * steps * per_step, "%s: %d masks drawn, want %d"
+          % (label, len(masks), 2 * steps * per_step))
+    graphed, eager = masks[:steps * per_step], masks[steps * per_step:]
+    for i, (a, b) in enumerate(zip(graphed, eager)):
+        check(torch.equal(a, b), "%s: graphed mask %d differs from the "
+              "eager step's" % (label, i))
+    firsts = graphed[::per_step]
+    for i in range(1, steps):
+        check(not torch.equal(firsts[i], firsts[i - 1]), "%s: steps %d and "
+              "%d drew the same mask" % (label, i - 1, i))
+    n = sum(m.numel() for m in graphed)
+    kept = sum(int(m.sum()) for m in graphed)
+    keep = 1.0 - rate
+    sigma = (n * keep * (1 - keep)) ** 0.5
+    check(abs(kept - n * keep) <= 5 * sigma, "%s: kept %d of %d, want "
+          "%r +- 5 x %r" % (label, kept, n, n * keep, sigma))
+    return kept / n, (kept - n * keep) / sigma
+
+
+def dropout_rates(label, graphed, eager, X, y, B):
+    """bf16: the device-resident fit of ``graphed`` (dropout on) and of
+    ``eager`` with its rates set to 0, alternating: examples/s each."""
+    for m in eager.modules():
+        if isinstance(m, pcore.Dropout):
+            m.rate = 0.0
+    eager._drop_graphs()
+    fns = {"dropout": lambda: graphed.fit(X, y, batch_size=B, verbose=0),
+           "rate 0": lambda: eager.fit(X, y, batch_size=B, verbose=0)}
+    for fn in fns.values():
+        fn()
+    times = {k: [] for k in fns}
+    for _ in range(LOOP_RUNS):
+        for k, fn in fns.items():
+            times[k] += run_ms(fn, runs=1)
+    log("fit bf16 %s, device-resident loop, %d steps of %d: with dropout %s; "
+        "the same model at rate 0 %s (%s)" % (
+            label, X.shape[0] // B, B, rate_line(X.shape[0],
+                                                 times["dropout"]),
+            rate_line(X.shape[0], times["rate 0"]), card_line()))
+
+
+def phase_dropout_loops(device, kaggle):
+    """phase 28: the graphed fit with dropout bit-equal to the same steps
+    run eagerly on a twin from the same generator state, no host sync in
+    a step, every replay new masks (each step's first mask differs from
+    the last one's; the graphed masks equal the eager ones), the keep
+    fraction within 5 sigma of 1 - rate: DeepFM Kaggle (phase 27's twins)
+    and DIEN AUGRU+neg at the sequence bench, adam, its tables sparse,
+    dnn_dropout 0.6.  Then both in bf16 against the same model at rate 0,
+    in examples/s."""
+    pt.set_compute_dtype("float32")
+    model, twin = kaggle
+    for m in (model, twin):
+        m._drop_graphs()
+    n = BATCH * DROPOUT_STEPS
+    X = criteo_requests(n, torch.Generator(device=device)
+                        .manual_seed(SEED + 730), device)
+    y = criteo_labels(n, SEED + 731)
+    dien = [seq_model("dien", "AUGRU", device, dnn_dropout=DIEN_DROPOUT)
+            for _ in range(2)]
+    for m in dien:
+        m.compile("adam", "binary_crossentropy", sparse_table_updates=True)
+    Xs = seq_requests(dien[0], SEQ_BATCH * LOOP_STEPS, SEED + 732, device)
+    ys = seq_labels(SEQ_BATCH * LOOP_STEPS, SEED + 733)
+    runs = [("DeepFM Criteo Kaggle, dnn_dropout %r" % DEEPFM_DROPOUT,
+             (model, twin), X, y, BATCH, DEEPFM_DROPOUT, len(HIDDEN),
+             {"gather_rows": 1, "scatter_add_rows": 1, "row_update": 1}),
+            ("DIEN AUGRU+neg, adam, sparse tables, dnn_dropout %r"
+             % DIEN_DROPOUT, dien, Xs[:SEQ_BATCH * DROPOUT_STEPS],
+             ys[:SEQ_BATCH * DROPOUT_STEPS], SEQ_BATCH, DIEN_DROPOUT,
+             len(SEQ_HIDDEN),
+             {"gather_rows": 1, "scatter_add_rows": 1, "gru_scan": 2,
+              "gru_scan_bwd": 2, "row_update": 1})]
+    for label, (graphed, eager), Xr, yr, B, rate, per_step, launches in runs:
+        check(graphed._has_dropout(), label + ": no dropout")
+        with recorded_masks([]) as masks:
+            graph_vs_eager_fit(graphed, eager, Xr, yr, B, label, launches)
+        share, z = check_masks(masks, per_step, DROPOUT_STEPS, rate, label)
+        log("dropout %s: %d masks a step, graphed masks equal to the eager "
+            "steps', each step's new; keep fraction %r (%r sigma from %r)"
+            % (label, per_step, share, z, 1 - rate))
+    pt.set_compute_dtype("bfloat16")
+    Xk = criteo_requests(BATCH * LOOP_STEPS, torch.Generator(device=device)
+                         .manual_seed(SEED + 734), device)
+    yk = criteo_labels(BATCH * LOOP_STEPS, SEED + 735)
+    dropout_rates(runs[0][0], model, twin, Xk, yk, BATCH)
+    dropout_rates(runs[1][0], dien[0], dien[1], Xs, ys, SEQ_BATCH)
+
+
+def phase_load_model(device):
+    """phase 29: save and load_model on the card for DIN sigmoid (the
+    fused attention at inference), xDeepFM and DCN: the loaded model's
+    graphed predict bit-equal to the saved model's; then DeepFM at Criteo
+    width through the device-resident loop with EarlyStopping and
+    ModelCheckpoint(save_best_only=True) on val_auc."""
+    pt.set_compute_dtype("float32")
+    path = scratch_dir("models") / "model.pt"
+    cases = [("DIN sigmoid", lambda: seq_model("din", "sigmoid", device),
+              SEQ_BATCH, {"gather_rows": 1, "din_attention": 1}),
+             ("xDeepFM", lambda: xdeepfm_model(device), BATCH,
+              {"gather_rows": 1, "cin_mix": 2}),
+             ("DCN", lambda: zoo_model("DCN", device), BATCH,
+              {"gather_rows": 1})]
+    for label, make, B, per_batch in cases:
+        model = make()
+        X = (seq_requests(model, 2 * B, SEED + 740, device)
+             if label.startswith("DIN") else
+             xdeepfm_requests(2 * B, SEED + 741, device))
+        want = model.predict(X, B)
+        model.save(str(path))
+        loaded = pt.load_model(str(path))
+        check(type(loaded) is type(model)
+              and loaded._device.type == device.type,
+              "%s: load_model built %s on %s" % (label, type(loaded),
+                                                 loaded._device))
+        reset_counts()
+        got = loaded.predict(X, B)
+        counts = read_counts()
+        for name, k in per_batch.items():
+            check(counts[name] == 2 * k, "%s after load_model: %s launched "
+                  "%d times in 2 batches" % (label, name, counts[name]))
+        check(np.array_equal(got, want), "%s: the loaded model's predict "
+              "differs (max |d| %r)" % (label, float(np.abs(got - want)
+                                                       .max())))
+        check_predictions(got, X.shape[0])
+        log("load_model %s: %d bytes; graphed predict of the loaded model "
+            "bit-equal to the saved one's over 2 batches of %d; launches %s"
+            % (label, path.stat().st_size, B,
+               {k: v for k, v in counts.items() if v}))
+        del model, loaded
+    cols = xdeepfm_columns()
+    model = DeepFM(cols, cols, dnn_hidden_units=HIDDEN, init_std=INIT_STD,
+                   seed=SEED, device=device)
+    model.compile("adagrad", "binary_crossentropy", metrics=["auc"])
+    X = xdeepfm_requests(BATCH * 4, SEED + 742, device)
+    y = criteo_labels(BATCH * 4, SEED + 743)
+    best = pcb.ModelCheckpoint(str(path), monitor="val_auc", mode="max",
+                               save_best_only=True)
+    stop = pcb.EarlyStopping(monitor="val_auc", mode="max", patience=1)
+    hist = model.fit(X, y, batch_size=BATCH, epochs=4, verbose=0,
+                     validation_split=0.25, callbacks=[stop, best])
+    aucs = hist.history["val_auc"]
+    check(best.best == max(aucs), "ModelCheckpoint: best %r of %r"
+          % (best.best, aucs))
+    loaded = pt.load_model(str(path))
+    pred = loaded.predict(X[-BATCH:], BATCH)
+    check_predictions(pred, BATCH)
+    if aucs[-1] == max(aucs):
+        check(np.array_equal(pred, model.predict(X[-BATCH:], BATCH)),
+              "ModelCheckpoint: the best epoch's file predicts otherwise")
+    log("ModelCheckpoint(save_best_only) + EarlyStopping, DeepFM Criteo "
+        "width, device-resident loop, 3 steps of %d an epoch: val_auc %r, "
+        "best %r saved and reloaded" % (BATCH, aucs, best.best))
+    shutil.rmtree(path.parent)
+
+
+def phase_optimizer_objects(device):
+    """phase 30: DeepFM at Criteo width compiled with torch.optim.Adam(
+    capturable=True) (captured) and torch.optim.Adagrad (no capturable
+    option: the device loop runs each step eagerly on the card and says
+    so once): each route's fit bit-equal to the same steps run through
+    _train_step on a twin; then each route's device-loop examples/s in
+    bf16, beside the named adam's (a captured DenseOptimizer)."""
+    pt.set_compute_dtype("float32")
+    X = xdeepfm_requests(BATCH * 3, SEED + 750, device)
+    y = criteo_labels(BATCH * 3, SEED + 751)
+    routes = {"Adam(capturable=True)": lambda ps: torch.optim.Adam(
+                  ps, lr=1e-3, capturable=True),
+              "Adagrad": lambda ps: torch.optim.Adagrad(ps, lr=0.01)}
+    cols = xdeepfm_columns()
+    models = {}
+    for label, make in routes.items():
+        pair = []
+        for _ in range(2):
+            m = DeepFM(cols, cols, dnn_hidden_units=HIDDEN,
+                       init_std=INIT_STD, seed=SEED, device=device)
+            m.compile(make(m.parameters()), "binary_crossentropy")
+            pair.append(m)
+        graphed, eager = pair
+        per_step = {"gather_rows": 1, "scatter_add_rows": 1, "row_update": 0}
+        if graphed._dense_opt.capturable:
+            graph_vs_eager_fit(graphed, eager, X, y, BATCH, label, per_step)
+            route = "captured: each step a graph replay"
+        else:
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                reset_counts()
+                graphs.GRAPH_REPLAYS = 0
+                graphed.fit(X, y, batch_size=BATCH, verbose=0,
+                            shuffle=False)
+                graphed.fit(X, y, batch_size=BATCH, verbose=0,
+                            shuffle=False)
+                counts = read_counts()
+            said = [str(w.message) for w in seen
+                    if "eagerly on the card" in str(w.message)]
+            check(len(said) == 1 and graphs.GRAPH_REPLAYS == 0,
+                  "%s: %d warnings, %d replays" % (label, len(said),
+                                                  graphs.GRAPH_REPLAYS))
+            for name, k in per_step.items():
+                check(counts[name] == 6 * k, "%s: %s launched %d times in 6 "
+                      "steps" % (label, name, counts[name]))
+            y_dev = torch.as_tensor(y, device=device).view(-1, 1)
+            sw = torch.ones(BATCH, device=device)
+            for _ in range(2):
+                eager._begin_steps(3)
+                for i in range(3):
+                    eager._train_step(X[i * BATCH:(i + 1) * BATCH],
+                                      y_dev[i * BATCH:(i + 1) * BATCH], sw)
+            check_same_state(training_state(graphed), training_state(eager),
+                             "%s: eager loop vs eager twin" % label)
+            route = "eager steps on the card (%s)" % said[0]
+        log("optimizer object %s: %s; bit-equal to the same steps through "
+            "_train_step on a twin" % (label, route))
+        models[label] = graphed
+        del eager
+    named = DeepFM(cols, cols, dnn_hidden_units=HIDDEN, init_std=INIT_STD,
+                   seed=SEED, device=device)
+    named.compile("adam", "binary_crossentropy", learning_rate=1e-3)
+    models["named adam"] = named
+    pt.set_compute_dtype("bfloat16")
+    Xt = xdeepfm_requests(BATCH * LOOP_STEPS, SEED + 752, device)
+    yt = criteo_labels(BATCH * LOOP_STEPS, SEED + 753)
+    fns = {k: (lambda m=m: m.fit(Xt, yt, batch_size=BATCH, verbose=0))
+           for k, m in models.items()}
+    for fn in fns.values():
+        fn()
+    times = {k: [] for k in fns}
+    for _ in range(LOOP_RUNS):
+        for k, fn in fns.items():
+            times[k] += run_ms(fn, runs=1)
+    for k in fns:
+        log("fit bf16 DeepFM Criteo width, device-resident loop, %s, %d "
+            "steps of %d: %s (%s)" % (k, LOOP_STEPS, BATCH,
+                                      rate_line(Xt.shape[0], times[k]),
+                                      card_line()))
+
+
+CIN_MODES = ("bf16", "carry", "f32")
+
+
+def phase_cin_modes(device):
+    """phase 31: xDeepFM at Criteo width (CIN 256-128, DNN 400-400, B=4096)
+    fit in bf16 compute under each CIN mode: the graphed fit bit-equal to
+    eager steps on a twin, 2 cin_mix launches a step; then one model's
+    device-loop fit in each mode (a graph each: the mode is in the graph's
+    key), alternating: examples/s and device busy ms a step, and the
+    device time by kernel of one replayed step under carry and f32."""
+    pt.set_compute_dtype("bfloat16")
+    X = xdeepfm_requests(BATCH * 3, SEED + 760, device)
+    y = criteo_labels(BATCH * 3, SEED + 761)
+    per_step = {"gather_rows": 1, "scatter_add_rows": 1, "cin_mix": 2}
+    try:
+        for mode in CIN_MODES:
+            pt.set_cin_dtype(mode)
+            graphed, eager = xdeepfm_model(device), xdeepfm_model(device)
+            for m in (graphed, eager):
+                m.compile("adagrad", "binary_crossentropy")
+            graph_vs_eager_fit(graphed, eager, X, y, BATCH,
+                               "xDeepFM bf16, CIN mode %s" % mode, per_step)
+            del graphed, eager
+        model = xdeepfm_model(device)
+        model.compile("adagrad", "binary_crossentropy")
+        Xt = xdeepfm_requests(BATCH * LOOP_STEPS, SEED + 762, device)
+        yt = criteo_labels(BATCH * LOOP_STEPS, SEED + 763)
+
+        def fit(mode):
+            pt.set_cin_dtype(mode)
+            model.fit(Xt, yt, batch_size=BATCH, verbose=0)
+        for mode in CIN_MODES:
+            fit(mode)
+        times = {mode: [] for mode in CIN_MODES}
+        for _ in range(LOOP_RUNS):
+            for mode in CIN_MODES:
+                times[mode] += run_ms(lambda: fit(mode), runs=1)
+        for mode in CIN_MODES:
+            busy, _ = profile_launches(lambda: fit(mode))
+            wall = statistics.median(times[mode])
+            log("fit bf16 xDeepFM Criteo width, device-resident loop, CIN "
+                "mode %s, %d steps of %d: %s; device busy %s, %r ms a step "
+                "(%s)" % (mode, LOOP_STEPS, BATCH,
+                          rate_line(Xt.shape[0], times[mode]),
+                          busy_line(busy, wall),
+                          (busy or float("nan")) / LOOP_STEPS, card_line()))
+        for mode in ("carry", "f32"):
+            pt.set_cin_dtype(mode)
+            key = [k for k in model._graphs if k[0] == "fit" and mode in k]
+            loop = model._graphs[key[0]]
+            for _ in range(2):      # see zoo_timing
+                model._begin_steps(1)
+                if profile_ms(loop.captured.replay, "xDeepFM CIN mode %s "
+                              "one replayed train step" % mode) is not None:
+                    break
+    finally:
+        pt.set_cin_dtype("bf16")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -3600,6 +4177,17 @@ def main():
     phase_zoo_f32(device)
     phase_zoo_loops_f32(device)
     phase_zoo_timing_bf16(device)
+    torch.cuda.empty_cache()
+
+    phase_cin_f32_output(device)
+    phase_checkpoint_resume(device)
+    kaggle = phase_checkpoint_kaggle(device)
+    phase_dropout_loops(device, kaggle)
+    del kaggle
+    torch.cuda.empty_cache()
+    phase_load_model(device)
+    phase_optimizer_objects(device)
+    phase_cin_modes(device)
 
     log(card_line())
     measured = {"gather_rows": dict(max_abs_err=err, **timing),

@@ -6,11 +6,13 @@ Models run on ``"cuda"`` unless the caller passes ``device="cpu"``.
 """
 
 from . import config
-from .config import set_compute_dtype, compute_dtype
+from .config import (set_compute_dtype, compute_dtype, set_cin_dtype,
+                     cin_dtype)
 from .features import (SparseFeat, DenseFeat, VarLenSparseFeat,
                        build_input_features, get_feature_names,
                        DEFAULT_GROUP_NAME)
 from .callbacks import History, EarlyStopping, ModelCheckpoint
+from .utils.serialization import load_model, save_model
 from . import layers
 from . import models
 

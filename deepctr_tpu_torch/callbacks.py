@@ -1,8 +1,7 @@
 """Keras-style training callbacks.
 
 Counterpart of ``deepctr_tpu/callbacks.py`` (``Callback``,
-``CallbackList``, ``History``, ``EarlyStopping``).  ``ModelCheckpoint``
-needs model persistence, which is not ported yet, and raises.
+``CallbackList``, ``History``, ``EarlyStopping``, ``ModelCheckpoint``).
 """
 
 import numpy as np
@@ -138,9 +137,58 @@ class EarlyStopping(Callback):
 
 
 class ModelCheckpoint(Callback):
-    """Not ported yet: it saves the model, and persistence comes with a
-    later slice."""
+    """Save the model (or weights only) after every ``period`` epochs,
+    optionally keeping only the best according to ``monitor``
+    (``deepctr_tpu/callbacks.py:141-196``).  ``filepath`` may hold
+    ``{epoch}`` and the epoch logs' keys as format fields."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("ModelCheckpoint needs model persistence, "
-                                  "which is not ported yet")
+    def __init__(self, filepath, monitor="val_loss", verbose=0,
+                 save_best_only=False, save_weights_only=False, mode="auto",
+                 period=1):
+        super().__init__()
+        self.filepath = filepath
+        self.monitor = monitor
+        self.verbose = verbose
+        self.save_best_only = save_best_only
+        self.save_weights_only = save_weights_only
+        self.period = period
+        self.epochs_since_last_save = 0
+        self.monitor_op = _monitor_op(mode if mode in ("min", "max") else "auto",
+                                      monitor)
+        self.best = np.inf if self.monitor_op == np.less else -np.inf
+
+    def _save(self, filepath):
+        if self.save_weights_only:
+            self.model.save_weights(filepath)
+        else:
+            self.model.save(filepath)
+
+    def on_epoch_end(self, epoch, logs=None):
+        logs = logs or {}
+        self.epochs_since_last_save += 1
+        if self.epochs_since_last_save >= self.period:
+            self.epochs_since_last_save = 0
+            filepath = self.filepath.format(epoch=epoch + 1, **logs)
+            if self.save_best_only:
+                current = logs.get(self.monitor)
+                if current is None:
+                    print("ModelCheckpoint: monitored metric %r missing "
+                          "from logs (have: %s) — nothing saved this epoch"
+                          % (self.monitor, ", ".join(sorted(logs))))
+                else:
+                    if self.monitor_op(current, self.best):
+                        if self.verbose > 0:
+                            print("epoch %d: new best %s (%.5f, was %.5f) "
+                                  "-> %s" % (epoch + 1, self.monitor,
+                                             current, self.best, filepath))
+                        self.best = current
+                        self._save(filepath)
+                    elif self.verbose > 0:
+                        print("epoch %d: %s=%.5f, best remains %.5f — "
+                              "not saving" % (epoch + 1, self.monitor,
+                                              current, self.best))
+            else:
+                if self.verbose > 0:
+                    print("epoch %d: checkpoint -> %s"
+                          % (epoch + 1, filepath))
+                self._save(filepath)

@@ -6,9 +6,11 @@
 // over the M = B*D rows m = (b, d) of the D-major layer: hid [M, H] (the
 // layer's hidden maps), x [M, F] (the embedded fields), wt [F*H, O] (the
 // 1x1 convolution's weight, K-major).  The storage type s is float32 or
-// bfloat16 for all four arrays.  z is rounded to s before the product, as
+// bfloat16 for the three inputs.  z is rounded to s before the product, as
 // the JAX einsum forms it at the operands' dtype; the sum over K = F*H is
-// float32 and is rounded once to s.
+// float32 and is rounded once to the output's type t: s, or float32 from
+// bfloat16 operands (the JAX CIN's "carry" mode, whose einsum asks for
+// preferred_element_type=float32: the float32 sum is written unrounded).
 //
 // What it replaces: the TPU's fused CIN kernel
 // (deepctr_tpu/ops/pallas.py:_fwd_kernel, called by _cin_pallas_fwd).  Its
@@ -70,11 +72,11 @@ __device__ __forceinline__ void store_s(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-template <typename S>
+template <typename S, typename T>
 __global__ void __launch_bounds__(kThreads)
 cin_mix_kernel(const S* __restrict__ hid, long long ld_h,
                const S* __restrict__ x, long long ld_x,
-               const S* __restrict__ wt, S* __restrict__ out, long long M,
+               const S* __restrict__ wt, T* __restrict__ out, long long M,
                int H, int F, int O) {
   __shared__ __align__(16) float zs[kBK][kBM + kZPad];
   __shared__ __align__(16) float ws[kBK][kBN];
@@ -173,15 +175,15 @@ cin_mix_kernel(const S* __restrict__ hid, long long ld_h,
   }
 }
 
-template <typename S>
+template <typename S, typename T>
 int launch(const void* hid, long long ld_h, const void* x, long long ld_x,
            const void* wt, void* out, long long M, int H, int F, int O,
            cudaStream_t stream) {
   const long long row_blocks = (M + kBM - 1) / kBM;
   const dim3 grid(static_cast<unsigned>(row_blocks), (O + kBN - 1) / kBN);
-  cin_mix_kernel<S><<<grid, kThreads, 0, stream>>>(
+  cin_mix_kernel<S, T><<<grid, kThreads, 0, stream>>>(
       static_cast<const S*>(hid), ld_h, static_cast<const S*>(x), ld_x,
-      static_cast<const S*>(wt), static_cast<S*>(out), M, H, F, O);
+      static_cast<const S*>(wt), static_cast<T*>(out), M, H, F, O);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -228,7 +230,8 @@ int launch(const void* hid, long long ld_h, const void* x, long long ld_x,
 // - Every output is one fixed sequence of wgmma steps over K, with no
 //   atomics, so a repeat launch gives the same bits; the products of two
 //   bfloat16 values are exact in float32, so the sum is the float32 path's
-//   in another order, rounded once to bfloat16.
+//   in another order, rounded once to bfloat16, or written as it is where
+//   the output is float32 (the instances of T = float).
 // - BN = 256 runs one block an SM: 288 threads leave each thread up to
 //   224 registers, which its 128 accumulators need (no setmaxnreg).  BN =
 //   128 (64 accumulators) runs two, so that one block's row staging and
@@ -383,6 +386,15 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const unsigned*>(&v);
 }
 
+// two neighbouring outputs, p 4-byte (bfloat16) or 8-byte (float) aligned
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float lo,
+                                           float hi) {
+  *reinterpret_cast<unsigned*>(p) = pack_bf16(lo, hi);
+}
+__device__ __forceinline__ void store_pair(float* p, float lo, float hi) {
+  *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
+}
+
 // two bf16 of hid (a 32-bit pair) times the row's x, rounded to a bf16 pair
 __device__ __forceinline__ unsigned mul_pack(unsigned pair, float xv) {
   const float lo = __uint_as_float(pair << 16);
@@ -396,12 +408,12 @@ struct Buf {
   static constexpr int value = B;
 };
 
-template <int NCH>
+template <int NCH, typename T>
 __global__ void __launch_bounds__(kMmaThreads, Ring<NCH>::blocks)
 cin_mix_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
                      const __nv_bfloat16* __restrict__ hid, long long ld_h,
                      const __nv_bfloat16* __restrict__ x, long long ld_x,
-                     __nv_bfloat16* __restrict__ out, long long M, int H,
+                     T* __restrict__ out, long long M, int H,
                      int F, int O, int Hp, int HS, int XF, int hid_pairs) {
   constexpr int BN = 128 * NCH;
   constexpr unsigned kStageBytes = BN * 128;
@@ -566,12 +578,12 @@ cin_mix_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
         if (m >= M) continue;
         const float lo = acc[c][4 * jj + 2 * half];
         const float hi = acc[c][4 * jj + 2 * half + 1];
-        __nv_bfloat16* p = out + m * O + n;
+        T* p = out + m * O + n;
         if (pairs_ok && n + 1 < O) {
-          *reinterpret_cast<unsigned*>(p) = pack_bf16(lo, hi);
+          store_pair(p, lo, hi);
         } else {
-          if (n < O) *p = __float2bfloat16_rn(lo);
-          if (n + 1 < O) p[1] = __float2bfloat16_rn(hi);
+          if (n < O) store_s(p, lo);
+          if (n + 1 < O) store_s(p + 1, hi);
         }
       }
     }
@@ -606,7 +618,7 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-template <int NCH>
+template <int NCH, typename T>
 int launch_wgmma(const MmaShape& s, const void* hid, long long ld_h,
                  const void* x, long long ld_x, const void* wm, void* out,
                  long long M, int H, int F, int O, cudaStream_t stream) {
@@ -629,7 +641,7 @@ int launch_wgmma(const MmaShape& s, const void* hid, long long ld_h,
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        cin_mix_wgmma_kernel<NCH>,
+        cin_mix_wgmma_kernel<NCH, T>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         kMaxSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -640,10 +652,10 @@ int launch_wgmma(const MmaShape& s, const void* hid, long long ld_h,
       (reinterpret_cast<unsigned long long>(hid) & 3) == 0;
   const dim3 grid(static_cast<unsigned>((M + kMmaRows - 1) / kMmaRows),
                   (s.Op + 128 * NCH - 1) / (128 * NCH));
-  cin_mix_wgmma_kernel<NCH><<<grid, kMmaThreads, s.smem, stream>>>(
+  cin_mix_wgmma_kernel<NCH, T><<<grid, kMmaThreads, s.smem, stream>>>(
       map, static_cast<const __nv_bfloat16*>(hid), ld_h,
       static_cast<const __nv_bfloat16*>(x), ld_x,
-      static_cast<__nv_bfloat16*>(out), M, H, F, O, s.Hp, s.HS, s.XF,
+      static_cast<T*>(out), M, H, F, O, s.Hp, s.HS, s.XF,
       hid_pairs ? 1 : 0);
   return static_cast<int>(cudaGetLastError());
 }
@@ -660,14 +672,15 @@ extern "C" int cin_mix_route(int dtype, int H, int F, int O) {
 
 // The float32-FMA kernel.  Launches on `stream` and returns
 // cudaGetLastError() (0 on success).  dtype 0 = float32, 1 = bfloat16 for
-// hid, x, wt and out alike.  hid is [M, H] with row stride ld_h, x [M, F]
-// with row stride ld_x (each row contiguous), wt [F*H, O] and out [M, O]
-// contiguous.  The caller checks shapes, types and devices and allocates
-// `out`.
-extern "C" int cin_mix_fwd(int dtype, const void* hid, long long ld_h,
-                           const void* x, long long ld_x, const void* wt,
-                           void* out, long long M, int H, int F, int O,
-                           void* stream) {
+// hid, x and wt alike; out_dtype the same codes for out: dtype's, or 0
+// (float32) from bfloat16 operands.  hid is [M, H] with row stride ld_h,
+// x [M, F] with row stride ld_x (each row contiguous), wt [F*H, O] and out
+// [M, O] contiguous.  The caller checks shapes, types and devices and
+// allocates `out`.
+extern "C" int cin_mix_fwd(int dtype, int out_dtype, const void* hid,
+                           long long ld_h, const void* x, long long ld_x,
+                           const void* wt, void* out, long long M, int H,
+                           int F, int O, void* stream) {
   if (M <= 0 || H <= 0 || F <= 0 || O <= 0 ||
       static_cast<long long>(H) * F >= (1LL << 31) ||
       (M + kBM - 1) / kBM >= (1LL << 31) || (O + kBN - 1) / kBN > 65535 ||
@@ -675,21 +688,30 @@ extern "C" int cin_mix_fwd(int dtype, const void* hid, long long ld_h,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(hid, ld_h, x, ld_x, wt, out, M, H, F,
-                                       O, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(hid, ld_h, x, ld_x, wt, out,
-                                               M, H, F, O, s);
+  if (dtype == 0 && out_dtype == 0) {
+    return launch<float, float>(hid, ld_h, x, ld_x, wt, out, M, H, F, O, s);
+  }
+  if (dtype == 1 && out_dtype == 1) {
+    return launch<__nv_bfloat16, __nv_bfloat16>(hid, ld_h, x, ld_x, wt, out,
+                                                M, H, F, O, s);
+  }
+  if (dtype == 1 && out_dtype == 0) {
+    return launch<__nv_bfloat16, float>(hid, ld_h, x, ld_x, wt, out, M, H,
+                                        F, O, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The wgmma kernel, bfloat16 only, for shapes cin_mix_route takes.  wm is
-// [Op, F*Hp] contiguous and 16-byte aligned (ops/cin.py:mma_weight); the
-// rest as for cin_mix_fwd.
-extern "C" int cin_mix_mma_fwd(const void* hid, long long ld_h,
-                               const void* x, long long ld_x, const void* wm,
-                               void* out, long long M, int H, int F, int O,
-                               void* stream) {
+// The wgmma kernel, bfloat16 operands only, for shapes cin_mix_route
+// takes; out_dtype 1 writes bfloat16, 0 float32.  wm is [Op, F*Hp]
+// contiguous and 16-byte aligned (ops/cin.py:mma_weight); the rest as for
+// cin_mix_fwd.
+extern "C" int cin_mix_mma_fwd(int out_dtype, const void* hid,
+                               long long ld_h, const void* x, long long ld_x,
+                               const void* wm, void* out, long long M, int H,
+                               int F, int O, void* stream) {
   if (M <= 0 || !cin_mix_route(1, H, F, O) || ld_h < H || ld_x < F ||
+      (out_dtype != 0 && out_dtype != 1) ||
       (M + kMmaRows - 1) / kMmaRows >= (1LL << 31) ||
       (reinterpret_cast<unsigned long long>(wm) & 15) != 0 ||
       static_cast<long long>(F) * round_up(H, 16) >= (1LL << 31)) {
@@ -697,8 +719,18 @@ extern "C" int cin_mix_mma_fwd(const void* hid, long long ld_h,
   }
   const MmaShape s = mma_shape(H, F, O);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (s.BN == 128) {
-    return launch_wgmma<1>(s, hid, ld_h, x, ld_x, wm, out, M, H, F, O, st);
+  if (out_dtype == 0) {
+    if (s.BN == 128) {
+      return launch_wgmma<1, float>(s, hid, ld_h, x, ld_x, wm, out, M, H, F,
+                                    O, st);
+    }
+    return launch_wgmma<2, float>(s, hid, ld_h, x, ld_x, wm, out, M, H, F, O,
+                                  st);
   }
-  return launch_wgmma<2>(s, hid, ld_h, x, ld_x, wm, out, M, H, F, O, st);
+  if (s.BN == 128) {
+    return launch_wgmma<1, __nv_bfloat16>(s, hid, ld_h, x, ld_x, wm, out, M,
+                                          H, F, O, st);
+  }
+  return launch_wgmma<2, __nv_bfloat16>(s, hid, ld_h, x, ld_x, wm, out, M, H,
+                                        F, O, st);
 }

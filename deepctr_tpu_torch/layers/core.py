@@ -1,5 +1,5 @@
-"""Core layers: dense layer, DNN tower, prediction head, DIN's local
-activation unit.
+"""Core layers: dense layer, dropout, DNN tower, prediction head, DIN's
+local activation unit.
 
 Counterpart of ``deepctr_tpu/layers/core.py:18-100``.  Every matmul runs in
 the global compute dtype (``config.compute_dtype()``); parameters stay
@@ -7,6 +7,7 @@ float32.  Weights are drawn at construction from the caller's
 ``torch.Generator``; biases start at zero, unlike ``nn.Linear``'s default.
 """
 
+import contextlib
 import math
 
 import torch
@@ -49,6 +50,65 @@ class Dense(nn.Module):
         return F.linear(x.to(ct), self.weight.to(ct), bias)
 
 
+# the generator a training forward draws its dropout masks from
+# (``dropout_generator``); None outside a train step
+_DROPOUT_GENERATOR = None
+
+
+@contextlib.contextmanager
+def dropout_generator(generator):
+    """Draw the dropout masks of the forwards run inside from
+    ``generator`` (the model's, ``BaseModel._dropout_generator``): the
+    train step runs its forward inside this."""
+    global _DROPOUT_GENERATOR
+    saved, _DROPOUT_GENERATOR = _DROPOUT_GENERATOR, generator
+    try:
+        yield
+    finally:
+        _DROPOUT_GENERATOR = saved
+
+
+class Dropout(nn.Module):
+    """flax's ``nn.Dropout``: in training each value is kept with
+    probability ``1 - rate`` and scaled by ``1 / (1 - rate)``, else zero;
+    rate 1 gives zeros; the identity at inference.
+
+    The mask is drawn from the generator of the enclosing
+    :func:`dropout_generator` on the input's device (``torch.rand(...,
+    generator=g) < 1 - rate``), never from the global one, so that a step's
+    masks are a function of that generator's state alone and a CUDA graph
+    that registers it draws new masks at every replay.  A training forward
+    with a rate above 0 outside :func:`dropout_generator` raises.  flax's
+    bits are not reproduced."""
+
+    def __init__(self, rate):
+        super().__init__()
+        if not 0.0 <= rate <= 1.0:
+            raise ValueError("dropout rate must lie in [0, 1], got %r"
+                             % (rate,))
+        self.rate = float(rate)
+
+    def keep_mask(self, x):
+        """The [x.shape] bool mask of the values kept."""
+        if _DROPOUT_GENERATOR is None:
+            raise RuntimeError(
+                "a training forward with dropout draws its masks from the "
+                "model's dropout generator: run it inside "
+                "layers.core.dropout_generator(...) (fit and the train "
+                "step do)")
+        u = torch.rand(x.shape, generator=_DROPOUT_GENERATOR,
+                       device=x.device)
+        return u < 1.0 - self.rate
+
+    def forward(self, x, training=False):
+        if not training or self.rate == 0.0:
+            return x
+        if self.rate == 1.0:
+            return torch.zeros_like(x)
+        keep = 1.0 - self.rate
+        return torch.where(self.keep_mask(x), x / keep, x.new_zeros(()))
+
+
 def _dense(in_features, features, init_std=None, use_bias=True,
            device=None, generator=None):
     """Kernel from normal(``init_std``), or lecun-normal when it is None."""
@@ -57,7 +117,7 @@ def _dense(in_features, features, init_std=None, use_bias=True,
 
 
 class DNN(nn.Module):
-    """MLP tower: [Dense -> (BatchNorm) -> activation] * L.
+    """MLP tower: [Dense -> (BatchNorm) -> activation -> Dropout] * L.
 
     (counterpart of ``deepctr_tpu/layers/core.py:25-54``; only kernel
     weights are drawn from normal(init_std), biases start at 0.)  An
@@ -65,8 +125,9 @@ class DNN(nn.Module):
     ``Dice_<i>``/``PReLU_<i>`` as flax names them.  With ``use_bn`` each
     dense layer is followed by ``bn_<i>``, flax's ``nn.BatchNorm(momentum=
     0.9, epsilon=1e-5)`` with scale and bias (:class:`BatchNorm`): batch
-    statistics in training, the running ones at inference.  Dropout is not
-    ported yet and raises.
+    statistics in training, the running ones at inference.  With
+    ``dropout_rate > 0`` each activation is followed by :class:`Dropout`
+    in training.
     """
 
     def __init__(self, inputs_dim, hidden_units, activation="relu",
@@ -75,11 +136,10 @@ class DNN(nn.Module):
         super().__init__()
         if len(hidden_units) == 0:
             raise ValueError("hidden_units is empty!!")
-        if dropout_rate > 0:
-            raise NotImplementedError("DNN dropout is not ported yet")
         self.hidden_units = tuple(hidden_units)
         self.l2_reg = l2_reg
         self.use_bn = use_bn
+        self.dropout = Dropout(dropout_rate)
         dims = (inputs_dim,) + self.hidden_units
         self.activations = []
         for i, units in enumerate(self.hidden_units):
@@ -100,7 +160,7 @@ class DNN(nn.Module):
             x = getattr(self, "dense_%d" % i)(x)
             if self.use_bn:
                 x = getattr(self, "bn_%d" % i)(x, training)
-            x = act(x, training)
+            x = self.dropout(act(x, training), training)
         return x
 
 

@@ -16,7 +16,7 @@ from ..ops import cin_mix, cross_net, fm_cross
 from ..ops._args import ParamCache
 from ..ops.cin import kernel_weights
 from .activation import activation_layer
-from .core import _TRUNC_NORMAL_STD, _dense
+from .core import _TRUNC_NORMAL_STD, Dropout, _dense
 
 
 class FM(nn.Module):
@@ -39,16 +39,22 @@ class CIN(nn.Module):
     and the second half goes to the output; the output maps are summed
     over E at the end: [B, F, E] -> [B, featuremap_num].
 
-    Everything runs in the compute dtype, operands and carried maps alike,
-    as the JAX layer's default policy (``DEEPCTR_CIN_DTYPE=bf16``) does in
-    training and at inference; the bias is added after the kernel, in that
-    dtype.  ``conv_w_<i>`` is drawn from U(+-1/sqrt(size)), the JAX layer's
-    ``variance_scaling(1/3, "fan_in", "uniform")`` on shape ``(size,
-    in_ch)`` (flax's fan-in of a 2-D kernel is its first axis), and
-    ``conv_b_<i>`` starts at zero (the JAX layer's ``init_std`` is unused
-    there and has no counterpart).  On CUDA the kernel's weight layouts are
-    kept between calls (``ops.cin.kernel_weights``), so inference casts and
-    transposes no weight a batch."""
+    At inference, and in training at a compute dtype other than bfloat16,
+    everything runs in the compute dtype, operands and carried maps alike.
+    In bfloat16 training the mode of ``config.set_cin_dtype`` applies, as
+    the JAX layer's ``DEEPCTR_CIN_DTYPE`` does
+    (``deepctr_tpu/layers/interaction.py:136-176``): ``"bf16"`` as above;
+    ``"carry"`` keeps x0 and the carried maps in float32, casts them to
+    bfloat16 for each product and takes the kernel's float32 output;
+    ``"f32"`` runs the whole stack in float32.  The bias is added after the
+    kernel, in the carried maps' dtype.  ``conv_w_<i>`` is drawn from
+    U(+-1/sqrt(size)), the JAX layer's ``variance_scaling(1/3, "fan_in",
+    "uniform")`` on shape ``(size, in_ch)`` (flax's fan-in of a 2-D kernel
+    is its first axis), and ``conv_b_<i>`` starts at zero (the JAX layer's
+    ``init_std`` is unused there and has no counterpart).  On CUDA the
+    kernel's weight layouts are kept between calls
+    (``ops.cin.kernel_weights``), so inference casts and transposes no
+    weight a batch."""
 
     def __init__(self, field_size, layer_size=(128, 128), activation="relu",
                  split_half=True, device=None, generator=None):
@@ -84,12 +90,17 @@ class CIN(nn.Module):
                                + self.layer_size[-1])
         self._wt = [ParamCache() for _ in self.layer_size]
 
-    def forward(self, inputs):
+    def forward(self, inputs, training=False):
         if inputs.dim() != 3:
             raise ValueError("CIN expects [B, F, E] inputs")
         dtype = config.compute_dtype()
+        mode = (config.cin_dtype() if dtype == torch.bfloat16 and training
+                else "off")
+        op_dtype = torch.float32 if mode == "f32" else dtype
+        carry_dtype = torch.float32 if mode in ("f32", "carry") else dtype
         F = self.field_size
-        x0_t = inputs.transpose(1, 2).to(dtype).contiguous()     # [B, E, F]
+        x0_t = inputs.transpose(1, 2).to(carry_dtype).contiguous()  # [B, E, F]
+        x0_op = x0_t.to(op_dtype)
         hidden = x0_t
         finals = []
         last = len(self.layer_size) - 1
@@ -98,11 +109,12 @@ class CIN(nn.Module):
             b = getattr(self, "conv_b_%d" % i)
             w3 = w.view(size, self.field_nums[i], F)
             if x0_t.is_cuda:
-                wt, wm = self._wt[i].get([w], dtype,
-                                         lambda: kernel_weights(w3, dtype))
+                wt, wm = self._wt[i].get(
+                    [w], op_dtype, lambda: kernel_weights(w3, op_dtype))
             else:
-                w3, wt, wm = w3.to(dtype), None, None
-            x = cin_mix(hidden, x0_t, w3, wt=wt, wm=wm) + b.to(dtype)
+                w3, wt, wm = w3.to(op_dtype), None, None
+            x = cin_mix(hidden.to(op_dtype), x0_op, w3, wt=wt, wm=wm,
+                        out_dtype=carry_dtype) + b.to(carry_dtype)
             curr = self.activation(x)                            # [B, E, size]
             if self.split_half and i != last:
                 hidden, direct = torch.split(curr, size // 2, dim=-1)
@@ -293,14 +305,14 @@ class AFMLayer(nn.Module):
     compute dtype.  ``attention_W`` [E, A], ``projection_h`` [A, 1] and
     ``projection_p`` [E, 1] are xavier-normal, ``attention_b`` zeros.  The
     port takes the number of fields at construction, ``field_size``, to
-    build the pair indices once.  Dropout is not ported yet and raises."""
+    build the pair indices once.  With ``dropout_rate > 0`` the weighted
+    sum is dropped in training (``layers.core.Dropout``) before the
+    projection."""
 
     def __init__(self, in_features, attention_factor=4, l2_reg_w=0.0,
                  dropout_rate=0.0, *, field_size, device=None,
                  generator=None):
         super().__init__()
-        if dropout_rate > 0:
-            raise NotImplementedError("AFMLayer dropout is not ported yet")
         E, A = in_features, attention_factor
         self.l2_reg_w = l2_reg_w
         _register_pairs(self, field_size, device)
@@ -311,6 +323,7 @@ class AFMLayer(nn.Module):
                                                         generator))
         self.projection_p = nn.Parameter(_xavier_normal((E, 1), device,
                                                         generator))
+        self.dropout = Dropout(dropout_rate)
 
     def forward(self, inputs, training=False):
         p, q = _pairs(self, inputs)
@@ -319,7 +332,8 @@ class AFMLayer(nn.Module):
                              + self.attention_b)
         score = torch.softmax(torch.matmul(att_tmp, self.projection_h),
                               dim=1)                            # [B, P, 1]
-        att_out = torch.sum(score * bi, dim=1)                  # [B, E]
+        att_out = self.dropout(torch.sum(score * bi, dim=1),    # [B, E]
+                               training)
         return torch.matmul(att_out, self.projection_p)         # [B, 1]
 
 

@@ -14,13 +14,14 @@ class AFM(BaseModel):
     constructor; ``use_attention=False`` runs the plain FM.  Runs on
     ``device`` (default ``"cuda"``; raises where CUDA is absent unless
     ``device="cpu"``).  ``mesh``/``shard_embeddings`` are not ported yet
-    and raise, as does ``afm_dropout > 0``."""
+    and raise."""
 
     def __init__(self, linear_feature_columns, dnn_feature_columns,
                  use_attention=True, attention_factor=8, l2_reg_linear=1e-5,
                  l2_reg_embedding=1e-5, l2_reg_att=1e-5, afm_dropout=0,
                  init_std=1e-4, seed=1024, task="binary", device=None,
                  gpus=None, mesh=None, shard_embeddings=False):
+        self._capture_init_args(locals())
         if mesh is not None or shard_embeddings:
             raise NotImplementedError("sharded models are not ported yet")
         super().__init__(linear_feature_columns, dnn_feature_columns,
@@ -50,5 +51,7 @@ class AFM(BaseModel):
         logit = self.linear_model(X, rows=rows)
         if len(sparse_embedding_list) > 0:
             fm_input = torch.cat(sparse_embedding_list, dim=1)
-            logit = logit + self.fm(fm_input).to(logit.dtype)
+            fm_logit = (self.fm(fm_input, training) if self.use_attention
+                        else self.fm(fm_input))
+            logit = logit + fm_logit.to(logit.dtype)
         return self.out(logit)

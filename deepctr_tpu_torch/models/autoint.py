@@ -16,7 +16,7 @@ class AutoInt(BaseModel):
     """Instantiates the AutoInt architecture, with the JAX package's
     constructor.  Runs on ``device`` (default ``"cuda"``; raises where CUDA
     is absent unless ``device="cpu"``).  ``mesh``/``shard_embeddings``
-    are not ported yet and raise, as does ``dnn_dropout > 0``."""
+    are not ported yet and raise."""
 
     def __init__(self, linear_feature_columns, dnn_feature_columns,
                  att_layer_num=3, att_head_num=2, att_res=True,
@@ -24,6 +24,7 @@ class AutoInt(BaseModel):
                  l2_reg_dnn=0, l2_reg_embedding=1e-5, dnn_use_bn=False,
                  dnn_dropout=0, init_std=1e-4, seed=1024, task="binary",
                  device=None, gpus=None, mesh=None, shard_embeddings=False):
+        self._capture_init_args(locals())
         if mesh is not None or shard_embeddings:
             raise NotImplementedError("sharded models are not ported yet")
         if len(dnn_hidden_units) <= 0 and att_layer_num <= 0:

@@ -7,9 +7,11 @@ Counterpart of ``deepctr_tpu/models/basemodel.py``: ``__init__``
 (:650-722), the active-rows train step (:724-1277) and the train step
 (:1331-1378), ``_assemble_x`` (:1413-1444), ``assemble_device_input``
 (:1446-1451), ``fit`` on host arrays (:1846-1991) and on a device tensor
-(``_fit_device``, :1509-1656), ``evaluate`` (:1993-2018), ``predict``
-(:2020-2053) and ``get_weights``/``set_weights`` (:2125-2134).  The model
-is the ``nn.Module`` itself; its ``state_dict`` is its weights.
+(``_fit_device``, :1509-1656) with ``profile`` (:1488-1507),
+``evaluate`` (:1993-2018), ``predict`` (:2020-2053),
+``get_weights``/``set_weights`` (:2125-2134) and the persistence methods
+(:2150-2186, ``utils/serialization.py``).  The model is the ``nn.Module``
+itself; its ``state_dict`` is its weights.
 
 A train step, per batch, on the device alone (it uploads nothing and reads
 nothing back, so that a CUDA graph can replay it: ``graphs.py``):
@@ -44,6 +46,7 @@ Unlike the JAX package, which stores tables of >= 131072 rows packed into
 rows; see ``ROADMAP.md`` section 3.
 """
 
+import os
 import re
 import time
 import warnings
@@ -60,12 +63,14 @@ except ImportError:  # pragma: no cover
 from .. import config
 from ..callbacks import CallbackList, History
 from ..features import SparseFeat, VarLenSparseFeat
+from ..layers.core import Dropout, dropout_generator
 from ..layers.utils import slice_arrays
 from ..losses import resolve_loss
 from ..ops import row_update as _row_update
 from ..ops._args import DeviceArgs, device_array
 from ..ops.row_update import adam_bias_corrections, row_update
 from ..ops.scatter_add import scatter_add_rows
+from ..utils import serialization
 from ..utils.jax_weights import jax_path
 from ..utils.metrics import resolve_metrics
 from .base_module import BaseModule, fused_wide_names
@@ -107,8 +112,10 @@ class DenseOptimizer:
 
     A parameter without a gradient steps with a zero one, as optax does.
     ``count`` is the steps taken, and those made ready on the device
-    (``BaseModel._begin_steps``).
+    (``BaseModel._begin_steps``).  A CUDA graph captures its step.
     """
+
+    capturable = True
 
     def __init__(self, name, lr, params):
         self.name = name
@@ -146,6 +153,58 @@ class DenseOptimizer:
                 u = -lr * ((m / bc1) / (torch.sqrt(v / bc2)
                                         + _row_update.ADAM_EPS))
             p.add_(u)
+
+
+class TorchOptimizer:
+    """A caller's ``torch.optim.Optimizer`` as the train step's dense
+    optimizer, the port's counterpart of an optax transform passed to the
+    JAX package's ``compile`` (``basemodel.py:121-135``).
+
+    ``params`` are the model's parameters it steps: before each step every
+    one without a gradient gets a zero one, as optax steps every leaf.
+    ``capturable`` is True where every parameter group has
+    ``capturable=True``: then a CUDA graph holds ``step()``, else the
+    device loop runs each step eagerly on the card.  ``Adam``, ``AdamW``
+    and ``RMSprop`` take that option; ``SGD`` and ``Adagrad`` do not
+    (``chip_smoke.py`` phase 30 holds ``Adam(capturable=True)`` and
+    ``Adagrad`` on the card; ``PERF.md`` section 6).
+    ``state`` is each parameter's state tensors, by key order;
+    ``count`` the steps made ready, as :class:`DenseOptimizer`'s.
+
+    The optimizer keeps its own state, as a ``torch.optim`` optimizer
+    does: ``compile`` and ``set_weights`` leave it as it is, where the JAX
+    package starts an optax state afresh (some classes, such as
+    ``Adagrad``, build theirs when they are made and cannot start
+    again); ``load_checkpoint`` restores it."""
+
+    def __init__(self, optimizer, params):
+        self.optimizer = optimizer
+        self.params = list(params)
+        self.count = 0
+
+    @property
+    def capturable(self):
+        return all(g.get("capturable", False)
+                   for g in self.optimizer.param_groups)
+
+    @property
+    def state(self):
+        return [tuple(v for _, v in sorted(
+                    self.optimizer.state.get(p, {}).items())
+                    if isinstance(v, torch.Tensor))
+                for p in self.params]
+
+    def stale_params(self, model):
+        """The optimizer's parameters that are not ``model``'s."""
+        own = {id(p) for p in model.parameters()}
+        return [p for g in self.optimizer.param_groups for p in g["params"]
+                if id(p) not in own]
+
+    def step(self, bias=None):
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        self.optimizer.step()
 
 
 class _StepPlan:
@@ -261,7 +320,18 @@ class BaseModel(BaseModule):
 
     Every parameter is drawn at construction from one ``torch.Generator``
     on the model's device, seeded with ``seed``; subclasses draw their own
-    layers from ``self._init_generator`` after this ``__init__``.
+    layers from ``self._init_generator`` after this ``__init__``, and
+    record their constructor's arguments first (``_capture_init_args``).
+
+    Dropout masks come from another generator on the model's device,
+    reseeded at every epoch from ``(seed + 1, epoch)``
+    (:meth:`_begin_steps`), the JAX loops' ``PRNGKey(seed + 1)`` with the
+    epoch folded in; each step of the epoch draws after the one before.  So
+    a step's masks are a function of (seed, epoch, step) in both loops: two
+    fits from the same weights draw the same masks, and so does a
+    ``fit(initial_epoch=e)`` after ``load_checkpoint``.  The JAX host loop
+    folds in a step count that restarts at every ``fit``; here it is the
+    epoch and the step within it.
     """
 
     def __init__(self, linear_feature_columns, dnn_feature_columns,
@@ -308,6 +378,28 @@ class BaseModel(BaseModule):
         # {key: StepGraph or ForwardGraph}, {batch size: _StepPlan}
         self._graphs = {}
         self._plans = {}
+        self._dropout_gen = None
+
+    def _capture_init_args(self, local_vars):
+        """Record the constructor's arguments, so that ``load_model`` can
+        rebuild the model (``deepctr_tpu/models/basemodel.py:2180-2186``).
+        ``mesh`` is left out, as there; ``device`` stays as the caller gave
+        it."""
+        drop = {"self", "__class__", "mesh"}
+        self._init_kwargs = {k: v for k, v in local_vars.items()
+                             if k not in drop}
+
+    def _dropout_generator(self):
+        """The generator the train step draws its dropout masks from, on
+        the model's device (made anew after a move)."""
+        g = self._dropout_gen
+        if g is None or g.device != self._device:
+            g = self._dropout_gen = torch.Generator(device=self._device)
+        return g
+
+    def _has_dropout(self):
+        return any(isinstance(m, Dropout) and m.rate > 0
+                   for m in self.modules())
 
     # ------------------------------------------------------------------
     # regularization
@@ -329,8 +421,9 @@ class BaseModel(BaseModule):
     @staticmethod
     def _graph_key(*parts):
         """A captured graph's cache key: ``parts``, and the global settings
-        that a capture bakes in (the compute dtype, TF32 matmuls)."""
-        return parts + (config.compute_dtype(),
+        that a capture bakes in (the compute dtype, the CIN's mode, TF32
+        matmuls)."""
+        return parts + (config.compute_dtype(), config.cin_dtype(),
                         torch.backends.cuda.matmul.allow_tf32)
 
     def _drop_graphs(self):
@@ -464,32 +557,48 @@ class BaseModel(BaseModule):
     # ------------------------------------------------------------------
     def compile(self, optimizer, loss=None, metrics=None,
                 learning_rate=None, sparse_table_updates="auto"):
-        """Configure the optimizer (a name: ``sgd``, ``adagrad``,
-        ``rmsprop``, ``adam``, with torch-default learning rates that
-        ``learning_rate`` overrides for both the dense parameters and the
-        sparse tables), the loss (name, callable, or per-task list) and
-        the metrics (names).
+        """Configure the optimizer, the loss (name, callable, or per-task
+        list) and the metrics (names).
+
+        ``optimizer``: a name (``sgd``, ``adagrad``, ``rmsprop``, ``adam``,
+        with torch-default learning rates that ``learning_rate`` overrides
+        for both the dense parameters and the sparse tables), or a
+        ``torch.optim.Optimizer`` the caller built over
+        ``model.parameters()`` (:class:`TorchOptimizer`), the counterpart
+        of the JAX package's optax transform: its tables stay dense, and a
+        ``learning_rate`` beside it raises ``ValueError``.
 
         ``sparse_table_updates``: True / False / "auto".  Tables on the
         sparse path never get a dense gradient: each step updates only the
         rows its batch touched, with their L2 applied lazily.  "auto"
         turns it on when the model holds >= 1M table rows, and then only
-        for tables of >= 16384 rows."""
-        if not isinstance(optimizer, str):
-            raise NotImplementedError(
-                "the port takes optimizers by name (%s); optimizer objects "
-                "are not ported" % ", ".join(sorted(_OPT_DEFAULT_LR)))
-        if optimizer not in _OPT_DEFAULT_LR:
-            raise NotImplementedError("unknown optimizer %r" % optimizer)
-        self._optimizer_name = optimizer
-        self._learning_rate = (float(learning_rate)
-                               if learning_rate is not None
-                               else _OPT_DEFAULT_LR[optimizer])
+        for tables of >= 16384 rows.  It needs a named optimizer: with an
+        optimizer object, True warns and falls back to dense updates."""
+        if isinstance(optimizer, str):
+            if optimizer not in _OPT_DEFAULT_LR:
+                raise NotImplementedError("unknown optimizer %r" % optimizer)
+            self._optimizer_name = optimizer
+            self._learning_rate = (float(learning_rate)
+                                   if learning_rate is not None
+                                   else _OPT_DEFAULT_LR[optimizer])
+        elif isinstance(optimizer, torch.optim.Optimizer):
+            if learning_rate is not None:
+                raise ValueError("learning_rate is only meaningful with a "
+                                 "named optimizer; configure the "
+                                 "torch.optim optimizer directly")
+            self._optimizer_name = None
+            self._learning_rate = None
+        else:
+            raise TypeError("optimizer must be a name (%s) or a "
+                            "torch.optim.Optimizer built over "
+                            "model.parameters(), got %r"
+                            % (", ".join(sorted(_OPT_DEFAULT_LR)), optimizer))
         self.optim = optimizer
         self.loss_func = resolve_loss(loss)
         self.metrics = resolve_metrics(metrics)
         self.metrics_names = ["loss"] + list(self.metrics)
         self._sparse_specs = self._resolve_sparse_specs(sparse_table_updates)
+        self._eager_step_warned = False
         self._init_optimizer_state()
         return self
 
@@ -498,10 +607,14 @@ class BaseModel(BaseModule):
         tables (at compile, and when ``set_weights`` loads new weights)."""
         tables = self._tables()
         sparse = {p for p, _, _ in self._sparse_specs}
-        self._dense_opt = DenseOptimizer(
-            self._optimizer_name, self._learning_rate,
-            [p for path, p in self._named_params() if path not in sparse])
-        n_state = _row_update.MODES[self._optimizer_name][1]
+        dense = [p for path, p in self._named_params() if path not in sparse]
+        if self._optimizer_name is None:
+            self._dense_opt = TorchOptimizer(self.optim, dense)
+            n_state = 0
+        else:
+            self._dense_opt = DenseOptimizer(self._optimizer_name,
+                                             self._learning_rate, dense)
+            n_state = _row_update.MODES[self._optimizer_name][1]
         self._table_state = {
             p: tuple(torch.zeros_like(tables[p]) for _ in range(n_state))
             for p, _, _ in self._sparse_specs}
@@ -513,12 +626,17 @@ class BaseModel(BaseModule):
         self._step_rules = None
         self._invalidate_graphs()
 
-    def _begin_steps(self, n):
-        """Ready the device for the next ``n`` train steps: the step
-        counter at 0 and, for adam, the ``(1 - b1^t, 1 - b2^t)`` of those
-        steps (``adam_bias_corrections``, the JAX package's float32
-        formula) uploaded at once, which the steps read on the device.
-        Each ``fit`` epoch calls it; so must a caller of ``_train_step``."""
+    def _begin_steps(self, n, epoch=0):
+        """Ready the device for the next ``n`` train steps, those of epoch
+        ``epoch``: the dropout generator reseeded from ``(seed + 1,
+        epoch)``, the step counter at 0 and, for adam, the ``(1 - b1^t, 1
+        - b2^t)`` of those steps (``adam_bias_corrections``, the JAX
+        package's float32 formula) uploaded at once, which the steps read
+        on the device.  Each ``fit`` epoch calls it; so must a caller of
+        ``_train_step``."""
+        state = np.random.SeedSequence([self.seed + 1, epoch])
+        self._dropout_generator().manual_seed(
+            int(state.generate_state(1, np.uint64)[0]))
         t0 = self._dense_opt.count
         self._dense_opt.count += n
         for p in self._table_t:
@@ -526,14 +644,21 @@ class BaseModel(BaseModule):
         self._step_i.zero_()
         if self._optimizer_name != "adam":
             return
-        device = self._device
-        if self._bias_table is None or self._bias_table.shape[0] < n:
-            self._drop_graphs()         # they read the old table
-            self._bias_table = torch.empty(n, 2, device=device)
+        self._reserve_steps(n)
         values = [c for t in range(t0 + 1, t0 + n + 1)
                   for c in adam_bias_corrections(t)]
         self._bias_table[:n].copy_(
-            device_array(values, torch.float32, device).view(n, 2))
+            device_array(values, torch.float32, self._device).view(n, 2))
+
+    def _reserve_steps(self, n):
+        """adam's table of bias corrections, made (or made larger) for
+        ``n`` steps.  A new table drops the captured graphs, which read
+        the old one: the device loop reserves it before it looks up its
+        graph."""
+        if self._optimizer_name == "adam" and (
+                self._bias_table is None or self._bias_table.shape[0] < n):
+            self._drop_graphs()
+            self._bias_table = torch.empty(n, 2, device=self._device)
 
     def _step_plan(self, B):
         plan = self._plans.get(B)
@@ -544,9 +669,20 @@ class BaseModel(BaseModule):
     def _ensure_compiled(self):
         """The eager regularization term and the sparse tables' lazy L2,
         fixed at the first fit after ``compile`` (as the JAX package builds
-        its train step), so that rules added in between apply."""
+        its train step), so that rules added in between apply.  Raises if
+        an optimizer object holds tensors that are not the model's
+        parameters (built over another model, or before a conversion that
+        made new parameters)."""
         if self.optim is None:
             raise RuntimeError("call model.compile(...) before fit()")
+        if self._optimizer_name is None:
+            stale = self._dense_opt.stale_params(self)
+            if stale:
+                raise ValueError(
+                    "the optimizer holds %d tensor(s) that are not this "
+                    "model's parameters (it was built over another model, "
+                    "or before .to() made new ones): build it over "
+                    "model.parameters() and compile again" % len(stale))
         if self._step_rules is None:
             self._step_rules = (
                 self._reg_entries(),
@@ -598,6 +734,12 @@ class BaseModel(BaseModule):
         if mode is False:
             return []
         if self._optimizer_name not in _SPARSE_OPTIMIZERS:
+            if mode is True:
+                warnings.warn(
+                    "sparse_table_updates=True requires a named optimizer "
+                    "in %r (got %r) — falling back to DENSE table updates"
+                    % (_SPARSE_OPTIMIZERS, self._optimizer_name
+                       or type(self.optim).__name__))
             return []
         tables = self._tables()
         vocabs = self._table_vocabs()
@@ -669,7 +811,8 @@ class BaseModel(BaseModule):
             ed._capture = captures.setdefault(prefix, [])
         self.aux_loss = None
         try:
-            y_pred = self(X, training=True)
+            with dropout_generator(self._dropout_generator()):
+                y_pred = self(X, training=True)
         finally:
             for _, ed in self._embedding_dicts():
                 ed._capture = None
@@ -851,21 +994,44 @@ class BaseModel(BaseModule):
         ``x`` a dict/list of host arrays: an eager loop that uploads each
         batch and reads its loss.  Batches have a fixed size; the last is
         padded with sample 0 at sample weight 0.  The shuffle is
-        ``np.random.default_rng(seed).permutation``, as the JAX package's.
+        ``np.random.default_rng(seed).permutation``, as the JAX package's,
+        one permutation an epoch from epoch 0, so that a fit from
+        ``initial_epoch`` shuffles its epochs as a fit from 0 did.
 
         ``x`` a flat [N, input_dim] tensor (``assemble_device_input``):
         the device-resident loop, :meth:`_fit_device`.
 
-        Not ported yet, and raising: a callable ``x`` (streaming fit),
-        ``profile`` and ``steps_per_epoch``."""
+        ``profile``: a directory; ``torch.profiler`` traces the whole call
+        (host, and the card where the model is on one) and writes its
+        trace there as TensorBoard reads it, stopping in a ``finally``.
+
+        Not ported yet, and raising: a callable ``x`` (streaming fit) and
+        ``steps_per_epoch``."""
         if callable(x):
             raise NotImplementedError("streaming fit (a callable x) is not "
                                       "ported yet")
-        if profile is not None:
-            raise NotImplementedError("fit(profile=...) is not ported yet")
         if steps_per_epoch is not None:
             raise NotImplementedError("steps_per_epoch goes with streaming "
                                       "fit, which is not ported yet")
+        args = (x, y, batch_size, epochs, verbose, initial_epoch,
+                validation_split, validation_data, shuffle, callbacks)
+        if not profile:
+            return self._fit(*args)
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self._device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                os.fspath(profile)))
+        prof.start()
+        try:
+            return self._fit(*args)
+        finally:
+            prof.stop()
+
+    def _fit(self, x, y, batch_size, epochs, verbose, initial_epoch,
+             validation_split, validation_data, shuffle, callbacks):
         self._ensure_compiled()
         if isinstance(x, torch.Tensor):
             return self._fit_device(x, y, batch_size, epochs, verbose,
@@ -918,6 +1084,9 @@ class BaseModel(BaseModule):
         rng_shuffle = np.random.default_rng(self.seed)
         sample_num = len(X)
         steps_per_epoch = (sample_num - 1) // batch_size + 1
+        if shuffle:
+            for _ in range(initial_epoch):
+                rng_shuffle.permutation(sample_num)
 
         callbacks = CallbackList((callbacks or []) + [self.history])
         callbacks.set_model(self)
@@ -938,7 +1107,7 @@ class BaseModel(BaseModule):
 
             order = (rng_shuffle.permutation(sample_num) if shuffle
                      else np.arange(sample_num))
-            self._begin_steps(steps_per_epoch)
+            self._begin_steps(steps_per_epoch, epoch)
             iterator = range(steps_per_epoch)
             if verbose == 1 and tqdm is not None:
                 iterator = tqdm(iterator, disable=False)
@@ -1054,6 +1223,7 @@ class BaseModel(BaseModule):
         n_pad = steps_per_epoch * B
         need_preds = bool(verbose > 0 and self.metrics)
         self._check_sparse_ids(X)
+        self._reserve_steps(steps_per_epoch)
         key = self._graph_key("fit", B, steps_per_epoch, n_pad,
                               bool(shuffle), need_preds)
         loop = self._graphs.get(key)
@@ -1062,8 +1232,15 @@ class BaseModel(BaseModule):
                 self, B, steps_per_epoch, n_pad, y.shape[1], bool(shuffle),
                 need_preds)
         loop.load(X, y)
+        if (device.type == "cuda" and not loop.capturable
+                and not self._eager_step_warned):
+            self._eager_step_warned = True
+            warnings.warn(
+                "%s cannot be captured in a CUDA graph (it needs "
+                "capturable=True, which its parameter groups do not set): "
+                "the device-resident loop runs each step eagerly on the card"
+                % type(self.optim).__name__)
         generator = torch.Generator(device=device)
-        generator.manual_seed(self.seed)
 
         callbacks = CallbackList((callbacks or []) + [self.history])
         callbacks.set_model(self)
@@ -1078,7 +1255,9 @@ class BaseModel(BaseModule):
         for epoch in range(initial_epoch, epochs):
             callbacks.on_epoch_begin(epoch)
             start_time = time.time()
-            losses = loop.run_epoch(generator)
+            state = np.random.SeedSequence([self.seed, epoch])
+            generator.manual_seed(int(state.generate_state(1, np.uint64)[0]))
+            losses = loop.run_epoch(generator, epoch)
             epoch_logs = {"loss": float(losses.sum()) / sample_num}
             if need_preds:
                 y_np = y[:sample_num].cpu().numpy()
@@ -1162,10 +1341,33 @@ class BaseModel(BaseModule):
                 for k, v in self.state_dict().items()}
 
     def set_weights(self, weights):
-        """Load ``{state_dict key: array}``; every key must match, shape
-        included.  Copies into the existing parameters; a compiled model's
-        optimizer state starts afresh, as in the JAX package."""
-        self.load_state_dict({k: torch.as_tensor(np.array(v))
+        """Load ``{state_dict key: array or tensor}``; every key must match,
+        shape included.  Copies into the existing parameters; a compiled
+        model's optimizer state starts afresh, as in the JAX package (an
+        optimizer object keeps its own: ``TorchOptimizer``)."""
+        self.load_state_dict({k: v if isinstance(v, torch.Tensor)
+                              else torch.as_tensor(np.array(v))
                               for k, v in weights.items()}, strict=True)
         if self.optim is not None:
             self._init_optimizer_state()
+
+    # ------------------------------------------------------------------
+    # persistence (deepctr_tpu/models/basemodel.py:2150-2172)
+    # ------------------------------------------------------------------
+    def save_weights(self, path):
+        serialization.save_weights(self, path)
+
+    def load_weights(self, path):
+        serialization.load_weights(self, path)
+
+    def save(self, path):
+        serialization.save_model(self, path)
+
+    def save_checkpoint(self, directory, include_optimizer=True):
+        """Train-state checkpoint (weights, and the dense and sparse
+        optimizer state) for an exact resume with ``fit(initial_epoch=)``
+        (``utils/serialization.py``)."""
+        serialization.save_checkpoint(self, directory, include_optimizer)
+
+    def load_checkpoint(self, directory):
+        return serialization.load_checkpoint(self, directory)

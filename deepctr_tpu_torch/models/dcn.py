@@ -16,7 +16,7 @@ class DCN(BaseModel):
     (``"matrix"``) architecture, with the JAX package's constructor.  Runs
     on ``device`` (default ``"cuda"``; raises where CUDA is absent unless
     ``device="cpu"``).  ``mesh``/``shard_embeddings`` are not ported yet
-    and raise, as does ``dnn_dropout > 0``."""
+    and raise."""
 
     def __init__(self, linear_feature_columns, dnn_feature_columns,
                  cross_num=2, cross_parameterization="vector",
@@ -25,6 +25,7 @@ class DCN(BaseModel):
                  init_std=1e-4, seed=1024, dnn_dropout=0,
                  dnn_activation="relu", dnn_use_bn=False, task="binary",
                  device=None, gpus=None, mesh=None, shard_embeddings=False):
+        self._capture_init_args(locals())
         if mesh is not None or shard_embeddings:
             raise NotImplementedError("sharded models are not ported yet")
         super().__init__(linear_feature_columns, dnn_feature_columns,

@@ -13,7 +13,7 @@ class DCNMix(DCN):
     constructor: DCN's model with ``CrossNetMix`` as its cross network.
     Runs on ``device`` (default ``"cuda"``; raises where CUDA is absent
     unless ``device="cpu"``).  ``mesh``/``shard_embeddings`` are not ported
-    yet and raise, as does ``dnn_dropout > 0``."""
+    yet and raise."""
 
     def __init__(self, linear_feature_columns, dnn_feature_columns,
                  cross_num=2, dnn_hidden_units=(128, 128), l2_reg_linear=1e-5,
@@ -22,6 +22,7 @@ class DCNMix(DCN):
                  num_experts=4, dnn_activation="relu", dnn_use_bn=False,
                  task="binary", device=None, gpus=None, mesh=None,
                  shard_embeddings=False):
+        self._capture_init_args(locals())
         if mesh is not None or shard_embeddings:
             raise NotImplementedError("sharded models are not ported yet")
         BaseModel.__init__(self, linear_feature_columns, dnn_feature_columns,

@@ -23,6 +23,7 @@ class DeepFM(BaseModel):
                  seed=1024, dnn_dropout=0, dnn_activation="relu",
                  dnn_use_bn=False, task="binary", device=None, gpus=None,
                  mesh=None, shard_embeddings=False):
+        self._capture_init_args(locals())
         if mesh is not None or shard_embeddings:
             raise NotImplementedError("sharded models are not ported yet")
         super().__init__(linear_feature_columns, dnn_feature_columns,

@@ -139,6 +139,7 @@ class DIEN(BaseModel):
                  l2_reg_dnn=0, l2_reg_embedding=1e-6, dnn_dropout=0,
                  init_std=1e-4, seed=1024, task="binary", device=None,
                  gpus=None, mesh=None, shard_embeddings=False):
+        self._capture_init_args(locals())
         if mesh is not None or shard_embeddings:
             raise NotImplementedError("sharded models are not ported yet")
         super().__init__([], dnn_feature_columns, l2_reg_linear=0,

@@ -19,7 +19,7 @@ class FiBiNET(BaseModel):
     """Instantiates the FiBiNET architecture, with the JAX package's
     constructor.  Runs on ``device`` (default ``"cuda"``; raises where CUDA
     is absent unless ``device="cpu"``).  ``mesh``/``shard_embeddings``
-    are not ported yet and raise, as does ``dnn_dropout > 0``."""
+    are not ported yet and raise."""
 
     def __init__(self, linear_feature_columns, dnn_feature_columns,
                  bilinear_type="interaction", reduction_ratio=3,
@@ -28,6 +28,7 @@ class FiBiNET(BaseModel):
                  seed=1024, dnn_dropout=0, dnn_activation="relu",
                  task="binary", device=None, gpus=None, mesh=None,
                  shard_embeddings=False):
+        self._capture_init_args(locals())
         if mesh is not None or shard_embeddings:
             raise NotImplementedError("sharded models are not ported yet")
         super().__init__(linear_feature_columns, dnn_feature_columns,

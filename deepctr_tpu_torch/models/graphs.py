@@ -19,9 +19,14 @@ A capture follows the whole-network pattern: the body runs once on a side
 stream (which builds every kernel and every cached argument array; for a
 step it is the epoch's first step, run for real), the dense gradients are
 set to None, and ``torch.cuda.graph`` records the body.  A capture that
-fails raises.  A replay runs no host code, so the wrappers' launch
-counters, which count at the Python call, do not move: each graph counts
-the launches its capture recorded and adds them once a replay.
+fails raises.  A step with dropout registers the model's dropout
+generator with its graph (``CUDAGraph.register_generator_state``): each
+replay then draws from the generator's state at that replay and advances
+it by what the capture drew, as the eager step does, so that every step
+draws new masks and the graphed steps draw the eager steps' bits.  A
+replay runs no host code, so the wrappers' launch counters, which count
+at the Python call, do not move: each graph counts the launches its
+capture recorded and adds them once a replay.
 
 A graph holds the addresses of every tensor it read at capture: the model
 drops its graphs (``BaseModel._invalidate_graphs``) whenever it makes new
@@ -54,7 +59,7 @@ class _Captured:
     holds; ``warm`` is what the warm-up run of ``body`` returned, ``out``
     what each replay overwrites."""
 
-    def __init__(self, body, device):
+    def __init__(self, body, device, generators=()):
         with torch.cuda.device(device):
             current = torch.cuda.current_stream()
             side = torch.cuda.Stream()
@@ -63,6 +68,8 @@ class _Captured:
                 self.warm = body()
             current.wait_stream(side)
             self.graph = torch.cuda.CUDAGraph()
+            for g in generators:
+                self.graph.register_generator_state(g)
             before = _counts()
             try:
                 with torch.cuda.graph(self.graph):
@@ -126,24 +133,34 @@ class StepGraph:
             self.preds.index_copy_(0, idx,
                                    y_pred.reshape(self.B, -1).float())
 
-    def run_epoch(self, generator):
-        """One epoch: the permutation (drawn from ``generator`` with a
-        shuffle), the step counter at 0, ``steps`` steps (graph replays on
-        the card, after a capture whose warm-up is the first step).
-        Returns the per-step losses, still on the device."""
+    @property
+    def capturable(self):
+        """Whether the step can be captured: always, but for an optimizer
+        object whose ``step()`` cannot (``basemodel.TorchOptimizer``)."""
+        return self.model._dense_opt.capturable
+
+    def run_epoch(self, generator, epoch):
+        """Epoch ``epoch``: the permutation (drawn from ``generator`` with
+        a shuffle), the steps made ready (``BaseModel._begin_steps``),
+        ``steps`` steps (graph replays on the card, after a capture whose
+        warm-up is the first step; eager steps on the CPU and for an
+        optimizer that cannot be captured).  Returns the per-step losses,
+        still on the device."""
         m = self.model
         if self.shuffle:
             self.perm.copy_(torch.randperm(self.perm.shape[0],
                                            generator=generator,
                                            device=self.perm.device))
-        m._begin_steps(self.steps)
+        m._begin_steps(self.steps, epoch)
         first = 0
-        if self.X.device.type != "cuda":
+        if self.X.device.type != "cuda" or not self.capturable:
             for _ in range(self.steps):
                 self.step()
             return self.losses
         if self.captured is None:
-            self.captured = _Captured(self._capture_body, self.X.device)
+            self.captured = _Captured(
+                self._capture_body, self.X.device,
+                [m._dropout_generator()] if m._has_dropout() else [])
             first = 1
         for _ in range(first, self.steps):
             self.captured.replay()

@@ -8,15 +8,16 @@ import torch
 from .basemodel import BaseModel
 from ..inputs import combined_dnn_input
 from ..layers import DNN, BiInteractionPooling
-from ..layers.core import _dense
+from ..layers.core import Dropout, _dense
 
 
 class NFM(BaseModel):
     """Instantiates the NFM architecture, with the JAX package's
     constructor.  Runs on ``device`` (default ``"cuda"``; raises where CUDA
-    is absent unless ``device="cpu"``).  ``mesh``/``shard_embeddings``
-    are not ported yet and raise, as do ``dnn_dropout > 0`` and
-    ``bi_dropout > 0``."""
+    is absent unless ``device="cpu"``).  ``bi_dropout`` drops values of
+    the bi-interaction in training, as ``dnn_dropout`` does after each DNN
+    layer (``layers.core.Dropout``).  ``mesh``/``shard_embeddings`` are not
+    ported yet and raise."""
 
     def __init__(self, linear_feature_columns, dnn_feature_columns,
                  dnn_hidden_units=(128, 128), l2_reg_embedding=1e-5,
@@ -24,10 +25,9 @@ class NFM(BaseModel):
                  bi_dropout=0, dnn_dropout=0, dnn_activation="relu",
                  task="binary", device=None, gpus=None, mesh=None,
                  shard_embeddings=False):
+        self._capture_init_args(locals())
         if mesh is not None or shard_embeddings:
             raise NotImplementedError("sharded models are not ported yet")
-        if bi_dropout > 0:
-            raise NotImplementedError("NFM bi_dropout is not ported yet")
         super().__init__(linear_feature_columns, dnn_feature_columns,
                          l2_reg_linear=l2_reg_linear,
                          l2_reg_embedding=l2_reg_embedding,
@@ -44,6 +44,7 @@ class NFM(BaseModel):
         self.dnn_linear = _dense(dnn_hidden_units[-1], 1, use_bias=False,
                                  device=device, generator=generator)
         self.bi_pooling = BiInteractionPooling()
+        self.bi_dropout_layer = Dropout(bi_dropout)
         # deepctr_tpu/models/nfm.py:68-69, by JAX path
         self.add_regularization_rule(r"^dnn/.*kernel$", l2=l2_reg_dnn)
         self.add_regularization_rule(r"^dnn_linear/kernel$", l2=l2_reg_dnn)
@@ -53,7 +54,9 @@ class NFM(BaseModel):
         sparse_embedding_list, dense_value_list = (
             self.embed_columns(X, self.dnn_feature_columns, rows=rows))
         linear_logit = self.linear_model(X, rows=rows)
-        bi_out = self.bi_pooling(torch.cat(sparse_embedding_list, dim=1))
+        bi_out = self.bi_dropout_layer(
+            self.bi_pooling(torch.cat(sparse_embedding_list, dim=1)),
+            training)
         dnn_input = combined_dnn_input([bi_out], dense_value_list)
         dnn_output = self.dnn(dnn_input, training)
         logit = linear_logit + self.dnn_linear(dnn_output).to(

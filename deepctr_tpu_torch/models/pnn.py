@@ -17,7 +17,7 @@ class PNN(BaseModel):
     constructor (``dnn_feature_columns`` only).  Runs on ``device``
     (default ``"cuda"``; raises where CUDA is absent unless
     ``device="cpu"``).  ``mesh``/``shard_embeddings`` are not ported yet
-    and raise, as does ``dnn_dropout > 0``."""
+    and raise."""
 
     def __init__(self, dnn_feature_columns, dnn_hidden_units=(128, 128),
                  l2_reg_embedding=1e-5, l2_reg_dnn=0, init_std=1e-4,
@@ -25,6 +25,7 @@ class PNN(BaseModel):
                  use_inner=True, use_outter=False, kernel_type="mat",
                  task="binary", device=None, gpus=None, mesh=None,
                  shard_embeddings=False):
+        self._capture_init_args(locals())
         if mesh is not None or shard_embeddings:
             raise NotImplementedError("sharded models are not ported yet")
         if kernel_type not in ("mat", "vec", "num"):

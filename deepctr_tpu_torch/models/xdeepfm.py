@@ -23,9 +23,9 @@ class xDeepFM(BaseModel):
     """Instantiates the xDeepFM architecture, with the JAX package's
     constructor.  Runs on ``device`` (default ``"cuda"``; raises where CUDA
     is absent unless ``device="cpu"``).  On CUDA every CIN layer runs the
-    kernel of ``ops/cin.py``, in training too.  ``mesh``/
-    ``shard_embeddings`` are not ported yet and raise, as does
-    ``dnn_dropout > 0``."""
+    kernel of ``ops/cin.py``, in training too, in the mode of
+    ``config.set_cin_dtype`` at bfloat16 compute.  ``mesh``/
+    ``shard_embeddings`` are not ported yet and raise."""
 
     def __init__(self, linear_feature_columns, dnn_feature_columns,
                  dnn_hidden_units=(256, 256), cin_layer_size=(256, 128),
@@ -34,6 +34,7 @@ class xDeepFM(BaseModel):
                  l2_reg_cin=0, init_std=1e-4, seed=1024, dnn_dropout=0,
                  dnn_activation="relu", dnn_use_bn=False, task="binary",
                  device=None, gpus=None, mesh=None, shard_embeddings=False):
+        self._capture_init_args(locals())
         if mesh is not None or shard_embeddings:
             raise NotImplementedError("sharded models are not ported yet")
         super().__init__(linear_feature_columns, dnn_feature_columns,
@@ -74,7 +75,8 @@ class xDeepFM(BaseModel):
             self.embed_columns(X, self.dnn_feature_columns, rows=rows))
         logit = self.linear_model(X, rows=rows)
         if self.use_cin:
-            cin_output = self.cin(torch.cat(sparse_embedding_list, dim=1))
+            cin_output = self.cin(torch.cat(sparse_embedding_list, dim=1),
+                                  training)
             logit = logit + self.cin_linear(cin_output).to(logit.dtype)
         if self.use_dnn:
             dnn_input = combined_dnn_input(sparse_embedding_list,

@@ -6,7 +6,10 @@ kernel ``_cin_pallas_fwd``)::
     out[b, d, o] = sum_{h, f} w3[o, h, f] * hidden_t[b, d, h] * x0_t[b, d, f]
 
 at the operands' dtype: the outer product ``z = h * x`` is rounded to it,
-the sum over ``K = H * F`` is float32 and is rounded once.
+the sum over ``K = H * F`` is float32 and is rounded once to the output's
+dtype: the operands', or float32 from bfloat16 operands (``out_dtype``,
+the CIN's ``carry`` mode, the JAX einsum's ``preferred_element_type``),
+which writes the float32 sum unrounded on either route.
 
 ``cin_mix`` launches the CUDA kernel in ``csrc/cin_mix.cu`` for CUDA
 tensors, for every layer and every shape, or raises; it takes the plain
@@ -28,7 +31,10 @@ Unlike the JAX package, which runs its kernel only at inference unless
 ``set_use_pallas(True)``, the port runs it in training too: while autograd
 records, ``cin_mix`` runs as :class:`CinMix`, whose forward is the kernel
 and whose backward is ``_cin_mix_bwd``'s explicit contractions
-(``cin_mix_bwd``), in the operands' dtype, from the saved inputs.
+(``cin_mix_bwd``), in the operands' dtype, from the saved inputs; a
+float32 cotangent of a float32 output from bfloat16 operands enters its
+products unrounded, as the JAX transposes of a ``preferred_element_type``
+product take it.
 """
 
 import ctypes
@@ -143,7 +149,9 @@ def _rows(t):
 
 def _kernel(name):
     fn = getattr(_build.load("cin_mix"), name)
-    fn.argtypes = ([ctypes.c_int] if name == "cin_mix_fwd" else []) + [
+    # the dtype codes: (operands, output) for the FMA kernel, the output's
+    # for the tensor-core one
+    fn.argtypes = [ctypes.c_int] * (2 if name == "cin_mix_fwd" else 1) + [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
         ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -152,10 +160,22 @@ def _kernel(name):
     return fn
 
 
-def _launch(hidden_t, x0_t, wt, wm=None):
-    """The kernel on CUDA tensors: -> [B, D, O] in hidden_t's dtype.  The
-    tensor-core route takes ``wm`` (``mma_weight`` of wt), built here when
-    None."""
+def _out_dtype(dtype, out_dtype):
+    """The output's dtype: ``dtype`` (the operands') by default, or
+    float32."""
+    if out_dtype is None or out_dtype == dtype:
+        return dtype
+    if out_dtype != torch.float32:
+        raise ValueError("cin_mix writes its operands' dtype or float32, "
+                         "got out_dtype %s for %s operands"
+                         % (out_dtype, dtype))
+    return out_dtype
+
+
+def _launch(hidden_t, x0_t, wt, wm=None, out_dtype=None):
+    """The kernel on CUDA tensors: -> [B, D, O] in ``out_dtype`` (hidden_t's
+    dtype by default, or float32).  The tensor-core route takes ``wm``
+    (``mma_weight`` of wt), built here when None."""
     global CIN_MIX_LAUNCHES
     if hidden_t.device.type != "cuda":
         raise ValueError("no cin_mix kernel for device %s" % hidden_t.device)
@@ -175,7 +195,8 @@ def _launch(hidden_t, x0_t, wt, wm=None):
         raise ValueError("cin_mix: hidden_t and x0_t need contiguous rows at "
                          "one stride over (b, d), got strides %s and %s"
                          % (hidden_t.stride(), x0_t.stride()))
-    out = torch.empty(B, D, O, dtype=dtype, device=hidden_t.device)
+    out_dtype = _out_dtype(dtype, out_dtype)
+    out = torch.empty(B, D, O, dtype=out_dtype, device=hidden_t.device)
     if B * D == 0:
         return out
     args = (hidden_t.data_ptr(), ld_h, x0_t.data_ptr(), ld_x)
@@ -191,10 +212,11 @@ def _launch(hidden_t, x0_t, wt, wm=None):
                              "contiguous %s %s on %s, 16-byte aligned, got "
                              "%s %s" % (dtype, shape, hidden_t.device,
                                         wm.dtype, tuple(wm.shape)))
-        fn, args = _kernel("cin_mix_mma_fwd"), args + (wm.data_ptr(),)
+        fn = _kernel("cin_mix_mma_fwd")
+        args = (_DTYPES[out_dtype],) + args + (wm.data_ptr(),)
     else:
         fn = _kernel("cin_mix_fwd")
-        args = (_DTYPES[dtype],) + args + (wt.data_ptr(),)
+        args = (_DTYPES[dtype], _DTYPES[out_dtype]) + args + (wt.data_ptr(),)
     with torch.cuda.device(hidden_t.device):
         stream = torch.cuda.current_stream(hidden_t.device).cuda_stream
         rc = fn(*args, out.data_ptr(), B * D, H, F, O, stream)
@@ -208,14 +230,20 @@ def _launch(hidden_t, x0_t, wt, wm=None):
 def cin_mix_bwd(hidden_t, x0_t, wt, g):
     """``_cin_mix_bwd``'s contractions (``pallas.py:104-117``) in the
     operands' dtype, from the forward's inputs and the cotangent g [B, D,
-    O]: -> (dh [B, D, H], dx [B, D, F], dwt [F*H, O])."""
+    O]: -> (dh [B, D, H], dx [B, D, F], dwt [F*H, O]).  A float32 g beside
+    bfloat16 operands (the float32 output of the CIN's carry mode) enters
+    the two products with it in float32, each rounded once to the
+    operands' dtype, as JAX transposes a ``preferred_element_type``
+    product."""
     B, D, H = hidden_t.shape
     F = x0_t.shape[2]
-    dz = torch.einsum("bdo,ko->bdk", g, wt).reshape(B, D, F, H)
+    dtype = hidden_t.dtype
+    dz = torch.einsum("bdo,ko->bdk", g, wt.to(g.dtype)).to(dtype)
+    dz = dz.reshape(B, D, F, H)
     dh = torch.einsum("bdfh,bdf->bdh", dz, x0_t)
     dx = torch.einsum("bdfh,bdh->bdf", dz, hidden_t)
     z = torch.einsum("bdf,bdh->bdfh", x0_t, hidden_t).reshape(B, D, F * H)
-    dwt = torch.einsum("bdk,bdo->ko", z, g)
+    dwt = torch.einsum("bdk,bdo->ko", z.to(g.dtype), g)
     return dh, dx, dwt.to(wt.dtype)
 
 
@@ -224,34 +252,38 @@ class CinMix(torch.autograd.Function):
     :func:`cin_mix_bwd` as its backward; saves only its inputs."""
 
     @staticmethod
-    def forward(ctx, hidden_t, x0_t, wt, wm=None):
+    def forward(ctx, hidden_t, x0_t, wt, wm=None, out_dtype=None):
         ctx.save_for_backward(hidden_t, x0_t, wt)
-        return _launch(hidden_t, x0_t, wt, wm)
+        out = _launch(hidden_t, x0_t, wt, wm, out_dtype)
+        ctx.out_dtype = out.dtype
+        return out
 
     @staticmethod
     def backward(ctx, g):
         hidden_t, x0_t, wt = ctx.saved_tensors
-        return cin_mix_bwd(hidden_t, x0_t, wt, g.to(hidden_t.dtype)) + (
-            None,)
+        return cin_mix_bwd(hidden_t, x0_t, wt, g.to(ctx.out_dtype)) + (
+            None, None)
 
 
-def cin_mix(hidden_t, x0_t, w3, wt=None, wm=None):
+def cin_mix(hidden_t, x0_t, w3, wt=None, wm=None, out_dtype=None):
     """Fused CIN layer: hidden_t [B, D, H], x0_t [B, D, F], w3 [O, H, F] ->
-    [B, D, O] in hidden_t's dtype (float32 or bfloat16, all three alike).
-    ``wt`` and ``wm`` are ``kernel_weights(w3, dtype)`` from a caller that
-    keeps them between calls; they are built here when None.
+    [B, D, O] in ``out_dtype``: hidden_t's dtype (float32 or bfloat16, all
+    three alike) by default, or float32, the unrounded sum, from bfloat16
+    operands.  ``wt`` and ``wm`` are ``kernel_weights(w3, dtype)`` from a
+    caller that keeps them between calls; they are built here when None.
 
     On CUDA tensors this launches the kernel (building it at first use),
     as :class:`CinMix` while autograd records, or raises.  hidden_t and
     x0_t may be views whose (b, d) rows lie at one stride."""
     _check(hidden_t, x0_t, w3)
+    out_dtype = _out_dtype(hidden_t.dtype, out_dtype)
     if hidden_t.device.type == "cpu":
-        return cin_mix_ref(hidden_t, x0_t, w3)
+        return cin_mix_ref(hidden_t, x0_t, w3, out_dtype)
     if hidden_t.device.type != "cuda":
         raise ValueError("no cin_mix kernel for device %s" % hidden_t.device)
     if wt is None:
         wt = kernel_weight(w3, hidden_t.dtype)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (hidden_t, x0_t, wt)):
-        return CinMix.apply(hidden_t, x0_t, wt, wm)
-    return _launch(hidden_t, x0_t, wt, wm)
+        return CinMix.apply(hidden_t, x0_t, wt, wm, out_dtype)
+    return _launch(hidden_t, x0_t, wt, wm, out_dtype)

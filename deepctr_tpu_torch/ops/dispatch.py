@@ -15,11 +15,12 @@ def cin_layer(hidden, x0, w, b):
     return _ref.cin_layer_ref(hidden, x0, w, b)
 
 
-def cin_mix(hidden_t, x0_t, w3, wt=None, wm=None):
+def cin_mix(hidden_t, x0_t, w3, wt=None, wm=None, out_dtype=None):
     # the kernel on CUDA tensors in training and at inference alike (the
-    # JAX package runs its kernel at inference unless set_use_pallas(True));
-    # the plain version on CPU tensors
-    return _cin.cin_mix(hidden_t, x0_t, w3, wt=wt, wm=wm)
+    # JAX package runs its kernel at inference unless set_use_pallas(True)),
+    # float32 output included; the plain version on CPU tensors
+    return _cin.cin_mix(hidden_t, x0_t, w3, wt=wt, wm=wm,
+                        out_dtype=out_dtype)
 
 
 def cross_net(x, kernels, bias, parameterization="vector"):

@@ -27,19 +27,20 @@ def cin_layer_ref(hidden, x0, w, b):
     return torch.einsum("oc,bcd->bod", w, z) + b[None, :, None]
 
 
-def cin_mix_ref(hidden_t, x0_t, w3):
+def cin_mix_ref(hidden_t, x0_t, w3, out_dtype=None):
     """D-major CIN layer: hidden_t [B,D,H], x0_t [B,D,F], w3 [O,H,F]
     -> [B,D,O], out[b,d,o] = sum_{h,f} w3[o,h,f] h[b,d,h] x[b,d,f].
 
     Works at the operands' dtype as the JAX einsums do: the outer product
     z = h * x is rounded to it, the contraction accumulates in float32 and
-    rounds once."""
+    rounds once to ``out_dtype`` (the operands' by default; float32 keeps
+    the sum unrounded, the JAX einsum's ``preferred_element_type``)."""
     B, D, H = hidden_t.shape
     F = x0_t.shape[2]
     O = w3.shape[0]
     z = (hidden_t[..., :, None] * x0_t[..., None, :]).reshape(B, D, H * F)
     out = torch.matmul(z.float(), w3.reshape(O, H * F).t().float())
-    return out.to(hidden_t.dtype)
+    return out.to(out_dtype or hidden_t.dtype)
 
 
 def cross_net_ref(x, kernels, bias, parameterization="vector"):

@@ -360,3 +360,114 @@ def test_cin_mix_mma_ref_matches_the_pallas_kernel():
     wm = p_cin.mma_weight(p_cin.kernel_weight(tw, torch.float32), 128, 5)
     assert_agree(p_cin.cin_mix_mma_ref(th, tx, wm, 16), want, "float32",
                  _scales(h, x, w3))
+
+
+# ---------------------------------------------------------------------------
+# the compute-dtype modes (config.set_cin_dtype, DEEPCTR_CIN_DTYPE)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def _restore_cin_dtype():
+    saved = pt_config.cin_dtype()
+    yield
+    pt_config.set_cin_dtype(saved)
+
+
+# per mode: the forward's tolerance relative to max |output|, the
+# gradients' relative to each leaf's max |gradient|.  f32 and carry: the
+# float32 sums of one set of bfloat16 (carry) or float32 operands in
+# another order.  bf16 and carry's gradients: a bf16 ulp (2^-8) of a map
+# that differs carries into the next layer's products and the sums of the
+# backward, a few ulps of the largest value.
+MODE_TOL = {"bf16": (2e-2, 5e-2), "carry": (1e-3, 5e-2), "f32": (1e-5, 1e-5)}
+
+
+@pytest.mark.parametrize("mode", sorted(MODE_TOL))
+def test_cin_modes_match_the_jax_layer_in_bf16_training(
+        mode, monkeypatch, _restore_cin_dtype):
+    """The JAX CIN under ``DEEPCTR_CIN_DTYPE`` (in a training trace, its
+    default) against the port's under ``set_cin_dtype`` in training, at
+    bfloat16 compute: the output's dtype (float32 under carry and f32),
+    the forward, and the gradients of every weight and of the input."""
+    monkeypatch.setenv("DEEPCTR_CIN_DTYPE", mode)
+    dt.set_compute_dtype("bfloat16")   # restored by the conftest
+    pt_config.set_compute_dtype("bfloat16")
+    pt_config.set_cin_dtype(mode)
+    jl, params, pl, x = _layer_pair(26, (16, 8), True, "relu", 7)
+    out, vjp = jax.vjp(lambda p, xx: jl.apply({"params": p}, xx), params,
+                       jnp.asarray(x))
+    g = np.random.default_rng(8).normal(0, 1, out.shape).astype(np.float32)
+    gp, gx = vjp(jnp.asarray(g, out.dtype))
+    tx = torch.from_numpy(x).requires_grad_()
+    got = pl(tx, training=True)
+    want_dtype = torch.bfloat16 if mode == "bf16" else torch.float32
+    assert got.dtype == want_dtype and out.dtype == (
+        jnp.bfloat16 if mode == "bf16" else jnp.float32)
+    got.backward(torch.from_numpy(g).to(got.dtype))
+    fwd_tol, grad_tol = MODE_TOL[mode]
+    want = _np(out)
+    np.testing.assert_allclose(_np(got), want, rtol=0,
+                               atol=fwd_tol * np.abs(want).max())
+    pairs = [(getattr(pl, k).grad, gp[k], k) for k in params]
+    for a, b, k in pairs + [(tx.grad, gx, "x")]:
+        b = _np(b)
+        np.testing.assert_allclose(_np(a), b, rtol=0,
+                                   atol=grad_tol * np.abs(b).max(),
+                                   err_msg=k)
+    # at inference every mode runs the compute dtype, as the JAX layer
+    with torch.no_grad():
+        assert pl(torch.from_numpy(x)).dtype == torch.bfloat16
+
+
+def test_cin_mix_ref_float32_output_matches_jax():
+    """bfloat16 operands, float32 output: ``preferred_element_type`` in
+    the JAX einsum; the same float32 sums of exact products, in another
+    order (1e-5 relative to sum_k |w z|)."""
+    shape = (8, 16, 26, 26, 64)
+    (jh, jx, jw), (th, tx, tw) = _both(_inputs(shape, 11), "bfloat16")
+    got = pref.cin_mix_ref(th, tx, tw, out_dtype=torch.float32)
+    want = jref.cin_mix_ref(jh, jx, jw, out_dtype=jnp.float32)
+    assert got.dtype == torch.float32 and want.dtype == jnp.float32
+    assert_agree(got, want, "float32", _scales(th, tx, tw))
+    # the wrapper on CPU tensors takes it, and refuses other outputs
+    np.testing.assert_array_equal(
+        p_cin.cin_mix(th, tx, tw, out_dtype=torch.float32).numpy(),
+        got.numpy())
+    with pytest.raises(ValueError, match="out_dtype"):
+        p_cin.cin_mix(th, tx, tw, out_dtype=torch.float16)
+
+
+@pytest.mark.parametrize("shape", [(4, 16, 26, 26, 32), (3, 5, 7, 3, 9)])
+def test_cin_mix_bwd_of_the_float32_output_matches_jax(shape):
+    """``CinMix``'s backward under carry (bfloat16 operands, a float32
+    cotangent) against ``jax.vjp`` of the JAX ``cin_mix_ref`` with
+    ``out_dtype=float32``: the cotangent enters the products unrounded
+    and each product rounds once to bfloat16, as JAX's transposes do
+    (one bf16 ulp; rounding the cotangent to bfloat16 first leaves half
+    the values an ulp off)."""
+    B, D, H, F, O = shape
+    (jh, jx, jw), (th, tx, tw) = _both(_inputs(shape, 12), "bfloat16")
+    g = np.random.default_rng(13).normal(0, 1, (B, D, O)).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: jref.cin_mix_ref(*a, out_dtype=jnp.float32),
+                     jh, jx, jw)
+    dh_j, dx_j, dw3_j = vjp(jnp.asarray(g))
+    wt = p_cin.kernel_weight(tw, torch.bfloat16)
+    dh, dx, dwt = p_cin.cin_mix_bwd(th, tx, wt, torch.from_numpy(g))
+    assert dh.dtype == dx.dtype == dwt.dtype == torch.bfloat16
+    assert_agree(dh, dh_j, "bfloat16")
+    assert_agree(dx, dx_j, "bfloat16")
+    assert_agree(dwt, np.transpose(_np(dw3_j), (2, 1, 0)).reshape(F * H, O),
+                 "bfloat16")
+
+
+def test_set_cin_dtype_rejects_other_modes_and_keys_the_graphs(
+        _restore_cin_dtype):
+    from deepctr_tpu_torch.models.basemodel import BaseModel
+    with pytest.raises(ValueError, match="CIN dtype"):
+        pt_config.set_cin_dtype("fp16")
+    keys = set()
+    for mode in ("bf16", "carry", "f32"):
+        pt_config.set_cin_dtype(mode)
+        assert pt_config.cin_dtype() == mode
+        keys.add(BaseModel._graph_key("fit", 4096))
+    assert len(keys) == 3

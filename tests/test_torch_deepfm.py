@@ -274,8 +274,8 @@ def test_not_yet_ported_options_raise():
         model.compile("sgd", "binary_crossentropy")
         hist = model.fit(x, np.zeros(16), batch_size=16, verbose=0)
         assert np.isfinite(hist.history["loss"]).all()
-    with pytest.raises(NotImplementedError):
-        PDeepFM(plin, pdnn, dnn_dropout=0.5, device="cpu")
+    # dropout is ported (tests/test_torch_dropout.py)
+    assert PDeepFM(plin, pdnn, dnn_dropout=0.5, device="cpu")._has_dropout()
     hashed = [pt.SparseFeat("h", 10, 4, use_hash=True)]
     with pytest.raises(NotImplementedError):
         PDeepFM(hashed, hashed, device="cpu")

@@ -358,7 +358,12 @@ def test_sparse_false_and_optimizer_objects():
     _, pm, _ = _pair()
     pm.compile("adam", "binary_crossentropy", sparse_table_updates=False)
     assert pm._sparse_specs == []
-    with pytest.raises(NotImplementedError):
+    # an optimizer object (tests/test_torch_optim_objects.py), but not its
+    # class
+    pm.compile(torch.optim.SGD(pm.parameters(), lr=0.1),
+               "binary_crossentropy")
+    assert pm._optimizer_name is None and pm._sparse_specs == []
+    with pytest.raises(TypeError):
         pm.compile(torch.optim.SGD, "binary_crossentropy")
     with pytest.raises(NotImplementedError):
         pm.compile("lamb", "binary_crossentropy")
@@ -565,13 +570,13 @@ def test_unported_fit_options_raise():
     with pytest.raises(RuntimeError, match="compile"):
         pm.fit(x, y, verbose=0)
     pm.compile("sgd", "binary_crossentropy")
-    for kw in ({"x": lambda: iter(())}, {"x": x, "profile": "d"},
-               {"x": x, "steps_per_epoch": 2}):
+    # profile and ModelCheckpoint are ported
+    # (tests/test_torch_optim_objects.py, tests/test_torch_checkpoint.py)
+    for kw in ({"x": lambda: iter(())}, {"x": x, "steps_per_epoch": 2}):
         kw.setdefault("y", y)
         with pytest.raises(NotImplementedError):
             pm.fit(verbose=0, **kw)
-    with pytest.raises(NotImplementedError):
-        pcb.ModelCheckpoint("w.pt")
+    assert pcb.ModelCheckpoint("w.pt").filepath == "w.pt"
 
 
 def test_set_weights_after_compile_restarts_the_optimizer():

@@ -223,8 +223,8 @@ def test_load_jax_weights_maps_every_xdeepfm_leaf():
 
 def test_xdeepfm_options_and_device_rules(monkeypatch):
     cols = _columns(pt, 3, 1)
-    with pytest.raises(NotImplementedError):
-        PxDeepFM(cols, cols, dnn_dropout=0.5, device="cpu")
+    # dropout is ported (tests/test_torch_dropout.py)
+    assert PxDeepFM(cols, cols, dnn_dropout=0.5, device="cpu")._has_dropout()
     with pytest.raises(NotImplementedError):
         PxDeepFM(cols, cols, shard_embeddings=True, device="cpu")
     with pytest.raises(ValueError):

@@ -214,18 +214,20 @@ DROPOUTS = {"WDL": ["dnn_dropout"], "NFM": ["dnn_dropout", "bi_dropout"],
 
 @pytest.mark.parametrize("name", NAMES)
 def test_zoo_options_not_ported_raise(name, monkeypatch):
-    """Dropout above 0, ``mesh`` and ``shard_embeddings`` raise (ROADMAP
-    section 1 items 4 and 9); without ``device`` a model asks for CUDA
-    and raises where it is absent."""
+    """``mesh`` and ``shard_embeddings`` raise (ROADMAP section 1 item 9);
+    dropout above 0 is ported and builds; without ``device`` a model asks
+    for CUDA and raises where it is absent."""
     n_dense = 0 if name == "AFM" else 1
     _, cols, _, _ = zoo_data(3, n_dense, 8, seed=8)
     pcls = getattr(pmodels, name)
     args = (cols,) if name == "PNN" else (cols, cols)
-    for kw in ([{k: 0.5} for k in DROPOUTS[name]]
-               + [{"mesh": object()}, {"shard_embeddings": True}]):
+    for kw in ({"mesh": object()}, {"shard_embeddings": True}):
         with pytest.raises(NotImplementedError):
             pcls(*args, device="cpu", **kw)
     pcls(*args, device="cpu", **{k: 0 for k in DROPOUTS[name]})
+    model = pcls(*args, device="cpu", **{k: 0.5 for k in DROPOUTS[name]})
+    assert all(model._init_kwargs[k] == 0.5 for k in DROPOUTS[name])
+    assert model._has_dropout()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         pcls(*args)

@@ -446,8 +446,11 @@ def test_layers_raise_where_the_jax_layers_do():
         pint.OutterProductLayer(F, E, "tensor")
     with pytest.raises(NotImplementedError):
         pint.BilinearInteraction(F, E, "pairwise")
-    with pytest.raises(NotImplementedError, match="dropout"):
-        pint.AFMLayer(E, dropout_rate=0.5, field_size=F)
+    # dropout is ported (tests/test_torch_dropout.py); a rate outside
+    # [0, 1] is refused
+    pint.AFMLayer(E, dropout_rate=0.5, field_size=F)
+    with pytest.raises(ValueError, match="dropout"):
+        pint.AFMLayer(E, dropout_rate=1.5, field_size=F)
     x = torch.zeros(B, F * E)
     for layer in (pint.SENETLayer(F), pint.InteractingLayer(E)):
         with pytest.raises(ValueError, match=r"\[B, F, E\]"):
