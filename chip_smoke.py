@@ -3,10 +3,12 @@
     python3 chip_smoke.py
 
 Drives the port's main paths, DeepFM, xDeepFM and the zoo (WDL, NFM, DCN,
-DCNMix, AutoInt, AFM, FiBiNET, PNN) serving and training at Criteo width
-and DIN/DIEN serving and training at the sequence bench's width, through
-the entry points a user calls (``DeepFM(...)``, ``xDeepFM(...)``,
-``DCN(...)`` and the other zoo models, ``DIN(...)``, ``DIEN(...)``,
+DCNMix, AutoInt, AFM, FiBiNET, PNN, ONN, CCPM, AFN, IFM, DIFM, MLR, and
+the multi-task SharedBottom, ESMM, MMOE and PLE) serving and training at
+Criteo width and DIN/DIEN serving and training at the sequence bench's
+width, through the entry points a user calls (``DeepFM(...)``,
+``xDeepFM(...)``, ``DCN(...)`` and the other zoo models, ``MMOE(...)``
+and the other multi-task models, ``DIN(...)``, ``DIEN(...)``,
 ``model.predict``, ``model.compile``, ``model.fit``, ``model.evaluate``,
 ``save_checkpoint``/``load_checkpoint``, ``save``/``load_model``,
 ``ModelCheckpoint``), and the scatter micro-benchmark (``python -m
@@ -24,11 +26,13 @@ Serving first:
    bit, ids at V-1 and out-of-range ids (NaN rows) included, and so at
    ``GATHER_CASES``: widths 1, 8, 17, 32 (16-byte rows and rows at a
    4-byte offset) and 33 over B=77 x 3 fields (no multiple of 32 pairs),
-   and 300 fields (more than a block stages);
+   300 fields (more than a block stages), and the zoo's widths over
+   B=4096 x 26 fields: 400 (ONN's pair tables), 1 (MLR's linear models)
+   and 16 (the multi-task models' tables, no wide column);
 3. DeepFM predict, float32: the 26 real Criteo vocabularies (33.8M rows),
    13 dense fields, DNN 400-400-400, weights drawn at std 0.05 from a
    seed; 8 batches of 4096 requests through the kernel (its launch count
-   must rise), every prediction finite and in (0, 1), and the first batch
+   must rise), every prediction finite and in [0, 1], and the first batch
    within 1e-5 of the same model on the CPU;
 4. timing, bfloat16 compute: predict in examples/s (CUDA events, median
    of 5 runs after warm-up) beside its device busy time, and its device
@@ -60,7 +64,12 @@ Then the training path, DeepFM ``compile``/``fit`` on the same model:
    of 16-byte units) and 46 tables of widths 1-128 (more W=17 tables than
    a launch holds, a table one float past a 16-byte boundary, some with no
    row, some with padding), each call with the launches its plan
-   (``launch_plan``) counts;
+   (``launch_plan``) counts; then both at the zoo's train shapes, built by
+   the models' own train steps at B=4096: ``scatter_add_rows`` into ONN's
+   26 pair-table gradients ([10,000, 400] each), into one of MLR's linear
+   models (26 of [10,000, 1]) and into MMOE Kaggle's tables (W=16, 8
+   sparse, 18 dense), and ``row_update`` on MMOE Kaggle's touched rows of
+   its 8 sparse W=16 tables;
 6. ``compile("adagrad")`` + ``fit`` at full width, float32, a few steps
    of 4096: the 8 tables of >= 16384 rows go sparse, each kernel
    launches once a step, the loss is finite, and in every sparse table
@@ -113,7 +122,7 @@ sharing their tables) and batches of 1024, DNN 256-128, attention 64-16:
     one ``din_attention`` launch a batch) and ``"AUGRU"`` with negative
     sampling (two ``gru_scan`` launches, the attention scores by
     composition); 8 batches, weights at std 0.3 from a seed, every
-    prediction finite and in (0, 1), the first batch within 1e-5 of the
+    prediction finite and in [0, 1], the first batch within 1e-5 of the
     same model on the CPU (whose attention runs the layer composition);
 11. DIN predict, float32, the same way: ``att_activation`` Dice (no fused
     attention: the composition) and sigmoid (one launch a batch);
@@ -180,7 +189,7 @@ split_half, batches of 4096), serving and training:
     terms' magnitudes;
 17. xDeepFM at float32, weights redrawn from a seed so that predictions
     spread: ``predict`` over 8 batches (2 ``cin_mix`` launches and 1
-    gather a batch), every prediction finite and in (0, 1), the first
+    gather a batch), every prediction finite and in [0, 1], the first
     batch within 1e-5 of the same model on the CPU; ``compile("adagrad")``
     + ``fit`` + ``evaluate``, 3 steps of 4096 (tables dense under "auto":
     a gather, a scatter and 2 ``cin_mix`` launches a step), finite losses;
@@ -232,21 +241,29 @@ xDeepFM (2 batches each):
     step, graph replays and port kernels a step, host ms a step; DeepFM's
     and DIEN's graphed ``predict`` against the eager forward.
 
-Then the zoo: WDL, NFM, DCN, DCNMix, AutoInt, AFM, FiBiNET and PNN at
-``bench.py``'s Criteo layout (26 fields of 10,000 rows with E=16, 13 dense
-fields, batches of 4096, adagrad; each at its constructor's defaults, PNN
-with both product layers), and DCN at the 26 Criteo Kaggle cardinalities
-(33.8M rows; 8 tables on the sparse path), tables drawn at std 0.3 and
-DNN kernels at 1/sqrt(fan_in) from a seed:
+Then the zoo: WDL, NFM, DCN, DCNMix, AutoInt, AFM, FiBiNET, PNN, ONN,
+CCPM, AFN, IFM, DIFM, MLR and the multi-task SharedBottom, ESMM, MMOE and
+PLE (two binary tasks, labels drawn from the seed, the second implying the
+first, trained with a loss list) at ``bench.py``'s Criteo layout (26
+fields of 10,000 rows with E=16, 13 dense fields, batches of 4096,
+adagrad; each at its constructor's defaults, PNN with both product
+layers), and DCN and MMOE at the 26 Criteo Kaggle cardinalities (33.8M
+rows; 8 tables on the sparse path), tables (ONN's pair tables too) drawn
+at std 0.3 and DNN kernels (the stacked experts' too) at 1/sqrt(fan_in)
+from a seed:
 
-22. float32: graphed ``predict`` of 8 batches (one gather a batch), every
-    prediction finite and in (0, 1), the first batch within 1e-5 of the
-    same model on the CPU;
+22. float32: graphed ``predict`` of 8 batches (one gather a batch; ONN
+    two, its shared rows and its pair tables; MLR eight, one for each of
+    its linear models), every prediction finite and in [0, 1] ([N, 2] for
+    the multi-task models), the first batch within 1e-5 of the same model
+    on the CPU; for the multi-task models ``evaluate`` with ``auc`` and
+    ``binary_crossentropy``: a ``<task>_<metric>`` key for each task and
+    the bare metric their mean;
 23. float32: phase 20's checks, 3 steps each: graphed ``predict`` and the
     device-resident ``fit`` bit-equal to the eager forward and to the same
     steps on a twin (losses, weights, every optimizer and table state),
-    no host sync in any step or replay, one gather and one scatter a step
-    and, for DCN Kaggle only, one ``row_update``;
+    no host sync in any step or replay, each model's gathers and as many
+    scatters a step and, for the Kaggle runs only, one ``row_update``;
 24. timing, bfloat16: the device-resident ``fit`` (8 x 4096) and graphed
     ``predict`` in examples/s (median of 5, alternating, with the
     spread), device busy and idle share, and the device time by kernel of
@@ -313,6 +330,7 @@ kernel; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
+import functools
 import json
 import shutil
 import statistics
@@ -331,8 +349,10 @@ sys.path.insert(0, str(HERE))
 import deepctr_tpu_torch as pt  # noqa: E402
 from deepctr_tpu_torch import callbacks as pcb  # noqa: E402
 from deepctr_tpu_torch.models import (  # noqa: E402
-    AFM, DCN, DIEN, DIN, NFM, PNN, WDL, AutoInt, DCNMix, DeepFM, FiBiNET,
-    xDeepFM)
+    AFM, AFN, CCPM, DCN, DIEN, DIFM, DIN, IFM, MLR, NFM, ONN, PNN, WDL,
+    AutoInt, DCNMix, DeepFM, FiBiNET, xDeepFM)
+from deepctr_tpu_torch.models.multitask import (  # noqa: E402
+    ESMM, MMOE, PLE, SharedBottom)
 from deepctr_tpu_torch.models import graphs  # noqa: E402
 from deepctr_tpu_torch.layers import core as pcore  # noqa: E402
 from deepctr_tpu_torch.layers.sequence import (  # noqa: E402
@@ -559,6 +579,7 @@ def read_counts():
     return counts
 
 
+@functools.lru_cache(maxsize=None)
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -609,10 +630,15 @@ def check(ok, msg):
         raise RuntimeError(msg)
 
 
-def check_predictions(pred, n):
-    check(pred.shape == (n, 1), "predictions of shape %s" % (pred.shape,))
+def check_predictions(pred, n, n_out=1):
+    """Finite predictions of shape [n, n_out] in [0, 1], a float32
+    sigmoid's range (it rounds to exactly 0 or 1 past |logit| ~ 17).
+    Returns how many lie at exactly 0 or 1."""
+    check(pred.shape == (n, n_out), "predictions of shape %s"
+          % (pred.shape,))
     check(np.isfinite(pred).all(), "non-finite predictions")
-    check(((pred > 0) & (pred < 1)).all(), "predictions outside (0, 1)")
+    check(((pred >= 0) & (pred <= 1)).all(), "predictions outside [0, 1]")
+    return int(((pred == 0) | (pred == 1)).sum())
 
 
 def same_bits(a, b):
@@ -634,11 +660,14 @@ def phase_build():
 # phase 2's other gather cases: (row width, fields, rows, tables cut at a
 # 4-byte offset): every instance of the kernel (W = 1 and 17 as templates,
 # 32 as 8 16-byte units, 8 as generic 16-byte units, 33 and an unaligned
-# 32 generic), a pair count no multiple of 32 (77 x 3), and more fields
-# than a block stages
+# 32 generic), a pair count no multiple of 32 (77 x 3), more fields than a
+# block stages, and the zoo's shapes at B=4096 over 26 fields: ONN's pair
+# tables (W=400), MLR's linear models (W=1) and the tables without a wide
+# column of the multi-task models (W=16)
 GATHER_CASES = ((1, 3, 77, False), (8, 3, 77, False), (17, 3, 77, False),
                 (32, 3, 77, False), (32, 3, 77, True), (33, 3, 77, False),
-                (32, 300, 5, False))
+                (32, 300, 5, False), (400, 26, BATCH, False),
+                (1, 26, BATCH, False), (16, 26, BATCH, False))
 
 
 def check_gather_case(width, n_fields, B, shifted, device, seed):
@@ -859,23 +888,24 @@ def criteo_labels(n, seed):
     return np.random.default_rng(seed).integers(0, 2, n).astype(np.float32)
 
 
-def train_kernel_args(model, X, seed):
+def train_kernel_args(model, X, seed, prefix="embedding_dict/"):
     """Both train kernels' arguments as a train step of ``model`` builds
-    them for the batch ``X``: the touched rows of its sparse tables, a
-    cotangent of the gather ([B, F, W], normal from ``seed``), and each
+    them for the batch ``X`` and the gather of every table under
+    ``prefix``: the touched rows of its sparse tables (None without any),
+    a cotangent of the gather ([B, F, W], normal from ``seed``), and each
     field's target (a zero dense gradient, or the touched rows') and
     row."""
-    tables = model._tables()
-    touched = model._touched_rows(X)
+    touched = model._touched_rows(X) if model._sparse_specs else None
     plan = model._step_plan(X.shape[0])
     for g in plan.dense_grads.values():
         g.zero_()
-    fcs = model._shared_columns
+    names = list(dict(model._table_holders())[prefix].tables)
+    cols = [model.feature_index[n][0] for n in names]
     gen = torch.Generator(device=X.device).manual_seed(seed)
-    grad = torch.randn(X.shape[0], len(fcs), tables[EXPECTED_SPARSE[0]]
-                       .shape[1], generator=gen, device=X.device)
-    targets, idx, _ = model._scatter_targets(X, "embedding_dict/", fcs,
+    targets, idx, _ = model._scatter_targets(X, prefix, names, cols,
                                              touched, plan)
+    grad = torch.randn(X.shape[0], len(names), targets[0].shape[1],
+                       generator=gen, device=X.device)
     return touched, grad, targets, idx
 
 
@@ -1213,6 +1243,54 @@ def phase_train_kernels_vs_plain(model, X):
             *case, "%d tables (%d touched), widths %s" % (
                 len(case[0]), sum(len(r) > 0 for r in case[2]),
                 sorted({t.shape[1] for t in case[0]})), SEED + 13))
+        del case
+        errs = zoo_train_kernels_vs_plain(X.device)
+    return max(k1_err, errs[0]), max(k2_err, errs[1])
+
+
+# phase 5's zoo cases: (zoo model, the tables whose gather is scattered)
+ZOO_SCATTER_CASES = (("ONN", "second_order_embedding/"),
+                     ("MLR", "region_linear_0/embedding_dict/"),
+                     ("MMOE Criteo Kaggle", "embedding_dict/"))
+
+
+def zoo_train_kernels_vs_plain(device):
+    """Phase 5's checks at the zoo's new train shapes, from the models'
+    own train steps (B=4096): scatter_add_rows into ONN's pair tables (26
+    dense [10,000, 400] gradients), into one of MLR's linear models (26 of
+    [10,000, 1]) and into MMOE Kaggle's tables (W=16: 8 sparse tables'
+    touched rows, 18 dense); row_update on MMOE Kaggle's touched rows of
+    its 8 sparse tables, their gradients normal.  Returns (K1, K2) max
+    |err|."""
+    k1_err = k2_err = 0.0
+    for i, (name, prefix) in enumerate(ZOO_SCATTER_CASES):
+        model = zoo_model(name, device)
+        model.compile("adagrad", zoo_loss(name))
+        X = zoo_requests(name, BATCH, SEED + 20 + i, device)
+        touched, grad, targets, idx = train_kernel_args(model, X,
+                                                        SEED + 23 + i, prefix)
+        what = ("%s's %s tables (%d targets, %d of them sparse tables' "
+                "touched rows)" % (name, prefix.rstrip("/"), len(targets),
+                                   len(model._sparse_specs)))
+        k1_err = max(k1_err, check_scatter_case(grad, targets, idx, what))
+        if touched is not None:
+            tables = model._tables()
+            paths = [p for p, _, _ in model._sparse_specs]
+            check(sorted(paths) == EXPECTED_SPARSE, "%s: sparse tables %s, "
+                  "want %s" % (name, sorted(paths), EXPECTED_SPARSE))
+            gen = torch.Generator(device=device).manual_seed(SEED + 26)
+            for g in touched.grads:
+                g.normal_(generator=gen)
+            k2_err = max(k2_err, check_row_update_case(
+                [tables[p].detach() for p in paths], touched.grads,
+                touched.rows, [model._table_l2_vec(p) for p in paths],
+                "%s's shape (%d sparse tables, W=%d, touched rows %s)" % (
+                    name, len(paths), tables[paths[0]].shape[1],
+                    valid_counts(touched.rows,
+                                 [tables[p] for p in paths])),
+                SEED + 27))
+        del model, touched, grad, targets, idx
+        torch.cuda.empty_cache()
     return k1_err, k2_err
 
 
@@ -3130,7 +3208,7 @@ def graph_vs_eager_fit(graphed, eager, X, y, B, label, per_step):
         check(counts[name] == n * steps, "%s: %s launched %d times in %d "
               "graphed steps, want %d a step" % (label, name, counts[name],
                                                  steps, n))
-    y_dev = torch.as_tensor(y, device=X.device).view(-1, 1)
+    y_dev = torch.as_tensor(y, device=X.device).view(X.shape[0], -1)
     sw = torch.ones(B, device=X.device)
     eager._begin_steps(steps)
     totals = []
@@ -3171,7 +3249,7 @@ def graph_vs_eager_predict(model, X, B, label, per_batch):
     """predict(X) (every batch a replay under no_host_sync, the first the
     capture's warm-up where the model has no graph yet) against the eager
     forward: bit for bit; each kernel of ``per_batch`` launched that many
-    times a batch."""
+    times a batch; ``check_predictions``."""
     n_batches = -(-X.shape[0] // B)
     fresh = not any(k[0] == "predict" for k in model._graphs)
     reset_counts()
@@ -3189,7 +3267,10 @@ def graph_vs_eager_predict(model, X, B, label, per_batch):
     check(got.shape == want.shape and np.array_equal(got, want),
           "%s: graphed predict differs from the eager forward (max |d| %r)"
           % (label, float(np.abs(got - want).max())))
-    check_predictions(got, X.shape[0])
+    saturated = check_predictions(got, X.shape[0], model.num_tasks)
+    if saturated:
+        log("%s: %d of %d predictions at exactly 0 or 1" % (
+            label, saturated, got.size))
     return counts
 
 
@@ -3259,7 +3340,7 @@ def loops_f32(models):
         X, y, B = m["X"], m["y"], m["B"]
         graphed, eager = m["make"](), m["make"]()
         for model in (graphed, eager):
-            model.compile("adagrad", "binary_crossentropy",
+            model.compile("adagrad", m.get("loss", "binary_crossentropy"),
                           sparse_table_updates=m["sparse"])
         check_same_state(training_state(graphed), training_state(eager),
                          "%s: the twins from one seed" % label)
@@ -3428,98 +3509,154 @@ def phase_loops_timing_bf16(device):
         torch.cuda.empty_cache()
 
 
-# the zoo (ROADMAP section 1 item 5) at bench.py's Criteo layout
+# the zoo (ROADMAP section 1 items 5 and 6) at bench.py's Criteo layout
 # (bench.py:28-36: 26 fields of 10,000 rows, E=16, 13 dense fields,
 # batches of 4096, adagrad), each model at its JAX constructor's defaults
 # but PNN, which runs both product layers (use_outter, kernel "mat"); and
-# DCN at the 26 Criteo Kaggle cardinalities (bench.py:43-46), where
-# adagrad's "auto" puts 8 tables on the sparse path
+# DCN and MMOE at the 26 Criteo Kaggle cardinalities (bench.py:43-46),
+# where adagrad's "auto" puts 8 tables on the sparse path.  AFM's and
+# CCPM's deep columns are the sparse ones (their interactions take no
+# dense field); PNN, MLR and the multi-task models take one column list.
 ZOO = {"WDL": (WDL, {}), "NFM": (NFM, {}), "DCN": (DCN, {}),
        "DCNMix": (DCNMix, {}), "AutoInt": (AutoInt, {}), "AFM": (AFM, {}),
-       "FiBiNET": (FiBiNET, {}), "PNN": (PNN, {"use_outter": True})}
-ZOO_KAGGLE = "DCN Criteo Kaggle"
+       "FiBiNET": (FiBiNET, {}), "PNN": (PNN, {"use_outter": True}),
+       "ONN": (ONN, {}), "CCPM": (CCPM, {}), "AFN": (AFN, {}),
+       "IFM": (IFM, {}), "DIFM": (DIFM, {}), "MLR": (MLR, {}),
+       "SharedBottom": (SharedBottom, {}), "ESMM": (ESMM, {}),
+       "MMOE": (MMOE, {}), "PLE": (PLE, {})}
+ZOO_KAGGLE = ("DCN Criteo Kaggle", "MMOE Criteo Kaggle")
+MULTITASK = (SharedBottom, ESMM, MMOE, PLE)
+# the gathers of a forward, where not one: ONN's shared rows and its pair
+# tables; one for each of MLR's linear models (4 regions, base = region);
+# a train step scatters each gather's rows once
+ZOO_GATHERS = {"ONN": 2, "MLR": 8}
 ZOO_EMB_STD = 0.3
 ZOO_STEPS = 3           # phase 23's graphed fits: 3 x 4096
 
 
 def zoo_model(name, device):
-    """A zoo model (``ZOO``, or DCN at the Kaggle cardinalities for
-    ``ZOO_KAGGLE``) with its weights redrawn from a seed so that
-    predictions spread: the tables (deep and wide columns) from
-    normal(0.3), the DNN's kernels at 1/sqrt(fan_in); the interaction
-    layers and the head at their init.  AFM's deep columns are the sparse
-    ones (its interaction takes no dense field); PNN takes only deep
-    columns."""
-    kaggle = name == ZOO_KAGGLE
+    """A zoo model (``ZOO``, or one of ``ZOO_KAGGLE`` at the Kaggle
+    cardinalities) with its weights redrawn from a seed so that
+    predictions spread: the tables (deep and wide columns, ONN's pair
+    tables, MLR's linear models') from normal(0.3), the DNN kernels (and
+    the stacked experts') at 1/sqrt(fan_in); the interaction layers and
+    the heads at their init."""
+    kaggle = name in ZOO_KAGGLE
     cols = criteo_columns() if kaggle else xdeepfm_columns()
-    cls, kw = ZOO["DCN" if kaggle else name]
-    if cls is PNN:
+    cls, kw = ZOO[name.split()[0]]
+    if cls in (PNN, MLR) + MULTITASK:
         model = cls(cols, seed=SEED, device=device, **kw)
     else:
         deep = ([c for c in cols if isinstance(c, pt.SparseFeat)]
-                if cls is AFM else cols)
+                if cls in (AFM, CCPM) else cols)
         model = cls(cols, deep, seed=SEED, device=device, **kw)
     gen = torch.Generator(device=device).manual_seed(SEED + 600)
     with torch.no_grad():
         for key, p in model.named_parameters():
-            if key.startswith("dnn.") and p.dim() == 2:
+            if ".dense_" in key and p.dim() >= 2 and not key.endswith(
+                    "bias"):
                 p.normal_(0.0, p.shape[1] ** -0.5, generator=gen)
-            elif "embedding_dict" in key:
+            elif "embedding" in key:
                 p.normal_(0.0, ZOO_EMB_STD, generator=gen)
     return model
 
 
 def zoo_requests(name, n, seed, device):
-    if name == ZOO_KAGGLE:
+    if name in ZOO_KAGGLE:
         return criteo_requests(
             n, torch.Generator(device=device).manual_seed(seed), device)
     return xdeepfm_requests(n, seed, device)
 
 
+def zoo_labels(name, n, seed):
+    """One label column, or two for a multi-task model: the first clicks,
+    the second converts only where the first clicked (ESMM's ctcvr)."""
+    y = criteo_labels(n, seed)
+    if ZOO[name.split()[0]][0] not in MULTITASK:
+        return y
+    return np.stack([y, y * criteo_labels(n, seed + 1)], axis=1)
+
+
+def zoo_loss(name):
+    if ZOO[name.split()[0]][0] in MULTITASK:
+        return ["binary_crossentropy", "binary_crossentropy"]
+    return "binary_crossentropy"
+
+
 def zoo_loop_models(device, steps):
     """The zoo's models in ``loop_models``' form, ``steps`` batches each:
-    tables dense under "auto" (one gather and one scatter a step), but
-    DCN Kaggle's 8 sparse tables (and one ``row_update`` a step)."""
+    tables dense under "auto" (each gather's scatter a step), but the
+    Kaggle runs' 8 sparse tables (and one ``row_update`` a step)."""
     out = {}
-    for i, name in enumerate(list(ZOO) + [ZOO_KAGGLE]):
-        sparse = name == ZOO_KAGGLE
-        out[name] = dict(
+    for i, name in enumerate(list(ZOO) + list(ZOO_KAGGLE)):
+        sparse = name in ZOO_KAGGLE
+        gathers = ZOO_GATHERS.get(name, 1)
+        # the label of every line the run prints names the card
+        out["%s on %s" % (name, card_line())] = dict(
             make=lambda name=name: zoo_model(name, device),
             X=zoo_requests(name, BATCH * steps, SEED + 610 + i, device),
-            B=BATCH, sparse="auto",
-            y=criteo_labels(BATCH * steps, SEED + 630 + i),
-            predict={"gather_rows": 1},
-            fit={"gather_rows": 1, "scatter_add_rows": 1,
+            B=BATCH, sparse="auto", loss=zoo_loss(name),
+            y=zoo_labels(name, BATCH * steps, SEED + 630 + i),
+            predict={"gather_rows": gathers},
+            fit={"gather_rows": gathers, "scatter_add_rows": gathers,
                  "row_update": int(sparse)})
     return out
 
 
+def check_task_metrics(model, X, y, name):
+    """A multi-task model's ``evaluate`` on the card: a
+    ``<task>_<metric>`` key for each task, the bare metric their mean."""
+    metrics = ["auc", "binary_crossentropy"]
+    model.compile("adagrad", zoo_loss(name), metrics=metrics)
+    got = model.evaluate(X, y, batch_size=BATCH)
+    want = set(metrics) | {"%s_%s" % (t, m) for t in model.task_names
+                           for m in metrics}
+    check(set(got) == want, "%s evaluate: keys %s, want %s"
+          % (name, sorted(got), sorted(want)))
+    for m in metrics:
+        per_task = [got["%s_%s" % (t, m)] for t in model.task_names]
+        check(np.isfinite(per_task).all() and abs(
+            got[m] - np.mean(per_task)) <= 1e-12 * max(1.0, abs(got[m])),
+              "%s evaluate: %s %r is not the mean of %r"
+              % (name, m, got[m], per_task))
+    log("evaluate f32 %s on %s: %s" % (name, card_line(), got))
+
+
 def phase_zoo_f32(device):
     """phase 22: each zoo model's predict at float32, graphed: 8 batches
-    of 4096, one gather a batch, every prediction finite and in (0, 1),
-    the first batch within 1e-5 of the same model on the CPU."""
+    of 4096, its gathers a batch, every prediction finite and in [0, 1],
+    the first batch within 1e-5 of the same model on the CPU; each
+    multi-task model's per-task ``evaluate``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     pt.set_compute_dtype("float32")
     n = BATCH * N_BATCHES
-    for i, name in enumerate(list(ZOO) + [ZOO_KAGGLE]):
+    for i, name in enumerate(list(ZOO) + list(ZOO_KAGGLE)):
         model = zoo_model(name, device)
         X = zoo_requests(name, n, SEED + 650 + i, device)
+        gathers = ZOO_GATHERS.get(name, 1)
         reset_counts()
         pred = model.predict(X, batch_size=BATCH)
         counts = read_counts()
-        check(counts["gather_rows"] == N_BATCHES, "%s predict: %d gathers "
-              "in %d batches" % (name, counts["gather_rows"], N_BATCHES))
-        check_predictions(pred, n)
+        check(counts["gather_rows"] == gathers * N_BATCHES, "%s predict: %d "
+              "gathers in %d batches" % (name, counts["gather_rows"],
+                                         N_BATCHES))
+        saturated = check_predictions(pred, n, model.num_tasks)
+        if model.num_tasks > 1:
+            reset_counts()
+            check_task_metrics(model, X, zoo_labels(name, n, SEED + 670 + i),
+                               name)
+            read_counts()
         model.to("cpu")
         pred_cpu = model.predict(X[:BATCH].cpu(), batch_size=BATCH)
         diff = float(np.abs(pred[:BATCH] - pred_cpu).max())
         check(diff <= ATOL_CPU, "%s: card vs CPU max |dp| %r > %r"
               % (name, diff, ATOL_CPU))
-        log("predict f32 %s: %d requests in %d batches, launches %s, "
-            "predictions in [%.6f, %.6f], std %.6f; first batch vs CPU max "
-            "|dp| = %r (atol %r)" % (name, n, N_BATCHES, counts, pred.min(),
-                                     pred.max(), pred.std(), diff, ATOL_CPU))
+        log("predict f32 %s on %s: %d requests in %d batches, launches %s, "
+            "predictions in [%.6f, %.6f], std %.6f, %d at exactly 0 or 1; "
+            "first batch vs CPU max |dp| = %r (atol %r)"
+            % (name, card_line(), n, N_BATCHES, counts, pred.min(),
+               pred.max(), pred.std(), saturated, diff, ATOL_CPU))
         del model
         torch.cuda.empty_cache()
 
@@ -3567,12 +3704,12 @@ def zoo_timing(label, model, X, y, B):
 
 
 def phase_zoo_timing_bf16(device):
-    """phase 24: each zoo model, and DCN Kaggle, timed at bf16."""
+    """phase 24: each zoo model, and the Kaggle runs, timed at bf16."""
     log("timing on: %s" % card_line())
     pt.set_compute_dtype("bfloat16")
     for label, m in zoo_loop_models(device, LOOP_STEPS).items():
         model = m["make"]()
-        model.compile("adagrad", "binary_crossentropy",
+        model.compile("adagrad", m["loss"],
                       sparse_table_updates=m["sparse"])
         zoo_timing(label, model, m["X"], m["y"], m["B"])
         del model

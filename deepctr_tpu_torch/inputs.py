@@ -26,7 +26,32 @@ from .layers.utils import concat_fun
 from .ops.gather import GatherArgs, gather_rows
 
 
-class EmbeddingDict(nn.Module):
+class TableHolder(nn.Module):
+    """A module whose forward takes rows of its tables with
+    ``gather_rows``.  Around a train step's forward the engine sets
+    ``_capture`` to a list: a gather then runs without a graph back to the
+    tables, its rows become leaves, and ``(table names, X columns, rows)``
+    goes into the list, one name and column a field; the engine scatters
+    the rows' cotangent into each table's gradient itself
+    (``models/basemodel.py``).  ``tables`` maps each name to its table."""
+
+    def __init__(self):
+        super().__init__()
+        self._capture = None
+
+    def _gather(self, X, tables, names, cols, args):
+        """``gather_rows`` of the fields ``(names[i], cols[i])``, whose
+        ``[V, W]`` tables are ``tables``."""
+        if self._capture is None:
+            return gather_rows(X, tables, cols, args=args)
+        with torch.no_grad():
+            rows = gather_rows(X, tables, cols, args=args)
+        rows.requires_grad_()
+        self._capture.append((names, cols, rows))
+        return rows
+
+
+class EmbeddingDict(TableHolder):
     """All embedding tables for a feature-column list, deduped by
     ``embedding_name`` (shared tables).  ``linear=True`` builds dim-1
     tables for the wide/linear part.
@@ -57,9 +82,6 @@ class EmbeddingDict(nn.Module):
             self.table_dims[name] = dim
         # one kernel-argument cache per group of fields gathered together
         self._gather_args = {}
-        # set by the training engine around a train step's forward: a list
-        # that each gather appends its (feature columns, rows) to
-        self._capture = None
 
     def gather(self, X, feature_index, feature_columns):
         """Full-width rows (incl. any wide column) of every feature in
@@ -73,23 +95,16 @@ class EmbeddingDict(nn.Module):
         for fcs in by_width.values():
             group = tuple(fc.name for fc in fcs)
             args = self._gather_args.setdefault(group, GatherArgs())
-            tables, cols, spans = [], [], []
+            names, cols, spans = [], [], []
             for fc in fcs:
                 start, end = feature_index[fc.name]
                 if not isinstance(fc, VarLenSparseFeat):
                     end = start + 1
                 spans.append((len(cols), end - start))
-                tables += [self.tables[fc.embedding_name]] * (end - start)
+                names += [fc.embedding_name] * (end - start)
                 cols += range(start, end)
-            if self._capture is None:
-                rows = gather_rows(X, tables, cols, args=args)
-            else:
-                # the engine's train step: rows without a graph back to
-                # the tables; the engine routes their cotangent itself
-                with torch.no_grad():
-                    rows = gather_rows(X, tables, cols, args=args)
-                rows.requires_grad_()
-                self._capture.append((fcs, rows))
+            rows = self._gather(X, [self.tables[n] for n in names], names,
+                                cols, args)
             for fc, (first, n) in zip(fcs, spans):
                 out[fc.name] = rows[:, first:first + n]
         return out

@@ -10,9 +10,13 @@ from torch import nn
 
 
 class BatchNorm(nn.Module):
-    """flax's ``nn.BatchNorm`` over every axis but the last, as the JAX
-    package builds it (``momentum=0.9``): what Dice normalises with, and a
-    ``DNN`` layer's ``bn_<i>`` with ``use_bn``.
+    """flax's ``nn.BatchNorm`` as the JAX package builds it
+    (``momentum=0.9``): what Dice normalises with, a ``DNN`` layer's
+    ``bn_<i>`` with ``use_bn``, and the LTL's two (``axis=1``).
+
+    ``features`` is the size of the feature axis ``axis`` (the last by
+    default), or the shape of several (``axis`` a tuple: a stacked DNN's
+    ``(expert, unit)`` axes); the statistics reduce over every other axis.
 
     Training normalises with the batch's own statistics, from flax 0.12's
     ``_compute_stats``: in float32, ``mean = E[x]`` and the biased
@@ -27,10 +31,11 @@ class BatchNorm(nn.Module):
     0).  Returns float32, as flax does for float32 parameters."""
 
     def __init__(self, features, epsilon=1e-5, momentum=0.9, use_scale=True,
-                 use_bias=True, device=None):
+                 use_bias=True, axis=-1, device=None):
         super().__init__()
         self.epsilon = epsilon
         self.momentum = momentum
+        self.axis = (axis,) if isinstance(axis, int) else tuple(axis)
         self.register_buffer("mean", torch.zeros(features, device=device))
         self.register_buffer("var", torch.ones(features, device=device))
         self.scale = (nn.Parameter(torch.ones(features, device=device))
@@ -40,8 +45,14 @@ class BatchNorm(nn.Module):
 
     def forward(self, x, training=False):
         x32 = x.float()
+        keep = sorted(a % x.dim() for a in self.axis)
+        # a feature-shaped tensor broadcast against x
+        shape = [x.shape[a] if a in keep else 1 for a in range(x.dim())]
+
+        def bcast(t):
+            return t.reshape(shape)
         if training:
-            axes = tuple(range(x.dim() - 1))
+            axes = tuple(a for a in range(x.dim()) if a not in keep)
             mean = torch.mean(x32, dim=axes)
             var = torch.clamp_min(torch.mean(x32 * x32, dim=axes)
                                   - mean * mean, 0.0)
@@ -51,11 +62,11 @@ class BatchNorm(nn.Module):
                 self.var.copy_(mom * self.var + (1 - mom) * var)
         else:
             mean, var = self.mean, self.var
-        y = (x32 - mean) * torch.rsqrt(var + self.epsilon)
+        y = (x32 - bcast(mean)) * bcast(torch.rsqrt(var + self.epsilon))
         if self.scale is not None:
-            y = y * self.scale
+            y = y * bcast(self.scale)
         if self.bias is not None:
-            y = y + self.bias
+            y = y + bcast(self.bias)
         return y
 
 

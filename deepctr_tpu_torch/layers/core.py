@@ -1,7 +1,7 @@
 """Core layers: dense layer, dropout, DNN tower, prediction head, DIN's
-local activation unit.
+local activation unit, CCPM's SAME convolution.
 
-Counterpart of ``deepctr_tpu/layers/core.py:18-100``.  Every matmul runs in
+Counterpart of ``deepctr_tpu/layers/core.py``.  Every matmul runs in
 the global compute dtype (``config.compute_dtype()``); parameters stay
 float32.  Weights are drawn at construction from the caller's
 ``torch.Generator``; biases start at zero, unlike ``nn.Linear``'s default.
@@ -209,3 +209,49 @@ class LocalActivationUnit(nn.Module):
                                queries - user_behavior,
                                queries * user_behavior], dim=-1)
         return self.dense(self.dnn(att_input, training))
+
+
+class Conv2dSame(nn.Module):
+    """TF-style "SAME"-padded 2-D convolution over NCHW inputs
+    (``deepctr_tpu/layers/core.py:103-131``): ``kernel`` [out, in, kh, kw]
+    from flax's ``xavier_uniform`` (jax's fans of that shape: the last two
+    axes in and out, the others a receptive field), ``bias`` [out] from
+    zeros, computed in the compute dtype.
+
+    The JAX layer calls ``lax.conv_general_dilated``.  Here the padded
+    input's windows (``Tensor.unfold`` views along both spatial axes) are
+    multiplied by the kernel as one matrix: the backward then sums in a
+    fixed order (``unfold``'s backward and a matrix product), where cuDNN's
+    weight-gradient algorithms may add with atomics, which would part a
+    graphed train step from the eager one.  (``F.unfold`` would do as
+    well on the CPU, but on the card it launches one ``im2col`` kernel for
+    each sample of the batch.)"""
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=(1, 1),
+                 device=None, generator=None):
+        super().__init__()
+        self.kernel_size = tuple(kernel_size)
+        self.stride = tuple(stride)
+        shape = (out_channels, in_channels) + self.kernel_size
+        receptive = math.prod(shape[:-2])
+        bound = math.sqrt(6.0 / ((shape[-2] + shape[-1]) * receptive))
+        self.kernel = nn.Parameter(torch.empty(shape, device=device).uniform_(
+            -bound, bound, generator=generator))
+        self.bias = nn.Parameter(torch.zeros(out_channels, device=device))
+
+    def forward(self, x):
+        (kh, kw), (sh, sw) = self.kernel_size, self.stride
+        ih, iw = x.shape[-2:]
+        oh, ow = math.ceil(ih / sh), math.ceil(iw / sw)
+        pad_h = max((oh - 1) * sh + kh - ih, 0)
+        pad_w = max((ow - 1) * sw + kw - iw, 0)
+        ct = config.compute_dtype()
+        x = F.pad(x.to(ct), (pad_w // 2, pad_w - pad_w // 2,
+                             pad_h // 2, pad_h - pad_h // 2))
+        B, C = x.shape[:2]
+        windows = x.unfold(2, kh, sh).unfold(3, kw, sw)    # [B,C,oh,ow,kh,kw]
+        cols = windows.permute(0, 2, 3, 1, 4, 5).reshape(B, oh * ow, -1)
+        w = self.kernel.to(ct).reshape(self.kernel.shape[0], -1)
+        y = torch.matmul(w, cols.transpose(1, 2))         # [B, out, oh*ow]
+        return (y.view(B, -1, oh, ow)
+                + self.bias.to(ct)[None, :, None, None])

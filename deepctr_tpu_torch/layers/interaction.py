@@ -15,8 +15,9 @@ from .. import config
 from ..ops import cin_mix, cross_net, fm_cross
 from ..ops._args import ParamCache
 from ..ops.cin import kernel_weights
-from .activation import activation_layer
-from .core import _TRUNC_NORMAL_STD, Dropout, _dense
+from .activation import BatchNorm, activation_layer
+from .core import _TRUNC_NORMAL_STD, Conv2dSame, Dropout, _dense
+from .sequence import KMaxPooling
 
 
 class FM(nn.Module):
@@ -504,3 +505,74 @@ class OutterProductLayer(nn.Module):
                               self.kernel.to(dtype))
             return torch.sum(kp * q.to(dtype), dim=-1)
         return torch.sum(p * q * self.kernel[None].to(p.dtype), dim=-1)
+
+
+class ConvLayer(nn.Module):
+    """CCPM's convolution stack: ``Conv2dSame`` (a width-w x 1 kernel along
+    the field axis) -> tanh -> ``KMaxPooling`` over the fields, with the
+    shrinking k schedule of :meth:`compute_shapes` (3 at the last layer):
+    [B, 1, F, E] -> [B, filters[-1], k_last, E]
+    (``deepctr_tpu/layers/interaction.py:402-438``).  The layers are
+    ``conv_<i>`` from 1."""
+
+    def __init__(self, field_size, conv_kernel_width, conv_filters,
+                 device=None, generator=None):
+        super().__init__()
+        self.shapes = self.compute_shapes(field_size, conv_filters)
+        self.pools = []
+        for i in range(1, len(conv_filters) + 1):
+            in_ch = 1 if i == 1 else conv_filters[i - 2]
+            self.add_module("conv_%d" % i, Conv2dSame(
+                in_ch, conv_filters[i - 1], (conv_kernel_width[i - 1], 1),
+                device=device, generator=generator))
+            self.pools.append(KMaxPooling(k=self.shapes[i - 1], axis=2))
+
+    @staticmethod
+    def compute_shapes(field_size, conv_filters):
+        """The field count after each layer; the last sizes the DNN."""
+        n = int(field_size)
+        l = len(conv_filters)
+        shapes = []
+        filed_shape = n
+        for i in range(1, l + 1):
+            k = max(1, int((1 - pow(i / l, l - i)) * n)) if i < l else 3
+            filed_shape = min(k, filed_shape)
+            shapes.append(filed_shape)
+        return shapes
+
+    def forward(self, inputs):
+        x = inputs
+        for i, pool in enumerate(self.pools):
+            x = pool(torch.tanh(getattr(self, "conv_%d" % (i + 1))(x)))
+        return x
+
+
+class LogTransformLayer(nn.Module):
+    """AFN's logarithmic transformation layer
+    (``deepctr_tpu/layers/interaction.py:441-466``): ``|x|`` clipped at
+    1e-7, its log as [B, E, F], a batch norm over axis 1, a product by
+    ``ltl_weights`` [F, H] (normal(0.1)) plus ``ltl_biases`` (zeros), its
+    exp, a second batch norm over axis 1, flattened to [B, E * H].  The two
+    norms (``bn_0``, ``bn_1``: :class:`BatchNorm` of E features over axis
+    1) use batch statistics in training, which move their running ones.
+    Float32 throughout, as the JAX layer's product takes its input's
+    dtype."""
+
+    def __init__(self, field_size, embedding_size, ltl_hidden_size,
+                 device=None, generator=None):
+        super().__init__()
+        self.ltl_weights = nn.Parameter(torch.empty(
+            field_size, ltl_hidden_size, device=device).normal_(
+                0.0, 0.1, generator=generator))
+        self.ltl_biases = nn.Parameter(torch.zeros(ltl_hidden_size,
+                                                   device=device))
+        self.bn_0 = BatchNorm(embedding_size, epsilon=1e-5, axis=1,
+                              device=device)
+        self.bn_1 = BatchNorm(embedding_size, epsilon=1e-5, axis=1,
+                              device=device)
+
+    def forward(self, inputs, training=False):
+        x = torch.log(torch.clamp_min(torch.abs(inputs.float()), 1e-7))
+        x = self.bn_0(x.transpose(1, 2), training)             # [B, E, F]
+        x = torch.exp(torch.matmul(x, self.ltl_weights) + self.ltl_biases)
+        return self.bn_1(x, training).reshape(x.shape[0], -1)

@@ -7,7 +7,6 @@ masked recurrence through ``ops/gru.py:gru_scan`` (on the card the CUDA
 kernel, and in training its backward kernel);
 ``AttentionSequencePoolingLayer`` runs the fused attention kernel
 (``ops/attention.py``) at inference and the composition in training.
-``KMaxPooling`` comes with the rest of the zoo.
 """
 
 import torch
@@ -61,6 +60,35 @@ class SequencePoolingLayer(nn.Module):
     def forward(self, seq_value_len_list):
         return masked_pooling(seq_value_len_list, self.mode,
                               self.supports_masking)
+
+
+class KMaxPooling(nn.Module):
+    """The ``k`` largest values along ``axis``, in descending order
+    (``deepctr_tpu/layers/sequence.py:127-144``).
+
+    The JAX layer takes them with ``lax.top_k``, which puts the lower
+    index first among equal values; ``torch.topk`` does not promise that.
+    Here a stable descending sort orders the values, so equal values keep
+    their index order, and the first ``k`` are gathered from the input: the
+    gradient lands on the fields ``lax.top_k`` picks (CCPM's tanh saturates
+    to exactly +-1 at bfloat16, so ties are common)."""
+
+    def __init__(self, k, axis):
+        super().__init__()
+        self.k = k
+        self.axis = axis
+
+    def forward(self, inputs):
+        if self.axis < 0 or self.axis >= inputs.dim():
+            raise ValueError("axis must be 0~%d,now is %d"
+                             % (inputs.dim() - 1, self.axis))
+        if self.k < 1 or self.k > inputs.shape[self.axis]:
+            raise ValueError("k must be in 1 ~ %d,now k is %d"
+                             % (inputs.shape[self.axis], self.k))
+        x = inputs.movedim(self.axis, -1).contiguous()
+        order = torch.sort(x.detach(), dim=-1, descending=True,
+                           stable=True).indices[..., :self.k].contiguous()
+        return torch.gather(x, -1, order).movedim(-1, self.axis)
 
 
 class AttentionSequencePoolingLayer(nn.Module):

@@ -21,7 +21,7 @@ nothing back, so that a CUDA graph can replay it: ``graphs.py``):
    over all sparse tables (``_TouchedRows``), at a fixed capacity a table
    and padded past it;
 2. the forward, whose gathers run without a graph back to the tables
-   (``EmbeddingDict._capture``): the gathered rows are leaves;
+   (``TableHolder._capture``): the gathered rows are leaves;
 3. loss + the eager L1/L2 of the dense parameters + the model's auxiliary
    term (DIEN's, ``aux_loss``), ``backward``;
 4. one ``scatter_add_rows`` launch a gather: each row's cotangent goes
@@ -63,6 +63,7 @@ except ImportError:  # pragma: no cover
 from .. import config
 from ..callbacks import CallbackList, History
 from ..features import SparseFeat, VarLenSparseFeat
+from ..inputs import EmbeddingDict, TableHolder
 from ..layers.core import Dropout, dropout_generator
 from ..layers.utils import slice_arrays
 from ..losses import resolve_loss
@@ -338,14 +339,8 @@ class BaseModel(BaseModule):
                  l2_reg_linear=1e-5, l2_reg_embedding=1e-5, init_std=1e-4,
                  seed=1024, task="binary", device=None, gpus=None):
         device = resolve_device(device)
-        hashed = [f.name for f in list(linear_feature_columns)
-                  + list(dnn_feature_columns)
-                  if isinstance(f, (SparseFeat, VarLenSparseFeat))
-                  and f.use_hash]
-        if hashed:
-            raise NotImplementedError(
-                "use_hash features %s are not ported yet (they need the "
-                "native batcher)" % hashed)
+        self._check_unhashed(list(linear_feature_columns)
+                             + list(dnn_feature_columns))
         generator = torch.Generator(device=device)
         generator.manual_seed(seed)
         super().__init__(linear_feature_columns, dnn_feature_columns, task,
@@ -379,6 +374,16 @@ class BaseModel(BaseModule):
         self._graphs = {}
         self._plans = {}
         self._dropout_gen = None
+
+    @staticmethod
+    def _check_unhashed(feature_columns):
+        hashed = [f.name for f in feature_columns
+                  if isinstance(f, (SparseFeat, VarLenSparseFeat))
+                  and f.use_hash]
+        if hashed:
+            raise NotImplementedError(
+                "use_hash features %s are not ported yet (they need the "
+                "native batcher)" % hashed)
 
     def _capture_init_args(self, local_vars):
         """Record the constructor's arguments, so that ``load_model`` can
@@ -437,6 +442,7 @@ class BaseModel(BaseModule):
         """Drop every captured graph and step plan."""
         self._drop_graphs()
         self._plans = {}
+        self._holders = None
 
     def _apply(self, fn, *args, **kwargs):
         # .to(), .cuda(), .float(): new parameter tensors
@@ -456,25 +462,19 @@ class BaseModel(BaseModule):
                       key=lambda kv: kv[0])
 
     def _tables(self):
-        """``{JAX path: table}`` of every embedding table."""
-        out = {"embedding_dict/%s" % n: t
-               for n, t in self.embedding_dict.tables.items()}
-        out.update({"linear_model/embedding_dict/%s" % n: t
-                    for n, t in self.linear_model.embedding_dict.tables.items()})
-        return out
+        """``{JAX path: table}`` of every table a gather reads: the
+        embedding tables and any other (ONN's pair tables)."""
+        return {prefix + n: t for prefix, holder in self._table_holders()
+                for n, t in holder.tables.items()}
 
     def _table_layouts(self):
-        """``{table path: (width, fused deep dim or None)}``."""
-        layouts = {}
-        for name, t in self.embedding_dict.tables.items():
-            fused = name in self.embedding_dict.wide_names
-            layouts["embedding_dict/%s" % name] = (
-                t.shape[1], self.embedding_dict.table_dims[name]
-                if fused else None)
-        for name, t in self.linear_model.embedding_dict.tables.items():
-            layouts["linear_model/embedding_dict/%s" % name] = (t.shape[1],
-                                                                None)
-        return layouts
+        """``{table path: (width, fused deep dim or None)}`` of every
+        embedding table."""
+        return {prefix + name: (t.shape[1], ed.table_dims[name]
+                                if name in ed.wide_names else None)
+                for prefix, ed in self._table_holders()
+                if isinstance(ed, EmbeddingDict)
+                for name, t in ed.tables.items()}
 
     @staticmethod
     def _lane_masks(layout):
@@ -776,10 +776,17 @@ class BaseModel(BaseModule):
     # ------------------------------------------------------------------
     # the train step
     # ------------------------------------------------------------------
-    def _embedding_dicts(self):
-        return (("embedding_dict/", self.embedding_dict),
-                ("linear_model/embedding_dict/",
-                 self.linear_model.embedding_dict))
+    def _table_holders(self):
+        """``(JAX path prefix, TableHolder)`` of every holder of tables:
+        the shared tables, the linear part's own, those of any other
+        linear model (MLR's ``region_linear_<i>``, ...) and ONN's pair
+        tables; found once after a compile or a move, as the model's
+        modules stay."""
+        if getattr(self, "_holders", None) is None:
+            self._holders = tuple((jax_path(name) + "/", m)
+                                  for name, m in self.named_modules()
+                                  if isinstance(m, TableHolder))
+        return self._holders
 
     def _compute_loss(self, y_pred, y, sw):
         loss_func = self.loss_func
@@ -807,15 +814,16 @@ class BaseModel(BaseModule):
         tables = self._tables()
         touched = _TouchedRows(X, plan) if self._sparse_specs else None
         captures = {}
-        for prefix, ed in self._embedding_dicts():
-            ed._capture = captures.setdefault(prefix, [])
+        holders = self._table_holders()
+        for prefix, holder in holders:
+            holder._capture = captures.setdefault(prefix, [])
         self.aux_loss = None
         try:
             with dropout_generator(self._dropout_generator()):
                 y_pred = self(X, training=True)
         finally:
-            for _, ed in self._embedding_dicts():
-                ed._capture = None
+            for _, holder in holders:
+                holder._capture = None
             aux, self.aux_loss = self.aux_loss, None
         data_loss = self._compute_loss(y_pred.float(), y, sw)
         total = data_loss + self._reg_loss(reg)
@@ -853,37 +861,32 @@ class BaseModel(BaseModule):
         a dense table's rows into its gradient, a sparse table's into the
         gradient of its touched rows, at their slots."""
         for prefix, groups in captures.items():
-            for fcs, rows in groups:
+            for names, cols, rows in groups:
                 if rows.grad is None:
                     continue
-                targets, idx, args = self._scatter_targets(X, prefix, fcs,
-                                                           touched, plan)
+                targets, idx, args = self._scatter_targets(
+                    X, prefix, names, cols, touched, plan)
                 scatter_add_rows(rows.grad, targets, idx, args)
 
-    def _scatter_targets(self, X, prefix, fcs, touched, plan):
+    def _scatter_targets(self, X, prefix, names, cols, touched, plan):
         """``scatter_add_rows``' targets, ``[B, F]`` rows and cached
-        argument array for the fields of one gather of the columns ``fcs``,
-        in the gather's field order (a ``VarLenSparseFeat`` is ``maxlen``
-        fields, one an id column): the plan's gradient of a dense table
-        indexed by id, the touched rows' gradient of a sparse one indexed
-        by slot."""
-        key = (prefix, tuple(fc.name for fc in fcs))
+        argument array for the fields of one gather, field i reading table
+        ``prefix + names[i]`` at id column ``cols[i]`` (a
+        ``VarLenSparseFeat`` is ``maxlen`` fields): the plan's gradient of
+        a dense table, viewed as ``[V, W]`` and indexed by id, the touched
+        rows' gradient of a sparse one indexed by slot."""
+        key = (prefix, tuple(names), tuple(cols))
         group = plan.groups.get(key)
         if group is None:
-            targets, cols, slot_cols, sparse_fields = [], [], [], []
-            for fc in fcs:
-                path = prefix + fc.embedding_name
-                start, end = self.feature_index[fc.name]
-                if not isinstance(fc, VarLenSparseFeat):
-                    end = start + 1
+            targets, slot_cols, sparse_fields = [], [], []
+            for name, col in zip(names, cols):
+                path = prefix + name
                 sparse = touched is not None and path in touched.index
                 target = (touched.grads[touched.index[path]] if sparse
-                          else plan.dense_grads[path])
-                for col in range(start, end):
-                    cols.append(col)
-                    targets.append(target)
-                    slot_cols.append(touched.col_index[col] if sparse else 0)
-                    sparse_fields.append(sparse)
+                          else plan.dense_grads[path].flatten(1))
+                targets.append(target)
+                slot_cols.append(touched.col_index[col] if sparse else 0)
+                sparse_fields.append(sparse)
             device = X.device
             slots = None
             if any(sparse_fields):
@@ -1284,11 +1287,29 @@ class BaseModel(BaseModule):
         return self.history
 
     def evaluate(self, x, y, batch_size=256):
-        """``{metric: value}`` over the predictions of ``x``."""
+        """``{metric: value}`` over the predictions of ``x``.  A multi-task
+        model with a label column a task also reports each task as
+        ``<task name>_<metric>``, the bare name being the mean over the
+        tasks (``deepctr_tpu/models/basemodel.py:1993-2018``), so that
+        ``History``, ``EarlyStopping`` and ``ModelCheckpoint`` can follow
+        ``val_<task>_<metric>``."""
         pred_ans = self.predict(x, batch_size)
         y = y.cpu().numpy() if isinstance(y, torch.Tensor) else np.asarray(y)
-        return {name: metric_fun(y.reshape(-1), pred_ans.reshape(-1))
-                for name, metric_fun in self.metrics.items()}
+        eval_result = {}
+        for name, metric_fun in self.metrics.items():
+            if self.num_tasks > 1 and y.ndim > 1 and y.shape[-1] > 1:
+                task_names = list(getattr(self, "task_names", []) or
+                                  ["task%d" % i for i in range(y.shape[-1])])
+                vals = []
+                for i in range(y.shape[-1]):
+                    v = metric_fun(y[:, i], pred_ans[:, i])
+                    eval_result["%s_%s" % (task_names[i], name)] = v
+                    vals.append(v)
+                eval_result[name] = float(np.mean(vals))
+            else:
+                eval_result[name] = metric_fun(y.reshape(-1),
+                                               pred_ans.reshape(-1))
+        return eval_result
 
     def predict(self, x, batch_size=256):
         """Batched inference -> float64 ndarray [N, out_dim].

@@ -28,15 +28,26 @@ JAX leaf                               port key
 ``SE/{reduce,expand}/kernel``          ``SE.{reduce,expand}.weight`` (transposed)
 ``Bilinear/kernel`` ``[P|F, E, E]``    ``Bilinear.kernel`` (not transposed)
 ``outterproduct/kernel``               ``outterproduct.kernel`` (not transposed)
+``second_order_embedding/<name>``      ``second_order_embedding.<name>`` (ONN's
+                                       ``[V, F-1, E]`` pair table)
+``conv_layer/conv_<i>/kernel`` (OIHW)  ``conv_layer.conv_<i>.kernel`` (not
+                                       transposed)
+``ltl/ltl_{weights,biases}``           ``ltl.ltl_{weights,biases}``
+``<expert group>/dense_<i>/kernel``    ``<expert group>.dense_<i>.kernel``
+``[K, in, out]`` (stacked experts)     (not transposed)
+``region_linear_<i>/weight`` (MLR's)   ``region_linear_<i>.weight`` (as
+                                       ``linear_model/weight``)
 =====================================  =====================================
 
 A leaf whose path with dots for slashes is a port key keeps its layout
 (the stacked and square parameters of the interaction layers, the CIN's,
-the GRUs'); any other ``kernel`` is a ``Dense`` layer's, transposed.
+the GRUs', the convolutions', the stacked experts'); any other ``kernel``
+is a ``Dense`` layer's, transposed.
 
 ``batch_stats`` leaves map the same way onto buffers: Dice's running
 ``.../Dice_<i>/bn/{mean,var}`` onto ``....Dice_<i>.bn.{mean,var}``, a DNN
-batch norm's ``.../bn_<i>/{mean,var}`` onto ``....bn_<i>.{mean,var}``;
+batch norm's (the LTL's, a stacked expert group's ``[K, units]``)
+``.../bn_<i>/{mean,var}`` onto ``....bn_<i>.{mean,var}``;
 ``jax_batch_stats`` reads the port's buffers back as that tree.
 
 Tables that the JAX package stores packed (``[ceil(V/pack), 128]`` with
@@ -48,6 +59,8 @@ engine matches its regularization rules against ``jax_path`` of each
 parameter, so that patterns written for the JAX package work unchanged.
 Uses numpy only.
 """
+
+import re
 
 import numpy as np
 
@@ -88,14 +101,21 @@ def port_key(path):
     return ".".join(parts)
 
 
+# the linear models, whose dense-feature ``weight`` keeps its name: the
+# linear part, and MLR's region, base and bias models
+_LINEAR_MODEL = re.compile(r"^(linear_model|(region|base)_linear_\d+|"
+                           r"bias_linear)$")
+
+
 def jax_path(key):
     """The port's ``state_dict`` key -> the JAX leaf path (``port_key``'s
     inverse).  A ``weight`` is a ``Dense`` layer's, whose JAX leaf is its
-    transpose ``kernel``, except the linear part's dense-feature weight."""
+    transpose ``kernel``, except a linear model's dense-feature weight."""
     parts = key.split(".")
     if len(parts) >= 3 and parts[-3:-1] == ["embedding_dict", "tables"]:
         return "/".join(parts[:-2] + [parts[-1]])
-    if parts[-1] == "weight" and parts[0] != "linear_model":
+    if parts[-1] == "weight" and not _LINEAR_MODEL.match(
+            ".".join(parts[:-1])):
         return "/".join(parts[:-1] + ["kernel"])
     return "/".join(parts)
 

@@ -19,8 +19,15 @@ def log_loss(y_true, y_pred, eps=1e-7):
 def roc_auc_score(y_true, y_pred):
     """Area under the ROC curve of binary labels: the Mann-Whitney U of
     the positives' average ranks.  Raises, as sklearn does, when only one
-    class is present."""
-    y_true = np.asarray(y_true).reshape(-1)
+    class is present.  A label matrix [n, T] (a multi-task fit's train
+    metric) gives the mean of its columns' AUCs, sklearn's default
+    ``average="macro"`` for a label-indicator matrix."""
+    y_true = np.asarray(y_true)
+    if y_true.ndim == 2 and y_true.shape[1] > 1:
+        y_pred = np.asarray(y_pred)
+        return float(np.mean([roc_auc_score(y_true[:, i], y_pred[:, i])
+                              for i in range(y_true.shape[1])]))
+    y_true = y_true.reshape(-1)
     y_pred = np.asarray(y_pred, dtype=np.float64).reshape(-1)
     classes = np.unique(y_true)
     if len(classes) != 2:
