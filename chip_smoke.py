@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py
 
-Drives the port's main paths, DeepFM, xDeepFM and the zoo (WDL, NFM, DCN,
+Drives the port's main paths, DeepFM (also streamed from a hashed Criteo
+file and served from an exported artifact), xDeepFM and the zoo (WDL, NFM, DCN,
 DCNMix, AutoInt, AFM, FiBiNET, PNN, ONN, CCPM, AFN, IFM, DIFM, MLR, and
 the multi-task SharedBottom, ESMM, MMOE and PLE) serving and training at
 Criteo width and DIN/DIEN serving and training at the sequence bench's
@@ -11,7 +12,9 @@ width, through the entry points a user calls (``DeepFM(...)``,
 and the other multi-task models, ``DIN(...)``, ``DIEN(...)``,
 ``model.predict``, ``model.compile``, ``model.fit``, ``model.evaluate``,
 ``save_checkpoint``/``load_checkpoint``, ``save``/``load_model``,
-``ModelCheckpoint``), and the scatter micro-benchmark (``python -m
+``ModelCheckpoint``, ``fit(x=criteo_stream(...))``,
+``serving.export_predict``/``save_exported``/``load_exported``), and the
+scatter micro-benchmark (``python -m
 deepctr_tpu_torch.tools.scatter_micro``), and holds every CUDA kernel of
 those paths against its plain PyTorch version.
 Serving first:
@@ -123,7 +126,8 @@ sharing their tables) and batches of 1024, DNN 256-128, attention 64-16:
     sampling (two ``gru_scan`` launches, the attention scores by
     composition); 8 batches, weights at std 0.3 from a seed, every
     prediction finite and in [0, 1], the first batch within 1e-5 of the
-    same model on the CPU (whose attention runs the layer composition);
+    same model on the CPU (whose attention readout runs the fused
+    operator's plain version);
 11. DIN predict, float32, the same way: ``att_activation`` Dice (no fused
     attention: the composition) and sigmoid (one launch a batch);
 12. timing, bfloat16 compute: predict of DIN (Dice, sigmoid) and DIEN (GRU,
@@ -314,14 +318,45 @@ Then the rest of the engine:
     (alternating; the mode is part of a graph's key): examples/s and
     device busy ms a step.
 
+Then hashing, streaming and serving:
+
+32. the streamed fit: a Criteo-format TSV of 262,144 rows written from the
+    seed (label, 13 counts, 26 hex ids drawn over the Criteo Kaggle
+    cardinalities, some fields empty) and deleted afterwards; DeepFM at
+    ``criteo_columns(vocab_size=1_000_000)`` (26 x 1M x 17 float32, every
+    table on the sparse path), adagrad, ``fit(x=criteo_stream(path,
+    chunk_rows=65536), batch_size=4096)``; the native batcher's numpy
+    versions refused throughout.  float32, the first 2 chunks: bit-equal
+    to a twin's device-resident fits of the same chunks, then under sgd
+    within 1e-5 (relative) of the CPU port from the same weights.  bf16,
+    2 epochs: the gather, K1 and K2 once a step, a capture for each chunk
+    geometry and replays after, no host sync in a step or replay; then
+    examples/s (median of 3, alternating, with the spread), device busy
+    and idle share beside the device-resident ``fit`` of the same rows,
+    and the host half's ms a chunk;
+33. serving: the Criteo Kaggle DeepFM of phases 3-8 exported with a
+    symbolic batch (``serving.export_predict``) and saved, then loaded and
+    run in a fresh process that builds no model and no columns, on
+    batches of 1, 4096 and 4097 handed over in a ``.npy`` file: within
+    1e-5 of in-process ``predict`` (and whether bit-equal), the gather
+    launched once a batch; the artifact's bytes, export, save and load
+    seconds, and its ms a batch at 4096 beside the graphed predict's;
+    then DIN sigmoid, DIEN GRU (maxlen 100) and xDeepFM (CIN 256-128)
+    exported, saved and loaded in process: each kernel's launches inside
+    the artifact (the gather, ``din_attention``, ``gru_scan``,
+    ``cin_mix``), within 1e-5 of ``predict`` and of the artifact of a
+    CPU twin, whose operators run the kernels' plain versions.
+
 The command's total seconds are printed before the kernels line.
 
 Launches in the kernels line are those of the main-path runs (phases 3,
-6, 10, 11, 14, 17, 20, 22, 23, 26, 28, 29, 30 and 31; for ``static_scatter``, the
-micro-benchmark's run in phase 19), each counted from 0 just before the run and read just
-after; the runs that compare a kernel with its plain version, time it or
-check the card against the CPU are not counted.  A graph replay adds the
-launches its capture recorded.
+6, 10, 11, 14, 17, 20, 22, 23, 26, 28, 29, 30, 31, 32 and 33; for
+``static_scatter``, the micro-benchmark's run in phase 19), each counted
+from 0 just before the run and read just after; the runs that compare a
+kernel with its plain version, time it or check the card against the CPU
+are not counted.  A graph replay adds the launches its capture recorded.
+``artifact_launches`` counts the launches inside exported artifacts
+(phase 33), which ``launches`` includes.
 
 Any failure exits non-zero.  Without a CUDA device it fails at once and
 runs nothing on the CPU.  The last two lines before the final one are the
@@ -348,6 +383,7 @@ sys.path.insert(0, str(HERE))
 
 import deepctr_tpu_torch as pt  # noqa: E402
 from deepctr_tpu_torch import callbacks as pcb  # noqa: E402
+from deepctr_tpu_torch import native, serving  # noqa: E402
 from deepctr_tpu_torch.models import (  # noqa: E402
     AFM, AFN, CCPM, DCN, DIEN, DIFM, DIN, IFM, MLR, NFM, ONN, PNN, WDL,
     AutoInt, DCNMix, DeepFM, FiBiNET, xDeepFM)
@@ -829,10 +865,9 @@ def phase_timing_bf16(model, X_all):
     tables = [model.embedding_dict.tables["C%d" % i]
               for i in range(len(CRITEO_KAGGLE_VOCABS))]
     cols = list(range(len(tables)))
-    args = gather.GatherArgs()
     ids = [X[:, c].to(torch.int32).to(torch.int64) for c in cols]
     timed = {
-        "kernel": lambda: gather.gather_rows(X, tables, cols, args=args),
+        "kernel": lambda: gather.gather_rows(X, tables, cols),
         "plain": lambda: gather.gather_rows_ref(X, tables, cols),
         # the library's row gather, one call per table, ids cast beforehand
         "library": lambda: [torch.index_select(t, 0, i)
@@ -868,9 +903,9 @@ def phase_timing_bf16(model, X_all):
     X_sorted[:, cols] = torch.sort(X[:, cols], dim=0).values
     with torch.no_grad():
         sorted_ms = device_ms(lambda: gather.gather_rows(
-            X_sorted, tables, cols, args=args))
+            X_sorted, tables, cols))
         warm_ms = device_ms(lambda: gather.gather_rows(
-            X, tables, cols, args=args), cold=False)
+            X, tables, cols), cold=False)
     log("gather_rows at B=%d F=%d W=%d, device time: kernel %r ms on "
         "uniform ids with a cold L2, %r ms on the same ids sorted within "
         "each field, cold L2, %r ms on the uniform ids with a warm L2"
@@ -2039,9 +2074,7 @@ def seq_gather_times(device):
     with torch.no_grad():
         for neg in (False, True):
             tables, cols = seq_gather_fields(model, neg)
-            args = gather.GatherArgs()
-            ms = device_ms(lambda: gather.gather_rows(X, tables, cols,
-                                                      args=args))
+            ms = device_ms(lambda: gather.gather_rows(X, tables, cols))
             n_bytes, unique_rows = gather_bytes(X, tables, cols)
             bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
             out[len(cols)] = (ms, bound_ms)
@@ -2721,7 +2754,7 @@ def check_cin_grads(B, H, O, seed, device, D=EMB_DIM, F=XD_FIELDS):
     gen = torch.Generator(device=device).manual_seed(seed + 1)
     g = torch.randn(B, D, O, generator=gen, device=device)
     leaves = [t.detach().clone().requires_grad_() for t in (hidden, x0, wt)]
-    out = cin.CinMix.apply(*leaves)
+    out = cin.CinMix.apply(leaves[0], leaves[1], w3, leaves[2])
     got = torch.autograd.grad(out, leaves, g)
     ref_leaves = [t.detach().clone().requires_grad_()
                   for t in (hidden, x0, wt)]
@@ -4243,6 +4276,425 @@ def phase_cin_modes(device):
         pt.set_cin_dtype("bf16")
 
 
+# phases 32-33: the streamed fit of a hashed Criteo file, and serving
+# through exported artifacts.  The file: STREAM_ROWS rows written from the
+# seed, ids drawn over the Criteo Kaggle cardinalities and hashed by the
+# reader onto STREAM_BUCKETS buckets a field (data.criteo_columns's
+# default), streamed in chunks of STREAM_CHUNK rows
+STREAM_ROWS = 262144
+STREAM_CHUNK = 65536
+STREAM_BUCKETS = 1_000_000
+STREAM_EPOCHS = 2
+# the f32 checks: the first chunks of one epoch; card against CPU under
+# sgd, float32 sums in other orders
+STREAM_CPU_CHUNKS = 2
+STREAM_LOSS_RTOL = 1e-5
+STREAM_WEIGHT_RTOL = 1e-5
+STREAM_WEIGHT_ATOL = 1e-6
+STREAM_RUNS = 3
+# the batches the Kaggle artifact serves, in a fresh process
+SERVE_BATCHES = (1, BATCH, BATCH + 1)
+# the kernels' launches inside the artifacts of phase 33
+ARTIFACT_LAUNCHES = dict.fromkeys(COUNTERS, 0)
+
+_HEX = np.frombuffer(b"0123456789abcdef", np.uint8)
+_SMALL_INTS = np.array([b"%d" % i for i in range(-1, 1000)])
+
+
+def write_criteo_tsv(path, n, seed):
+    """A Criteo-format TSV of ``n`` rows from ``seed``: a label (a quarter
+    positive), 13 counts (geometric, some empty) and 26 categorical fields
+    as 8-digit hex strings of ids drawn uniformly over the Criteo Kaggle
+    cardinalities (5% empty)."""
+    rng = np.random.default_rng(seed)
+    label = np.where(rng.random(n) < 0.25, b"1", b"0").astype(object)
+    dense = _SMALL_INTS[np.minimum(rng.geometric(0.05, (n, N_DENSE)), 1000)
+                        ].astype(object)
+    dense[rng.random((n, N_DENSE)) < 0.1] = b""
+    ids = np.stack([rng.integers(0, v, n) for v in CRITEO_KAGGLE_VOCABS],
+                   axis=1).astype(np.uint64)
+    h = ((ids * np.uint64(2654435761)) % np.uint64(2 ** 32)).astype(
+        np.uint32)
+    shifts = np.arange(28, -4, -4, dtype=np.uint32)
+    hexs = _HEX[(h[..., None] >> shifts) & 0xF].view("S8")[..., 0].astype(
+        object)
+    hexs[rng.random(hexs.shape) < 0.05] = b""
+    rows = np.concatenate([label[:, None], dense, hexs], axis=1)
+    with open(path, "wb") as f:
+        f.write(b"\n".join(b"\t".join(r) for r in rows.tolist()) + b"\n")
+
+
+@contextlib.contextmanager
+def native_only():
+    """The native batcher's plain numpy versions raise if anything calls
+    them in the enclosed work: the library, built, is what ran."""
+    names = ("assemble_ref", "take_rows_ref", "hash_to_bucket_ref",
+             "parse_criteo_ref")
+    saved = {n: getattr(native, n) for n in names}
+
+    def refuse(*args, **kwargs):
+        raise RuntimeError("a plain numpy version of the native batcher "
+                           "ran")
+    for n in names:
+        setattr(native, n, refuse)
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(native, n, fn)
+
+
+def stream_model(device, optimizer="adagrad"):
+    cols = pt.criteo_columns(vocab_size=STREAM_BUCKETS, embedding_dim=EMB_DIM)
+    model = DeepFM(cols, cols, dnn_hidden_units=HIDDEN, init_std=INIT_STD,
+                   seed=SEED, device=device)
+    model.compile(optimizer, "binary_crossentropy")
+    check(len(model._sparse_specs) == len(CRITEO_KAGGLE_VOCABS),
+          "streamed DeepFM: %d tables on the sparse path, want all 26"
+          % len(model._sparse_specs))
+    return model, cols
+
+
+def stream_chunks(stream):
+    """The chunks of ``stream`` as ``[(x dict, y)]``.  The reader yields
+    what a read of ``read_bytes`` holds, so chunks fall a little short of
+    ``chunk_rows``."""
+    return list(stream())
+
+
+def stream_steps(chunks):
+    """Steps of BATCH an epoch over ``chunks``, each padded to whole
+    batches."""
+    return sum(-(-len(y) // BATCH) for _, y in chunks)
+
+
+def stream_checks_f32(path, device):
+    """f32, the first STREAM_CPU_CHUNKS chunks, one epoch: the streamed fit
+    on the card against a twin that fits each of those chunks in turn
+    with the device-resident loop (adagrad, unshuffled: the same steps,
+    each chunk padded to whole batches alike, so bit-equal states), every
+    step and replay without a host sync; then the streamed fit on the
+    card against the CPU port from the same weights under sgd.  (Under
+    adagrad a step moves a weight by about lr * sign(g), so rounding-level
+    differences of a near-zero gradient flip weights by 2 lr and the card
+    and CPU trajectories part over 32 steps: a first run measured their
+    epoch losses 1.5e-4 apart; phase 7 holds adagrad over 4 steps.)"""
+    pt.set_compute_dtype("float32")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    streamed, cols = stream_model(device)
+    stream = pt.criteo_stream(str(path), cols, chunk_rows=STREAM_CHUNK)
+    chunks = stream_chunks(stream)[:STREAM_CPU_CHUNKS]
+    steps = stream_steps(chunks)
+    with strict_loops():
+        hs = streamed.fit(stream, batch_size=BATCH, epochs=1,
+                          steps_per_epoch=steps, shuffle=False, verbose=0)
+    twin, _ = stream_model(device)
+    with strict_loops():
+        for x, y in chunks:
+            twin.fit(twin.assemble_device_input(x), y, batch_size=BATCH,
+                     epochs=1, shuffle=False, verbose=0)
+    check_same_state(training_state(streamed), training_state(twin),
+                     "streamed fit vs the device-resident fits")
+    log("stream f32 (%d chunks of %s rows, %d steps of %d, adagrad, "
+        "unshuffled, 26 tables of %d buckets on the sparse path): every "
+        "weight and optimizer state bit-equal to a twin's device-resident "
+        "fits of the same chunks; epoch loss %r; no host sync in a step"
+        % (len(chunks), [len(y) for _, y in chunks], steps, BATCH,
+           STREAM_BUCKETS, hs.history["loss"][0]))
+    del streamed, twin
+    card, _ = stream_model(device, "sgd")
+    cpu, _ = stream_model("cpu", "sgd")
+    cpu.set_weights(card.get_weights())
+    runs = {}
+    for name, model in (("card", card), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        hist = model.fit(stream, batch_size=BATCH, epochs=1,
+                         steps_per_epoch=steps, verbose=0)
+        runs[name] = (hist.history["loss"][0], model.get_weights(),
+                      time.perf_counter() - t0)
+    (lc, wc, tc), (lp, wp, tp) = runs["card"], runs["cpu"]
+    rel = abs(lc - lp) / abs(lp)
+    check(rel <= STREAM_LOSS_RTOL, "streamed fit card vs CPU: loss %r vs "
+          "%r" % (lc, lp))
+    worst = max(float((np.abs(wc[k] - wp[k])
+                       - STREAM_WEIGHT_RTOL * np.abs(wp[k])).max())
+                for k in wp)
+    check(worst <= STREAM_WEIGHT_ATOL, "streamed fit card vs CPU: a weight "
+          "differs by %r past %r of its size" % (worst, STREAM_WEIGHT_RTOL))
+    log("stream f32 card vs CPU (the same %d steps, shuffled, sgd, from the "
+        "same weights): epoch loss card %r cpu %r, rel diff %r (rtol %r); "
+        "weights max |dw| - %r |w| = %r (atol %r), max |dw| %r; fit %.2f s "
+        "on the card, %.2f s on the CPU"
+        % (steps, lc, lp, rel, STREAM_LOSS_RTOL, STREAM_WEIGHT_RTOL, worst,
+           STREAM_WEIGHT_ATOL, max(float(np.abs(wc[k] - wp[k]).max())
+                                   for k in wp), tc, tp))
+
+
+def host_chunk_ms(model, stream):
+    """The host half of the streamed fit, a chunk at a time on this thread
+    (parse and hash, assemble, shuffle, pin): ms per chunk, median."""
+    rng = np.random.default_rng(SEED)
+    times = []
+    chunks = stream()
+    while True:
+        t0 = time.perf_counter()
+        item = next(chunks, None)
+        if item is None:
+            break
+        X = model._assemble_x(item[0])
+        X = X[rng.permutation(len(X))]
+        torch.from_numpy(X).pin_memory()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), times
+
+
+def phase_stream_fit(device):
+    """phase 32: DeepFM over a hashed Criteo TSV, fit(x=criteo_stream(...))
+    at full width: the f32 card-vs-CPU check, then 2 epochs at bf16 with
+    every step's launches and no host sync in a step, then the rate beside
+    the device-resident fit of the same rows."""
+    d = scratch_dir("stream")
+    path = d / "criteo.tsv"
+    t0 = time.perf_counter()
+    write_criteo_tsv(path, STREAM_ROWS, SEED + 800)
+    log("stream: wrote %d Criteo rows (%d bytes) in %.2f s"
+        % (STREAM_ROWS, path.stat().st_size, time.perf_counter() - t0))
+    try:
+        with native_only():
+            stream_checks_f32(path, device)
+            out = stream_timing(path, device)
+        check(native._lib is not None and native.library_path().exists(),
+              "the native batcher was not built")
+    finally:
+        shutil.rmtree(d)
+    return out
+
+
+def stream_timing(path, device):
+    pt.set_compute_dtype("bfloat16")
+    model, cols = stream_model(device)
+    stream = pt.criteo_stream(str(path), cols, chunk_rows=STREAM_CHUNK)
+    chunks = stream_chunks(stream)
+    sizes = [len(y) for _, y in chunks]
+    per_epoch = stream_steps(chunks)
+    steps = STREAM_EPOCHS * per_epoch
+    geometries = len({-(-n // BATCH) for n in sizes})
+    reset_counts()
+    graphs.GRAPH_REPLAYS = 0
+    with strict_loops():
+        hist = model.fit(stream, batch_size=BATCH, epochs=STREAM_EPOCHS,
+                         verbose=0)
+    counts = read_counts()
+    replays = graphs.GRAPH_REPLAYS
+    losses = hist.history["loss"]
+    check(len(losses) == STREAM_EPOCHS and np.isfinite(losses).all(),
+          "streamed fit losses %s" % losses)
+    for name in ("gather_rows", "scatter_add_rows", "row_update"):
+        check(counts[name] == steps, "streamed fit: %s launched %d times in "
+              "%d steps" % (name, counts[name], steps))
+    check(replays == steps - geometries, "streamed fit: %d graph replays "
+          "in %d steps, want a capture for each of %d chunk geometries"
+          % (replays, steps, geometries))
+    log("stream bf16 DeepFM, hashed Criteo (%d rows in chunks of %s, 26 x "
+        "%d buckets, all on the sparse path), %d epochs of %d steps of %d: "
+        "losses %s; launches %s; %d graph replays and %d captures; every "
+        "step and replay without a host sync; the native batcher's plain "
+        "versions never ran" % (STREAM_ROWS, sizes, STREAM_BUCKETS,
+                                STREAM_EPOCHS, per_epoch, BATCH, losses,
+                                {k: v for k, v in counts.items() if v},
+                                replays, geometries))
+    x = {k: np.concatenate([c[0][k] for c in chunks]) for k in chunks[0][0]}
+    y = np.concatenate([c[1] for c in chunks])
+    X = model.assemble_device_input(x)
+    del chunks
+
+    def streamed():
+        model.fit(stream, batch_size=BATCH, epochs=1, verbose=0)
+
+    def resident():
+        model.fit(X, y, batch_size=BATCH, epochs=1, verbose=0)
+    times = {"stream": [], "device": []}
+    for _ in range(STREAM_RUNS):
+        for name, fn in (("stream", streamed), ("device", resident)):
+            times[name] += run_ms(fn, runs=1)
+    host_ms, host_all = host_chunk_ms(model, stream)
+    parts = []
+    for name, fn in (("stream", streamed), ("device", resident)):
+        busy, kernels = profile_launches(fn)
+        wall = statistics.median(times[name])
+        parts.append("%s: %s, device busy %s" % (
+            "fit(x=criteo_stream(...))" if name == "stream" else
+            "fit(assemble_device_input(x)) on the same rows",
+            rate_line(STREAM_ROWS, times[name]), busy_line(busy, wall)))
+    log("stream bf16 timing (%s), one epoch of %d rows: %s; host half %r "
+        "ms a chunk (median; %s), on its own thread beside the device"
+        % (card_line(), STREAM_ROWS, "; ".join(parts), host_ms,
+           ["%.1f" % t for t in host_all]))
+    return counts
+
+
+def fresh_process_serve(path, X_path, out_path):
+    """Run the artifact at ``path`` on the batches of ``X_path`` in a new
+    interpreter that builds no model and no columns; returns its report."""
+    code = (
+        "import json, sys, time\n"
+        "import numpy as np, torch\n"
+        "sys.path.insert(0, sys.argv[4])\n"
+        "from deepctr_tpu_torch import serving\n"
+        "from deepctr_tpu_torch.ops import gather\n"
+        "t0 = time.perf_counter()\n"
+        "exp = serving.load_exported(sys.argv[1])\n"
+        "load_s = time.perf_counter() - t0\n"
+        "X = np.load(sys.argv[2])\n"
+        "outs = {}\n"
+        "for b in json.loads(sys.argv[5]):\n"
+        "    outs['b%d' % b] = exp.call(X[:b]).cpu().numpy()\n"
+        "np.savez(sys.argv[3], **outs)\n"
+        "print(json.dumps({'load_s': load_s, 'device': str(exp.device),\n"
+        "                  'gather_launches': gather.GATHER_LAUNCHES}))\n")
+    proc = subprocess.run(
+        [sys.executable, "-c", code, str(path), str(X_path), str(out_path),
+         str(HERE), json.dumps(list(SERVE_BATCHES))], capture_output=True,
+        text=True, timeout=600, cwd=str(path.parent))
+    check(proc.returncode == 0, "the serving process failed:\n%s"
+          % proc.stderr[-4000:])
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def phase_serve_kaggle(model, X_all):
+    """phase 33, DeepFM: the Criteo Kaggle model exported with a symbolic
+    batch, saved, then loaded and run in a fresh process on batches of 1,
+    4096 and 4097, held against in-process predict; the artifact's bytes,
+    its export, save and load seconds, and its device ms a batch beside
+    the graphed predict's."""
+    pt.set_compute_dtype("float32")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    d = scratch_dir("serving")
+    try:
+        t0 = time.perf_counter()
+        exp = serving.export_predict(model)
+        export_s = time.perf_counter() - t0
+        path = d / "deepfm_kaggle.pt2"
+        t0 = time.perf_counter()
+        serving.save_exported(exp, str(path))
+        save_s = time.perf_counter() - t0
+        size = path.stat().st_size
+        X = X_all[:max(SERVE_BATCHES)]
+        np.save(d / "X.npy", X.cpu().numpy())
+        want = model.predict(X, batch_size=BATCH)
+        report = fresh_process_serve(path, d / "X.npy", d / "out.npz")
+        got = np.load(d / "out.npz")
+        check(report["gather_launches"] == len(SERVE_BATCHES), "the serving "
+              "process launched the gather %d times for %d batches"
+              % (report["gather_launches"], len(SERVE_BATCHES)))
+        parts = []
+        for b in SERVE_BATCHES:
+            g = got["b%d" % b].astype("float64")
+            check(g.shape == (b, 1), "artifact output %s at B=%d"
+                  % (g.shape, b))
+            diff = float(np.abs(g - want[:b]).max())
+            check(diff <= ATOL_CPU, "artifact vs predict at B=%d: max |dp| "
+                  "%r > %r" % (b, diff, ATOL_CPU))
+            parts.append("B=%d max |dp| %r (%s)" % (
+                b, diff, "bit-equal" if np.array_equal(g, want[:b])
+                else "not bit-equal"))
+        X4 = X_all[:BATCH]
+        reset_counts()
+        exp.call(X4)
+        counts = read_counts()
+        for name, n in counts.items():
+            ARTIFACT_LAUNCHES[name] += n
+        check(counts["gather_rows"] == 1, "the artifact launched the gather "
+              "%d times a batch" % counts["gather_rows"])
+        fns = {"artifact": lambda: exp.call(X4),
+               "graphed predict": lambda: model.predict(X4, BATCH)}
+        timing = []
+        for name, fn in fns.items():
+            ms = statistics.median(run_ms(fn, runs=LOOP_RUNS))
+            busy, kernels = profile_launches(fn)
+            timing.append("%s %r ms a batch (CUDA events, median of %d), "
+                          "device busy %r ms, %d device operations" % (
+                              name, ms, LOOP_RUNS, busy or float("nan"),
+                              kernels))
+        log("serve DeepFM Criteo Kaggle (%s): export_predict (symbolic "
+            "batch) %.2f s, save_exported %.2f s, %d bytes; a fresh process "
+            "(no model, no columns) loaded it in %.2f s on %s and ran B=%s "
+            "with %d gather launches: %s (atol %r); in process at B=%d: %s"
+            % (card_line(), export_s, save_s, size, report["load_s"],
+               report["device"], list(SERVE_BATCHES),
+               report["gather_launches"], "; ".join(parts), ATOL_CPU, BATCH,
+               "; ".join(timing)))
+        del exp
+    finally:
+        shutil.rmtree(d)
+
+
+def serve_case(label, build, X, B, per_batch, device):
+    """phase 33, one model: exported with a symbolic batch, saved and
+    loaded in process, run on ``X``: its kernels' launches inside the
+    artifact (``per_batch``, at least one each), against the model's
+    ``predict``, and against the artifact of a CPU twin (the same weights;
+    its operators run the kernels' plain versions) within ATOL_CPU."""
+    model = build(device)
+    d = scratch_dir("serving")
+    try:
+        exp = serving.export_predict(model)
+        path = d / "model.pt2"
+        serving.save_exported(exp, str(path))
+        loaded = serving.load_exported(str(path))
+        reset_counts()
+        got = loaded.call(X).cpu().numpy().astype("float64")
+        counts = read_counts()
+    finally:
+        shutil.rmtree(d)
+    for name, n in counts.items():
+        ARTIFACT_LAUNCHES[name] += n
+    for name, n in per_batch.items():
+        check(counts[name] == n, "%s artifact: %s launched %d times in one "
+              "batch, want %d" % (label, name, counts[name], n))
+    check_predictions(got, X.shape[0])
+    want = model.predict(X, batch_size=B)
+    diff = float(np.abs(got - want).max())
+    check(diff <= ATOL_CPU, "%s artifact vs predict: max |dp| %r"
+          % (label, diff))
+    twin = build("cpu")
+    twin.load_state_dict(model.state_dict())
+    plain = serving.export_predict(twin).call(X.cpu()).numpy()
+    pdiff = float(np.abs(got - plain).max())
+    check(pdiff <= ATOL_CPU, "%s artifact on the card vs on the CPU: max "
+          "|dp| %r" % (label, pdiff))
+    log("serve %s: artifact (symbolic batch, saved and loaded) on %d "
+        "requests: launches %s; vs predict max |dp| %r (%s); vs the CPU "
+        "artifact (the plain versions) max |dp| %r (atol %r)"
+        % (label, X.shape[0], {k: v for k, v in counts.items() if v}, diff,
+           "bit-equal" if np.array_equal(got, want) else "not bit-equal",
+           pdiff, ATOL_CPU))
+
+
+def phase_serve_models(device):
+    """phase 33, the sequence models and xDeepFM: every inference kernel
+    inside an artifact."""
+    pt.set_compute_dtype("float32")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    din = seq_model("din", "sigmoid", device)
+    X_seq = seq_requests(din, SEQ_BATCH, SEED + 830, device)
+    del din
+    serve_case("DIN sigmoid", lambda d: seq_model("din", "sigmoid", d), X_seq,
+               SEQ_BATCH, {"gather_rows": 1, "din_attention": 1}, device)
+    serve_case("DIEN GRU", lambda d: seq_model("dien", "GRU", d), X_seq,
+               SEQ_BATCH, {"gather_rows": 1, "din_attention": 1,
+                           "gru_scan": 2}, device)
+    serve_case("xDeepFM", xdeepfm_model, xdeepfm_requests(
+        BATCH, SEED + 831, device), BATCH, {"gather_rows": 1, "cin_mix": 2},
+        device)
+    for name in ("gather_rows", "din_attention", "gru_scan", "cin_mix"):
+        check(ARTIFACT_LAUNCHES[name] > 0, "%s never launched inside an "
+              "artifact" % name)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -4279,7 +4731,12 @@ def main():
     phase_fit_f32(model, X_all)
     phase_fit_card_vs_cpu(X_all)
     train_timing = phase_train_timing_bf16(model, X_all)
+    phase_serve_kaggle(model, X_all)
     del model, X_all
+    torch.cuda.empty_cache()
+    phase_stream_fit(device)
+    torch.cuda.empty_cache()
+    phase_serve_models(device)
     torch.cuda.empty_cache()
 
     seq_errs = phase_seq_kernels_vs_plain(device)
@@ -4341,6 +4798,7 @@ def main():
         check(MAIN_PATH_LAUNCHES[name] > 0, "%s never launched on the main "
               "path" % name)
         kernels.append(dict(name=name, launches=MAIN_PATH_LAUNCHES[name],
+                            artifact_launches=ARTIFACT_LAUNCHES[name],
                             **measured[name], **KERNELS[name]))
     log("chip_smoke: %.1f s in all" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": kernels}), flush=True)

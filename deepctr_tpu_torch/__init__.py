@@ -15,5 +15,12 @@ from .callbacks import History, EarlyStopping, ModelCheckpoint
 from .utils.serialization import load_model, save_model
 from . import layers
 from . import models
+from . import serving
+from .data import criteo_stream, criteo_columns
 
 __version__ = "0.1.0"
+
+from .utils.version import check_version  # noqa: E402
+
+# does nothing unless the environment names the latest version
+check_version(__version__)

@@ -30,7 +30,7 @@ class SparseFeat(namedtuple("SparseFeat",
     ``embedding_dim="auto"`` resolves to ``6 * vocab**0.25``.
     ``use_hash=True`` hashes raw values (strings or ints) onto
     ``[0, vocabulary_size)`` on the host at batch-assembly time (native
-    FNV-1a, deepctr_tpu/native) — the reference declares this flag but
+    FNV-1a, deepctr_tpu_torch/native) — the reference declares this flag but
     does not support it (deepctr_torch/inputs.py:31-33).
     (reference parity: deepctr_torch/inputs.py:20-38)
     """

@@ -23,7 +23,7 @@ from torch import nn
 from .features import SparseFeat, DenseFeat, VarLenSparseFeat
 from .layers.sequence import masked_pooling
 from .layers.utils import concat_fun
-from .ops.gather import GatherArgs, gather_rows
+from .ops.gather import gather_rows
 
 
 class TableHolder(nn.Module):
@@ -39,13 +39,13 @@ class TableHolder(nn.Module):
         super().__init__()
         self._capture = None
 
-    def _gather(self, X, tables, names, cols, args):
+    def _gather(self, X, tables, names, cols):
         """``gather_rows`` of the fields ``(names[i], cols[i])``, whose
         ``[V, W]`` tables are ``tables``."""
         if self._capture is None:
-            return gather_rows(X, tables, cols, args=args)
+            return gather_rows(X, tables, cols)
         with torch.no_grad():
-            rows = gather_rows(X, tables, cols, args=args)
+            rows = gather_rows(X, tables, cols)
         rows.requires_grad_()
         self._capture.append((names, cols, rows))
         return rows
@@ -80,8 +80,6 @@ class EmbeddingDict(TableHolder):
             table.normal_(0.0, init_std, generator=generator)
             self.tables[name] = nn.Parameter(table)
             self.table_dims[name] = dim
-        # one kernel-argument cache per group of fields gathered together
-        self._gather_args = {}
 
     def gather(self, X, feature_index, feature_columns):
         """Full-width rows (incl. any wide column) of every feature in
@@ -93,8 +91,6 @@ class EmbeddingDict(TableHolder):
             by_width[self.tables[fc.embedding_name].shape[1]].append(fc)
         out = {}
         for fcs in by_width.values():
-            group = tuple(fc.name for fc in fcs)
-            args = self._gather_args.setdefault(group, GatherArgs())
             names, cols, spans = [], [], []
             for fc in fcs:
                 start, end = feature_index[fc.name]
@@ -104,7 +100,7 @@ class EmbeddingDict(TableHolder):
                 names += [fc.embedding_name] * (end - start)
                 cols += range(start, end)
             rows = self._gather(X, [self.tables[n] for n in names], names,
-                                cols, args)
+                                cols)
             for fc, (first, n) in zip(fcs, spans):
                 out[fc.name] = rows[:, first:first + n]
         return out

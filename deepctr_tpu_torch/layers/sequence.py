@@ -97,10 +97,13 @@ class AttentionSequencePoolingLayer(nn.Module):
     (or the [B, 1, T] weights with ``return_score``).
 
     At inference, without ``return_score``, with a sigmoid, relu or linear
-    activation, E <= 512 and CUDA tensors, the whole readout is one launch
-    of the fused kernel (``ops/attention.py``), as the JAX layer dispatches
-    its Pallas kernel (``deepctr_tpu/layers/sequence.py:101-120``); Dice,
-    the score path and training run the composition."""
+    activation and E <= 512, the whole readout is one call of the
+    ``deepctr_tpu_torch::din_attention_fused`` op (``ops/attention.py``),
+    as the JAX layer dispatches its Pallas kernel
+    (``deepctr_tpu/layers/sequence.py:101-120``): one launch of the fused
+    kernel on CUDA tensors, its plain version (float32) on CPU tensors, so
+    that an exported model carries the op on either device.  Dice, the
+    score path and training run the composition."""
 
     def __init__(self, att_hidden_units=(80, 40), att_activation="sigmoid",
                  weight_normalization=False, return_score=False,
@@ -120,7 +123,7 @@ class AttentionSequencePoolingLayer(nn.Module):
     def _fused(self, query, keys, training):
         return (not training and not self.return_score
                 and self.att_activation in ACTIVATIONS
-                and keys.shape[2] <= MAX_EMBEDDING and keys.is_cuda)
+                and keys.shape[2] <= MAX_EMBEDDING)
 
     def fused_readout(self, query, keys, mask):
         """The fused kernel's readout with this layer's weights: query

@@ -47,7 +47,9 @@ rows; see ``ROADMAP.md`` section 3.
 """
 
 import os
+import queue
 import re
+import threading
 import time
 import warnings
 from itertools import accumulate
@@ -60,7 +62,7 @@ try:
 except ImportError:  # pragma: no cover
     tqdm = None
 
-from .. import config
+from .. import config, native
 from ..callbacks import CallbackList, History
 from ..features import SparseFeat, VarLenSparseFeat
 from ..inputs import EmbeddingDict, TableHolder
@@ -339,8 +341,6 @@ class BaseModel(BaseModule):
                  l2_reg_linear=1e-5, l2_reg_embedding=1e-5, init_std=1e-4,
                  seed=1024, task="binary", device=None, gpus=None):
         device = resolve_device(device)
-        self._check_unhashed(list(linear_feature_columns)
-                             + list(dnn_feature_columns))
         generator = torch.Generator(device=device)
         generator.manual_seed(seed)
         super().__init__(linear_feature_columns, dnn_feature_columns, task,
@@ -375,15 +375,15 @@ class BaseModel(BaseModule):
         self._plans = {}
         self._dropout_gen = None
 
-    @staticmethod
-    def _check_unhashed(feature_columns):
-        hashed = [f.name for f in feature_columns
-                  if isinstance(f, (SparseFeat, VarLenSparseFeat))
-                  and f.use_hash]
-        if hashed:
-            raise NotImplementedError(
-                "use_hash features %s are not ported yet (they need the "
-                "native batcher)" % hashed)
+    @property
+    def _hash_feats(self):
+        """``{name: feature}`` of the columns declaring ``use_hash``, which
+        ``_assemble_x`` hashes on the host (``deepctr_tpu/models/
+        basemodel.py:152-157``)."""
+        return {f.name: f
+                for f in self.linear_feature_columns + self.dnn_feature_columns
+                if isinstance(f, (SparseFeat, VarLenSparseFeat))
+                and f.use_hash}
 
     def _capture_init_args(self, local_vars):
         """Record the constructor's arguments, so that ``load_model`` can
@@ -628,15 +628,26 @@ class BaseModel(BaseModule):
 
     def _begin_steps(self, n, epoch=0):
         """Ready the device for the next ``n`` train steps, those of epoch
-        ``epoch``: the dropout generator reseeded from ``(seed + 1,
-        epoch)``, the step counter at 0 and, for adam, the ``(1 - b1^t, 1
-        - b2^t)`` of those steps (``adam_bias_corrections``, the JAX
-        package's float32 formula) uploaded at once, which the steps read
-        on the device.  Each ``fit`` epoch calls it; so must a caller of
-        ``_train_step``."""
+        ``epoch``: :meth:`_begin_epoch` and :meth:`_ready_steps`.  Each
+        ``fit`` epoch calls it; so must a caller of ``_train_step``."""
+        self._begin_epoch(epoch)
+        self._ready_steps(n)
+
+    def _begin_epoch(self, epoch):
+        """The dropout generator reseeded from ``(seed + 1, epoch)``: the
+        epoch's steps then draw their masks one after the other."""
         state = np.random.SeedSequence([self.seed + 1, epoch])
         self._dropout_generator().manual_seed(
             int(state.generate_state(1, np.uint64)[0]))
+
+    def _ready_steps(self, n):
+        """The next ``n`` steps made ready, after those taken: the step
+        counter at 0 and, for adam, the ``(1 - b1^t, 1 - b2^t)`` of those
+        steps (``adam_bias_corrections``, the JAX package's float32
+        formula) uploaded at once, which the steps read on the device.  A
+        streamed epoch calls it for each chunk, without reseeding the
+        dropout generator, so that the chunks carry on the epoch's masks
+        and adam's step count."""
         t0 = self._dense_opt.count
         self._dense_opt.count += n
         for p in self._table_t:
@@ -939,17 +950,29 @@ class BaseModel(BaseModule):
     # data plumbing
     # ------------------------------------------------------------------
     def _assemble_x(self, x):
-        """dict/list of arrays -> one [N, input_dim] float32 matrix."""
+        """dict/list of arrays -> one [N, input_dim] float32 matrix
+        (``deepctr_tpu/models/basemodel.py:1413-1444``).
+
+        The columns are concatenated by the native batcher
+        (``native.assemble``); features with ``use_hash`` are hashed onto
+        ``[0, vocabulary_size)`` here on the host, strings or ints
+        (:meth:`_hash_feature`)."""
         if isinstance(x, dict):
             x = [x[feature] for feature in self.feature_index]
         if isinstance(x, np.ndarray):
             x = [x]
+        hashed = self._hash_feats
         arrays = []
-        for a in x:
+        for name, a in zip(self.feature_index, x):
             a = np.asarray(a)
             if a.ndim == 1:
                 a = a[:, None]
+            feat = hashed.get(name)
+            if feat is not None:
+                a = self._hash_feature(feat, a)
             arrays.append(np.asarray(a, dtype=np.float32))
+        if not arrays:
+            raise ValueError("the model has no input features")
         lens = {a.shape[0] for a in arrays}
         if len(lens) > 1:
             detail = ", ".join(
@@ -958,11 +981,29 @@ class BaseModel(BaseModule):
             raise ValueError(
                 "input features have inconsistent sample counts (%s)"
                 % detail)
-        X = np.concatenate(arrays, axis=1)
+        X = native.assemble(arrays)
         if X.shape[1] != self.input_dim:
             raise ValueError("input width %d != expected %d"
                              % (X.shape[1], self.input_dim))
         return X
+
+    @staticmethod
+    def _hash_feature(feat, a):
+        """The ids of a ``use_hash`` column ``a`` (``deepctr_tpu/models/
+        basemodel.py:1453-1467``): floats cast to int64, then FNV-1a onto
+        ``[0, vocabulary_size)``; for a ``VarLenSparseFeat`` the padding id
+        0 and empty strings stay 0."""
+        if np.issubdtype(a.dtype, np.floating):
+            a = a.astype(np.int64)
+        ids = native.hash_to_bucket(a, feat.vocabulary_size)
+        if isinstance(feat, VarLenSparseFeat):
+            if np.issubdtype(a.dtype, np.integer):
+                empty = a == 0
+            else:
+                empty = np.vectorize(lambda v: len(str(v)) == 0,
+                                     otypes=[bool])(a)
+            ids = np.where(empty, 0, ids)
+        return ids
 
     def input_from_feature_columns(self, x, feature_columns=None):
         """Embed a raw input dict/list/matrix: returns
@@ -1004,22 +1045,28 @@ class BaseModel(BaseModule):
         ``x`` a flat [N, input_dim] tensor (``assemble_device_input``):
         the device-resident loop, :meth:`_fit_device`.
 
+        ``x`` a zero-argument callable that returns an iterator of
+        ``(x_chunk, y_chunk)`` pairs (``data.criteo_stream``): the streamed
+        fit, :meth:`_fit_stream`, for data larger than host memory; it is
+        called once an epoch, and ``steps_per_epoch`` caps the steps an
+        epoch takes from it (read only with a callable ``x``, as in the JAX
+        package).
+
         ``profile``: a directory; ``torch.profiler`` traces the whole call
         (host, and the card where the model is on one) and writes its
-        trace there as TensorBoard reads it, stopping in a ``finally``.
-
-        Not ported yet, and raising: a callable ``x`` (streaming fit) and
-        ``steps_per_epoch``."""
+        trace there as TensorBoard reads it, stopping in a ``finally``."""
         if callable(x):
-            raise NotImplementedError("streaming fit (a callable x) is not "
-                                      "ported yet")
-        if steps_per_epoch is not None:
-            raise NotImplementedError("steps_per_epoch goes with streaming "
-                                      "fit, which is not ported yet")
-        args = (x, y, batch_size, epochs, verbose, initial_epoch,
-                validation_split, validation_data, shuffle, callbacks)
+            def run():
+                return self._fit_stream(x, batch_size, epochs, verbose,
+                                        initial_epoch, validation_data,
+                                        callbacks, steps_per_epoch, shuffle)
+        else:
+            def run():
+                return self._fit(x, y, batch_size, epochs, verbose,
+                                 initial_epoch, validation_split,
+                                 validation_data, shuffle, callbacks)
         if not profile:
-            return self._fit(*args)
+            return run()
         activities = [torch.profiler.ProfilerActivity.CPU]
         if self._device.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -1029,7 +1076,7 @@ class BaseModel(BaseModule):
                 os.fspath(profile)))
         prof.start()
         try:
-            return self._fit(*args)
+            return run()
         finally:
             prof.stop()
 
@@ -1235,14 +1282,7 @@ class BaseModel(BaseModule):
                 self, B, steps_per_epoch, n_pad, y.shape[1], bool(shuffle),
                 need_preds)
         loop.load(X, y)
-        if (device.type == "cuda" and not loop.capturable
-                and not self._eager_step_warned):
-            self._eager_step_warned = True
-            warnings.warn(
-                "%s cannot be captured in a CUDA graph (it needs "
-                "capturable=True, which its parameter groups do not set): "
-                "the device-resident loop runs each step eagerly on the card"
-                % type(self.optim).__name__)
+        self._warn_if_eager(loop, "the device-resident loop")
         generator = torch.Generator(device=device)
 
         callbacks = CallbackList((callbacks or []) + [self.history])
@@ -1262,18 +1302,10 @@ class BaseModel(BaseModule):
             generator.manual_seed(int(state.generate_state(1, np.uint64)[0]))
             losses = loop.run_epoch(generator, epoch)
             epoch_logs = {"loss": float(losses.sum()) / sample_num}
-            if need_preds:
-                y_np = y[:sample_num].cpu().numpy()
-                p_np = loop.preds[:sample_num].cpu().numpy().astype(
-                    "float64")
-                if self.num_tasks == 1:
-                    y_np, p_np = y_np.reshape(-1), p_np.reshape(-1)
-                for name, metric_fun in self.metrics.items():
-                    epoch_logs[name] = metric_fun(y_np, p_np)
-            if do_validation:
-                for name, result in self.evaluate(val_x, val_y,
-                                                  batch_size).items():
-                    epoch_logs["val_" + name] = result
+            self._epoch_metrics(
+                epoch_logs, y[:sample_num] if need_preds else None,
+                loop.preds[:sample_num] if need_preds else None,
+                (val_x, val_y) if do_validation else None, batch_size)
             if verbose > 0:
                 print("Epoch {0}/{1} - {2}s - loss: {3:.4f}".format(
                     epoch + 1, epochs, int(time.time() - start_time),
@@ -1285,6 +1317,220 @@ class BaseModel(BaseModule):
                 break
         callbacks.on_train_end()
         return self.history
+
+    def _fit_stream(self, make_iter, batch_size, epochs, verbose,
+                    initial_epoch, validation_data, callbacks,
+                    steps_per_epoch, shuffle=True):
+        """The streamed fit (``deepctr_tpu/models/basemodel.py:1658-1845``):
+        one pass over ``make_iter()`` an epoch, each ``(x_chunk, y_chunk)``
+        trained as it comes, for data larger than host memory.
+
+        The host half runs on a background thread, one chunk ahead of the
+        device, through a queue of two: it takes a chunk from the iterator,
+        assembles and hashes it (``_assemble_x``), checks its sparse ids,
+        shuffles it within the chunk (one ``np.random.default_rng(seed)``
+        for the whole fit, one permutation a chunk, as the JAX package); it
+        makes no CUDA call (one could meet a graph capture on the main
+        thread).  The device half copies the chunk into pinned memory and
+        uploads it once, without blocking, into the static buffers of the
+        loop for its geometry
+        (``graphs.StepGraph`` at ``nb`` steps of ``batch_size``, no
+        shuffle; the last rows padded with zeros at sample weight 0) and
+        trains its ``nb`` steps: replays of one captured graph on the card,
+        eager steps on the CPU.  Nothing is read back inside a chunk; the
+        losses stay on the device until the epoch ends, and the epoch loss
+        is their sum over the samples seen.  The dropout generator is
+        reseeded once an epoch and adam's step count runs on across the
+        chunks (``_ready_steps``), so a step's masks and bias corrections
+        are those of its place in the epoch.
+
+        ``steps_per_epoch`` caps an epoch's steps, cutting the chunk that
+        reaches it (the worker then stops taking chunks, so the shuffle's
+        draws do not depend on how far it ran ahead).  An error in the
+        worker is raised here; the worker is stopped and joined whatever
+        happens.  Train metrics (``verbose > 0``) are computed over the
+        epoch's predictions; validation and callbacks as in
+        :meth:`_fit_device`.  A model keeps the loops of its last
+        ``_STREAM_LOOPS`` chunk geometries."""
+        if batch_size is None:
+            batch_size = 256
+        self._ensure_compiled()
+        B = batch_size
+        device = self._device
+        pin = device.type == "cuda"
+        rng_shuffle = np.random.default_rng(self.seed)
+        need_preds = bool(verbose > 0 and self.metrics)
+        n_out = self.num_tasks
+
+        def prep_chunk(x_chunk, y_chunk):
+            X = self._assemble_x(x_chunk)
+            yc = np.asarray(y_chunk, dtype=np.float32)
+            if yc.ndim == 1:
+                yc = yc[:, None]
+            if yc.shape[0] != X.shape[0]:
+                raise ValueError("a chunk's x and y have different sample "
+                                 "counts: %d vs %d"
+                                 % (X.shape[0], yc.shape[0]))
+            self._check_sparse_ids(X)
+            if shuffle:
+                order = rng_shuffle.permutation(len(X))
+                X, yc = X[order], yc[order]
+            return X, yc, len(X), (len(X) - 1) // B + 1
+
+        def produce(q, stop):
+            def put(item):
+                while not stop.is_set():
+                    try:
+                        q.put(item, timeout=0.1)
+                        return True
+                    except queue.Full:
+                        pass
+                return False
+
+            chunks = None
+            try:
+                chunks = iter(make_iter())
+                steps = 0
+                for x_chunk, y_chunk in chunks:
+                    if stop.is_set():
+                        return
+                    item = prep_chunk(x_chunk, y_chunk)
+                    if item[2] == 0:
+                        continue
+                    if not put(item):
+                        return
+                    steps += item[3]
+                    if steps_per_epoch and steps >= steps_per_epoch:
+                        break
+                put(None)
+            except BaseException as e:   # raised again on the main thread
+                put(e)
+            finally:
+                close = getattr(chunks, "close", None)
+                if close is not None:
+                    close()
+
+        callbacks = CallbackList((callbacks or []) + [self.history])
+        callbacks.set_model(self)
+        callbacks.on_train_begin()
+        self.stop_training = False
+
+        for epoch in range(initial_epoch, epochs):
+            callbacks.on_epoch_begin(epoch)
+            start_time = time.time()
+            self._begin_epoch(epoch)
+            sample_num, steps = 0, 0
+            loss_parts, pred_parts, y_parts = [], [], []
+            q = queue.Queue(maxsize=2)
+            stop = threading.Event()
+            worker = threading.Thread(target=produce, args=(q, stop),
+                                      daemon=True)
+            worker.start()
+            try:
+                while True:
+                    item = q.get()
+                    if item is None:
+                        break
+                    if isinstance(item, BaseException):
+                        raise item
+                    X, yc, n, nb = item
+                    if steps_per_epoch and steps + nb > steps_per_epoch:
+                        nb = steps_per_epoch - steps
+                        n = min(n, nb * B)
+                    Xt, yt = torch.from_numpy(X[:n]), torch.from_numpy(yc[:n])
+                    if pin:   # not on the worker: see the docstring
+                        Xt, yt = Xt.pin_memory(), yt.pin_memory()
+                    loop = self._stream_loop(B, nb, n_out, need_preds)
+                    loop.load(Xt, yt)
+                    self._ready_steps(nb)
+                    loss_parts.append(loop.run().clone())
+                    if need_preds:
+                        pred_parts.append(loop.preds[:n].clone())
+                        y_parts.append(yc[:n])
+                    steps += nb
+                    sample_num += n
+                    if steps_per_epoch and steps >= steps_per_epoch:
+                        break
+            finally:
+                stop.set()
+                worker.join(timeout=60)
+                if worker.is_alive():
+                    warnings.warn("the streamed fit's reader thread is still "
+                                  "inside the chunk iterator after 60 s")
+            total = float(sum(l.sum() for l in loss_parts)) \
+                if loss_parts else 0.0
+            epoch_logs = {"loss": total / max(sample_num, 1)}
+            seen = need_preds and pred_parts
+            self._epoch_metrics(
+                epoch_logs, np.concatenate(y_parts) if seen else None,
+                torch.cat(pred_parts) if seen else None,
+                validation_data[:2] if validation_data else None,
+                batch_size)
+            if verbose > 0:
+                print("Epoch {0}/{1} - {2}s - {3} samples - loss: {4:.4f}"
+                      .format(epoch + 1, epochs,
+                              int(time.time() - start_time), sample_num,
+                              epoch_logs["loss"]) +
+                      "".join(" - %s: %.4f" % (k, v)
+                              for k, v in epoch_logs.items() if k != "loss"))
+            callbacks.on_epoch_end(epoch, epoch_logs)
+            if self.stop_training:
+                break
+        callbacks.on_train_end()
+        return self.history
+
+    # the streamed fit's loops a model keeps, one for each chunk geometry
+    # (full chunks, the last one, one cut by steps_per_epoch, ...)
+    _STREAM_LOOPS = 4
+
+    def _stream_loop(self, B, nb, n_out, need_preds):
+        """The streamed fit's loop of ``nb`` steps of ``B``: kept among the
+        model's graphs, the least recently used dropped past
+        ``_STREAM_LOOPS``.  adam's table of bias corrections is made large
+        enough first, since a new one drops the graphs."""
+        self._reserve_steps(nb)
+        key = self._graph_key("stream", B, nb, n_out, need_preds)
+        loop = self._graphs.pop(key, None)
+        if loop is None:
+            streams = [k for k in self._graphs if k[0] == "stream"]
+            if len(streams) >= self._STREAM_LOOPS:
+                self._graphs.pop(streams[0]).release()
+            loop = StepGraph(self, B, nb, nb * B, n_out, False, need_preds)
+            self._warn_if_eager(loop, "the streamed fit")
+        self._graphs[key] = loop
+        return loop
+
+    def _warn_if_eager(self, loop, what):
+        """Warn, once a compile, that ``what`` runs its steps eagerly on
+        the card: an optimizer object whose ``step()`` cannot be captured
+        (``TorchOptimizer.capturable``)."""
+        if (self._device.type == "cuda" and not loop.capturable
+                and not self._eager_step_warned):
+            self._eager_step_warned = True
+            warnings.warn(
+                "%s cannot be captured in a CUDA graph (it needs "
+                "capturable=True, which its parameter groups do not set): "
+                "%s runs each step eagerly on the card"
+                % (type(self.optim).__name__, what))
+
+    def _epoch_metrics(self, logs, y, pred, validation, batch_size):
+        """Into ``logs``: each train metric over the epoch's labels ``y``
+        and predictions ``pred`` (arrays or tensors; None for none), once
+        for the whole epoch as the JAX package's device and streamed loops
+        compute them, and each metric of ``validation`` = ``(x, y)`` (or
+        None) as ``val_<name>``."""
+        if pred is not None:
+            y_np = y.cpu().numpy() if isinstance(y, torch.Tensor) else y
+            p_np = pred.cpu().numpy().astype("float64")
+            if self.num_tasks == 1:
+                y_np, p_np = y_np.reshape(-1), p_np.reshape(-1)
+            for name, metric_fun in self.metrics.items():
+                logs[name] = metric_fun(y_np, p_np)
+        if validation is not None:
+            val_x, val_y = validation
+            for name, result in self.evaluate(val_x, val_y,
+                                              batch_size).items():
+                logs["val_" + name] = result
 
     def evaluate(self, x, y, batch_size=256):
         """``{metric: value}`` over the predictions of ``x``.  A multi-task

@@ -11,15 +11,20 @@ Here the counterpart of those programs is a captured CUDA graph:
   advances the counter) and stores the step's loss, and its predictions
   where train metrics need them.  Replaying it ``steps`` times is the
   JAX loop at one graph launch a step; the host reads one loss vector an
-  epoch.  On a CPU model the same body runs eagerly.
+  epoch.  On a CPU model the same body runs eagerly.  The streamed
+  ``fit`` loads each chunk into the buffers of one such loop for its
+  geometry (no shuffle) and replays it, the step numbering carried on
+  across chunks (``BaseModel._fit_stream``).
 - :class:`ForwardGraph` is ``model(x, training=False)`` on a static batch;
   the first batch is the capture's warm-up, every later one a replay.
 
 A capture follows the whole-network pattern: the body runs once on a side
 stream (which builds every kernel and every cached argument array; for a
 step it is the epoch's first step, run for real), the dense gradients are
-set to None, and ``torch.cuda.graph`` records the body.  A capture that
-fails raises.  A step with dropout registers the model's dropout
+set to None, and ``torch.cuda.graph`` records the body, with Python's
+cyclic garbage collector run before and held off during it (a CUDA graph
+it destroys mid-capture would end the capture).  A capture that fails
+raises.  A step with dropout registers the model's dropout
 generator with its graph (``CUDAGraph.register_generator_state``): each
 replay then draws from the generator's state at that replay and advances
 it by what the capture drew, as the eager step does, so that every step
@@ -33,6 +38,8 @@ drops its graphs (``BaseModel._invalidate_graphs``) whenever it makes new
 ones (``compile``, ``set_weights``, ``load_state_dict``, ``.to()``, a new
 optimizer state or a larger table of adam's bias corrections).
 """
+
+import gc
 
 import torch
 
@@ -71,10 +78,19 @@ class _Captured:
             for g in generators:
                 self.graph.register_generator_state(g)
             before = _counts()
+            # a graph of a model left in a reference cycle (a model and its
+            # loops point at each other) is destroyed when the collector
+            # reaches it, and a destruction during this capture would end
+            # it: collect first, and not while capturing
+            gc.collect()
+            collecting = gc.isenabled()
+            gc.disable()
             try:
                 with torch.cuda.graph(self.graph):
                     self.out = body()
             finally:
+                if collecting:
+                    gc.enable()
                 after = _counts()
                 for (m, name), n in zip(COUNTERS, before):
                     setattr(m, name, n)
@@ -108,13 +124,14 @@ class StepGraph:
         self.captured = None
 
     def load(self, X, y):
-        """The training data, ``X`` [N, D] and ``y`` [N, n_out] on the
-        model's device, into the static buffers: padding rows are zeros
-        at sample weight 0."""
+        """The training data, ``X`` [N, D] and ``y`` [N, n_out] (on the
+        model's device, or in pinned host memory, which is copied without
+        blocking the host), into the static buffers: padding rows are
+        zeros at sample weight 0."""
         n = X.shape[0]
-        self.X[:n].copy_(X)
+        self.X[:n].copy_(X, non_blocking=True)
         self.X[n:].zero_()
-        self.y[:n].copy_(y)
+        self.y[:n].copy_(y, non_blocking=True)
         self.y[n:].zero_()
         self.sw[:n].fill_(1.0)
         self.sw[n:].zero_()
@@ -141,17 +158,23 @@ class StepGraph:
 
     def run_epoch(self, generator, epoch):
         """Epoch ``epoch``: the permutation (drawn from ``generator`` with
-        a shuffle), the steps made ready (``BaseModel._begin_steps``),
-        ``steps`` steps (graph replays on the card, after a capture whose
-        warm-up is the first step; eager steps on the CPU and for an
-        optimizer that cannot be captured).  Returns the per-step losses,
-        still on the device."""
-        m = self.model
+        a shuffle), the steps made ready (``BaseModel._begin_steps``) and
+        :meth:`run`.  Returns the per-step losses, still on the device."""
         if self.shuffle:
             self.perm.copy_(torch.randperm(self.perm.shape[0],
                                            generator=generator,
                                            device=self.perm.device))
-        m._begin_steps(self.steps, epoch)
+        self.model._begin_steps(self.steps, epoch)
+        return self.run()
+
+    def run(self):
+        """``steps`` steps over the loaded data, made ready beforehand
+        (the step counter at 0): graph replays on the card, after a
+        capture whose warm-up is the first step; eager steps on the CPU
+        and for an optimizer that cannot be captured.  Returns the
+        per-step losses, still on the device, which the next run
+        overwrites."""
+        m = self.model
         first = 0
         if self.X.device.type != "cuda" or not self.capturable:
             for _ in range(self.steps):

@@ -47,7 +47,6 @@ class MLR(BaseModel):
         bias_feature_columns = list(bias_feature_columns or [])
         all_columns = (region_feature_columns + base_feature_columns
                        + bias_feature_columns)
-        self._check_unhashed(all_columns)
         super().__init__([], [], l2_reg_linear=l2_reg_linear,
                          l2_reg_embedding=0, init_std=init_std, seed=seed,
                          task=task, device=device, gpus=gpus)

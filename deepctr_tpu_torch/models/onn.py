@@ -13,7 +13,6 @@ from ..features import SparseFeat
 from ..inputs import TableHolder, combined_dnn_input, embedding_size_of
 from ..layers import DNN
 from ..layers.core import _dense
-from ..ops.gather import GatherArgs
 
 
 class PairEmbedding(TableHolder):
@@ -52,7 +51,6 @@ class PairEmbedding(TableHolder):
         self.register_buffer("pair_slots", torch.as_tensor(
             np.asarray(first + second, np.int64), device=device),
             persistent=False)
-        self._args = GatherArgs()
 
     @property
     def tables(self):
@@ -68,7 +66,7 @@ class PairEmbedding(TableHolder):
         names = [f.name for f in self.columns]
         tables = [getattr(self, n).flatten(1) for n in names]
         cols = [feature_index[n][0] for n in names]
-        rows = self._gather(X, tables, names, cols, self._args)
+        rows = self._gather(X, tables, names, cols)
         picked = rows.view(B, -1, E).index_select(1, self.pair_slots)
         return picked[:, :P] * picked[:, P:]
 

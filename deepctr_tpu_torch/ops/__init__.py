@@ -9,9 +9,14 @@ and ``SCATTER_ROWS_LAUNCHES``): a name imported from it is a copy taken at
 import time.  The training kernels live in ``ops.scatter_add`` and
 ``ops.row_update``, the sequence kernels in ``ops.gru`` and
 ``ops.attention``, xDeepFM's CIN kernel in ``ops.cin``, and the row
-scatter of the scatter micro-benchmark in ``ops.scatter_rows``."""
+scatter of the scatter micro-benchmark in ``ops.scatter_rows``.  The
+inference kernels (gather, attention, GRU forward, CIN) run as the custom
+operators of ``ops.library``."""
 
 from .reference import (fm_cross_ref, cin_layer_ref, cin_mix_ref,
                         cross_net_ref, din_attention_ref)
 from .dispatch import fm_cross, cin_layer, cin_mix, cross_net, din_attention
 from .gather import gather_rows, gather_rows_ref
+# registers the kernels' custom operators (deepctr_tpu_torch::...), which
+# the wrappers call
+from . import library

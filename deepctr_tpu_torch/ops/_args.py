@@ -72,7 +72,7 @@ class ParamCache:
 
     def get(self, params, key, build):
         if (torch.is_grad_enabled() and any(p.requires_grad for p in params)
-                or capturing()):
+                or capturing() or torch.compiler.is_compiling()):
             return build()
         entry = self._entry
         if (entry is None or entry[0] != key or len(entry[1]) != len(params)

@@ -15,10 +15,11 @@ and the weighted sum of the keys, for every sample::
 The MLP, the softmax and the sum are float32 whatever the keys' type, as
 in the TPU kernel; only the result is rounded to the keys' type.
 
-``din_attention_fused`` launches the CUDA kernel in
-``csrc/din_attention.cu`` for CUDA tensors, or raises; it takes the plain
+``din_attention_fused`` runs the ``deepctr_tpu_torch::din_attention_fused``
+op (``ops/library.py``), which launches the CUDA kernel in
+``csrc/din_attention.cu`` for CUDA tensors, or raises, and takes the plain
 version ``din_attention_fused_ref`` only because its tensors lie on the
-CPU.  It has no backward: training runs the layer composition.  The
+CPU.  The kernel has no backward: training runs the layer composition.  The
 kernel has two designs, chosen by shape (:func:`route`): the MLP on the
 tensor cores in a TF32 split that keeps float32 accuracy, and float32
 FMAs for shapes whose weights do not fit in a block's shared memory or
@@ -195,23 +196,35 @@ def din_attention_fused(query, keys, mask, layer_params, activation,
     caller that keeps it between calls; it is built here when None.
     Returns [B, 1, E] in the keys' dtype.
 
-    On CUDA tensors this launches the kernel (building it at first use) or
-    raises.  The kernel runs the MLP only for the valid steps, so any T."""
-    global DIN_ATTENTION_LAUNCHES
+    Runs the ``deepctr_tpu_torch::din_attention_fused`` op
+    (``ops/library.py``): on CUDA tensors it launches the kernel (building
+    it at first use) or raises, on CPU tensors it is the plain version,
+    which autograd differentiates where it records.  The kernel runs the
+    MLP only for the valid steps, so any T."""
     _check(query, keys, mask, layer_params, activation)
-    if packed is not None:
-        _check_packed(packed, keys, layer_params)
-    if keys.device.type == "cpu":
-        return din_attention_fused_ref(query, keys, mask, layer_params,
-                                       activation, weight_normalization)
-    if keys.device.type != "cuda":
-        raise ValueError("no din_attention kernel for device %s"
-                         % keys.device)
     tensors = [query, keys] + [t for wb in layer_params for t in wb]
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        if keys.device.type == "cpu":
+            return din_attention_fused_ref(query, keys, mask, layer_params,
+                                           activation, weight_normalization)
         raise NotImplementedError(
             "din_attention_fused has no backward: call it under "
             "torch.no_grad(), or train through the layer composition")
+    return torch.ops.deepctr_tpu_torch.din_attention_fused(
+        query, keys, mask, [t for wb in layer_params for t in wb],
+        activation, bool(weight_normalization), packed)
+
+
+def launch(query, keys, mask, layer_params, activation,
+           weight_normalization, packed=None):
+    """The kernel on CUDA tensors (the op's CUDA implementation): checks
+    what the kernel takes, launches it and counts the launch."""
+    global DIN_ATTENTION_LAUNCHES
+    if packed is not None:
+        _check_packed(packed, keys, layer_params)
+    if keys.device.type != "cuda":
+        raise ValueError("no din_attention kernel for device %s"
+                         % keys.device)
     if (keys.dtype not in _DTYPES or query.dtype not in _DTYPES
             or keys.stride(2) != 1):
         raise ValueError("query and keys must be float32 or bfloat16, the "

@@ -11,12 +11,14 @@ dtype: the operands', or float32 from bfloat16 operands (``out_dtype``,
 the CIN's ``carry`` mode, the JAX einsum's ``preferred_element_type``),
 which writes the float32 sum unrounded on either route.
 
-``cin_mix`` launches the CUDA kernel in ``csrc/cin_mix.cu`` for CUDA
-tensors, for every layer and every shape, or raises; it takes the plain
-version ``cin_mix_ref`` only because its tensors lie on the CPU, where
-autograd differentiates it.  The JAX package's ``cin_mix_supported`` gate
-(lane-aligned H, B a multiple of 8, a VMEM estimate) is a TPU tiling rule
-and has no counterpart here.
+``cin_mix`` runs the ``deepctr_tpu_torch::cin_mix`` op
+(``ops/library.py``), which launches the CUDA kernel in ``csrc/cin_mix.cu``
+for CUDA tensors, for every layer and every shape, or raises, and takes the
+plain version ``cin_mix_ref`` only because its tensors lie on the CPU
+(where, while autograd records, the wrapper calls the plain version
+itself, for autograd to differentiate).  The JAX package's
+``cin_mix_supported`` gate (lane-aligned H, B a multiple of 8, a VMEM
+estimate) is a TPU tiling rule and has no counterpart here.
 
 bfloat16 operands whose rows fit the tensor-core kernel (``route``) take
 the weight as ``mma_weight`` lays it out: ``[Op, F*Hp]``, K contiguous,
@@ -172,10 +174,12 @@ def _out_dtype(dtype, out_dtype):
     return out_dtype
 
 
-def _launch(hidden_t, x0_t, wt, wm=None, out_dtype=None):
-    """The kernel on CUDA tensors: -> [B, D, O] in ``out_dtype`` (hidden_t's
-    dtype by default, or float32).  The tensor-core route takes ``wm``
-    (``mma_weight`` of wt), built here when None."""
+def launch(hidden_t, x0_t, wt, wm=None, out_dtype=None):
+    """The kernel on CUDA tensors (the op's CUDA implementation): -> [B, D,
+    O] in ``out_dtype`` (hidden_t's dtype by default, or float32); checks
+    what the kernel takes, launches it and counts the launch.  The
+    tensor-core route takes ``wm`` (``mma_weight`` of wt), built here when
+    None."""
     global CIN_MIX_LAUNCHES
     if hidden_t.device.type != "cuda":
         raise ValueError("no cin_mix kernel for device %s" % hidden_t.device)
@@ -248,21 +252,25 @@ def cin_mix_bwd(hidden_t, x0_t, wt, g):
 
 
 class CinMix(torch.autograd.Function):
-    """The kernel forward on CUDA tensors, with the contractions of
-    :func:`cin_mix_bwd` as its backward; saves only its inputs."""
+    """The ``deepctr_tpu_torch::cin_mix`` op's forward (the kernel) on CUDA
+    tensors, with the contractions of :func:`cin_mix_bwd` as its backward;
+    saves only its inputs.  ``w3`` reaches the op, whose CPU version reads
+    it; the gradient goes to ``wt``, from which autograd carries it to
+    ``w3``."""
 
     @staticmethod
-    def forward(ctx, hidden_t, x0_t, wt, wm=None, out_dtype=None):
+    def forward(ctx, hidden_t, x0_t, w3, wt, wm=None, out_dtype=None):
         ctx.save_for_backward(hidden_t, x0_t, wt)
-        out = _launch(hidden_t, x0_t, wt, wm, out_dtype)
+        out = torch.ops.deepctr_tpu_torch.cin_mix(hidden_t, x0_t, w3, wt, wm,
+                                                  out_dtype)
         ctx.out_dtype = out.dtype
         return out
 
     @staticmethod
     def backward(ctx, g):
         hidden_t, x0_t, wt = ctx.saved_tensors
-        return cin_mix_bwd(hidden_t, x0_t, wt, g.to(ctx.out_dtype)) + (
-            None, None)
+        dh, dx, dwt = cin_mix_bwd(hidden_t, x0_t, wt, g.to(ctx.out_dtype))
+        return dh, dx, None, dwt, None, None
 
 
 def cin_mix(hidden_t, x0_t, w3, wt=None, wm=None, out_dtype=None):
@@ -270,20 +278,23 @@ def cin_mix(hidden_t, x0_t, w3, wt=None, wm=None, out_dtype=None):
     [B, D, O] in ``out_dtype``: hidden_t's dtype (float32 or bfloat16, all
     three alike) by default, or float32, the unrounded sum, from bfloat16
     operands.  ``wt`` and ``wm`` are ``kernel_weights(w3, dtype)`` from a
-    caller that keeps them between calls; they are built here when None.
+    caller that keeps them between calls; on CUDA tensors they are built
+    when None.
 
-    On CUDA tensors this launches the kernel (building it at first use),
-    as :class:`CinMix` while autograd records, or raises.  hidden_t and
-    x0_t may be views whose (b, d) rows lie at one stride."""
+    Runs the ``deepctr_tpu_torch::cin_mix`` op (``ops/library.py``): on
+    CUDA tensors it launches the kernel (building it at first use), as
+    :class:`CinMix` while autograd records, or raises; on CPU tensors it is
+    the plain version, which autograd differentiates where it records.
+    hidden_t and x0_t may be views whose (b, d) rows lie at one stride."""
     _check(hidden_t, x0_t, w3)
     out_dtype = _out_dtype(hidden_t.dtype, out_dtype)
-    if hidden_t.device.type == "cpu":
-        return cin_mix_ref(hidden_t, x0_t, w3, out_dtype)
-    if hidden_t.device.type != "cuda":
-        raise ValueError("no cin_mix kernel for device %s" % hidden_t.device)
-    if wt is None:
+    cuda = hidden_t.device.type == "cuda"
+    if cuda and wt is None:
         wt = kernel_weight(w3, hidden_t.dtype)
     if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (hidden_t, x0_t, wt)):
-        return CinMix.apply(hidden_t, x0_t, wt, wm, out_dtype)
-    return _launch(hidden_t, x0_t, wt, wm, out_dtype)
+            t.requires_grad for t in (hidden_t, x0_t, wt if cuda else w3)):
+        if not cuda:
+            return cin_mix_ref(hidden_t, x0_t, w3, out_dtype)
+        return CinMix.apply(hidden_t, x0_t, w3, wt, wm, out_dtype)
+    return torch.ops.deepctr_tpu_torch.cin_mix(hidden_t, x0_t, w3, wt, wm,
+                                               out_dtype)

@@ -6,9 +6,12 @@ in ``deepctr_tpu/inputs.py`` (one-hot matmuls for small tables, packed
 rows with a lane select for big ones): the tables here are logical
 ``[V, W]`` float32 and the rows come back exact.
 
-``gather_rows`` launches the CUDA kernel in ``csrc/gather_rows.cu`` for
-CUDA tensors, or raises; it takes the plain version ``gather_rows_ref`` only
-because its tensors lie on the CPU.  Under autograd, with a table that needs
+``gather_rows`` runs the ``deepctr_tpu_torch::gather_rows`` op
+(``ops/library.py``), which launches the CUDA kernel in
+``csrc/gather_rows.cu`` for CUDA tensors, or raises, and takes the plain
+version ``gather_rows_ref`` only because its tensors lie on the CPU; so
+the eager forward, a captured graph and a ``torch.export`` artifact run
+the one kernel.  Under autograd, with a table that needs
 a gradient, it runs as :class:`GatherRows`, whose backward is
 ``ops/scatter_add.py:scatter_add_rows`` (the kernel ``csrc/
 scatter_add_rows.cu`` on CUDA tensors) into a dense ``[V, W]`` gradient per
@@ -22,7 +25,7 @@ import ctypes
 import torch
 
 from . import _build
-from ._args import DeviceArgs
+from ._args import device_array
 from .scatter_add import scatter_add_rows
 
 # kernel launches since import (or since a caller reset it to 0); counts
@@ -47,26 +50,27 @@ def gather_rows_ref(X, tables, cols):
     return torch.stack(rows, dim=1)
 
 
-class GatherArgs(DeviceArgs):
-    """The kernel's per-field argument array for one group of tables:
-    ``[table pointers | id columns | vocab sizes]`` as int64 on the device.
+# the kernel's per-field argument arrays, ``[table addresses | id columns |
+# vocab sizes]`` as int64 on the device, by their content: an entry is
+# never replaced, so a captured graph that read one keeps reading it, and
+# a forward copies nothing to the device but its batch.  One small array
+# for each set of tables and columns the process gathers from.
+_ARGS = {}
 
-    Kept between calls so that a forward copies nothing to the device but
-    its batch; rebuilt when a table's storage moves (``.to()``,
-    ``load_state_dict`` into new storage) or the fields change."""
 
-    def __init__(self):
-        super().__init__()
-        # whether the kernel moves these tables' rows in 16-byte units
-        self.vector = False
-
-    def meta(self, tables, cols, device):
-        ptrs = [t.data_ptr() for t in tables]
-        vocabs = [t.shape[0] for t in tables]
-        key = (tuple(ptrs), tuple(vocabs), tuple(cols), tables[0].shape[1])
-        self.vector = vector_rows(tables)
-        return self.get(key, lambda: ptrs + list(cols) + vocabs,
-                        torch.int64, device)
+def kernel_args(tables, cols, device):
+    """The kernel's argument array for ``tables`` read at ``cols``, from
+    the cache (built on first use, which raises during a CUDA graph
+    capture), and whether the kernel moves their rows in 16-byte units
+    (:func:`vector_rows`)."""
+    ptrs = [t.data_ptr() for t in tables]
+    vocabs = [t.shape[0] for t in tables]
+    key = (torch.device(device), tuple(ptrs), tuple(vocabs), tuple(cols))
+    meta = _ARGS.get(key)
+    if meta is None:
+        meta = _ARGS[key] = device_array(ptrs + list(cols) + vocabs,
+                                         torch.int64, device)
+    return meta, vector_rows(tables)
 
 
 def _check(X, tables, cols):
@@ -110,17 +114,19 @@ def _kernel():
 
 
 class GatherRows(torch.autograd.Function):
-    """``gather_rows`` with a gradient for the tables: the backward adds
-    each ``(b, f)`` cotangent into a zero ``[V_f, W]`` gradient of its
-    table with :func:`scatter_add_rows` (one launch for every table).  X
-    gets no gradient: it carries ids."""
+    """``gather_rows`` with a gradient for the tables: the forward is the
+    ``deepctr_tpu_torch::gather_rows`` op, the backward adds each ``(b,
+    f)`` cotangent into a zero ``[V_f, W]`` gradient of its table with
+    :func:`scatter_add_rows` (one launch for every table).  X gets no
+    gradient: it carries ids."""
 
     @staticmethod
-    def forward(ctx, X, cols, args, *tables):
+    def forward(ctx, X, cols, *tables):
         ctx.save_for_backward(X)
         ctx.cols = list(cols)
         ctx.shapes = [t.shape for t in tables]
-        return _gather(X, tables, cols, args)
+        return torch.ops.deepctr_tpu_torch.gather_rows(X, list(tables),
+                                                       ctx.cols)
 
     @staticmethod
     def backward(ctx, grad):
@@ -129,30 +135,30 @@ class GatherRows(torch.autograd.Function):
                  for s in ctx.shapes]
         ids = X[:, ctx.cols].to(torch.int32).to(torch.int64)
         scatter_add_rows(grad, grads, ids)
-        return (None, None, None) + tuple(
+        return (None, None) + tuple(
             g if need else None
-            for g, need in zip(grads, ctx.needs_input_grad[3:]))
+            for g, need in zip(grads, ctx.needs_input_grad[2:]))
 
 
-def gather_rows(X, tables, cols, args=None):
+def gather_rows(X, tables, cols):
     """Rows of every table in one launch: X [B, D] float32 (ids as floats
     at columns ``cols``), tables ``F`` x [V_f, W] float32 -> [B, F, W].
 
-    On CUDA tensors this launches the kernel (building it at first use) or
-    raises.  ``args`` is a :class:`GatherArgs` that the caller keeps so
-    that the per-field argument array is not copied to the device on every
-    call.  With autograd on and a table that needs a gradient, the call
-    runs as :class:`GatherRows`."""
+    Runs the ``deepctr_tpu_torch::gather_rows`` op (``ops/library.py``):
+    on CUDA tensors it launches the kernel (building it at first use) or
+    raises, on CPU tensors it is the plain version.  With autograd on and a
+    table that needs a gradient, the call runs as :class:`GatherRows`."""
     _check(X, tables, cols)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tables):
-        return GatherRows.apply(X, list(cols), args, *tables)
-    return _gather(X, tables, cols, args)
+        return GatherRows.apply(X, list(cols), *tables)
+    return torch.ops.deepctr_tpu_torch.gather_rows(X, list(tables),
+                                                   list(cols))
 
 
-def _gather(X, tables, cols, args):
+def launch(X, tables, cols):
+    """The kernel on CUDA tensors (the op's CUDA implementation): checks
+    what the kernel takes, launches it and counts the launch."""
     global GATHER_LAUNCHES
-    if X.device.type == "cpu":
-        return gather_rows_ref(X, tables, cols)
     if X.device.type != "cuda":
         raise ValueError("no gather kernel for device %s" % X.device)
     if X.stride(1) != 1 or any(not t.is_contiguous() for t in tables):
@@ -167,13 +173,12 @@ def _gather(X, tables, cols, args):
                       device=X.device)
     if n_rows == 0:
         return out
-    args = args if args is not None else GatherArgs()
-    meta = args.meta(tables, list(cols), X.device)
+    meta, vector = kernel_args(tables, cols, X.device)
     fn = _kernel()
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
         rc = fn(X.data_ptr(), n_rows, X.stride(0), meta.data_ptr(),
-                n_fields, width, int(args.vector), out.data_ptr(), stream)
+                n_fields, width, int(vector), out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError("gather_rows kernel launch failed with CUDA "
                            "error %d" % rc)

@@ -15,9 +15,12 @@ batch row, from ``h = 0``::
 The gates and the carry are float32 whatever the storage type of ``gi``;
 only the outputs are rounded to it, as in the TPU kernel.
 
-``gru_scan`` launches the CUDA kernel in ``csrc/gru_scan.cu`` for CUDA
-tensors, or raises; it takes the plain version ``gru_scan_ref`` only
-because its tensors lie on the CPU, where autograd differentiates it.  On
+``gru_scan`` runs the ``deepctr_tpu_torch::gru_scan`` op
+(``ops/library.py``), which launches the CUDA kernel in
+``csrc/gru_scan.cu`` for CUDA tensors, or raises, and takes the plain
+version ``gru_scan_ref`` only because its tensors lie on the CPU (where,
+while autograd records, the wrapper calls the plain version itself, for
+autograd to differentiate).  On
 CUDA tensors while autograd records it runs as :class:`GruScan`: the
 forward kernel also writes the carries ``h_{t-1}`` ([T, B, H], in the
 storage type), and the backward is the kernel in ``csrc/gru_scan_bwd.cu``
@@ -261,7 +264,11 @@ def _raise_on(rc, what, H):
                            % (what, rc))
 
 
-def _launch_fwd(gi, whh_t, bhh, mask, att, mode, save_carry):
+def launch(gi, whh_t, bhh, mask, att, mode, save_carry):
+    """The forward kernel on CUDA tensors (the op's CUDA implementation):
+    -> ``(outs [B, T, H], h_last [B, H], carry [T, B, H] or [0])`` in gi's
+    dtype; checks what the kernel takes, launches it and counts the
+    launch."""
     global GRU_SCAN_LAUNCHES
     if gi.device.type != "cuda":
         raise ValueError("no gru_scan kernel for device %s" % gi.device)
@@ -272,9 +279,9 @@ def _launch_fwd(gi, whh_t, bhh, mask, att, mode, save_carry):
     out = torch.empty(B, T, H, dtype=gi.dtype, device=gi.device)
     h_last = torch.empty(B, H, dtype=gi.dtype, device=gi.device)
     carry = (torch.empty(T, B, H, dtype=gi.dtype, device=gi.device)
-             if save_carry else None)
+             if save_carry else gi.new_empty(0))
     if B == 0:
-        return out.transpose(0, 1), h_last, carry
+        return out, h_last, carry
     w, b, m, a = _kernel_inputs(gi, whh_t, bhh, mask, att)
     with torch.cuda.device(gi.device):
         stream = torch.cuda.current_stream(gi.device).cuda_stream
@@ -284,10 +291,18 @@ def _launch_fwd(gi, whh_t, bhh, mask, att, mode, save_carry):
             None if a is None else a.data_ptr(),
             int(a is not None and a.dtype == torch.bfloat16), B, T, H,
             out.data_ptr(), out.stride(1), out.stride(0), h_last.data_ptr(),
-            None if carry is None else carry.data_ptr(), stream)
+            carry.data_ptr() if save_carry else None, stream)
     _raise_on(rc, "gru_scan", H)
     GRU_SCAN_LAUNCHES += 1
-    return out.transpose(0, 1), h_last, carry
+    return out, h_last, carry
+
+
+def plain(gi, whh_t, bhh, mask, att, mode, save_carry):
+    """:func:`gru_scan_ref` in the op's layout (its CPU implementation):
+    ``(outs [B, T, H] contiguous, h_last, carry or [0])``."""
+    res = gru_scan_ref(gi, whh_t, bhh, mask, att, mode, save_carry)
+    carry = res[2] if save_carry else gi.new_empty(0)
+    return res[0].transpose(0, 1).contiguous(), res[1], carry
 
 
 def gru_scan(gi, whh_t, bhh, mask, att=None, mode="gru"):
@@ -301,36 +316,39 @@ def gru_scan(gi, whh_t, bhh, mask, att=None, mode="gru"):
     att   [B, T]      attention scores (modes agru and augru only)
 
     Returns ``(outs [T, B, H], h_last [B, H])`` in gi's dtype; padded steps
-    emit zero rows and keep the carry.  Any B >= 1 and T >= 1.  On CUDA
-    tensors this launches the kernel (building it at first use) or raises;
-    it takes H <= 1024, and its ``outs`` is a ``[T, B, H]`` view of a
-    contiguous ``[B, T, H]``.  The kernel reads float32 weights, a bool
-    mask and float32 or gi-typed scores as they are; other types are cast
-    first.  While autograd records through gi, whh_t, bhh or att, the call
-    runs as :class:`GruScan`, whose backward is the backward kernel."""
-    if gi.device.type == "cpu":
-        return gru_scan_ref(gi, whh_t, bhh, mask, att, mode)
+    emit zero rows and keep the carry.  Any B >= 1 and T >= 1.  Runs the
+    ``deepctr_tpu_torch::gru_scan`` op (``ops/library.py``): on CUDA
+    tensors it launches the kernel (building it at first use) or raises, on
+    CPU tensors it is the plain version.  The kernel takes H <= 1024;
+    ``outs`` is a ``[T, B, H]`` view of a contiguous ``[B, T, H]``.  The
+    kernel reads float32 weights, a bool mask and float32 or gi-typed scores
+    as they are; other types are cast first.  While autograd records
+    through gi, whh_t, bhh or att, the call runs as :class:`GruScan` on
+    CUDA tensors, whose backward is the backward kernel, and as the plain
+    version, which autograd differentiates, on CPU tensors."""
     _check(gi, whh_t, bhh, mask, att, mode)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (gi, whh_t, bhh, att)):
+        if gi.device.type == "cpu":
+            return gru_scan_ref(gi, whh_t, bhh, mask, att, mode)
         return GruScan.apply(gi, whh_t, bhh, mask, att, mode)
-    outs, h_last, _ = _launch_fwd(gi, whh_t, bhh, mask, att, mode, False)
-    return outs, h_last
+    outs, h_last, _ = torch.ops.deepctr_tpu_torch.gru_scan(
+        gi, whh_t, bhh, mask, att, mode, False)
+    return outs.transpose(0, 1), h_last
 
 
 def gru_scan_with_carry(gi, whh_t, bhh, mask, att=None, mode="gru"):
     """The training forward: :func:`gru_scan`'s ``(outs, h_last)`` and the
     carries ``[T, B, H]`` (``h_{t-1}`` before step t, rounded to gi's
-    dtype).  On CUDA tensors one launch of the forward kernel, which writes
-    them besides; on CPU tensors ``gru_scan_ref(..., save_carry=True)``.
-    Records no graph."""
+    dtype), from the ``deepctr_tpu_torch::gru_scan`` op: on CUDA tensors
+    one launch of the forward kernel, which writes them besides; on CPU
+    tensors ``gru_scan_ref(..., save_carry=True)``.  Records no graph."""
     _check(gi, whh_t, bhh, mask, att, mode)
     with torch.no_grad():
-        if gi.device.type == "cpu":
-            return gru_scan_ref(gi, whh_t, bhh, mask, att, mode,
-                                save_carry=True)
-        return _launch_fwd(gi, whh_t, bhh, mask, att, mode, True)
+        outs, h_last, carry = torch.ops.deepctr_tpu_torch.gru_scan(
+            gi, whh_t, bhh, mask, att, mode, True)
+    return outs.transpose(0, 1), h_last, carry
 
 
 def gru_scan_bwd(gi, carry, whh_t, bhh, mask, att=None, douts=None,

@@ -276,9 +276,14 @@ def test_not_yet_ported_options_raise():
         assert np.isfinite(hist.history["loss"]).all()
     # dropout is ported (tests/test_torch_dropout.py)
     assert PDeepFM(plin, pdnn, dnn_dropout=0.5, device="cpu")._has_dropout()
+    # use_hash is ported (tests/test_torch_native.py): strings hash on the
+    # host; the mesh is not
     hashed = [pt.SparseFeat("h", 10, 4, use_hash=True)]
-    with pytest.raises(NotImplementedError):
-        PDeepFM(hashed, hashed, device="cpu")
+    model = PDeepFM(hashed, hashed, device="cpu")
+    assert model.predict({"h": np.array(["a", "b", "a"])}).shape == (3, 1)
+    for kw in ({"mesh": object()}, {"shard_embeddings": True}):
+        with pytest.raises(NotImplementedError):
+            PDeepFM(plin, pdnn, device="cpu", **kw)
 
 
 def test_gather_kernel_refuses_a_grad_enabled_call(monkeypatch):

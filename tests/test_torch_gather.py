@@ -91,14 +91,17 @@ def test_gather_rows_rejects_bad_arguments(tables, cols):
 
 
 def test_gather_args_rebuilt_only_when_a_table_moves():
-    args = G.GatherArgs()
     t = [torch.zeros(3, 2), torch.zeros(5, 2)]
-    m1 = args.meta(t, [0, 1], torch.device("cpu"))
+    m1, _ = G.kernel_args(t, [0, 1], torch.device("cpu"))
     assert m1.tolist() == [t[0].data_ptr(), t[1].data_ptr(), 0, 1, 3, 5]
-    assert args.meta(t, [0, 1], torch.device("cpu")) is m1
+    assert G.kernel_args(t, [0, 1], torch.device("cpu"))[0] is m1
     t[1] = t[1].clone()
-    m2 = args.meta(t, [0, 1], torch.device("cpu"))
+    m2, _ = G.kernel_args(t, [0, 1], torch.device("cpu"))
     assert m2 is not m1 and m2[1].item() == t[1].data_ptr()
+    # the first array stays cached, unchanged: a graph that read it keeps it
+    assert G.kernel_args(t[:1] + [t[1]], [0, 1],
+                         torch.device("cpu"))[0] is m2
+    assert m1.tolist()[2:] == [0, 1, 3, 5]
 
 
 def test_vector_rows_needs_a_width_of_four_floats_and_aligned_tables():
@@ -112,11 +115,8 @@ def test_vector_rows_needs_a_width_of_four_floats_and_aligned_tables():
     shifted = big.view(-1)[2:2 + 4 * 10].view(10, 4)
     assert shifted.is_contiguous() and not G.vector_rows([shifted])
     assert G.vector_rows([big.view(-1)[4:4 + 4 * 10].view(10, 4)])
-    args = G.GatherArgs()
-    args.meta([big], [0], torch.device("cpu"))
-    assert args.vector
-    args.meta([shifted], [0], torch.device("cpu"))
-    assert not args.vector
+    assert G.kernel_args([big], [0], torch.device("cpu"))[1]
+    assert not G.kernel_args([shifted], [0], torch.device("cpu"))[1]
 
 
 def test_kernel_build_names_the_library_by_source_hash_and_needs_nvcc(

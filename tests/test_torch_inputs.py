@@ -110,9 +110,9 @@ def test_one_gather_per_row_width(monkeypatch):
     calls = []
     real = pt_inputs.gather_rows
 
-    def spy(X, tables, cols, args=None):
+    def spy(X, tables, cols):
         calls.append(tables[0].shape[1])
-        return real(X, tables, cols, args)
+        return real(X, tables, cols)
 
     monkeypatch.setattr(pt_inputs, "gather_rows", spy)
     pcols = _columns(pt)

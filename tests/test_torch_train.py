@@ -570,12 +570,20 @@ def test_unported_fit_options_raise():
     with pytest.raises(RuntimeError, match="compile"):
         pm.fit(x, y, verbose=0)
     pm.compile("sgd", "binary_crossentropy")
-    # profile and ModelCheckpoint are ported
-    # (tests/test_torch_optim_objects.py, tests/test_torch_checkpoint.py)
-    for kw in ({"x": lambda: iter(())}, {"x": x, "steps_per_epoch": 2}):
-        kw.setdefault("y", y)
-        with pytest.raises(NotImplementedError):
-            pm.fit(verbose=0, **kw)
+    # profile, ModelCheckpoint and the streamed fit are ported
+    # (tests/test_torch_optim_objects.py, tests/test_torch_checkpoint.py,
+    # tests/test_torch_streaming_fit.py): an empty stream trains nothing,
+    # and steps_per_epoch is read only with a callable x, as in the JAX
+    # package
+    before = pm.get_weights()
+    h = pm.fit(lambda: iter(()), verbose=0)
+    assert h.history["loss"] == [0.0]
+    for k, v in pm.get_weights().items():
+        np.testing.assert_array_equal(v, before[k])
+    pm.fit(x, y, steps_per_epoch=2, verbose=0)
+    # an option the port does not take raises
+    with pytest.raises(NotImplementedError):
+        pm.compile("adamw", "binary_crossentropy")
     assert pcb.ModelCheckpoint("w.pt").filepath == "w.pt"
 
 

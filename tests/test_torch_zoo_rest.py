@@ -250,9 +250,10 @@ def test_zoo_rest_constructors_raise_where_the_jax_models_do():
             cls(cols, cols, dnn_hidden_units=(), device="cpu")
     with pytest.raises(ValueError):
         pmodels.MLR(cols, region_num=1, device="cpu")
+    # use_hash is ported: MLR hashes its bias columns too
     hashed = [pt.SparseFeat("h", 10, 4, use_hash=True)]
-    with pytest.raises(NotImplementedError, match="use_hash"):
-        pmodels.MLR(cols, bias_feature_columns=hashed, device="cpu")
+    model = pmodels.MLR(cols, bias_feature_columns=hashed, device="cpu")
+    assert set(model._hash_feats) == {"h"}
     # CCPM's convolution takes sparse fields only, as the JAX model's
     model = pmodels.CCPM(cols, cols, device="cpu")
     x = {c.name: np.zeros((4, getattr(c, "maxlen", 1)), np.float32)
