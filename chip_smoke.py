@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Drives the port's main paths, DeepFM (also streamed from a hashed Criteo
-file and served from an exported artifact), xDeepFM and the zoo (WDL, NFM, DCN,
+file, served from an exported artifact and trained and served on a mesh of
+ranks, ``parallel/``), xDeepFM and the zoo (WDL, NFM, DCN,
 DCNMix, AutoInt, AFM, FiBiNET, PNN, ONN, CCPM, AFN, IFM, DIFM, MLR, and
 the multi-task SharedBottom, ESMM, MMOE and PLE) serving and training at
 Criteo width and DIN/DIEN serving and training at the sequence bench's
@@ -347,10 +348,42 @@ Then hashing, streaming and serving:
     ``cin_mix``), within 1e-5 of ``predict`` and of the artifact of a
     CPU twin, whose operators run the kernels' plain versions.
 
+Then the mesh (``deepctr_tpu_torch/parallel/``), float32:
+
+34. a. one rank under NCCL in this process (``distributed.initialize``
+    through a file store, ``make_mesh((1, 1))``): the Criteo Kaggle
+    DeepFM with ``shard_embeddings=True`` (every table a one-rank block),
+    adagrad "auto", 3 fit steps of 4096 (eager: no graph under a mesh)
+    and predict of 8 batches (32,768 rows), bit for bit the same model
+    without a mesh
+    (graphed), every table and state too; the gather, K1 and K2 once a
+    step; ms an eager step.  Then the gather's shard-local zero-fill mode
+    at the Kaggle shape (B=4096, the 26 tables cut into the blocks of a
+    (1, 2) mesh) bit-equal to its plain version on both blocks, and its
+    device ms beside the NaN mode's and the plain version's;
+    b. two ranks on the one card (``tools/multiprocess_sim.spawn``, gloo
+    with CUDA tensors: NCCL refuses two ranks on one device): the Kaggle
+    DeepFM at (1, 2) with its tables sharded, under the psum exchange
+    (sgd and adagrad) and a2a at slack 8 (sgd); at (2, 1), data parallel
+    (sgd, adagrad); DIN with Dice at the sequence bench's width (maxlen
+    100, B=1024) at (2, 1) (sgd, adagrad); each 3 steps and predict, the
+    ranks' predictions alike and within 1e-5 (sgd) or 1e-4 (adagrad) of
+    the same steps in this process without a mesh, each rank's touched
+    rows of its block within ``MESH_BLOCK_TOL``; per rank its bytes of
+    tables and state, K2 launches and ms a step (gloo through the host:
+    not a scaling figure).  Beside each data-parallel leg, the same steps
+    in this process with each batch's halves swapped (what the two data
+    ranks change: the order the half batches add in) against this
+    process's unswapped steps, the size of float32 reordering alone;
+    c. after the a2a leg, ids skewed onto rank 0's rows at slack 1.0:
+    every prediction NaN under ``on_overflow="error"``, finite and alike
+    on both ranks under ``"drop"``.
+
 The command's total seconds are printed before the kernels line.
 
 Launches in the kernels line are those of the main-path runs (phases 3,
-6, 10, 11, 14, 17, 20, 22, 23, 26, 28, 29, 30, 31, 32 and 33; for
+6, 10, 11, 14, 17, 20, 22, 23, 26, 28, 29, 30, 31, 32, 33 and 34, the
+two ranks' counted in their processes and added here; for
 ``static_scatter``, the micro-benchmark's run in phase 19), each counted
 from 0 just before the run and read just after; the runs that compare a
 kernel with its plain version, time it or check the card against the CPU
@@ -4695,6 +4728,350 @@ def phase_serve_models(device):
               "artifact" % name)
 
 
+# phase 34: the mesh.  34a: one NCCL rank in this process; 34b
+# and 34c: two gloo ranks on the one card (tools/multiprocess_sim.spawn),
+# each leg against the same steps on one process without a mesh
+MESH_STEPS = 3
+MESH_PREDICT = 8 * BATCH
+MESH_SEQ_STEPS = 3
+MESH_TOL = {"sgd": 1e-5, "adagrad": 1e-4}
+# touched rows of a rank's block against one process, by optimizer and
+# ranks on the data axis: 1e-6 under sgd with one data rank.  With two, the
+# half batches' products and sums add in another order: 1.43e-6 at Criteo
+# C8 (a 633-row table), which one process reaches alone with each batch's
+# halves swapped (the witness beside each leg), so the predictions' 1e-5.
+# Adagrad's early steps are about lr * sign(g) and amplify that order
+# (7.07e-4 measured): 3e-3, while its first step alone moves every touched
+# weight with a gradient by lr = 0.01, so a row left without its update
+# is further off than that
+MESH_BLOCK_TOL = {("sgd", 1): 1e-6, ("sgd", 2): 1e-5,
+                  ("adagrad", 1): 3e-3, ("adagrad", 2): 3e-3}
+MESH_TIMEOUT = 600
+
+
+def mesh_kaggle(device, optimizer, **kw):
+    """DeepFM at the Criteo Kaggle cardinalities (phase 3's model),
+    compiled at float32 with ``sparse_table_updates="auto"``."""
+    cols = criteo_columns()
+    model = DeepFM(cols, cols, dnn_hidden_units=HIDDEN, init_std=INIT_STD,
+                   seed=SEED, device=device, **kw)
+    model.compile(optimizer, "binary_crossentropy")
+    return model
+
+
+def mesh_data(kind, device):
+    """The legs' data, drawn alike in every process: ``(X [steps * B, D]
+    on the device, labels, X to predict)``."""
+    if kind == "din":
+        probe = seq_model("din", "Dice", "cpu")
+        X = seq_requests(probe, SEQ_BATCH * MESH_SEQ_STEPS, SEED + 160,
+                         device)
+        Xp = seq_requests(probe, 2 * SEQ_BATCH, SEED + 161, device)
+        return X, seq_labels(X.shape[0], SEED + 162), Xp
+    gen = torch.Generator(device=device).manual_seed(SEED + 150)
+    X = criteo_requests(BATCH * MESH_STEPS, gen, device)
+    Xp = criteo_requests(MESH_PREDICT, gen, device)
+    return X, criteo_labels(X.shape[0], SEED + 151), Xp
+
+
+def mesh_model(kind, optimizer, device, **kw):
+    if kind == "din":
+        model = seq_model("din", "Dice", device, **kw)
+        model.compile(optimizer, "binary_crossentropy")
+        return model
+    return mesh_kaggle(device, optimizer, **kw)
+
+
+def touched_rows(model, X):
+    """``{table path: (ids, rows)}``: the rows of the ids that ``X``
+    reads from each table which this process holds (its block on a mesh),
+    on the host."""
+    out = {}
+    spans = model._table_id_spans()
+    for path, table in model._tables().items():
+        base, stop = model._shards.get(path, (0, table.shape[0]))[:2]
+        cols = [c for s, e in spans.get(path, []) for c in range(s, e)]
+        ids = torch.unique(X[:, cols].long())
+        ids = ids[(ids >= base) & (ids < stop)]
+        out[path] = (ids.cpu().numpy(),
+                     table.detach()[ids - base].cpu().numpy())
+    return out
+
+
+def mesh_bytes(model):
+    """Bytes of the tables this rank holds, and of their optimizer
+    state."""
+    tables = model._tables()
+    state = sum(t.numel() * 4 for st in model._table_state.values()
+                for t in st)
+    state += sum(t.numel() * 4 for p, st in zip(model._dense_paths,
+                                                model._dense_opt.state)
+                 if p in tables for t in st)
+    return sum(t.numel() * 4 for t in tables.values()), state
+
+
+def mesh_leg(kind, optimizer, device, mesh=None, shard=False, swap=False):
+    """One leg: ``MESH_STEPS`` fit steps (shuffle off) and predict, at
+    float32; ``swap`` swaps the halves of each batch (the same steps in
+    exact arithmetic).  Returns the losses, predictions, touched rows,
+    bytes, launches and ms a step."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pt.set_compute_dtype("float32")
+    X, y, Xp = mesh_data(kind, device)
+    B = SEQ_BATCH if kind == "din" else BATCH
+    if swap:
+        order = torch.arange(X.shape[0], device=X.device).view(
+            -1, 2, B // 2).flip(1).reshape(-1)
+        X, y = X[order], y[order.cpu().numpy()]
+    model = mesh_model(kind, optimizer, device, mesh=mesh,
+                       shard_embeddings=shard)
+    ends = []
+    step = model._train_step
+
+    def timed(*args):   # the eager steps (a mesh), each synchronized
+        out = step(*args)
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        return out
+    if mesh is not None:
+        model._train_step = timed
+    torch.cuda.synchronize()
+    reset_counts()
+    hist = model.fit(X, y, batch_size=B, epochs=1, verbose=0, shuffle=False)
+    counts = read_counts()
+    model.__dict__.pop("_train_step", None)
+    # ms a step after the first (which builds the step plan and arguments)
+    ms = (statistics.median(np.diff(ends)) * 1e3 if len(ends) > 2
+          else None)
+    pred = model.predict(Xp, B)
+    return model, {"loss": hist.history["loss"], "pred": pred,
+                   "rows": touched_rows(model, X), "bytes": mesh_bytes(model),
+                   "launches": counts, "ms": ms,
+                   "blocks": {p: s[:2] for p, s in model._shards.items()}}
+
+
+def mesh_rank(rank, world, device, legs):
+    """A rank of phase 34b/c: every leg ``(kind, optimizer, mesh shape,
+    shard, exchange)`` on its mesh, and, after an a2a leg, its predict on
+    skewed ids at slack 1.0 under "error" and "drop" (34c)."""
+    from deepctr_tpu_torch import config
+    from deepctr_tpu_torch.parallel import make_mesh
+    out = []
+    for kind, optimizer, shape, shard, exchange in legs:
+        mesh = make_mesh(shape, devices="cuda")
+        if exchange:
+            config.set_embedding_exchange(exchange, mesh, a2a_slack=8.0)
+        model, res = mesh_leg(kind, optimizer, device, mesh, shard)
+        if exchange == "a2a":
+            _, _, Xp = mesh_data(kind, device)
+            skew = Xp.clone()
+            skew[:, :len(CRITEO_KAGGLE_VOCABS)] %= 1000   # rank 0's rows
+            for mode in ("error", "drop"):
+                config.set_embedding_exchange("a2a", mesh, a2a_slack=1.0,
+                                              on_overflow=mode)
+                res["skew_" + mode] = model.predict(skew, BATCH)
+        config.set_embedding_exchange("gspmd")
+        out.append(res)
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_one_rank(device):
+    """34a: one rank under NCCL in this process, the Kaggle DeepFM on a
+    (1, 1) mesh with its tables sharded (each rank its block: the whole
+    table here), against the same model without a mesh (graphed): the
+    losses of 3 adagrad steps and 8 predict batches bit for bit, every
+    table and state too; the gather, K1 and K2 once a step."""
+    import torch.distributed as dist
+    from deepctr_tpu_torch.parallel import distributed, make_mesh
+    store = scratch_dir("mesh") / "store"
+    rank, world = distributed.initialize(init_method="file://%s" % store,
+                                         world_size=1, rank=0)
+    try:
+        check((rank, world) == (0, 1) and dist.get_backend() == "nccl",
+              "34a: process group %s, backend %s"
+              % ((rank, world), dist.get_backend()))
+        mesh = make_mesh((1, 1))
+        model, got = mesh_leg("kaggle", "adagrad", device, mesh, True)
+        twin, want = mesh_leg("kaggle", "adagrad", device)
+        for name in ("gather_rows", "scatter_add_rows", "row_update"):
+            check(got["launches"][name] == MESH_STEPS, "34a: %s launched %d "
+                  "times in %d steps" % (name, got["launches"][name],
+                                         MESH_STEPS))
+        check(got["loss"] == want["loss"], "34a: losses %r vs %r"
+              % (got["loss"], want["loss"]))
+        check(np.array_equal(got["pred"], want["pred"]), "34a: predictions "
+              "differ from the model without a mesh")
+        a, b = training_state(model), training_state(twin)
+        check_same_state(a, b, "34a")
+        check(len(model._shards) == len(CRITEO_KAGGLE_VOCABS),
+              "34a: %d tables sharded" % len(model._shards))
+        log("34a mesh, one NCCL rank, (1, 1), Kaggle DeepFM adagrad f32: "
+            "%d steps and %d predict rows bit-equal to the model without a "
+            "mesh (graphed; losses %r), every table and state too; launches "
+            "%s; %.3f ms an eager step (median after the first; no graph "
+            "under a mesh)"
+            % (MESH_STEPS, MESH_PREDICT, got["loss"],
+               {k: v for k, v in got["launches"].items() if v}, got["ms"]))
+        return twin
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_gather_zero_fill(model):
+    """The gather's shard-local mode at the Kaggle shape (B=4096, the 26
+    tables cut into their two blocks as a (1, 2) mesh would, W=17): each
+    rank's launch against the plain version bit for bit (ids of the other
+    block give zero rows), and its device ms with a cold L2 beside the NaN
+    mode on the same blocks and the plain version."""
+    from deepctr_tpu_torch.parallel.sharding import table_block
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 170)
+    X = criteo_requests(BATCH, gen, "cuda")
+    cols = list(range(len(CRITEO_KAGGLE_VOCABS)))
+    paths = ["embedding_dict/C%d" % i for i in cols]
+    tables = model._tables()
+    out = {}
+    for m in (0, 1):
+        blocks, bases = [], []
+        for p in paths:
+            t = tables[p].detach()
+            block = table_block(2, m, t.shape[0], t.shape[1])
+            base, stop = (block[:2] if block is not None
+                          else (0, t.shape[0]))
+            blocks.append(t[base:stop])
+            bases.append(base)
+        got = gather.gather_rows(X, blocks, cols, bases)
+        want = gather.gather_rows_ref(X, blocks, cols, bases)
+        check(same_bits(got, want), "zero-fill gather differs from its "
+              "plain version on block %d" % m)
+        if m == 0:
+            out = {"zero_fill_ms": device_ms(
+                       lambda: gather.gather_rows(X, blocks, cols, bases)),
+                   "zero_fill_nan_mode_ms": device_ms(
+                       lambda: gather.gather_rows(X, blocks, cols)),
+                   "zero_fill_plain_ms": device_ms(
+                       lambda: gather.gather_rows_ref(X, blocks, cols,
+                                                      bases))}
+    log("34 gather, shard-local zero-fill mode, Kaggle blocks of a (1, 2) "
+        "mesh, B=4096 x 26, W=17: both blocks bit-equal to the plain "
+        "version; device ms (cold L2) %.5f, NaN mode on the same blocks "
+        "%.5f, plain %.4f" % (out["zero_fill_ms"],
+                              out["zero_fill_nan_mode_ms"],
+                              out["zero_fill_plain_ms"]))
+    return out
+
+
+def close(a, b, tol):
+    return a.shape == b.shape and np.allclose(a, b, rtol=0, atol=tol)
+
+
+def mesh_leg_errors(label, ranks, want):
+    """The largest |prediction - one process's| over both ranks, and the
+    largest |touched row - one process's| with its table and the largest
+    |weight| of that table's touched rows, each rank's rows of its block;
+    raises if the ranks predict differently or hold other ids."""
+    worst_p, worst_b = 0.0, (0.0, None, 0.0)
+    for r in ranks:
+        check(np.array_equal(r["pred"], ranks[0]["pred"]), "%s: the ranks "
+              "predict differently" % label)
+        check(r["pred"].shape == want["pred"].shape, "%s: predictions of "
+              "shape %s" % (label, r["pred"].shape))
+        worst_p = max(worst_p, float(np.abs(r["pred"] - want["pred"]).max()))
+        for path, (ids, rows) in r["rows"].items():
+            ref_ids, ref_rows = want["rows"][path]
+            pos = np.searchsorted(ref_ids, ids)
+            check(np.array_equal(ref_ids[pos], ids), "%s: %s's ids" % (
+                label, path))
+            if len(ids):
+                worst_b = max(worst_b, (float(np.abs(
+                    rows - ref_rows[pos]).max()), path,
+                    float(np.abs(ref_rows).max())))
+    return worst_p, worst_b
+
+
+def phase_mesh(device, twin):
+    """Phase 34 (b, c): the two-rank legs on the one card, gloo with CUDA
+    tensors (NCCL refuses two ranks on one device), each against the same
+    steps without a mesh in this process."""
+    from deepctr_tpu_torch.tools.multiprocess_sim import spawn
+    legs = [("kaggle", "sgd", (1, 2), True, "psum"),
+            ("kaggle", "adagrad", (1, 2), True, "psum"),
+            ("kaggle", "sgd", (1, 2), True, "a2a"),
+            ("kaggle", "sgd", (2, 1), False, None),
+            ("kaggle", "adagrad", (2, 1), False, None),
+            ("din", "sgd", (2, 1), False, None),
+            ("din", "adagrad", (2, 1), False, None)]
+    del twin
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(str(HERE / "chip_smoke.py") + ":mesh_rank", 2,
+                  str(scratch_dir("mesh_ranks")), {"legs": legs},
+                  timeout=MESH_TIMEOUT, backend="gloo", device="cuda")
+    log("34b: two gloo ranks on the card ran %d legs in %.1f s"
+        % (len(legs), time.perf_counter() - t0))
+    refs = {}
+    lines = []
+    failed = False
+    for i, (kind, optimizer, shape, shard, exchange) in enumerate(legs):
+        if (kind, optimizer) not in refs:
+            model, refs[kind, optimizer] = mesh_leg(kind, optimizer, device)
+            del model
+            torch.cuda.empty_cache()
+        want = refs[kind, optimizer]
+        got = [r[i] for r in ranks]
+        label = "34b %s %s %s%s" % (kind, optimizer, shape,
+                                    " " + exchange if exchange else "")
+        worst_p, (worst_b, where, scale) = mesh_leg_errors(label, got,
+                                                           want)
+        tol, btol = MESH_TOL[optimizer], MESH_BLOCK_TOL[optimizer, shape[0]]
+        failed = failed or worst_p > tol or worst_b > btol
+        for r in got:
+            for name, n in r["launches"].items():
+                MAIN_PATH_LAUNCHES[name] += n
+        if shard:
+            check(got[0]["blocks"] and got[1]["blocks"], "%s: no table "
+                  "sharded" % label)
+        if shape[0] == 2:
+            swapped, witness = mesh_leg(kind, optimizer, device, swap=True)
+            del swapped
+            torch.cuda.empty_cache()
+            wp, (wb, wwhere, wscale) = mesh_leg_errors(
+                label + " witness", [witness], want)
+            lines.append(
+                "%s witness, one process, each batch's halves swapped, "
+                "against one process: predictions %.3g, touched rows %.3g "
+                "(%s, touched |w| up to %.3g)" % (label, wp, wb, wwhere,
+                                                  wscale))
+        lines.append(
+            "%s: predictions %.3g from one process's (bound %g), touched "
+            "rows %.3g (bound %g, %s, touched |w| up to %.3g); per rank: "
+            "tables %s bytes, state %s "
+            "bytes, %s sharded tables, row_update launches %s, ms a step %s "
+            "(gloo through the host on one card, not a scaling figure)"
+            % (label, worst_p, tol, worst_b, btol, where, scale,
+               [r["bytes"][0] for r in got], [r["bytes"][1] for r in got],
+               len(got[0]["blocks"]), [r["launches"]["row_update"]
+                                       for r in got],
+               ["%.2f" % r["ms"] for r in got]))
+        if exchange == "a2a":
+            for r in got:
+                check(not np.isfinite(r["skew_error"]).any(), "34c: an "
+                      "overflowing a2a predicted finite values under "
+                      "\"error\"")
+                check_predictions(r["skew_drop"], MESH_PREDICT)
+                check(np.array_equal(r["skew_drop"], got[0]["skew_drop"]),
+                      "34c: the ranks drop differently")
+            lines.append("34c a2a overflow at slack 1.0 (ids < 1000 in "
+                         "every field: rank 0's rows): every prediction NaN "
+                         "under \"error\", finite and alike on both ranks "
+                         "under \"drop\"")
+    for line in lines:
+        log(line)
+    check(not failed, "34b: a leg is over its bound (the lines above)")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -4782,9 +5159,15 @@ def main():
     phase_load_model(device)
     phase_optimizer_objects(device)
     phase_cin_modes(device)
+    torch.cuda.empty_cache()
+
+    twin = mesh_one_rank(device)
+    zero_fill = mesh_gather_zero_fill(twin)
+    phase_mesh(device, twin)
+    del twin
 
     log(card_line())
-    measured = {"gather_rows": dict(max_abs_err=err, **timing),
+    measured = {"gather_rows": dict(max_abs_err=err, **timing, **zero_fill),
                 "scatter_add_rows": dict(max_abs_err=k1_err,
                                          **train_timing["scatter_add_rows"]),
                 "row_update": dict(max_abs_err=k2_err,

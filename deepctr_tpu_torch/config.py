@@ -1,8 +1,9 @@
-"""Global framework configuration: the compute dtype and the CIN's
-compute-dtype mode.
+"""Global framework configuration: the compute dtype, the CIN's
+compute-dtype mode and the lookup exchange of row-sharded tables.
 
-Counterpart of ``deepctr_tpu/config.py:11-26`` and of the JAX CIN's
-``DEEPCTR_CIN_DTYPE`` (``deepctr_tpu/layers/interaction.py:136-150``).
+Counterpart of ``deepctr_tpu/config.py:11-26`` and ``:270-308`` and of the
+JAX CIN's ``DEEPCTR_CIN_DTYPE`` (``deepctr_tpu/layers/interaction.py:
+136-150``).
 Parameters stay float32; the compute dtype is what every Dense layer casts
 its input and weights to.  There is no kernel switch: a kernel wrapper
 picks its plain PyTorch version only for tensors on the CPU (see
@@ -51,3 +52,62 @@ def set_cin_dtype(mode):
 
 def cin_dtype():
     return _CIN_DTYPE
+
+
+# --------------------------------------------------------------------------
+# The lookup exchange of row-sharded embedding tables on a device mesh
+# (``deepctr_tpu/config.py:270-308``; ``parallel/embedding.py``).
+#   "gspmd" - the default.  The port has no GSPMD: this is its default
+#             exchange, which is the psum exchange.
+#   "psum"  - every rank of the 'model' axis gathers the rows it owns
+#             (zeros for the others) and one all-reduce sums them.
+#   "a2a"   - ids bucketed by owner at a fixed capacity ceil(n/M) * slack,
+#             exchanged with all_to_all, gathered there and sent back;
+#             ids past a bucket's capacity are dropped (see
+#             ``on_overflow``).
+# --------------------------------------------------------------------------
+_EXCHANGE_MODES = ("gspmd", "psum", "a2a")
+_OVERFLOW_MODES = ("error", "drop")
+_EMBEDDING_EXCHANGE = "gspmd"
+_EXCHANGE_MESH = None
+_A2A_SLACK = 2.0
+_A2A_ON_OVERFLOW = "error"
+
+
+def set_embedding_exchange(mode, mesh=None, a2a_slack=2.0,
+                           on_overflow="error"):
+    """Select how row-sharded embedding lookups exchange rows on a mesh:
+    ``"gspmd"`` (the default, which runs the psum exchange here), ``"psum"``
+    or ``"a2a"``.  The explicit modes need the ``mesh``.  Read at every
+    lookup.
+
+    ``on_overflow`` (a2a only): an id past its bucket's capacity is
+    dropped, and then
+      "error" (default): every looked-up row of the call is NaN, so that
+          the first overflowing step gives a NaN loss; raise ``a2a_slack``
+          to fix it;
+      "drop": the dropped ids embed as zero rows.
+    Any other mode or overflow setting raises ValueError."""
+    global _EMBEDDING_EXCHANGE, _EXCHANGE_MESH, _A2A_SLACK, \
+        _A2A_ON_OVERFLOW
+    if mode not in _EXCHANGE_MODES:
+        raise ValueError("embedding exchange must be one of %s, got %r"
+                         % (", ".join(_EXCHANGE_MODES), mode))
+    if on_overflow not in _OVERFLOW_MODES:
+        raise ValueError("on_overflow must be one of %s, got %r"
+                         % (", ".join(_OVERFLOW_MODES), on_overflow))
+    if mode != "gspmd" and mesh is None:
+        raise ValueError("explicit exchange modes need the mesh")
+    _EMBEDDING_EXCHANGE = mode
+    _EXCHANGE_MESH = mesh
+    _A2A_SLACK = float(a2a_slack)
+    _A2A_ON_OVERFLOW = on_overflow
+
+
+def embedding_exchange():
+    """``(mode, mesh, a2a slack)``."""
+    return _EMBEDDING_EXCHANGE, _EXCHANGE_MESH, _A2A_SLACK
+
+
+def a2a_on_overflow():
+    return _A2A_ON_OVERFLOW

@@ -8,6 +8,15 @@
 // does.  An id outside [0, V_f) reads nothing and writes a NaN row (the
 // fill that jnp.take gives an out-of-range id).
 //
+// The shard-local mode (zero_fill = 1) serves a table row-sharded over a
+// device mesh: field f's table holds the logical rows [base_f, base_f +
+// V_f) of its table, id i reads row i - base_f there, and an id outside
+// that block writes a row of zeros, which the lookup exchange's sum over
+// the mesh's model axis adds to the owner's row
+// (deepctr_tpu_torch/parallel/embedding.py).  That is the JAX package's
+// jnp.take plus in-range mask (deepctr_tpu/parallel/embedding.py:50-55),
+// with no mask pass and no [B, F] float matrix built for it.
+//
 // What it replaces: the TPU's row-DMA kernel
 // (deepctr_tpu/ops/pallas_gather.py:_gather_kernel), and the two lookups
 // that the JAX package shaped around the TPU for the same job: the bf16
@@ -47,7 +56,9 @@
 //
 // The per-field arguments come in one int64 device array `meta` of
 // 3 * n_fields entries: table base pointers, id column indices, vocab
-// sizes.  The host caches it and rebuilds it when a table moves.
+// sizes (the rows each table holds), and in the shard-local mode n_fields
+// more, the row bases.  The host caches it and rebuilds it when a table
+// moves.
 
 #include <cuda_runtime.h>
 
@@ -64,14 +75,16 @@ template <>
 struct Unit<false> {
   using T = float;
   __device__ static T load(const T* p) { return __ldg(p); }
-  __device__ static T nan() { return __int_as_float(0x7fc00000); }
+  __device__ static T fill(bool zero) {
+    return zero ? 0.0f : __int_as_float(0x7fc00000);
+  }
 };
 template <>
 struct Unit<true> {
   using T = float4;
   __device__ static T load(const T* p) { return __ldg(p); }
-  __device__ static T nan() {
-    const float v = __int_as_float(0x7fc00000);
+  __device__ static T fill(bool zero) {
+    const float v = zero ? 0.0f : __int_as_float(0x7fc00000);
     return make_float4(v, v, v, v);
   }
 };
@@ -81,15 +94,16 @@ template <int UNITS, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 gather_rows_kernel(const float* __restrict__ x, long long ld_x,
                    const long long* __restrict__ meta, unsigned n_fields,
-                   unsigned units, unsigned n_pairs,
+                   unsigned units, unsigned n_pairs, int zero_fill,
                    float* __restrict__ out) {
   using U = Unit<VEC>;
   using T = typename U::T;
-  __shared__ long long s_meta[3 * kThreads];
+  __shared__ long long s_meta[4 * kThreads];
   const unsigned row_units = UNITS != kGeneric ? UNITS : units;
   const bool staged = n_fields <= kThreads;
+  const unsigned n_meta = (zero_fill ? 4 : 3) * n_fields;
   if (staged) {
-    for (unsigned i = threadIdx.x; i < 3 * n_fields; i += kThreads) {
+    for (unsigned i = threadIdx.x; i < n_meta; i += kThreads) {
       s_meta[i] = __ldg(meta + i);
     }
     __syncthreads();
@@ -110,9 +124,14 @@ gather_rows_kernel(const float* __restrict__ x, long long ld_x,
         staged ? s_meta[n_fields + f] : __ldg(meta + n_fields + f);
     const long long vocab =
         staged ? s_meta[2 * n_fields + f] : __ldg(meta + 2 * n_fields + f);
+    const long long base =
+        !zero_fill ? 0
+        : staged   ? s_meta[3 * n_fields + f]
+                   : __ldg(meta + 3 * n_fields + f);
     // truncation toward zero, as float32 -> int32 in the JAX package
     const long long id =
-        __float2int_rz(__ldg(x + static_cast<long long>(b) * ld_x + col));
+        __float2int_rz(__ldg(x + static_cast<long long>(b) * ld_x + col)) -
+        base;
     if (id >= 0 && id < vocab) {
       row = reinterpret_cast<const T*>(table) + id * row_units;
     }
@@ -122,6 +141,7 @@ gather_rows_kernel(const float* __restrict__ x, long long ld_x,
   T* dst = reinterpret_cast<T*>(out) +
            static_cast<long long>(run0) * row_units;
   const unsigned long long mine = reinterpret_cast<unsigned long long>(row);
+  const T empty = U::fill(zero_fill != 0);
 
   if constexpr (UNITS != kGeneric) {
     // all UNITS loads, then all UNITS stores
@@ -132,7 +152,7 @@ gather_rows_kernel(const float* __restrict__ x, long long ld_x,
       const unsigned src = i / UNITS;
       const T* p = reinterpret_cast<const T*>(
           __shfl_sync(kFull, mine, src & 31));
-      v[k] = p != nullptr ? U::load(p + (i - src * UNITS)) : U::nan();
+      v[k] = p != nullptr ? U::load(p + (i - src * UNITS)) : empty;
     }
 #pragma unroll
     for (int k = 0; k < UNITS; ++k) {
@@ -149,7 +169,7 @@ gather_rows_kernel(const float* __restrict__ x, long long ld_x,
           const unsigned src = i / row_units;
           const T* p = reinterpret_cast<const T*>(
               __shfl_sync(kFull, mine, src & 31));
-          v[k] = p != nullptr ? U::load(p + (i - src * row_units)) : U::nan();
+          v[k] = p != nullptr ? U::load(p + (i - src * row_units)) : empty;
         }
       }
 #pragma unroll
@@ -163,11 +183,11 @@ gather_rows_kernel(const float* __restrict__ x, long long ld_x,
 
 template <int UNITS, bool VEC>
 void launch(const float* x, long long ld_x, const long long* meta,
-            unsigned n_fields, unsigned units, unsigned n_pairs, float* out,
-            cudaStream_t stream) {
+            unsigned n_fields, unsigned units, unsigned n_pairs,
+            int zero_fill, float* out, cudaStream_t stream) {
   const unsigned blocks = (n_pairs + kThreads - 1) / kThreads;
   gather_rows_kernel<UNITS, VEC><<<blocks, kThreads, 0, stream>>>(
-      x, ld_x, meta, n_fields, units, n_pairs, out);
+      x, ld_x, meta, n_fields, units, n_pairs, zero_fill, out);
 }
 
 }  // namespace
@@ -175,11 +195,12 @@ void launch(const float* x, long long ld_x, const long long* meta,
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 // The caller checks shapes and types, allocates `out` [n_rows, n_fields,
 // width] and keeps `meta` alive until the kernel has run; `vec` (1 or 0)
-// says that width % 4 == 0 and every table is 16-byte aligned.
+// says that width % 4 == 0 and every table is 16-byte aligned;
+// `zero_fill` (1 or 0) selects the shard-local mode.
 extern "C" int gather_rows_f32(const float* x, long long n_rows,
                                long long ld_x, const long long* meta,
-                               int n_fields, int width, int vec, float* out,
-                               void* stream) {
+                               int n_fields, int width, int vec,
+                               int zero_fill, float* out, void* stream) {
   const long long total = n_rows * n_fields * width;
   if (n_rows <= 0 || n_fields <= 0 || width <= 0 || total >= (1LL << 31) ||
       (vec && width % 4 != 0)) {
@@ -191,17 +212,18 @@ extern "C" int gather_rows_f32(const float* x, long long n_rows,
   if (vec) {
     const unsigned units = static_cast<unsigned>(width / 4);
     if (units == 8) {
-      launch<8, true>(x, ld_x, meta, f, units, pairs, out, s);
+      launch<8, true>(x, ld_x, meta, f, units, pairs, zero_fill, out, s);
     } else {
-      launch<kGeneric, true>(x, ld_x, meta, f, units, pairs, out, s);
+      launch<kGeneric, true>(x, ld_x, meta, f, units, pairs, zero_fill, out,
+                             s);
     }
   } else if (width == 1) {
-    launch<1, false>(x, ld_x, meta, f, 1, pairs, out, s);
+    launch<1, false>(x, ld_x, meta, f, 1, pairs, zero_fill, out, s);
   } else if (width == 17) {
-    launch<17, false>(x, ld_x, meta, f, 17, pairs, out, s);
+    launch<17, false>(x, ld_x, meta, f, 17, pairs, zero_fill, out, s);
   } else {
     launch<kGeneric, false>(x, ld_x, meta, f, static_cast<unsigned>(width),
-                            pairs, out, s);
+                            pairs, zero_fill, out, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,7 +11,9 @@ width (:meth:`EmbeddingDict.gather`); the deep part of a fused table reads
 ``rows[..., :dim]`` and the wide part ``rows[..., dim:]`` of that one
 gather, as the JAX package's ``_row_cache`` shares one gather between them.
 A ``VarLenSparseFeat`` spans ``maxlen`` columns of the flat matrix and
-gathers as ``maxlen`` fields of its table in the same launch.
+gathers as ``maxlen`` fields of its table in the same launch.  On a mesh, a
+row-sharded table holds only its block and its rows come through a lookup
+exchange (:class:`TableHolder`).
 """
 
 from collections import defaultdict
@@ -20,34 +22,120 @@ from itertools import chain
 import torch
 from torch import nn
 
+from . import config
 from .features import SparseFeat, DenseFeat, VarLenSparseFeat
 from .layers.sequence import masked_pooling
 from .layers.utils import concat_fun
 from .ops.gather import gather_rows
+from .parallel.embedding import A2ALookup, ShardedRows, a2a_rows, psum_rows
+from .parallel.sharding import gather_data
+
+# the JAX package stores a table of at least this many rows packed into
+# 128-lane rows (``deepctr_tpu/inputs.py:302-313``); the port stores every
+# table as it is read, and counts rows as the JAX package does where a rule
+# depends on them (the "auto" sparse gate, the mesh's row sharding)
+PACKED_VOCAB_THRESHOLD = 131072
+
+
+def stored_rows(vocab, width):
+    """``(rows, pack)``: the rows of a ``[vocab, width]`` table as the JAX
+    package stores it, and the logical rows each of them packs (1 where it
+    does not pack: fewer rows than ``PACKED_VOCAB_THRESHOLD``, or wider
+    than 64)."""
+    if vocab >= PACKED_VOCAB_THRESHOLD and width <= 64:
+        pack = 128 // width
+        return -(-vocab // pack), pack
+    return vocab, 1
 
 
 class TableHolder(nn.Module):
     """A module whose forward takes rows of its tables with
     ``gather_rows``.  Around a train step's forward the engine sets
     ``_capture`` to a list: a gather then runs without a graph back to the
-    tables, its rows become leaves, and ``(table names, X columns, rows)``
-    goes into the list, one name and column a field; the engine scatters
-    the rows' cotangent into each table's gradient itself
-    (``models/basemodel.py``).  ``tables`` maps each name to its table."""
+    tables, its rows become leaves, and ``(table names, X columns, rows,
+    kept)`` goes into the list, one name and column a field (``kept`` None,
+    or a [B, F] bool of the rows whose cotangent counts: an a2a exchange's
+    dropped ids get none); the engine scatters the rows' cotangent into
+    each table's gradient itself (``models/basemodel.py``).  ``tables``
+    maps each name to its table.
+
+    On a mesh (``BaseModel._apply_sharding``) ``_axes`` is the mesh's
+    ``parallel.sharding.Axes`` and ``_shards`` maps each row-sharded
+    table's name to ``(first row, stop, vocab, rows a block)``: such a
+    table holds only its block, and its rows come through the configured
+    lookup exchange (``config.set_embedding_exchange``,
+    ``parallel/embedding.py``).  In a train step the tables of ``_exact``
+    (those on the sparse path) take the psum exchange whatever the mode,
+    as the JAX package's active-rows step gathers them from the touched
+    rows and runs no exchange (``deepctr_tpu/inputs.py:168-188``)."""
 
     def __init__(self):
         super().__init__()
         self._capture = None
+        self._axes = None
+        self._shards = {}
+        self._exact = frozenset()
 
     def _gather(self, X, tables, names, cols):
         """``gather_rows`` of the fields ``(names[i], cols[i])``, whose
-        ``[V, W]`` tables are ``tables``."""
+        ``[V, W]`` tables are ``tables``; the psum exchange where they are
+        row-sharded (every name in ``_shards``)."""
+        bases = None
+        if names[0] in self._shards:
+            bases = [self._shards[n][0] for n in names]
+            ax = self._axes
+
+            def lookup():
+                if (torch.is_grad_enabled()
+                        and any(t.requires_grad for t in tables)):
+                    return ShardedRows.apply(X, cols, bases, ax.model_group,
+                                             ax.n_model, *tables)
+                return psum_rows(X, tables, cols, bases, ax.model_group,
+                                 ax.n_model)
+        else:
+            def lookup():
+                return gather_rows(X, tables, cols)
         if self._capture is None:
-            return gather_rows(X, tables, cols)
+            return lookup()
         with torch.no_grad():
-            rows = gather_rows(X, tables, cols)
+            rows = lookup()
         rows.requires_grad_()
-        self._capture.append((names, cols, rows))
+        self._capture.append((names, cols, rows, None))
+        return rows
+
+    def _exchange_a2a(self, X, name, span):
+        """Rows of table ``name`` (row-sharded) at the id columns ``span``
+        of X through the a2a exchange -> [B, n, W].  The exchange sees the
+        global batch's ids, as the JAX package's ``shard_map`` does: the
+        data axis's ranks sum a zero-filled global matrix of their ids, and
+        each keeps its rows of the result.  An overflow poisons every row
+        with NaN (``on_overflow="error"``) or leaves the dropped ids zero
+        rows."""
+        ax = self._axes
+        table = self.tables[name]
+        base, _, _, rows_per = self._shards[name]
+        n, width = X.shape[0], span[1] - span[0]
+        ids = gather_data(X[:, span[0]:span[1]], ax)
+        flat = ids.to(torch.int32).to(torch.int64).reshape(-1)
+        keep = slice(ax.data * n * width, (ax.data + 1) * n * width)
+        _, _, slack = config.embedding_exchange()
+        args = (table, flat, base, rows_per, ax.model_group, ax.n_model,
+                slack, keep)
+        grad = (self._capture is None and torch.is_grad_enabled()
+                and table.requires_grad)
+        if grad:
+            rows, ok, n_dropped = A2ALookup.apply(*args)
+        else:
+            with torch.no_grad():
+                rows, ok, n_dropped = a2a_rows(*args)
+        if config.a2a_on_overflow() == "error":
+            rows = rows + torch.where(n_dropped > 0, float("nan"),
+                                      0.0).to(rows.dtype)
+        rows = rows.view(n, width, table.shape[1])
+        if self._capture is not None:
+            rows.requires_grad_()
+            self._capture.append(([name] * width, list(range(*span)), rows,
+                                  ok.view(n, width)))
         return rows
 
 
@@ -81,16 +169,35 @@ class EmbeddingDict(TableHolder):
             self.tables[name] = nn.Parameter(table)
             self.table_dims[name] = dim
 
+    def _route(self, fc):
+        """How feature ``fc``'s rows are looked up: ``"gather"`` (a
+        replicated table), ``"psum"`` or ``"a2a"`` (a row-sharded one, by
+        the configured exchange; the psum exchange for a table of
+        ``_exact`` in a train step)."""
+        name = fc.embedding_name
+        if name not in self._shards:
+            return "gather"
+        if (config.embedding_exchange()[0] == "a2a"
+                and not (self._capture is not None and name in self._exact)):
+            return "a2a"
+        return "psum"
+
     def gather(self, X, feature_index, feature_columns):
         """Full-width rows (incl. any wide column) of every feature in
         ``feature_columns``, one kernel launch per row width:
         ``{feature name: [B, 1, width]}``, ``[B, maxlen, width]`` for a
-        ``VarLenSparseFeat``."""
-        by_width = defaultdict(list)
+        ``VarLenSparseFeat``.  On a mesh the row-sharded tables take one
+        more launch per row width and the psum exchange, or one a2a
+        exchange per feature, as the JAX package's lookups are one a
+        feature."""
+        groups = defaultdict(list)
         for fc in feature_columns:
-            by_width[self.tables[fc.embedding_name].shape[1]].append(fc)
+            width = self.tables[fc.embedding_name].shape[1]
+            route = self._route(fc)
+            groups[(width, route, fc.name if route == "a2a" else None)
+                   ].append(fc)
         out = {}
-        for fcs in by_width.values():
+        for (_, route, _), fcs in groups.items():
             names, cols, spans = [], [], []
             for fc in fcs:
                 start, end = feature_index[fc.name]
@@ -99,8 +206,12 @@ class EmbeddingDict(TableHolder):
                 spans.append((len(cols), end - start))
                 names += [fc.embedding_name] * (end - start)
                 cols += range(start, end)
-            rows = self._gather(X, [self.tables[n] for n in names], names,
-                                cols)
+            if route == "a2a":
+                rows = self._exchange_a2a(X, names[0],
+                                          (cols[0], cols[-1] + 1))
+            else:
+                rows = self._gather(X, [self.tables[n] for n in names],
+                                    names, cols)
             for fc, (first, n) in zip(fcs, spans):
                 out[fc.name] = rows[:, first:first + n]
         return out

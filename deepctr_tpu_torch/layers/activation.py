@@ -5,8 +5,12 @@ False)``: a plain function for the stateless activations, a module for
 Dice and PReLU, which carry parameters.
 """
 
+import math
+
 import torch
 from torch import nn
+
+from ..parallel import context
 
 
 class BatchNorm(nn.Module):
@@ -28,7 +32,13 @@ class BatchNorm(nn.Module):
     + (1 - momentum) * batch``.  Inference normalises with them.  Either
     way ``y = (x - mean) * rsqrt(var + epsilon)``, then ``* scale + bias``
     where the layer has them (parameters ``scale`` and ``bias``, from 1 and
-    0).  Returns float32, as flax does for float32 parameters."""
+    0).  Returns float32, as flax does for float32 parameters.
+
+    In a train step on a mesh (``parallel.context.data_shard``) the
+    moments are the global batch's, as ``jnp.mean`` over a data-sharded
+    axis is: the sums, the sums of squares and the count are summed over
+    the data axis in one all-reduce, whose gradient is the sum of the
+    ranks'."""
 
     def __init__(self, features, epsilon=1e-5, momentum=0.9, use_scale=True,
                  use_bias=True, axis=-1, device=None):
@@ -53,9 +63,12 @@ class BatchNorm(nn.Module):
             return t.reshape(shape)
         if training:
             axes = tuple(a for a in range(x.dim()) if a not in keep)
-            mean = torch.mean(x32, dim=axes)
-            var = torch.clamp_min(torch.mean(x32 * x32, dim=axes)
-                                  - mean * mean, 0.0)
+            if context.active():
+                mean, ex2 = self._global_moments(x32, axes)
+            else:
+                mean = torch.mean(x32, dim=axes)
+                ex2 = torch.mean(x32 * x32, dim=axes)
+            var = torch.clamp_min(ex2 - mean * mean, 0.0)
             with torch.no_grad():
                 mom = self.momentum
                 self.mean.copy_(mom * self.mean + (1 - mom) * mean)
@@ -68,6 +81,20 @@ class BatchNorm(nn.Module):
         if self.bias is not None:
             y = y + bcast(self.bias)
         return y
+
+    @staticmethod
+    def _global_moments(x32, axes):
+        """``(E[x], E[x^2])`` over ``axes`` of the global batch: this
+        rank's sums and count summed over the data axis."""
+        s1 = torch.sum(x32, dim=axes)
+        s2 = torch.sum(x32 * x32, dim=axes)
+        count = x32.new_full((1,), float(math.prod(x32.shape[a]
+                                                  for a in axes)))
+        total = context.data_sum(torch.cat([s1.reshape(-1), s2.reshape(-1),
+                                            count]))
+        k = s1.numel()
+        n = total[-1]
+        return (total[:k].view_as(s1) / n, total[k:2 * k].view_as(s2) / n)
 
 
 class Dice(nn.Module):

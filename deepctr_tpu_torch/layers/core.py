@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import config
+from ..parallel import context
 from .activation import BatchNorm, activation_layer
 
 # flax's lecun_normal draws a normal truncated at two standard deviations
@@ -79,14 +80,20 @@ class Dropout(nn.Module):
     masks are a function of that generator's state alone and a CUDA graph
     that registers it draws new masks at every replay.  A training forward
     with a rate above 0 outside :func:`dropout_generator` raises.  flax's
-    bits are not reproduced."""
+    bits are not reproduced.
 
-    def __init__(self, rate):
+    In a train step on a mesh (``parallel.context.data_shard``) the mask
+    is drawn for the global batch and this rank keeps its rows, along
+    ``batch_axis``, so that the ranks together draw the one rank's
+    mask."""
+
+    def __init__(self, rate, batch_axis=0):
         super().__init__()
         if not 0.0 <= rate <= 1.0:
             raise ValueError("dropout rate must lie in [0, 1], got %r"
                              % (rate,))
         self.rate = float(rate)
+        self.batch_axis = batch_axis
 
     def keep_mask(self, x):
         """The [x.shape] bool mask of the values kept."""
@@ -96,8 +103,11 @@ class Dropout(nn.Module):
                 "model's dropout generator: run it inside "
                 "layers.core.dropout_generator(...) (fit and the train "
                 "step do)")
-        u = torch.rand(x.shape, generator=_DROPOUT_GENERATOR,
-                       device=x.device)
+        shape = list(x.shape)
+        n = shape[self.batch_axis]
+        shape[self.batch_axis], first = context.global_rows(n)
+        u = torch.rand(shape, generator=_DROPOUT_GENERATOR,
+                       device=x.device).narrow(self.batch_axis, first, n)
         return u < 1.0 - self.rate
 
     def forward(self, x, training=False):

@@ -13,8 +13,8 @@ class AFM(BaseModel):
     """Instantiates the AFM architecture, with the JAX package's
     constructor; ``use_attention=False`` runs the plain FM.  Runs on
     ``device`` (default ``"cuda"``; raises where CUDA is absent unless
-    ``device="cpu"``).  ``mesh``/``shard_embeddings`` are not ported yet
-    and raise."""
+    ``device="cpu"``).
+    ``mesh`` and ``shard_embeddings`` run it over ranks (``parallel/``)."""
 
     def __init__(self, linear_feature_columns, dnn_feature_columns,
                  use_attention=True, attention_factor=8, l2_reg_linear=1e-5,
@@ -22,13 +22,12 @@ class AFM(BaseModel):
                  init_std=1e-4, seed=1024, task="binary", device=None,
                  gpus=None, mesh=None, shard_embeddings=False):
         self._capture_init_args(locals())
-        if mesh is not None or shard_embeddings:
-            raise NotImplementedError("sharded models are not ported yet")
         super().__init__(linear_feature_columns, dnn_feature_columns,
                          l2_reg_linear=l2_reg_linear,
                          l2_reg_embedding=l2_reg_embedding,
                          init_std=init_std, seed=seed, task=task,
-                         device=device, gpus=gpus)
+                         device=device, gpus=gpus, mesh=mesh,
+                         shard_embeddings=shard_embeddings)
         generator = self._init_generator
         self.use_attention = use_attention
         if use_attention:

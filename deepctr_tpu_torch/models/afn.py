@@ -17,8 +17,8 @@ class AFN(BaseModel):
     constructor: ``LogTransformLayer`` over the fields' embeddings, then a
     batch-normed DNN (``use_bn=True``) and a dense head with a bias.  Runs
     on ``device`` (default ``"cuda"``; raises where CUDA is absent unless
-    ``device="cpu"``).  ``mesh``/``shard_embeddings`` are not ported yet
-    and raise."""
+    ``device="cpu"``).
+    ``mesh`` and ``shard_embeddings`` run it over ranks (``parallel/``)."""
 
     def __init__(self, linear_feature_columns, dnn_feature_columns,
                  ltl_hidden_size=256, afn_dnn_hidden_units=(256, 128),
@@ -27,13 +27,12 @@ class AFN(BaseModel):
                  dnn_activation="relu", task="binary", device=None, gpus=None,
                  mesh=None, shard_embeddings=False):
         self._capture_init_args(locals())
-        if mesh is not None or shard_embeddings:
-            raise NotImplementedError("sharded models are not ported yet")
         super().__init__(linear_feature_columns, dnn_feature_columns,
                          l2_reg_linear=l2_reg_linear,
                          l2_reg_embedding=l2_reg_embedding,
                          init_std=init_std, seed=seed, task=task,
-                         device=device, gpus=gpus)
+                         device=device, gpus=gpus, mesh=mesh,
+                         shard_embeddings=shard_embeddings)
         generator = self._init_generator
         device = generator.device
         embedding_size = self.embedding_size

@@ -15,8 +15,8 @@ from ..layers.core import _dense
 class AutoInt(BaseModel):
     """Instantiates the AutoInt architecture, with the JAX package's
     constructor.  Runs on ``device`` (default ``"cuda"``; raises where CUDA
-    is absent unless ``device="cpu"``).  ``mesh``/``shard_embeddings``
-    are not ported yet and raise."""
+    is absent unless ``device="cpu"``).  ``mesh`` and
+    ``shard_embeddings`` run it over ranks (``parallel/``)."""
 
     def __init__(self, linear_feature_columns, dnn_feature_columns,
                  att_layer_num=3, att_head_num=2, att_res=True,
@@ -25,15 +25,14 @@ class AutoInt(BaseModel):
                  dnn_dropout=0, init_std=1e-4, seed=1024, task="binary",
                  device=None, gpus=None, mesh=None, shard_embeddings=False):
         self._capture_init_args(locals())
-        if mesh is not None or shard_embeddings:
-            raise NotImplementedError("sharded models are not ported yet")
         if len(dnn_hidden_units) <= 0 and att_layer_num <= 0:
             raise ValueError("Either hidden_layer or att_layer_num must > 0")
         super().__init__(linear_feature_columns, dnn_feature_columns,
                          l2_reg_linear=0,
                          l2_reg_embedding=l2_reg_embedding,
                          init_std=init_std, seed=seed, task=task,
-                         device=device, gpus=gpus)
+                         device=device, gpus=gpus, mesh=mesh,
+                         shard_embeddings=shard_embeddings)
         generator = self._init_generator
         device = generator.device
         self.dnn_hidden_units = tuple(dnn_hidden_units)

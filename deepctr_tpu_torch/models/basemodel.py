@@ -41,11 +41,21 @@ step a replay of one captured graph on the card (``graphs.StepGraph``),
 and the host reads one loss vector an epoch.  ``predict`` replays a
 captured forward a batch on the card (``graphs.ForwardGraph``).
 
+On a mesh (``mesh=``, ``parallel/``; ``deepctr_tpu/models/basemodel.py:
+1389-1408``) every rank runs these steps on its rows of the global batch:
+the touched rows come from the global batch's ids (one all-reduce over
+``data`` of a zero-filled id matrix), the row-sharded tables are looked up
+through an exchange (``inputs.TableHolder``), the touched rows' and the
+dense gradients are summed over ``data``, the penalty counts once, and the
+row update runs on the rank's blocks.  No graph is captured there.
+
 Unlike the JAX package, which stores tables of >= 131072 rows packed into
 128-lane rows and updates them by packed row, the port updates logical
 rows; see ``ROADMAP.md`` section 3.
 """
 
+import contextlib
+import functools
 import os
 import queue
 import re
@@ -56,6 +66,8 @@ from itertools import accumulate
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 try:
     from tqdm import tqdm
@@ -65,7 +77,7 @@ except ImportError:  # pragma: no cover
 from .. import config, native
 from ..callbacks import CallbackList, History
 from ..features import SparseFeat, VarLenSparseFeat
-from ..inputs import EmbeddingDict, TableHolder
+from ..inputs import EmbeddingDict, TableHolder, stored_rows
 from ..layers.core import Dropout, dropout_generator
 from ..layers.utils import slice_arrays
 from ..losses import resolve_loss
@@ -73,6 +85,10 @@ from ..ops import row_update as _row_update
 from ..ops._args import DeviceArgs, device_array
 from ..ops.row_update import adam_bias_corrections, row_update
 from ..ops.scatter_add import scatter_add_rows
+from ..parallel.context import data_shard
+from ..parallel.sharding import (Axes, batch_sharding, gather_data,
+                                 shard_variables)
+from ..parallel.update import shard_local_rows
 from ..utils import serialization
 from ..utils.jax_weights import jax_path
 from ..utils.metrics import resolve_metrics
@@ -87,9 +103,6 @@ _SPARSE_OPTIMIZERS = ("sgd", "adagrad", "adam", "rmsprop")
 # the "auto" gate (basemodel.py:392, :408-412)
 _AUTO_MIN_MODEL_ROWS = 1_000_000
 _AUTO_MIN_TABLE_ROWS = 16384
-# the JAX package's packed storage (deepctr_tpu/inputs.py:302-313), used
-# only to count table rows as the JAX package's "auto" gate counts them
-_PACKED_VOCAB_THRESHOLD = 131072
 
 
 def resolve_device(device):
@@ -286,11 +299,15 @@ class _TouchedRows:
     ``row_update`` drops; ``grads[t]`` the plan's zeroed [cap_t, W_t]
     gradient for them; ``slots[:, c]`` the position in its table's
     ``rows`` of the id in the c-th sparse id column of X.  Every id must lie
-    in its table (``BaseModel._check_sparse_ids``)."""
+    in its table (``BaseModel._check_sparse_ids``).  ``ids`` [B, C] are X's
+    values at the plan's columns where the caller has them (on a mesh,
+    those of the global batch)."""
 
-    def __init__(self, X, plan):
+    def __init__(self, X, plan, ids=None):
         n_tables = len(plan.caps)
-        ids = X.index_select(1, plan.cols).to(torch.int32).to(torch.int64)
+        if ids is None:
+            ids = X.index_select(1, plan.cols)
+        ids = ids.to(torch.int32).to(torch.int64)
         keys = ids + plan.col_base                                # [B, C]
         # the synthetic id 0 of every table first, then the id columns
         all_keys = torch.cat([plan.bases[:-1], keys.t().reshape(-1)])
@@ -309,7 +326,7 @@ class _TouchedRows:
         flat = plan.pad_rows.clone()
         flat.scatter_(0, dst, sorted_keys - plan.bases.index_select(0, table))
         self.rows = [flat[o:o + c] for o, c in zip(plan.offs, plan.caps)]
-        self.slots = (inv[n_tables:].view(-1, X.shape[0]).t()
+        self.slots = (inv[n_tables:].view(-1, ids.shape[0]).t()
                       - lo.index_select(0, plan.tcol))            # [B, C]
         plan.grad_flat.zero_()
         self.grads = plan.grads
@@ -337,9 +354,35 @@ class BaseModel(BaseModule):
     epoch and the step within it.
     """
 
+    def __init_subclass__(cls, **kwargs):
+        """A model class's constructor, once it has built every layer,
+        applies the mesh's sharding (:meth:`_apply_sharding`): the tables
+        are drawn whole from the seed on every rank, then cut to the
+        rank's block."""
+        super().__init_subclass__(**kwargs)
+        init = cls.__dict__.get("__init__")
+        if init is None:
+            return
+
+        @functools.wraps(init)
+        def __init__(self, *args, **kw):
+            init(self, *args, **kw)
+            # the outermost constructor: the instance's own class's, or
+            # the one it inherits
+            if type(self).__init__ is cls.__init__:
+                self._apply_sharding()
+        cls.__init__ = __init__
+
     def __init__(self, linear_feature_columns, dnn_feature_columns,
                  l2_reg_linear=1e-5, l2_reg_embedding=1e-5, init_std=1e-4,
-                 seed=1024, task="binary", device=None, gpus=None):
+                 seed=1024, task="binary", device=None, gpus=None,
+                 mesh=None, shard_embeddings=False):
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise TypeError("mesh must be a torch.distributed DeviceMesh "
+                            "(parallel.make_mesh), got %r" % (mesh,))
+        if shard_embeddings and mesh is None:
+            raise ValueError("shard_embeddings=True row-shards the tables "
+                             "over a mesh: pass mesh=")
         device = resolve_device(device)
         generator = torch.Generator(device=device)
         generator.manual_seed(seed)
@@ -374,6 +417,88 @@ class BaseModel(BaseModule):
         self._graphs = {}
         self._plans = {}
         self._dropout_gen = None
+        # the mesh (parallel/): its axes, and {table path: (first row,
+        # stop, vocab, rows a block)} of the row-sharded tables
+        self.mesh = mesh
+        self.shard_embeddings = bool(shard_embeddings)
+        self._axes = None if mesh is None else Axes(mesh)
+        self._shards = {}
+
+    # ------------------------------------------------------------------
+    # the mesh (deepctr_tpu/models/basemodel.py:1389-1408)
+    # ------------------------------------------------------------------
+    def _apply_sharding(self):
+        """Cut every table that ``shard_embeddings`` row-shards to this
+        rank's block (``parallel.shard_variables``) and tell its holder.
+        Runs once, when the constructor is done."""
+        if self.mesh is None or not self.shard_embeddings or self._shards:
+            return
+        self._shards = shard_variables(self.mesh, self._tables())
+        for prefix, holder in self._table_holders():
+            holder._axes = self._axes
+            holder._shards = {p[len(prefix):]: b
+                              for p, b in self._shards.items()
+                              if p.startswith(prefix)
+                              and p[len(prefix):] in holder.tables}
+        self._invalidate_graphs()
+
+    def _put_batch(self, *arrays):
+        """This rank's rows of each global batch in ``arrays`` (all of
+        them without a mesh): its contiguous share of the ``data`` axis
+        (``parallel.batch_sharding``, which raises on a batch the axis
+        does not divide)."""
+        if self.mesh is not None:
+            arrays = tuple(a[batch_sharding(self.mesh, a.shape[0])]
+                           for a in arrays)
+        return arrays if len(arrays) > 1 else arrays[0]
+
+    def _block(self, path, full):
+        """This rank's block of the full rows ``full`` of table ``path``,
+        ``full`` itself for a table that is not row-sharded."""
+        shard = self._shards.get(path)
+        if shard is None or full.shape[0] != shard[2]:
+            return full
+        return full[shard[0]:shard[1]]
+
+    def _gather_table(self, path, block):
+        """The full rows of table ``path`` (or of its optimizer state)
+        from every rank's ``block``: one all-reduce over the ``model`` axis
+        of a zero-filled full buffer.  ``block`` itself for a table that is
+        not row-sharded."""
+        shard = self._shards.get(path)
+        if shard is None:
+            return block
+        base, stop, vocab, per = shard
+        ax = self._axes
+        out = block.new_zeros((per * ax.n_model,) + tuple(block.shape[1:]))
+        out[base:stop] = block
+        if ax.n_model > 1:
+            dist.all_reduce(out, group=ax.model_group)
+        return out[:vocab]
+
+    def _param_paths(self):
+        """``{state_dict key: JAX path}``."""
+        return {k: jax_path(k) for k, _ in self.named_parameters()}
+
+    def full_state_dict(self):
+        """The ``state_dict`` with every row-sharded table whole (gathered
+        over the ``model`` axis: every rank of the mesh must call it)."""
+        paths = self._param_paths()
+        return {k: self._gather_table(paths.get(k), v.detach())
+                for k, v in self.state_dict().items()}
+
+    def full_shapes(self):
+        """``{state_dict key: shape}`` with row-sharded tables at their full
+        size, as the JAX package's tree and the files hold them."""
+        paths = self._param_paths()
+        out = {}
+        for k, v in self.state_dict().items():
+            shape = tuple(v.shape)
+            shard = self._shards.get(paths.get(k))
+            if shard is not None:
+                shape = (shard[2],) + shape[1:]
+            out[k] = shape
+        return out
 
     @property
     def _hash_feats(self):
@@ -615,9 +740,16 @@ class BaseModel(BaseModule):
             self._dense_opt = DenseOptimizer(self._optimizer_name,
                                              self._learning_rate, dense)
             n_state = _row_update.MODES[self._optimizer_name][1]
+        self._dense_paths = [path for path, _ in self._named_params()
+                             if path not in sparse]
         self._table_state = {
             p: tuple(torch.zeros_like(tables[p]) for _ in range(n_state))
             for p, _, _ in self._sparse_specs}
+        # a row-sharded table on the sparse path takes the exact (psum)
+        # exchange in a train step (inputs.TableHolder)
+        for prefix, holder in self._table_holders():
+            holder._exact = frozenset(p[len(prefix):] for p in sparse
+                                      if p.startswith(prefix))
         self._table_t = {p: 0 for p, _, _ in self._sparse_specs}
         # the step within the steps made ready by _begin_steps, on the
         # device, and adam's bias corrections for those steps
@@ -757,18 +889,14 @@ class BaseModel(BaseModule):
         spans_map = {p: s for p, s in self._table_id_spans().items()
                      if p in tables and p in vocabs}
         if mode == "auto":
-            # rows as the JAX package stores them: a table of >= 131072
-            # rows and width <= 64 packs 128 // width rows into one
+            # rows as the JAX package stores them (inputs.stored_rows)
             def stored(p):
-                v, w = tables[p].shape
-                if v >= _PACKED_VOCAB_THRESHOLD and w <= 64:
-                    return -(-v // (128 // w))
-                return v
+                return stored_rows(vocabs[p], tables[p].shape[1])[0]
             if sum(stored(p) for p in spans_map) < _AUTO_MIN_MODEL_ROWS:
                 return []
             spans_map = {p: s for p, s in spans_map.items()
                          if vocabs[p] >= _AUTO_MIN_TABLE_ROWS}
-        specs = [(p, tuple(map(tuple, spans)), tables[p].shape[0])
+        specs = [(p, tuple(map(tuple, spans)), vocabs[p])
                  for p, spans in sorted(spans_map.items())]
         # a span read by two sparse tables stays dense (the JAX package
         # rewrites each sparse table's id columns in X)
@@ -819,25 +947,46 @@ class BaseModel(BaseModule):
         it): its index arrays and gradient buffers come from the batch
         size's :class:`_StepPlan`, adam's bias corrections from the table
         ``_begin_steps`` uploaded, at the device step counter, which the
-        step advances."""
+        step advances.
+
+        On a mesh the batch is this rank's rows of a global batch, and
+        the step is the global batch's (:meth:`_mesh_step`)."""
         reg, l2_vecs = self._ensure_compiled()
-        plan = self._step_plan(X.shape[0])
+        ax = self._axes
+        B = X.shape[0] * (1 if ax is None else ax.n_data)
+        plan = self._step_plan(B)
         tables = self._tables()
-        touched = _TouchedRows(X, plan) if self._sparse_specs else None
+        touched = None
+        if self._sparse_specs:
+            ids = None
+            if ax is not None and ax.n_data > 1:
+                # the global batch's ids: every rank touches its rows
+                ids = gather_data(X.index_select(1, plan.cols), ax)
+            touched = _TouchedRows(X, plan, ids)
+            if ids is not None:
+                n = X.shape[0]
+                touched.slots = touched.slots[ax.data * n:(ax.data + 1) * n]
         captures = {}
         holders = self._table_holders()
         for prefix, holder in holders:
             holder._capture = captures.setdefault(prefix, [])
         self.aux_loss = None
+        shard = (contextlib.nullcontext() if ax is None else
+                 data_shard(ax.data_group, ax.n_data, ax.data))
         try:
-            with dropout_generator(self._dropout_generator()):
+            with dropout_generator(self._dropout_generator()), shard:
                 y_pred = self(X, training=True)
         finally:
             for _, holder in holders:
                 holder._capture = None
             aux, self.aux_loss = self.aux_loss, None
         data_loss = self._compute_loss(y_pred.float(), y, sw)
-        total = data_loss + self._reg_loss(reg)
+        reg_loss = self._reg_loss(reg)
+        # on a mesh the penalty counts once: on the data axis's first rank
+        # (the gradients are summed over the data axis)
+        total = data_loss
+        if ax is None or ax.data == 0:
+            total = total + reg_loss
         if aux is not None:
             total = total + aux
         for p in self._dense_opt.params:
@@ -848,7 +997,12 @@ class BaseModel(BaseModule):
             tables[path].grad = g.zero_()
         total.backward()
         with torch.no_grad():
+            mesh_report = (ax is not None and ax.n_data * ax.n_model > 1)
+            if mesh_report:   # the penalty's parts, before the update
+                reg_parts = self._reg_parts(reg)
             self._scatter_row_grads(X, captures, touched, plan)
+            if ax is not None and ax.n_data > 1:
+                self._sum_gradients(plan)
             bias = None
             if self._optimizer_name == "adam":
                 if self._bias_table is None:
@@ -860,7 +1014,61 @@ class BaseModel(BaseModule):
             if touched is not None:
                 self._update_touched_rows(tables, touched, l2_vecs, bias)
             self._step_i.add_(1)
+            if mesh_report:
+                return self._mesh_results(data_loss, reg_parts, aux, y_pred,
+                                          B)
         return data_loss.detach(), total.detach(), y_pred.detach()
+
+    def _sum_gradients(self, plan):
+        """Sum the gradients over the mesh's ``data`` axis: the touched
+        rows' buffer, then every dense parameter's (a parameter the step
+        left without one gets zeros) as one flat buffer."""
+        ax = self._axes
+        if self._sparse_specs:
+            dist.all_reduce(plan.grad_flat, group=ax.data_group)
+        params = self._dense_opt.params
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if params:
+            flat = torch.cat([p.grad.reshape(-1) for p in params])
+            dist.all_reduce(flat, group=ax.data_group)
+            off = 0
+            for p in params:
+                n = p.grad.numel()
+                p.grad.copy_(flat[off:off + n].view_as(p.grad))
+                off += n
+
+    def _reg_parts(self, reg):
+        """The eager penalty of the row-sharded tables' blocks and of the
+        other (replicated) parameters."""
+        sharded = {id(self._tables()[p]) for p in self._shards}
+        return (self._reg_loss([e for e in reg if id(e[0]) in sharded]),
+                self._reg_loss([e for e in reg if id(e[0]) not in sharded]))
+
+    def _mesh_results(self, data_loss, reg_parts, aux, y_pred, B):
+        """The global batch's data loss, total loss and predictions on
+        every rank, from one all-reduce over the mesh of a zero-filled
+        buffer: the predictions of the ``model`` axis's first ranks at
+        their rows, each data loss once, the penalty of the replicated
+        parameters once and each rank's block of the row-sharded tables'
+        once (and DIEN's auxiliary term once a data rank)."""
+        ax = self._axes
+        pred = y_pred.detach().float().reshape(y_pred.shape[0], -1)
+        n, n_out = pred.shape
+        reg_shard, reg_rep = reg_parts
+        buf = pred.new_zeros(B * n_out + 3)
+        if ax.model == 0:
+            buf[ax.data * n * n_out:(ax.data + 1) * n * n_out] = \
+                pred.reshape(-1)
+            buf[-3] = data_loss.detach()
+            if aux is not None:
+                buf[-1] = aux.detach()
+        if ax.data == 0:
+            buf[-2] = reg_shard + (reg_rep if ax.model == 0 else 0.0)
+        dist.all_reduce(buf)
+        preds = buf[:-3].view((B,) + tuple(y_pred.shape[1:]))
+        return buf[-3], buf[-3] + buf[-2] + buf[-1], preds
 
     def _touched_rows(self, X):
         """The touched rows of the batch ``X``, as a train step builds
@@ -872,12 +1080,15 @@ class BaseModel(BaseModule):
         a dense table's rows into its gradient, a sparse table's into the
         gradient of its touched rows, at their slots."""
         for prefix, groups in captures.items():
-            for names, cols, rows in groups:
+            for names, cols, rows, kept in groups:
                 if rows.grad is None:
                     continue
+                grad = rows.grad
+                if kept is not None:   # an a2a exchange's dropped ids
+                    grad = grad * kept[..., None].to(grad.dtype)
                 targets, idx, args = self._scatter_targets(
                     X, prefix, names, cols, touched, plan)
-                scatter_add_rows(rows.grad, targets, idx, args)
+                scatter_add_rows(grad, targets, idx, args)
 
     def _scatter_targets(self, X, prefix, names, cols, touched, plan):
         """``scatter_add_rows``' targets, ``[B, F]`` rows and cached
@@ -885,11 +1096,14 @@ class BaseModel(BaseModule):
         ``prefix + names[i]`` at id column ``cols[i]`` (a
         ``VarLenSparseFeat`` is ``maxlen`` fields): the plan's gradient of
         a dense table, viewed as ``[V, W]`` and indexed by id, the touched
-        rows' gradient of a sparse one indexed by slot."""
+        rows' gradient of a sparse one indexed by slot.  A dense row-sharded
+        table's gradient is its block's, indexed by id less the block's
+        first row, and -1 (nothing added) for ids of other blocks."""
         key = (prefix, tuple(names), tuple(cols))
         group = plan.groups.get(key)
         if group is None:
             targets, slot_cols, sparse_fields = [], [], []
+            bases, sizes, blocked = [], [], []
             for name, col in zip(names, cols):
                 path = prefix + name
                 sparse = touched is not None and path in touched.index
@@ -898,28 +1112,43 @@ class BaseModel(BaseModule):
                 targets.append(target)
                 slot_cols.append(touched.col_index[col] if sparse else 0)
                 sparse_fields.append(sparse)
+                shard = None if sparse else self._shards.get(path)
+                bases.append(0 if shard is None else shard[0])
+                sizes.append(0 if shard is None else shard[1] - shard[0])
+                blocked.append(shard is not None)
             device = X.device
-            slots = None
+            slots = blocks = None
             if any(sparse_fields):
                 slots = (device_array(slot_cols, torch.int64, device),
                          device_array(sparse_fields, torch.bool, device))
+            if any(blocked):
+                blocks = (device_array(bases, torch.int64, device),
+                          device_array(sizes, torch.int64, device),
+                          device_array(blocked, torch.bool, device))
             group = (targets, device_array(cols, torch.int64, device), slots,
-                     DeviceArgs())
+                     blocks, DeviceArgs())
             plan.groups[key] = group
-        targets, cols, slots, args = group
+        targets, cols, slots, blocks, args = group
         idx = X.index_select(1, cols).to(torch.int32).to(torch.int64)
+        if blocks is not None:
+            local = idx - blocks[0]
+            inside = (local >= 0) & (local < blocks[1])
+            idx = torch.where(blocks[2], torch.where(inside, local, -1), idx)
         if slots is not None:
             idx = torch.where(slots[1], touched.slots.index_select(1, slots[0]),
                               idx)
         return targets, idx, args
 
     def _update_touched_rows(self, tables, touched, l2_vecs, bias):
-        """One ``row_update`` launch over every sparse table."""
+        """One ``row_update`` launch over every sparse table (on a mesh,
+        over this rank's blocks, at the rows ``parallel.update.
+        shard_local_rows`` gives)."""
         paths = [p for p, _, _ in self._sparse_specs]
+        rows = [shard_local_rows(r, self._shards.get(p))
+                for r, p in zip(touched.rows, paths)]
         row_update(self._optimizer_name, [tables[p] for p in paths],
                    [self._table_state[p] for p in paths], touched.grads,
-                   touched.rows, [l2_vecs[p] for p in paths],
-                   self._learning_rate,
+                   rows, [l2_vecs[p] for p in paths], self._learning_rate,
                    None if bias is None else [bias] * len(paths))
 
     def _check_sparse_ids(self, X):
@@ -1054,8 +1283,19 @@ class BaseModel(BaseModule):
 
         ``profile``: a directory; ``torch.profiler`` traces the whole call
         (host, and the card where the model is on one) and writes its
-        trace there as TensorBoard reads it, stopping in a ``finally``."""
+        trace there as TensorBoard reads it, stopping in a ``finally``.
+
+        On a mesh every rank calls ``fit`` with the same arguments and
+        trains on its rows of each global batch of ``batch_size`` (which
+        the ``data`` axis must divide); the losses, metrics and history are
+        the global batch's, the same on every rank.  Its steps run eagerly:
+        no CUDA graph is captured under a mesh, and the streamed fit raises
+        (``ROADMAP.md`` section 1, item 9b)."""
         if callable(x):
+            if self.mesh is not None:
+                raise NotImplementedError(
+                    "the streamed fit under a mesh is not ported yet "
+                    "(ROADMAP.md section 1, item 9b)")
             def run():
                 return self._fit_stream(x, batch_size, epochs, verbose,
                                         initial_epoch, validation_data,
@@ -1170,8 +1410,9 @@ class BaseModel(BaseModule):
                         idx = np.concatenate([idx, pad])
                     sw = np.zeros(batch_size, np.float32)
                     sw[:n_valid] = 1.0
-                    xb = torch.from_numpy(X[idx]).to(device)
-                    yb = torch.from_numpy(y[idx]).to(device)
+                    rows, sw = self._put_batch(idx, sw)
+                    xb = torch.from_numpy(X[rows]).to(device)
+                    yb = torch.from_numpy(y[rows]).to(device)
                     swb = torch.from_numpy(sw).to(device)
                     _, total_loss, y_pred = self._train_step(xb, yb, swb)
                     total_loss_epoch += float(total_loss)
@@ -1505,7 +1746,7 @@ class BaseModel(BaseModule):
         the card: an optimizer object whose ``step()`` cannot be captured
         (``TorchOptimizer.capturable``)."""
         if (self._device.type == "cuda" and not loop.capturable
-                and not self._eager_step_warned):
+                and self.mesh is None and not self._eager_step_warned):
             self._eager_step_warned = True
             warnings.warn(
                 "%s cannot be captured in a CUDA graph (it needs "
@@ -1566,7 +1807,8 @@ class BaseModel(BaseModule):
         (``basemodel.py:2020-2053``).  On the card each batch is copied
         into a static buffer and replays one captured forward
         (``graphs.ForwardGraph``); the predictions are read back once at
-        the end."""
+        the end.  On a mesh every rank calls it with the same ``x``, runs
+        its rows of each batch eagerly and gets every prediction."""
         device = self._device
         if isinstance(x, torch.Tensor):
             X = x
@@ -1576,7 +1818,7 @@ class BaseModel(BaseModule):
         else:
             X = torch.from_numpy(self._assemble_x(x))
         forward = None
-        if device.type == "cuda":
+        if device.type == "cuda" and self.mesh is None:
             key = self._graph_key("predict", batch_size)
             forward = self._graphs.get(key)
             if forward is None:
@@ -1593,7 +1835,11 @@ class BaseModel(BaseModule):
                 if n < batch_size:
                     xb = torch.cat([xb, xb.new_zeros(batch_size - n,
                                                      xb.shape[1])])
-                outs.append(self(xb, training=False).float()[:n])
+                if self.mesh is None:
+                    outs.append(self(xb, training=False).float()[:n])
+                    continue
+                out = self(self._put_batch(xb), training=False).float()
+                outs.append(gather_data(out, self._axes)[:n])
         out = torch.cat(outs).cpu().numpy().astype("float64")
         if out.ndim == 1:
             out = out[:, None]
@@ -1603,18 +1849,24 @@ class BaseModel(BaseModule):
     # weights
     # ------------------------------------------------------------------
     def get_weights(self):
-        """``{state_dict key: numpy array}``."""
-        return {k: v.detach().cpu().numpy()
-                for k, v in self.state_dict().items()}
+        """``{state_dict key: numpy array}``, row-sharded tables whole
+        (:meth:`full_state_dict`: every rank of the mesh calls it)."""
+        return {k: v.cpu().numpy()
+                for k, v in self.full_state_dict().items()}
 
     def set_weights(self, weights):
         """Load ``{state_dict key: array or tensor}``; every key must match,
-        shape included.  Copies into the existing parameters; a compiled
+        shape included, a row-sharded table's at its full size (this rank
+        keeps its block).  Copies into the existing parameters; a compiled
         model's optimizer state starts afresh, as in the JAX package (an
         optimizer object keeps its own: ``TorchOptimizer``)."""
-        self.load_state_dict({k: v if isinstance(v, torch.Tensor)
-                              else torch.as_tensor(np.array(v))
-                              for k, v in weights.items()}, strict=True)
+        paths = self._param_paths()
+        state = {}
+        for k, v in weights.items():
+            v = v if isinstance(v, torch.Tensor) else torch.as_tensor(
+                np.array(v))
+            state[k] = self._block(paths.get(k), v)
+        self.load_state_dict(state, strict=True)
         if self.optim is not None:
             self._init_optimizer_state()
 

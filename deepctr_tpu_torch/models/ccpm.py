@@ -17,7 +17,7 @@ class CCPM(BaseModel):
     k-max pooling), then a DNN.  Runs on ``device`` (default ``"cuda"``;
     raises where CUDA is absent unless ``device="cpu"``).  Dense deep
     columns raise at the forward, as the JAX model's.
-    ``mesh``/``shard_embeddings`` are not ported yet and raise."""
+    ``mesh`` and ``shard_embeddings`` run it over ranks (``parallel/``)."""
 
     def __init__(self, linear_feature_columns, dnn_feature_columns,
                  conv_kernel_width=(6, 5), conv_filters=(4, 4),
@@ -27,8 +27,6 @@ class CCPM(BaseModel):
                  dnn_use_bn=False, dnn_activation="relu", gpus=None,
                  mesh=None, shard_embeddings=False):
         self._capture_init_args(locals())
-        if mesh is not None or shard_embeddings:
-            raise NotImplementedError("sharded models are not ported yet")
         if len(conv_kernel_width) != len(conv_filters):
             raise ValueError(
                 "conv_kernel_width must have same element with conv_filters")
@@ -36,7 +34,8 @@ class CCPM(BaseModel):
                          l2_reg_linear=l2_reg_linear,
                          l2_reg_embedding=l2_reg_embedding,
                          init_std=init_std, seed=seed, task=task,
-                         device=device, gpus=gpus)
+                         device=device, gpus=gpus, mesh=mesh,
+                         shard_embeddings=shard_embeddings)
         generator = self._init_generator
         device = generator.device
         filed_size = self.compute_input_dim(

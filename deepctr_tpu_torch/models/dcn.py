@@ -15,8 +15,8 @@ class DCN(BaseModel):
     """Instantiates the DCN (``cross_parameterization="vector"``) or DCN-M
     (``"matrix"``) architecture, with the JAX package's constructor.  Runs
     on ``device`` (default ``"cuda"``; raises where CUDA is absent unless
-    ``device="cpu"``).  ``mesh``/``shard_embeddings`` are not ported yet
-    and raise."""
+    ``device="cpu"``).
+    ``mesh`` and ``shard_embeddings`` run it over ranks (``parallel/``)."""
 
     def __init__(self, linear_feature_columns, dnn_feature_columns,
                  cross_num=2, cross_parameterization="vector",
@@ -26,13 +26,12 @@ class DCN(BaseModel):
                  dnn_activation="relu", dnn_use_bn=False, task="binary",
                  device=None, gpus=None, mesh=None, shard_embeddings=False):
         self._capture_init_args(locals())
-        if mesh is not None or shard_embeddings:
-            raise NotImplementedError("sharded models are not ported yet")
         super().__init__(linear_feature_columns, dnn_feature_columns,
                          l2_reg_linear=l2_reg_linear,
                          l2_reg_embedding=l2_reg_embedding,
                          init_std=init_std, seed=seed, task=task,
-                         device=device, gpus=gpus)
+                         device=device, gpus=gpus, mesh=mesh,
+                         shard_embeddings=shard_embeddings)
         self._build_towers(
             cross_num, lambda n, **kw: CrossNet(
                 n, cross_num, cross_parameterization, **kw),

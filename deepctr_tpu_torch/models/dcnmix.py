@@ -12,8 +12,8 @@ class DCNMix(DCN):
     """Instantiates the DCN-Mix architecture, with the JAX package's
     constructor: DCN's model with ``CrossNetMix`` as its cross network.
     Runs on ``device`` (default ``"cuda"``; raises where CUDA is absent
-    unless ``device="cpu"``).  ``mesh``/``shard_embeddings`` are not ported
-    yet and raise."""
+    unless ``device="cpu"``).  ``mesh`` and ``shard_embeddings`` run it over
+    ranks (``parallel/``)."""
 
     def __init__(self, linear_feature_columns, dnn_feature_columns,
                  cross_num=2, dnn_hidden_units=(128, 128), l2_reg_linear=1e-5,
@@ -23,13 +23,12 @@ class DCNMix(DCN):
                  task="binary", device=None, gpus=None, mesh=None,
                  shard_embeddings=False):
         self._capture_init_args(locals())
-        if mesh is not None or shard_embeddings:
-            raise NotImplementedError("sharded models are not ported yet")
         BaseModel.__init__(self, linear_feature_columns, dnn_feature_columns,
                            l2_reg_linear=l2_reg_linear,
                            l2_reg_embedding=l2_reg_embedding,
                            init_std=init_std, seed=seed, task=task,
-                           device=device, gpus=gpus)
+                           device=device, gpus=gpus, mesh=mesh,
+                           shard_embeddings=shard_embeddings)
         self._build_towers(
             cross_num, lambda n, **kw: CrossNetMix(
                 n, low_rank, num_experts, cross_num, **kw),

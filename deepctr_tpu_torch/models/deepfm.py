@@ -14,8 +14,8 @@ from ..layers.core import _dense
 class DeepFM(BaseModel):
     """Instantiates the DeepFM architecture, with the JAX package's
     constructor.  Runs on ``device`` (default ``"cuda"``; raises where CUDA
-    is absent unless ``device="cpu"``).  ``mesh``/``shard_embeddings``
-    are not ported yet and raise."""
+    is absent unless ``device="cpu"``).  ``mesh`` and
+    ``shard_embeddings`` run it over ranks (``parallel/``)."""
 
     def __init__(self, linear_feature_columns, dnn_feature_columns,
                  use_fm=True, dnn_hidden_units=(256, 128), l2_reg_linear=1e-5,
@@ -24,13 +24,12 @@ class DeepFM(BaseModel):
                  dnn_use_bn=False, task="binary", device=None, gpus=None,
                  mesh=None, shard_embeddings=False):
         self._capture_init_args(locals())
-        if mesh is not None or shard_embeddings:
-            raise NotImplementedError("sharded models are not ported yet")
         super().__init__(linear_feature_columns, dnn_feature_columns,
                          l2_reg_linear=l2_reg_linear,
                          l2_reg_embedding=l2_reg_embedding,
                          init_std=init_std, seed=seed, task=task,
-                         device=device, gpus=gpus)
+                         device=device, gpus=gpus, mesh=mesh,
+                         shard_embeddings=shard_embeddings)
         generator = self._init_generator
         device = generator.device
         self.use_fm = use_fm

@@ -20,6 +20,7 @@ from ..inputs import (combined_dnn_input, embedding_lookup, get_dense_input,
                       maxlen_lookup)
 from ..layers import DNN
 from ..layers.core import _dense
+from ..parallel import context
 from ..layers.sequence import (AttentionSequencePoolingLayer, DynamicGRU,
                                MaskedGRU)
 
@@ -70,7 +71,10 @@ class InterestExtractor(nn.Module):
         click_p = torch.clamp(click_p.float(), eps, 1 - eps)
         noclick_p = torch.clamp(noclick_p.float(), eps, 1 - eps)
         losses = -(torch.log(click_p) + torch.log(1.0 - noclick_p)) * mask
-        denom = 2.0 * torch.clamp_min(torch.sum(mask), 1.0)
+        # on a mesh the global batch's count of pairs, so that the ranks'
+        # terms sum to the one rank's mean
+        denom = 2.0 * torch.clamp_min(context.data_sum(torch.sum(mask)),
+                                      1.0)
         return torch.sum(losses) / denom
 
 
@@ -128,8 +132,8 @@ class InterestEvolving(nn.Module):
 class DIEN(BaseModel):
     """Instantiates DIEN with the JAX package's constructor.  Runs on
     ``device`` (default ``"cuda"``); ``predict``, ``fit`` and ``evaluate``,
-    the auxiliary loss weighed by ``alpha``.  ``mesh``/``shard_embeddings``
-    are not ported yet and raise."""
+    the auxiliary loss weighed by ``alpha``.  ``mesh`` and
+    ``shard_embeddings`` run it over ranks (``parallel/``)."""
 
     def __init__(self, dnn_feature_columns, history_feature_list,
                  gru_type="GRU", use_negsampling=False, alpha=1.0,
@@ -140,12 +144,11 @@ class DIEN(BaseModel):
                  init_std=1e-4, seed=1024, task="binary", device=None,
                  gpus=None, mesh=None, shard_embeddings=False):
         self._capture_init_args(locals())
-        if mesh is not None or shard_embeddings:
-            raise NotImplementedError("sharded models are not ported yet")
         super().__init__([], dnn_feature_columns, l2_reg_linear=0,
                          l2_reg_embedding=l2_reg_embedding,
                          init_std=init_std, seed=seed, task=task,
-                         device=device, gpus=gpus)
+                         device=device, gpus=gpus, mesh=mesh,
+                         shard_embeddings=shard_embeddings)
         generator = self._init_generator
         device = generator.device
         cols = self.dnn_feature_columns

@@ -17,8 +17,8 @@ from ..layers.core import _dense
 class DIFM(BaseModel):
     """Instantiates the DIFM architecture, with the JAX package's
     constructor.  Runs on ``device`` (default ``"cuda"``; raises where CUDA
-    is absent unless ``device="cpu"``).  ``mesh``/``shard_embeddings`` are
-    not ported yet and raise."""
+    is absent unless ``device="cpu"``).  ``mesh`` and ``shard_embeddings`` run
+    it over ranks (``parallel/``)."""
 
     def __init__(self, linear_feature_columns, dnn_feature_columns,
                  att_head_num=4, att_res=True, dnn_hidden_units=(256, 128),
@@ -27,15 +27,14 @@ class DIFM(BaseModel):
                  dnn_activation="relu", dnn_use_bn=False, task="binary",
                  device=None, gpus=None, mesh=None, shard_embeddings=False):
         self._capture_init_args(locals())
-        if mesh is not None or shard_embeddings:
-            raise NotImplementedError("sharded models are not ported yet")
         if not len(dnn_hidden_units) > 0:
             raise ValueError("dnn_hidden_units is null!")
         super().__init__(linear_feature_columns, dnn_feature_columns,
                          l2_reg_linear=l2_reg_linear,
                          l2_reg_embedding=l2_reg_embedding,
                          init_std=init_std, seed=seed, task=task,
-                         device=device, gpus=gpus)
+                         device=device, gpus=gpus, mesh=mesh,
+                         shard_embeddings=shard_embeddings)
         generator = self._init_generator
         device = generator.device
         embedding_size = self.embedding_size

@@ -23,8 +23,8 @@ class DIN(BaseModel):
     """Instantiates DIN with the JAX package's constructor.  Runs on
     ``device`` (default ``"cuda"``); ``predict``, ``fit`` and ``evaluate``
     (a training forward runs Dice, the default attention activation, on
-    its batch statistics).  ``mesh``/``shard_embeddings`` are not ported
-    yet and raise."""
+    its batch statistics).  ``mesh`` and ``shard_embeddings`` run it over
+    ranks (``parallel/``)."""
 
     def __init__(self, dnn_feature_columns, history_feature_list,
                  dnn_use_bn=False, dnn_hidden_units=(256, 128),
@@ -34,12 +34,11 @@ class DIN(BaseModel):
                  init_std=1e-4, seed=1024, task="binary", device=None,
                  gpus=None, mesh=None, shard_embeddings=False):
         self._capture_init_args(locals())
-        if mesh is not None or shard_embeddings:
-            raise NotImplementedError("sharded models are not ported yet")
         super().__init__([], dnn_feature_columns, l2_reg_linear=0,
                          l2_reg_embedding=l2_reg_embedding,
                          init_std=init_std, seed=seed, task=task,
-                         device=device, gpus=gpus)
+                         device=device, gpus=gpus, mesh=mesh,
+                         shard_embeddings=shard_embeddings)
         generator = self._init_generator
         device = generator.device
         cols = self.dnn_feature_columns

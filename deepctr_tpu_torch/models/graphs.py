@@ -142,9 +142,10 @@ class StepGraph:
         into ``losses[i]`` and its predictions at their samples."""
         i = self.model._step_i.clone()
         idx = self.perm.view(self.steps, self.B).index_select(0, i).view(-1)
+        rows = self.model._put_batch(idx)   # on a mesh, this rank's rows
         _, total, y_pred = self.model._train_step(
-            self.X.index_select(0, idx), self.y.index_select(0, idx),
-            self.sw.index_select(0, idx))
+            self.X.index_select(0, rows), self.y.index_select(0, rows),
+            self.sw.index_select(0, rows))
         self.losses.index_copy_(0, i, total.view(1))
         if self.preds is not None:
             self.preds.index_copy_(0, idx,
@@ -170,13 +171,15 @@ class StepGraph:
     def run(self):
         """``steps`` steps over the loaded data, made ready beforehand
         (the step counter at 0): graph replays on the card, after a
-        capture whose warm-up is the first step; eager steps on the CPU
-        and for an optimizer that cannot be captured.  Returns the
+        capture whose warm-up is the first step; eager steps on the CPU,
+        on a mesh (its collectives are not captured) and for an optimizer
+        that cannot be captured.  Returns the
         per-step losses, still on the device, which the next run
         overwrites."""
         m = self.model
         first = 0
-        if self.X.device.type != "cuda" or not self.capturable:
+        if (self.X.device.type != "cuda" or not self.capturable
+                or m.mesh is not None):
             for _ in range(self.steps):
                 self.step()
             return self.losses

@@ -27,16 +27,14 @@ class MLR(BaseModel):
     hold nothing here.  The engine's default L2 rules name
     ``embedding_dict/`` and ``linear_model/``, which none of these paths
     match, so ``l2_reg_linear`` takes no effect, as in the JAX package
-    (ROADMAP.md section 3).  ``mesh``/``shard_embeddings`` are not ported
-    yet and raise."""
+    (ROADMAP.md section 3).  ``mesh`` and ``shard_embeddings`` run it over
+    ranks (``parallel/``)."""
 
     def __init__(self, region_feature_columns, base_feature_columns=None,
                  bias_feature_columns=None, region_num=4, l2_reg_linear=1e-5,
                  init_std=1e-4, seed=1024, task="binary", device=None,
                  gpus=None, mesh=None, shard_embeddings=False):
         self._capture_init_args(locals())
-        if mesh is not None or shard_embeddings:
-            raise NotImplementedError("sharded models are not ported yet")
         if region_num <= 1:
             raise ValueError("region_num must > 1")
         region_feature_columns = list(region_feature_columns)
@@ -49,7 +47,8 @@ class MLR(BaseModel):
                        + bias_feature_columns)
         super().__init__([], [], l2_reg_linear=l2_reg_linear,
                          l2_reg_embedding=0, init_std=init_std, seed=seed,
-                         task=task, device=device, gpus=gpus)
+                         task=task, device=device, gpus=gpus, mesh=mesh,
+                         shard_embeddings=shard_embeddings)
         # the engine's feature_index covers region, base and bias spans,
         # as the JAX model's (all columns as its linear columns)
         self.linear_feature_columns = all_columns

@@ -19,8 +19,8 @@ class ESMM(BaseModel):
     with its head (``ctr_final``, ``cvr_final``), both through the one
     prediction layer ``out``; ``predict`` gives [N, 2], the CTR and the
     CTCVR.  Runs on ``device`` (default ``"cuda"``; raises where CUDA is
-    absent unless ``device="cpu"``).  ``mesh``/``shard_embeddings`` are
-    not ported yet and raise."""
+    absent unless ``device="cpu"``).  ``mesh`` and ``shard_embeddings`` run
+    it over ranks (``parallel/``)."""
 
     def __init__(self, dnn_feature_columns, tower_dnn_hidden_units=(256, 128),
                  l2_reg_linear=1e-5, l2_reg_embedding=1e-5, l2_reg_dnn=0,
@@ -30,8 +30,6 @@ class ESMM(BaseModel):
                  task_names=("ctr", "ctcvr"), device=None, gpus=None,
                  mesh=None, shard_embeddings=False):
         self._capture_init_args(locals())
-        if mesh is not None or shard_embeddings:
-            raise NotImplementedError("sharded models are not ported yet")
         num_tasks = validate_tasks(task_types, task_names,
                                    dnn_feature_columns, exactly_two=True,
                                    binary_only=True)
@@ -39,7 +37,8 @@ class ESMM(BaseModel):
                          l2_reg_linear=l2_reg_linear,
                          l2_reg_embedding=l2_reg_embedding,
                          init_std=init_std, seed=seed, task="binary",
-                         device=device, gpus=gpus)
+                         device=device, gpus=gpus, mesh=mesh,
+                         shard_embeddings=shard_embeddings)
         self.num_tasks = num_tasks
         self.task_names = list(task_names)
         generator = self._init_generator

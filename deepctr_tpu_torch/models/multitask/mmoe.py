@@ -21,7 +21,7 @@ class MMOE(BaseModel):
     [N, n_tasks].  Runs on ``device`` (default ``"cuda"``; raises where
     CUDA is absent unless ``device="cpu"``).  Dropout draws one mask over
     every expert's values, from the model's generator: not JAX's bits.
-    ``mesh``/``shard_embeddings`` are not ported yet and raise."""
+    ``mesh`` and ``shard_embeddings`` run it over ranks (``parallel/``)."""
 
     def __init__(self, dnn_feature_columns, num_experts=3,
                  expert_dnn_hidden_units=(256, 128),
@@ -33,8 +33,6 @@ class MMOE(BaseModel):
                  task_names=("ctr", "ctcvr"), device=None, gpus=None,
                  mesh=None, shard_embeddings=False):
         self._capture_init_args(locals())
-        if mesh is not None or shard_embeddings:
-            raise NotImplementedError("sharded models are not ported yet")
         num_tasks = validate_tasks(task_types, task_names,
                                    dnn_feature_columns)
         if num_experts <= 1:
@@ -43,7 +41,8 @@ class MMOE(BaseModel):
                          l2_reg_linear=l2_reg_linear,
                          l2_reg_embedding=l2_reg_embedding,
                          init_std=init_std, seed=seed, task=task_types[0],
-                         device=device, gpus=gpus)
+                         device=device, gpus=gpus, mesh=mesh,
+                         shard_embeddings=shard_embeddings)
         self.out = None
         self.num_tasks = num_tasks
         self.task_names = list(task_names)

@@ -25,8 +25,8 @@ class PLE(BaseModel):
     experts, the shared gate all of them (``deepctr_tpu/models/multitask/
     ple.py:86-115``).  ``predict`` gives [N, n_tasks].  Runs on ``device``
     (default ``"cuda"``; raises where CUDA is absent unless
-    ``device="cpu"``).  ``mesh``/``shard_embeddings`` are not ported yet
-    and raise."""
+    ``device="cpu"``).
+    ``mesh`` and ``shard_embeddings`` run it over ranks (``parallel/``)."""
 
     def __init__(self, dnn_feature_columns, shared_expert_num=1,
                  specific_expert_num=1, num_levels=2,
@@ -39,15 +39,14 @@ class PLE(BaseModel):
                  task_names=("ctr", "ctcvr"), device=None, gpus=None,
                  mesh=None, shard_embeddings=False):
         self._capture_init_args(locals())
-        if mesh is not None or shard_embeddings:
-            raise NotImplementedError("sharded models are not ported yet")
         num_tasks = validate_tasks(task_types, task_names,
                                    dnn_feature_columns)
         super().__init__([], dnn_feature_columns,
                          l2_reg_linear=l2_reg_linear,
                          l2_reg_embedding=l2_reg_embedding,
                          init_std=init_std, seed=seed, task=task_types[0],
-                         device=device, gpus=gpus)
+                         device=device, gpus=gpus, mesh=mesh,
+                         shard_embeddings=shard_embeddings)
         self.out = None
         self.num_tasks = num_tasks
         self.task_names = list(task_names)

@@ -15,7 +15,7 @@ class SharedBottom(BaseModel):
     constructor: ``predict`` gives [N, n_tasks], one column a task, each
     task's loss from ``compile``'s list.  Runs on ``device`` (default
     ``"cuda"``; raises where CUDA is absent unless ``device="cpu"``).
-    ``mesh``/``shard_embeddings`` are not ported yet and raise."""
+    ``mesh`` and ``shard_embeddings`` run it over ranks (``parallel/``)."""
 
     def __init__(self, dnn_feature_columns, bottom_dnn_hidden_units=(256, 128),
                  tower_dnn_hidden_units=(64,), l2_reg_linear=1e-5,
@@ -25,15 +25,14 @@ class SharedBottom(BaseModel):
                  task_names=("ctr", "ctcvr"), device=None, gpus=None,
                  mesh=None, shard_embeddings=False):
         self._capture_init_args(locals())
-        if mesh is not None or shard_embeddings:
-            raise NotImplementedError("sharded models are not ported yet")
         num_tasks = validate_tasks(task_types, task_names,
                                    dnn_feature_columns)
         super().__init__([], dnn_feature_columns,
                          l2_reg_linear=l2_reg_linear,
                          l2_reg_embedding=l2_reg_embedding,
                          init_std=init_std, seed=seed, task=task_types[0],
-                         device=device, gpus=gpus)
+                         device=device, gpus=gpus, mesh=mesh,
+                         shard_embeddings=shard_embeddings)
         self.out = None
         self.num_tasks = num_tasks
         self.task_names = list(task_names)

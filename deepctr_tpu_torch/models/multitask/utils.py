@@ -84,7 +84,7 @@ class StackedDNN(nn.Module):
         self.act = activation_layer(activation)
         self.hidden_units = tuple(hidden_units)
         self.use_bn = use_bn
-        self.dropout = Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate, batch_axis=1)  # [num, B, u]
         dims = (inputs_dim,) + self.hidden_units
         for i, units in enumerate(self.hidden_units):
             self.add_module("dense_%d" % i, StackedDense(

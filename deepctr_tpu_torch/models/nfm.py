@@ -16,8 +16,8 @@ class NFM(BaseModel):
     constructor.  Runs on ``device`` (default ``"cuda"``; raises where CUDA
     is absent unless ``device="cpu"``).  ``bi_dropout`` drops values of
     the bi-interaction in training, as ``dnn_dropout`` does after each DNN
-    layer (``layers.core.Dropout``).  ``mesh``/``shard_embeddings`` are not
-    ported yet and raise."""
+    layer (``layers.core.Dropout``).  ``mesh`` and ``shard_embeddings`` run it
+    over ranks (``parallel/``)."""
 
     def __init__(self, linear_feature_columns, dnn_feature_columns,
                  dnn_hidden_units=(128, 128), l2_reg_embedding=1e-5,
@@ -26,13 +26,12 @@ class NFM(BaseModel):
                  task="binary", device=None, gpus=None, mesh=None,
                  shard_embeddings=False):
         self._capture_init_args(locals())
-        if mesh is not None or shard_embeddings:
-            raise NotImplementedError("sharded models are not ported yet")
         super().__init__(linear_feature_columns, dnn_feature_columns,
                          l2_reg_linear=l2_reg_linear,
                          l2_reg_embedding=l2_reg_embedding,
                          init_std=init_std, seed=seed, task=task,
-                         device=device, gpus=gpus)
+                         device=device, gpus=gpus, mesh=mesh,
+                         shard_embeddings=shard_embeddings)
         generator = self._init_generator
         device = generator.device
         # the DNN reads the [B, 1, E] bi-interaction and the dense values

@@ -78,8 +78,8 @@ class ONN(BaseModel):
     keeps the shared ``embedding_dict``, as the JAX model does: its logit
     reads only their wide column, but L2 reaches the deep columns too.  The
     pair tables are dense parameters (``second_order_embedding/<name>``),
-    never on the sparse path.  ``mesh``/``shard_embeddings`` are not ported
-    yet and raise."""
+    never on the sparse path.  ``mesh`` and ``shard_embeddings`` run it over
+    ranks (``parallel/``)."""
 
     def __init__(self, linear_feature_columns, dnn_feature_columns,
                  dnn_hidden_units=(128, 128), l2_reg_embedding=1e-5,
@@ -88,13 +88,12 @@ class ONN(BaseModel):
                  dnn_activation="relu", task="binary", device=None, gpus=None,
                  mesh=None, shard_embeddings=False):
         self._capture_init_args(locals())
-        if mesh is not None or shard_embeddings:
-            raise NotImplementedError("sharded models are not ported yet")
         super().__init__(linear_feature_columns, dnn_feature_columns,
                          l2_reg_linear=l2_reg_linear,
                          l2_reg_embedding=l2_reg_embedding,
                          init_std=init_std, seed=seed, task=task,
-                         device=device, gpus=gpus)
+                         device=device, gpus=gpus, mesh=mesh,
+                         shard_embeddings=shard_embeddings)
         generator = self._init_generator
         device = generator.device
         sparse_feats = [f for f in self.dnn_feature_columns

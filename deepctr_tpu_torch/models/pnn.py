@@ -16,8 +16,8 @@ class PNN(BaseModel):
     """Instantiates the PNN architecture, with the JAX package's
     constructor (``dnn_feature_columns`` only).  Runs on ``device``
     (default ``"cuda"``; raises where CUDA is absent unless
-    ``device="cpu"``).  ``mesh``/``shard_embeddings`` are not ported yet
-    and raise."""
+    ``device="cpu"``).
+    ``mesh`` and ``shard_embeddings`` run it over ranks (``parallel/``)."""
 
     def __init__(self, dnn_feature_columns, dnn_hidden_units=(128, 128),
                  l2_reg_embedding=1e-5, l2_reg_dnn=0, init_std=1e-4,
@@ -26,14 +26,13 @@ class PNN(BaseModel):
                  task="binary", device=None, gpus=None, mesh=None,
                  shard_embeddings=False):
         self._capture_init_args(locals())
-        if mesh is not None or shard_embeddings:
-            raise NotImplementedError("sharded models are not ported yet")
         if kernel_type not in ("mat", "vec", "num"):
             raise ValueError("kernel_type must be mat,vec or num")
         super().__init__([], dnn_feature_columns, l2_reg_linear=0,
                          l2_reg_embedding=l2_reg_embedding,
                          init_std=init_std, seed=seed, task=task,
-                         device=device, gpus=gpus)
+                         device=device, gpus=gpus, mesh=mesh,
+                         shard_embeddings=shard_embeddings)
         generator = self._init_generator
         device = generator.device
         self.use_inner = use_inner

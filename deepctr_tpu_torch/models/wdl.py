@@ -12,8 +12,8 @@ from ..layers.core import _dense
 class WDL(BaseModel):
     """Instantiates the Wide & Deep architecture, with the JAX package's
     constructor.  Runs on ``device`` (default ``"cuda"``; raises where CUDA
-    is absent unless ``device="cpu"``).  ``mesh``/``shard_embeddings``
-    are not ported yet and raise."""
+    is absent unless ``device="cpu"``).  ``mesh`` and
+    ``shard_embeddings`` run it over ranks (``parallel/``)."""
 
     def __init__(self, linear_feature_columns, dnn_feature_columns,
                  dnn_hidden_units=(256, 128), l2_reg_linear=1e-5,
@@ -22,13 +22,12 @@ class WDL(BaseModel):
                  dnn_use_bn=False, task="binary", device=None, gpus=None,
                  mesh=None, shard_embeddings=False):
         self._capture_init_args(locals())
-        if mesh is not None or shard_embeddings:
-            raise NotImplementedError("sharded models are not ported yet")
         super().__init__(linear_feature_columns, dnn_feature_columns,
                          l2_reg_linear=l2_reg_linear,
                          l2_reg_embedding=l2_reg_embedding,
                          init_std=init_std, seed=seed, task=task,
-                         device=device, gpus=gpus)
+                         device=device, gpus=gpus, mesh=mesh,
+                         shard_embeddings=shard_embeddings)
         generator = self._init_generator
         device = generator.device
         self.use_dnn = (len(self.dnn_feature_columns) > 0 and

@@ -24,8 +24,8 @@ class xDeepFM(BaseModel):
     constructor.  Runs on ``device`` (default ``"cuda"``; raises where CUDA
     is absent unless ``device="cpu"``).  On CUDA every CIN layer runs the
     kernel of ``ops/cin.py``, in training too, in the mode of
-    ``config.set_cin_dtype`` at bfloat16 compute.  ``mesh``/
-    ``shard_embeddings`` are not ported yet and raise."""
+    ``config.set_cin_dtype`` at bfloat16 compute.  ``mesh`` and
+    ``shard_embeddings`` run it over ranks (``parallel/``)."""
 
     def __init__(self, linear_feature_columns, dnn_feature_columns,
                  dnn_hidden_units=(256, 256), cin_layer_size=(256, 128),
@@ -35,13 +35,12 @@ class xDeepFM(BaseModel):
                  dnn_activation="relu", dnn_use_bn=False, task="binary",
                  device=None, gpus=None, mesh=None, shard_embeddings=False):
         self._capture_init_args(locals())
-        if mesh is not None or shard_embeddings:
-            raise NotImplementedError("sharded models are not ported yet")
         super().__init__(linear_feature_columns, dnn_feature_columns,
                          l2_reg_linear=l2_reg_linear,
                          l2_reg_embedding=l2_reg_embedding,
                          init_std=init_std, seed=seed, task=task,
-                         device=device, gpus=gpus)
+                         device=device, gpus=gpus, mesh=mesh,
+                         shard_embeddings=shard_embeddings)
         generator = self._init_generator
         device = generator.device
         self.use_dnn = (len(self.dnn_feature_columns) > 0 and

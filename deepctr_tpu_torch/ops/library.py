@@ -33,22 +33,24 @@ from . import attention, cin, gather, gru
 _NS = "deepctr_tpu_torch::"
 
 
-# gather_rows: X [B, D] f32, tables F x [V_f, W] f32, cols [F] -> [B, F, W]
+# gather_rows: X [B, D] f32, tables F x [V_f, W] f32, cols [F], row bases
+# [F] or None (the shard-local mode) -> [B, F, W]
 
 @torch.library.custom_op(_NS + "gather_rows", mutates_args=(),
                          device_types="cuda")
 def gather_rows(X: torch.Tensor, tables: List[torch.Tensor],
-                cols: List[int]) -> torch.Tensor:
-    return gather.launch(X, tables, cols)
+                cols: List[int],
+                bases: Optional[List[int]] = None) -> torch.Tensor:
+    return gather.launch(X, tables, cols, bases)
 
 
 @gather_rows.register_kernel("cpu")
-def _(X, tables, cols):
-    return gather.gather_rows_ref(X, tables, cols)
+def _(X, tables, cols, bases=None):
+    return gather.gather_rows_ref(X, tables, cols, bases)
 
 
 @gather_rows.register_fake
-def _(X, tables, cols):
+def _(X, tables, cols, bases=None):
     return X.new_empty(X.shape[0], len(tables), tables[0].shape[1])
 
 

@@ -80,7 +80,13 @@ def export_predict(model, batch_size=None):
     The weights are copied into the artifact at export: training the model
     afterwards does not change it.  ``batch_size=None`` exports a symbolic
     batch dimension (any batch size at call time); an int fixes the shape.
-    Raises ``ValueError`` for a model with no input features."""
+    Raises ``ValueError`` for a model with no input features, and
+    ``NotImplementedError`` for a model on a mesh (ROADMAP.md section 1,
+    item 9b)."""
+    if getattr(model, "mesh", None) is not None:
+        raise NotImplementedError("exporting a model on a mesh is not "
+                                  "ported yet (ROADMAP.md section 1, item "
+                                  "9b)")
     if model.input_dim == 0:
         raise ValueError("model has no input features")
     example = torch.zeros(batch_size or _TRACE_BATCH, model.input_dim,

@@ -160,9 +160,10 @@ def jax_to_state_dict(weights, target_shapes):
 
 def load_jax_weights(model, weights):
     """Load the JAX package's parameter tree into the port's ``model``;
-    returns the ``{port key: numpy array}`` it loaded."""
-    state = jax_to_state_dict(
-        weights, {k: tuple(v.shape) for k, v in model.state_dict().items()})
+    returns the ``{port key: numpy array}`` it loaded.  A model on a mesh
+    loads the full tree and each rank keeps its block of the row-sharded
+    tables (``BaseModel.set_weights``)."""
+    state = jax_to_state_dict(weights, model.full_shapes())
     model.set_weights(state)
     return state
 

@@ -22,17 +22,36 @@ constructor arguments, and ``load_model`` loads it with
   count (``_table_state``, ``_table_t``), for an exact resume.  A saved
   state whose layout (tensor count or shapes) differs from the compiled
   model's raises ``ValueError``: it is never reinterpreted.
+
+On a mesh (``parallel/``) every rank calls these.  The saves gather each
+row-sharded table, and its optimizer state, over the mesh's ``model`` axis
+and rank 0 writes a file equal to the one rank's run; the loads read the
+full tensors and each rank keeps its block.
 """
 
 import os
 
 import torch
+import torch.distributed as dist
 
 CHECKPOINT_FILE = "checkpoint.pt"
 
 
 def _cpu_weights(model):
-    return {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    return {k: v.cpu() for k, v in model.full_state_dict().items()}
+
+
+def _writes(model):
+    """Whether this process writes ``model``'s files: always, but on a
+    mesh only rank 0 does."""
+    return model.mesh is None or dist.get_rank() == 0
+
+
+def _check_optimizer_object(model):
+    if model._optimizer_name is None and model._shards:
+        raise NotImplementedError(
+            "the state of a torch.optim optimizer over row-sharded tables "
+            "is not checkpointed yet (ROADMAP.md section 1, item 9b)")
 
 
 def _cpu(tensors):
@@ -49,7 +68,9 @@ def _save(payload, path):
 
 
 def save_weights(model, path):
-    _save(_cpu_weights(model), path)
+    weights = _cpu_weights(model)
+    if _writes(model):
+        _save(weights, path)
 
 
 def load_weights(model, path):
@@ -59,8 +80,11 @@ def load_weights(model, path):
 
 
 def save_model(model, path):
-    _save({"model_class": type(model), "init_kwargs": model._init_kwargs,
-           "weights": _cpu_weights(model), "version": 1}, path)
+    weights = _cpu_weights(model)
+    if _writes(model):
+        _save({"model_class": type(model),
+               "init_kwargs": model._init_kwargs, "weights": weights,
+               "version": 1}, path)
 
 
 def load_model(path):
@@ -74,10 +98,11 @@ def load_model(path):
 
 
 def _optimizer_payload(model):
+    _check_optimizer_object(model)
     opt = model._dense_opt
     out = {"name": model._optimizer_name or type(model.optim).__name__,
            "learning_rate": model._learning_rate, "count": opt.count,
-           "table_state": {p: _cpu(st)
+           "table_state": {p: _cpu(model._gather_table(p, t) for t in st)
                            for p, st in model._table_state.items()},
            "table_t": dict(model._table_t)}
     if model._optimizer_name is None:
@@ -89,7 +114,9 @@ def _optimizer_payload(model):
                       for i, st in state["state"].items()},
             "param_groups": state["param_groups"]}
     else:
-        out["dense_state"] = [_cpu(st) for st in opt.state]
+        out["dense_state"] = [_cpu(model._gather_table(p, t) for t in st)
+                              for p, st in zip(model._dense_paths,
+                                               opt.state)]
     return out
 
 
@@ -97,11 +124,12 @@ def save_checkpoint(model, directory, include_optimizer=True):
     """Write the train state of ``model`` into ``directory`` (made if
     missing): its weights and, with ``include_optimizer`` and a compiled
     model, its optimizer state."""
-    os.makedirs(directory, exist_ok=True)
     payload = {"version": 1, "weights": _cpu_weights(model)}
     if include_optimizer and getattr(model, "optim", None) is not None:
         payload["optimizer"] = _optimizer_payload(model)
-    _save(payload, os.path.join(directory, CHECKPOINT_FILE))
+    if _writes(model):
+        os.makedirs(directory, exist_ok=True)
+        _save(payload, os.path.join(directory, CHECKPOINT_FILE))
 
 
 def load_checkpoint(model, directory):
@@ -121,10 +149,14 @@ def load_checkpoint(model, directory):
                          "model's %r" % (saved["name"], name))
     opt = model._dense_opt
     if model._optimizer_name is None:
+        _check_optimizer_object(model)
         _restore_torch_state(model.optim, saved["torch_state"])
     else:
         _restore_like([t for st in opt.state for t in st],
-                      [t for st in saved["dense_state"] for t in st],
+                      [model._block(p, t)
+                       for p, st in zip(model._dense_paths,
+                                        saved["dense_state"])
+                       for t in st],
                       "dense optimizer state")
     paths = sorted(model._table_state)
     if sorted(saved["table_state"]) != paths:
@@ -135,7 +167,8 @@ def load_checkpoint(model, directory):
             "configuration it was saved with."
             % (paths, sorted(saved["table_state"])))
     _restore_like([t for p in paths for t in model._table_state[p]],
-                  [t for p in paths for t in saved["table_state"][p]],
+                  [model._block(p, t) for p in paths
+                   for t in saved["table_state"][p]],
                   "table_state")
     opt.count = saved["count"]
     model._table_t = {p: int(saved["table_t"][p]) for p in paths}

@@ -281,8 +281,10 @@ def test_not_yet_ported_options_raise():
     hashed = [pt.SparseFeat("h", 10, 4, use_hash=True)]
     model = PDeepFM(hashed, hashed, device="cpu")
     assert model.predict({"h": np.array(["a", "b", "a"])}).shape == (3, 1)
-    for kw in ({"mesh": object()}, {"shard_embeddings": True}):
-        with pytest.raises(NotImplementedError):
+    # a mesh that is not a DeviceMesh, and sharding without a mesh
+    for kw, err in (({"mesh": object()}, TypeError),
+                    ({"shard_embeddings": True}, ValueError)):
+        with pytest.raises(err):
             PDeepFM(plin, pdnn, device="cpu", **kw)
 
 

@@ -178,7 +178,8 @@ def test_load_jax_weights_maps_every_multitask_leaf(name):
 def test_multitask_constructors_raise_where_the_jax_models_do(
         name, monkeypatch):
     """Task checks (``validate_tasks``), MMOE's expert count, ESMM's two
-    binary tasks; ``mesh``/``shard_embeddings`` raise; without ``device``
+    binary tasks; a ``mesh`` that is not a ``DeviceMesh`` and
+    ``shard_embeddings`` without one raise; without ``device``
     a model asks for CUDA and raises where it is absent."""
     _, cols, _, _ = mtl_data(2, 1, 8, seed=8)
     pcls, jcls = getattr(pmt, name), getattr(jmt, name)
@@ -199,8 +200,10 @@ def test_multitask_constructors_raise_where_the_jax_models_do(
             pcls(cols, device="cpu", **kw)
     with pytest.raises(ValueError):
         pcls([], device="cpu")
-    for kw in ({"mesh": object()}, {"shard_embeddings": True}):
-        with pytest.raises(NotImplementedError):
+    # a mesh that is not a DeviceMesh, and sharding without a mesh
+    for kw, err in (({"mesh": object()}, TypeError),
+                    ({"shard_embeddings": True}, ValueError)):
+        with pytest.raises(err):
             pcls(cols, device="cpu", **kw)
     model = pcls(cols, device="cpu", dnn_dropout=0.5)
     assert model._has_dropout() and model.num_tasks == 2

@@ -225,7 +225,7 @@ def test_xdeepfm_options_and_device_rules(monkeypatch):
     cols = _columns(pt, 3, 1)
     # dropout is ported (tests/test_torch_dropout.py)
     assert PxDeepFM(cols, cols, dnn_dropout=0.5, device="cpu")._has_dropout()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):   # sharding needs a mesh
         PxDeepFM(cols, cols, shard_embeddings=True, device="cpu")
     with pytest.raises(ValueError):
         PxDeepFM(cols, cols, cin_layer_size=(5, 4), device="cpu")

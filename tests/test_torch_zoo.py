@@ -214,15 +214,18 @@ DROPOUTS = {"WDL": ["dnn_dropout"], "NFM": ["dnn_dropout", "bi_dropout"],
 
 @pytest.mark.parametrize("name", NAMES)
 def test_zoo_options_not_ported_raise(name, monkeypatch):
-    """``mesh`` and ``shard_embeddings`` raise (ROADMAP section 1 item 9);
+    """A ``mesh`` that is not a ``DeviceMesh`` and ``shard_embeddings``
+    without one raise (the mesh runs: tests/test_torch_parallel.py);
     dropout above 0 is ported and builds; without ``device`` a model asks
     for CUDA and raises where it is absent."""
     n_dense = 0 if name == "AFM" else 1
     _, cols, _, _ = zoo_data(3, n_dense, 8, seed=8)
     pcls = getattr(pmodels, name)
     args = (cols,) if name == "PNN" else (cols, cols)
-    for kw in ({"mesh": object()}, {"shard_embeddings": True}):
-        with pytest.raises(NotImplementedError):
+    # a mesh that is not a DeviceMesh, and sharding without a mesh
+    for kw, err in (({"mesh": object()}, TypeError),
+                    ({"shard_embeddings": True}, ValueError)):
+        with pytest.raises(err):
             pcls(*args, device="cpu", **kw)
     pcls(*args, device="cpu", **{k: 0 for k in DROPOUTS[name]})
     model = pcls(*args, device="cpu", **{k: 0.5 for k in DROPOUTS[name]})

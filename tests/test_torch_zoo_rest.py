@@ -224,14 +224,17 @@ DROPOUTS = {"ONN": ["dnn_dropout"], "CCPM": ["dnn_dropout"],
 
 @pytest.mark.parametrize("name", NAMES)
 def test_zoo_rest_options_not_ported_raise(name, monkeypatch):
-    """``mesh`` and ``shard_embeddings`` raise (ROADMAP section 1 item 9);
+    """A ``mesh`` that is not a ``DeviceMesh`` and ``shard_embeddings``
+    without one raise (the mesh runs: tests/test_torch_parallel.py);
     dropout builds; without ``device`` a model asks for CUDA and raises
     where it is absent."""
     _, cols, _, _ = zoo_data(3, 0 if name == "CCPM" else 1, 8, seed=8)
     pcls = getattr(pmodels, name)
     args = (cols,) if name == "MLR" else (cols, cols)
-    for kw in ({"mesh": object()}, {"shard_embeddings": True}):
-        with pytest.raises(NotImplementedError):
+    # a mesh that is not a DeviceMesh, and sharding without a mesh
+    for kw, err in (({"mesh": object()}, TypeError),
+                    ({"shard_embeddings": True}, ValueError)):
+        with pytest.raises(err):
             pcls(*args, device="cpu", **kw)
     model = pcls(*args, device="cpu", **{k: 0.5 for k in DROPOUTS[name]})
     assert model._has_dropout() == bool(DROPOUTS[name])

@@ -1,0 +1,198 @@
+"""The rank side of the port's mesh tests: model legs that a test runs on
+gloo ranks (``deepctr_tpu_torch.tools.multiprocess_sim.spawn``) and, for
+its references, in the test process.  Imports neither JAX nor the JAX
+package, so that a rank starts in a few seconds; the columns and models
+are built from plain specs with either package.
+
+A leg is a dict: ``model`` (``"DeepFM"``, ``"DIN"``, ``"MMOE"``), ``cols``
+(specs: ``("sparse", name, vocab, dim)``, ``("dense", name, dim)``,
+``("varlen", name, vocab, dim, maxlen, embedding name, length name)``),
+``kw`` (constructor arguments), ``optimizer``, ``sparse``
+(``sparse_table_updates``), ``epochs``, ``batch``, ``exchange`` (None or
+``(mode, slack, on_overflow)``), ``threshold`` (the packing threshold, or
+None), ``fit`` (False: predict only) and ``weights`` (the key of the JAX
+weights it loads)."""
+
+import torch
+
+import deepctr_tpu_torch as pt
+from deepctr_tpu_torch import config, inputs
+from deepctr_tpu_torch.models import multitask
+from deepctr_tpu_torch.parallel import make_mesh
+from deepctr_tpu_torch.utils.jax_weights import load_jax_weights
+
+
+def columns(pkg, specs):
+    """Feature columns of ``pkg`` (``deepctr_tpu`` or the port)."""
+    out = []
+    for spec in specs:
+        if spec[0] == "sparse":
+            out.append(pkg.SparseFeat(spec[1], spec[2], spec[3]))
+        elif spec[0] == "dense":
+            out.append(pkg.DenseFeat(spec[1], spec[2]))
+        else:
+            _, name, vocab, dim, maxlen, emb, length = spec
+            out.append(pkg.VarLenSparseFeat(
+                pkg.SparseFeat(name, vocab, dim, embedding_name=emb),
+                maxlen=maxlen, length_name=length))
+    return out
+
+
+def make_model(pkg, models, leg, **kw):
+    """The leg's model from ``pkg``'s columns and ``models`` (its models
+    module, or its multitask module for MMOE)."""
+    cols = columns(pkg, leg["cols"])
+    cls = getattr(models, leg["model"])
+    if leg["model"] == "DeepFM":
+        args = (cols, cols)
+    elif leg["model"] == "DIN":
+        args = (cols, leg["history"])
+    else:
+        args = (cols,)
+    return cls(*args, **dict(leg.get("kw", {}), **kw))
+
+
+def loss_of(leg):
+    if leg["model"] == "MMOE":
+        return ["binary_crossentropy", "binary_crossentropy"]
+    return "binary_crossentropy"
+
+
+def run_leg(leg, x, y, weights, mesh=None, device="cpu"):
+    """Train (``fit``) and predict the leg; returns its losses, its
+    predictions, the table blocks it holds and their shapes."""
+    saved = (inputs.PACKED_VOCAB_THRESHOLD, config.embedding_exchange(),
+             config.a2a_on_overflow())
+    try:
+        if leg.get("threshold"):
+            inputs.PACKED_VOCAB_THRESHOLD = leg["threshold"]
+        exchange = leg.get("exchange")
+        if exchange and mesh is not None:
+            config.set_embedding_exchange(exchange[0], mesh,
+                                          a2a_slack=exchange[1],
+                                          on_overflow=exchange[2])
+        models = multitask if leg["model"] == "MMOE" else pt.models
+        model = make_model(pt, models, leg, seed=3, device=device,
+                           mesh=mesh, shard_embeddings=mesh is not None)
+        load_jax_weights(model, weights)
+        out = {"loss": None}
+        if leg.get("fit", True):
+            model.compile(leg["optimizer"], loss_of(leg),
+                          sparse_table_updates=leg.get("sparse", False))
+            hist = model.fit(x, y, batch_size=leg["batch"],
+                             epochs=leg.get("epochs", 1), verbose=0,
+                             shuffle=leg.get("shuffle", True))
+            out["loss"] = hist.history["loss"]
+            out["state"] = {p: [tuple(t.shape) for t in st]
+                            for p, st in model._table_state.items()}
+            out["dense_state"] = {
+                p: [tuple(t.shape) for t in st]
+                for p, st in zip(model._dense_paths, model._dense_opt.state)
+                if p in model._shards}
+        out["pred"] = model.predict(x, leg["batch"])
+        out["blocks"] = {p: s[:2] for p, s in model._shards.items()}
+        out["local"] = {k: v.detach().clone()
+                        for k, v in model.state_dict().items()}
+        return out
+    finally:
+        inputs.PACKED_VOCAB_THRESHOLD = saved[0]
+        config._EMBEDDING_EXCHANGE, config._EXCHANGE_MESH, \
+            config._A2A_SLACK = saved[1]
+        config._A2A_ON_OVERFLOW = saved[2]
+
+
+def run_legs(rank, world, device, mesh_shape, legs, data, weights):
+    """A rank: every leg on one mesh; ``data`` maps a leg's ``data`` key
+    to its ``(x, y)``."""
+    mesh = make_mesh(mesh_shape, devices="cpu")
+    return [run_leg(leg, *data[leg["data"]], weights[leg["weights"]],
+                    mesh=mesh, device=device) for leg in legs]
+
+
+def sharded_persistence(rank, world, device, mesh_shape, leg, x, y,
+                        directory):
+    """A rank: the leg's model (seed 3) on the mesh with row-sharded
+    tables, one epoch, then ``save_checkpoint`` (rank 0 writes) and its
+    weights; then a fresh model on the mesh (seed 5) loads the checkpoint
+    back and predicts."""
+    mesh = make_mesh(mesh_shape, devices="cpu")
+    model = make_model(pt, pt.models, leg, seed=3, device=device, mesh=mesh,
+                       shard_embeddings=True)
+    model.compile(leg["optimizer"], loss_of(leg),
+                  sparse_table_updates=leg.get("sparse", False))
+    model.fit(x, y, batch_size=leg["batch"], epochs=1, verbose=0)
+    model.save_checkpoint(directory)
+    torch.distributed.barrier()
+    full = model.get_weights()
+    again = make_model(pt, pt.models, leg, seed=5, device=device, mesh=mesh,
+                       shard_embeddings=True)
+    again.compile(leg["optimizer"], loss_of(leg),
+                  sparse_table_updates=leg.get("sparse", False))
+    again.load_checkpoint(directory)
+    return {"full": full, "pred": model.predict(x, leg["batch"]),
+            "pred_loaded": again.predict(x, leg["batch"]),
+            "state": {p: [t.clone() for t in st]
+                      for p, st in again._table_state.items()},
+            "blocks": {p: s[:2] for p, s in model._shards.items()}}
+
+
+def raise_on_rank_one(rank, world, device):
+    """A rank 1 that raises while rank 0 waits in a collective."""
+    mesh = make_mesh((world, 1), devices="cpu")
+    del mesh
+    if rank == 1:
+        raise RuntimeError("rank 1 fails on purpose")
+    t = torch.ones(1)
+    torch.distributed.all_reduce(t)
+    return float(t)
+
+
+def lookups(rank, world, device, cases):
+    """A rank: ``psum_lookup``/``a2a_lookup`` of each case on a ``(1,
+    world)`` mesh: the rank's block of the case's table, its ids; returns
+    the rows, the dropped counts and the block's gradient of
+    ``sum(sin(rows))``."""
+    from deepctr_tpu_torch.parallel.embedding import a2a_lookup, psum_lookup
+    mesh = make_mesh((1, world), devices="cpu")
+    out = []
+    for table, ids, kind, slack in cases:
+        table = torch.as_tensor(table)
+        per = table.shape[0] // world
+        block = table[rank * per:(rank + 1) * per].clone().requires_grad_()
+        ids = torch.as_tensor(ids)
+        if kind == "psum":
+            rows = psum_lookup(mesh, block, ids)
+            dropped = None
+        else:
+            rows, dropped = a2a_lookup(mesh, block, ids, slack=slack,
+                                       return_overflow=True)
+            dropped = int(dropped)
+        torch.sin(rows).sum().backward()
+        out.append({"rows": rows.detach().numpy(), "dropped": dropped,
+                    "grad": block.grad.numpy()})
+    return out
+
+
+def mesh_layout(rank, world, device, tables):
+    """A rank of a ``(world / 2, 2)`` mesh from ``distributed.
+    global_mesh``: its coordinates, its rows of a global batch of 8 and of
+    a replicated tensor of 10, its rows of each ``(vocab, width)`` table
+    in ``tables`` (``embedding_sharding``), and the errors of a batch of 7
+    and of a model axis that does not divide the ranks."""
+    from deepctr_tpu_torch.parallel import (batch_sharding, distributed,
+                                            embedding_sharding, replicated)
+    mesh = distributed.global_mesh(model_axis=2, devices="cpu")
+    errors = []
+    for bad in (lambda: batch_sharding(mesh, 7),
+                lambda: distributed.global_mesh(model_axis=3,
+                                                devices="cpu")):
+        try:
+            bad()
+        except ValueError as err:
+            errors.append(str(err))
+    return {"shape": tuple(mesh.mesh.shape),
+            "coordinate": tuple(mesh.get_coordinate()),
+            "batch": batch_sharding(mesh, 8), "replicated":
+            replicated(mesh, 10),
+            "tables": [embedding_sharding(mesh, v, w) for v, w in tables],
+            "errors": errors}
