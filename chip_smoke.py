@@ -366,18 +366,44 @@ Then the mesh (``deepctr_tpu_torch/parallel/``), float32:
     DeepFM at (1, 2) with its tables sharded, under the psum exchange
     (sgd and adagrad) and a2a at slack 8 (sgd); at (2, 1), data parallel
     (sgd, adagrad); DIN with Dice at the sequence bench's width (maxlen
-    100, B=1024) at (2, 1) (sgd, adagrad); each 3 steps and predict, the
-    ranks' predictions alike and within 1e-5 (sgd) or 1e-4 (adagrad) of
-    the same steps in this process without a mesh, each rank's touched
-    rows of its block within ``MESH_BLOCK_TOL``; per rank its bytes of
-    tables and state, K2 launches and ms a step (gloo through the host:
-    not a scaling figure).  Beside each data-parallel leg, the same steps
-    in this process with each batch's halves swapped (what the two data
-    ranks change: the order the half batches add in) against this
-    process's unswapped steps, the size of float32 reordering alone;
+    100, B=1024) at (2, 1) (sgd, adagrad); DIEN AUGRU with negative
+    sampling at that width at (2, 1) (adagrad, its three tables on the
+    sparse path: ``gru_scan`` and ``gru_scan_bwd`` twice a step on each
+    rank, the GRU kernels under a mesh), then DIEN ``GRU``'s predict on
+    the same mesh (``gru_scan`` twice and ``din_attention`` once a batch)
+    within 1e-5 of one process; PLE at the zoo's Criteo width at (1, 2)
+    with its 26 tables sharded (adam: the stacked experts over row-sharded
+    tables); each 3 steps and predict, the
+    ranks' predictions alike and within 1e-5 (sgd) or 1e-4 (adagrad,
+    adam) of the same steps in this process without a mesh, each rank's
+    touched rows of its block within ``MESH_BLOCK_TOL``; per rank its
+    bytes of tables and state, K2 launches and ms a step (gloo through
+    the host: not a scaling figure).  Beside each data-parallel leg, the
+    same steps in this process with each batch's halves swapped (what the
+    two data ranks change: the order the half batches add in) against
+    this process's unswapped steps, the size of float32 reordering alone;
     c. after the a2a leg, ids skewed onto rank 0's rows at slack 1.0:
     every prediction NaN under ``on_overflow="error"``, finite and alike
-    on both ranks under ``"drop"``.
+    on both ranks under ``"drop"``;
+    d. two gloo ranks again: phase 32's streamed fit (the hashed Criteo
+    TSV of 262,144 rows, 26 x 1M buckets all on the sparse path, adagrad,
+    chunks of 65,536, B=4096), one epoch at (1, 2) with every table
+    sharded and at (2, 1), against the same streamed fit in this process
+    without a mesh: the ranks' losses alike, predictions of the stream's
+    first 8,192 rows within 1e-4 and their touched rows within
+    ``MESH_BLOCK_TOL``; per rank ms a chunk, device busy ms of a second,
+    profiled epoch and the idle share, the host half's ms a chunk;
+    e. the Kaggle DeepFM at (1, 2), sharded, after 34b's 3 sgd steps:
+    ``serving.export_predict`` on both ranks, ``save_exported`` written
+    by rank 0 alone, the artifact at least the whole tables' bytes,
+    scored in a fresh process (no model, no mesh) at B = 1, 4096, 4097
+    within 1e-5 of the mesh's ``predict``; export and save seconds;
+    f. the Kaggle DeepFM at (1, 2), sharded, under
+    ``torch.optim.Adagrad``: ``save_checkpoint`` after an epoch of 3
+    steps, a second epoch, and a fresh model that loads the checkpoint
+    and takes the second epoch bit for bit as the uninterrupted one
+    (loss, predictions, every table, weight and optimizer state); the
+    checkpoint's bytes, save and load seconds.
 
 The command's total seconds are printed before the kernels line.
 
@@ -389,7 +415,8 @@ from 0 just before the run and read just after; the runs that compare a
 kernel with its plain version, time it or check the card against the CPU
 are not counted.  A graph replay adds the launches its capture recorded.
 ``artifact_launches`` counts the launches inside exported artifacts
-(phase 33), which ``launches`` includes.
+(phase 33), ``mesh_launches`` those on the ranks of a mesh (phases
+34b-f); ``launches`` includes both.
 
 Any failure exits non-zero.  Without a CUDA device it fails at once and
 runs nothing on the CPU.  The last two lines before the final one are the
@@ -626,6 +653,8 @@ COUNTERS = {
 }
 # the launches of every main-path run, summed (read_counts adds to it)
 MAIN_PATH_LAUNCHES = dict.fromkeys(COUNTERS, 0)
+# of those, the launches on the ranks of a mesh (phases 34b-f)
+MESH_LAUNCHES = dict.fromkeys(COUNTERS, 0)
 
 
 def log(msg):
@@ -636,6 +665,13 @@ def reset_counts():
     """Every kernel's launch count to 0, just before a main-path run."""
     for module, attr in COUNTERS.values():
         setattr(module, attr, 0)
+
+
+def add_rank_counts(counts):
+    """A mesh rank's launches (counted in its process) into the totals."""
+    for name, n in counts.items():
+        MAIN_PATH_LAUNCHES[name] += n
+        MESH_LAUNCHES[name] += n
 
 
 def read_counts():
@@ -3600,16 +3636,17 @@ ZOO_EMB_STD = 0.3
 ZOO_STEPS = 3           # phase 23's graphed fits: 3 x 4096
 
 
-def zoo_model(name, device):
+def zoo_model(name, device, **extra):
     """A zoo model (``ZOO``, or one of ``ZOO_KAGGLE`` at the Kaggle
     cardinalities) with its weights redrawn from a seed so that
     predictions spread: the tables (deep and wide columns, ONN's pair
     tables, MLR's linear models') from normal(0.3), the DNN kernels (and
     the stacked experts') at 1/sqrt(fan_in); the interaction layers and
-    the heads at their init."""
+    the heads at their init.  ``extra``: further constructor arguments."""
     kaggle = name in ZOO_KAGGLE
     cols = criteo_columns() if kaggle else xdeepfm_columns()
     cls, kw = ZOO[name.split()[0]]
+    kw = dict(kw, **extra)
     if cls in (PNN, MLR) + MULTITASK:
         model = cls(cols, seed=SEED, device=device, **kw)
     else:
@@ -4377,11 +4414,12 @@ def native_only():
             setattr(native, n, fn)
 
 
-def stream_model(device, optimizer="adagrad"):
+def stream_model(device, optimizer="adagrad", learning_rate=None, **kw):
     cols = pt.criteo_columns(vocab_size=STREAM_BUCKETS, embedding_dim=EMB_DIM)
     model = DeepFM(cols, cols, dnn_hidden_units=HIDDEN, init_std=INIT_STD,
-                   seed=SEED, device=device)
-    model.compile(optimizer, "binary_crossentropy")
+                   seed=SEED, device=device, **kw)
+    model.compile(optimizer, "binary_crossentropy",
+                  learning_rate=learning_rate)
     check(len(model._sparse_specs) == len(CRITEO_KAGGLE_VOCABS),
           "streamed DeepFM: %d tables on the sparse path, want all 26"
           % len(model._sparse_specs))
@@ -4734,7 +4772,7 @@ def phase_serve_models(device):
 MESH_STEPS = 3
 MESH_PREDICT = 8 * BATCH
 MESH_SEQ_STEPS = 3
-MESH_TOL = {"sgd": 1e-5, "adagrad": 1e-4}
+MESH_TOL = {"sgd": 1e-5, "adagrad": 1e-4, "adam": 1e-4}
 # touched rows of a rank's block against one process, by optimizer and
 # ranks on the data axis: 1e-6 under sgd with one data rank.  With two, the
 # half batches' products and sums add in another order: 1.43e-6 at Criteo
@@ -4744,17 +4782,26 @@ MESH_TOL = {"sgd": 1e-5, "adagrad": 1e-4}
 # (7.07e-4 measured): 3e-3, while its first step alone moves every touched
 # weight with a gradient by lr = 0.01, so a row left without its update
 # is further off than that
+# (adam's first step moves a touched weight with a gradient by about its
+# lr = 1e-3: a row left without its update is further off than 1e-3)
 MESH_BLOCK_TOL = {("sgd", 1): 1e-6, ("sgd", 2): 1e-5,
-                  ("adagrad", 1): 3e-3, ("adagrad", 2): 3e-3}
+                  ("adagrad", 1): 3e-3, ("adagrad", 2): 3e-3,
+                  ("adam", 1): 1e-3}
 MESH_TIMEOUT = 600
+# 34d: the rows whose predictions and touched rows are held
+MESH_STREAM_CHECKED = 2 * BATCH
 
 
 def mesh_kaggle(device, optimizer, **kw):
     """DeepFM at the Criteo Kaggle cardinalities (phase 3's model),
-    compiled at float32 with ``sparse_table_updates="auto"``."""
+    compiled at float32 with ``sparse_table_updates="auto"``;
+    ``optimizer`` a name, or a function of the model that returns a
+    ``torch.optim`` optimizer over it."""
     cols = criteo_columns()
     model = DeepFM(cols, cols, dnn_hidden_units=HIDDEN, init_std=INIT_STD,
                    seed=SEED, device=device, **kw)
+    if callable(optimizer):
+        optimizer = optimizer(model)
     model.compile(optimizer, "binary_crossentropy")
     return model
 
@@ -4762,12 +4809,17 @@ def mesh_kaggle(device, optimizer, **kw):
 def mesh_data(kind, device):
     """The legs' data, drawn alike in every process: ``(X [steps * B, D]
     on the device, labels, X to predict)``."""
-    if kind == "din":
-        probe = seq_model("din", "Dice", "cpu")
+    if kind in ("din", "dien"):
+        probe = (seq_model("din", "Dice", "cpu") if kind == "din" else
+                 seq_model("dien", "AUGRU", "cpu"))
         X = seq_requests(probe, SEQ_BATCH * MESH_SEQ_STEPS, SEED + 160,
                          device)
         Xp = seq_requests(probe, 2 * SEQ_BATCH, SEED + 161, device)
         return X, seq_labels(X.shape[0], SEED + 162), Xp
+    if kind == "ple":
+        X = xdeepfm_requests(BATCH * MESH_STEPS, SEED + 155, device)
+        Xp = xdeepfm_requests(2 * BATCH, SEED + 156, device)
+        return X, zoo_labels("PLE", X.shape[0], SEED + 157), Xp
     gen = torch.Generator(device=device).manual_seed(SEED + 150)
     X = criteo_requests(BATCH * MESH_STEPS, gen, device)
     Xp = criteo_requests(MESH_PREDICT, gen, device)
@@ -4775,9 +4827,22 @@ def mesh_data(kind, device):
 
 
 def mesh_model(kind, optimizer, device, **kw):
-    if kind == "din":
-        model = seq_model("din", "Dice", device, **kw)
-        model.compile(optimizer, "binary_crossentropy")
+    """A leg's model: the Kaggle DeepFM; DIN with Dice or DIEN AUGRU with
+    negative sampling (its three tables on the sparse path) at the
+    sequence bench's width; PLE at the zoo's Criteo width, whose weights
+    on a mesh are those the model draws without one (the draw of a
+    row-sharded table's block differs)."""
+    if kind in ("din", "dien"):
+        model = (seq_model("din", "Dice", device, **kw) if kind == "din"
+                 else seq_model("dien", "AUGRU", device, **kw))
+        model.compile(optimizer, "binary_crossentropy",
+                      sparse_table_updates=kind == "dien")
+        return model
+    if kind == "ple":
+        model = zoo_model("PLE", device, **kw)
+        if model.mesh is not None:
+            model.set_weights(zoo_model("PLE", device).state_dict())
+        model.compile(optimizer, zoo_loss("PLE"))
         return model
     return mesh_kaggle(device, optimizer, **kw)
 
@@ -4819,7 +4884,7 @@ def mesh_leg(kind, optimizer, device, mesh=None, shard=False, swap=False):
     torch.backends.cudnn.allow_tf32 = False
     pt.set_compute_dtype("float32")
     X, y, Xp = mesh_data(kind, device)
-    B = SEQ_BATCH if kind == "din" else BATCH
+    B = SEQ_BATCH if kind in ("din", "dien") else BATCH
     if swap:
         order = torch.arange(X.shape[0], device=X.device).view(
             -1, 2, B // 2).flip(1).reshape(-1)
@@ -4851,10 +4916,18 @@ def mesh_leg(kind, optimizer, device, mesh=None, shard=False, swap=False):
                    "blocks": {p: s[:2] for p, s in model._shards.items()}}
 
 
+def mesh_gru_requests(device):
+    """DIEN GRU's requests for 34b's predict on the mesh."""
+    return seq_requests(seq_model("dien", "GRU", "cpu"), 2 * SEQ_BATCH,
+                        SEED + 163, device)
+
+
 def mesh_rank(rank, world, device, legs):
     """A rank of phase 34b/c: every leg ``(kind, optimizer, mesh shape,
     shard, exchange)`` on its mesh, and, after an a2a leg, its predict on
-    skewed ids at slack 1.0 under "error" and "drop" (34c)."""
+    skewed ids at slack 1.0 under "error" and "drop" (34c); after the
+    DIEN leg, DIEN ``GRU``'s predict on the same mesh (the attention
+    kernel's readout)."""
     from deepctr_tpu_torch import config
     from deepctr_tpu_torch.parallel import make_mesh
     out = []
@@ -4871,6 +4944,14 @@ def mesh_rank(rank, world, device, legs):
                 config.set_embedding_exchange("a2a", mesh, a2a_slack=1.0,
                                               on_overflow=mode)
                 res["skew_" + mode] = model.predict(skew, BATCH)
+        if kind == "dien":
+            gru_model = seq_model("dien", "GRU", device, mesh=mesh,
+                                  shard_embeddings=shard)
+            X = mesh_gru_requests(device)
+            reset_counts()
+            res["gru_pred"] = gru_model.predict(X, SEQ_BATCH)
+            res["gru_launches"] = read_counts()
+            del gru_model
         config.set_embedding_exchange("gspmd")
         out.append(res)
         del model
@@ -4985,10 +5066,44 @@ def mesh_leg_errors(label, ranks, want):
             check(np.array_equal(ref_ids[pos], ids), "%s: %s's ids" % (
                 label, path))
             if len(ids):
-                worst_b = max(worst_b, (float(np.abs(
-                    rows - ref_rows[pos]).max()), path,
-                    float(np.abs(ref_rows).max())))
+                diff = float(np.abs(rows - ref_rows[pos]).max())
+                if worst_b[1] is None or diff > worst_b[0]:
+                    worst_b = (diff, path, float(np.abs(ref_rows).max()))
     return worst_p, worst_b
+
+
+def mesh_dien_launches(label, got, device):
+    """The DIEN leg's GRU kernels on each rank (two ``gru_scan`` and two
+    ``gru_scan_bwd`` a step, one ``row_update``), and DIEN ``GRU``'s
+    predict on the mesh (two ``gru_scan`` and one ``din_attention`` a
+    batch) against this process's predict without a mesh; returns the
+    line to log."""
+    for r in got:
+        for name, want in (("gru_scan", 2 * MESH_SEQ_STEPS),
+                           ("gru_scan_bwd", 2 * MESH_SEQ_STEPS),
+                           ("row_update", MESH_SEQ_STEPS)):
+            check(r["launches"][name] == want, "%s: %s launched %d times on "
+                  "a rank, want %d" % (label, name, r["launches"][name],
+                                       want))
+        for name, want in (("gru_scan", 4), ("din_attention", 2)):
+            check(r["gru_launches"][name] == want, "%s: DIEN GRU predict "
+                  "launched %s %d times, want %d"
+                  % (label, name, r["gru_launches"][name], want))
+        add_rank_counts(r["gru_launches"])
+        check(np.array_equal(r["gru_pred"], got[0]["gru_pred"]), "%s: the "
+              "ranks' DIEN GRU predictions differ" % label)
+    want = seq_model("dien", "GRU", device).predict(
+        mesh_gru_requests(device), SEQ_BATCH)
+    diff = float(np.abs(got[0]["gru_pred"] - want).max())
+    check(diff <= MESH_TOL["sgd"], "%s: DIEN GRU predict on the mesh vs one "
+          "process: max |dp| %r" % (label, diff))
+    return ("%s: launches a rank %s (the GRU's forward and backward kernels "
+            "under a mesh); DIEN GRU predict on the mesh, %d rows: %s a "
+            "rank, max |dp| %.3g from one process (bound %g)"
+            % (label, {k: v for k, v in got[0]["launches"].items() if v},
+               want.shape[0], {k: v for k, v in
+                               got[0]["gru_launches"].items() if v},
+               diff, MESH_TOL["sgd"]))
 
 
 def phase_mesh(device, twin):
@@ -5002,7 +5117,9 @@ def phase_mesh(device, twin):
             ("kaggle", "sgd", (2, 1), False, None),
             ("kaggle", "adagrad", (2, 1), False, None),
             ("din", "sgd", (2, 1), False, None),
-            ("din", "adagrad", (2, 1), False, None)]
+            ("din", "adagrad", (2, 1), False, None),
+            ("dien", "adagrad", (2, 1), False, None),
+            ("ple", "adam", (1, 2), True, None)]
     del twin
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -5028,8 +5145,9 @@ def phase_mesh(device, twin):
         tol, btol = MESH_TOL[optimizer], MESH_BLOCK_TOL[optimizer, shape[0]]
         failed = failed or worst_p > tol or worst_b > btol
         for r in got:
-            for name, n in r["launches"].items():
-                MAIN_PATH_LAUNCHES[name] += n
+            add_rank_counts(r["launches"])
+        if kind == "dien":
+            lines.append(mesh_dien_launches(label, got, device))
         if shard:
             check(got[0]["blocks"] and got[1]["blocks"], "%s: no table "
                   "sharded" % label)
@@ -5070,6 +5188,333 @@ def phase_mesh(device, twin):
     for line in lines:
         log(line)
     check(not failed, "34b: a leg is over its bound (the lines above)")
+
+# phases 34d-f: what the streamed fit, export and a torch.optim checkpoint
+# do on a mesh, on two gloo ranks of the one card.  34d's legs: (mesh
+# shape, tables sharded, optimizer, held to MESH_TOL and MESH_BLOCK_TOL).
+# Over the stream's 64 steps adagrad's sign-like first steps amplify the
+# data axis's reordered sums far past those bounds (a first run: 0.0205
+# on predictions, 0.0403 on touched rows at (2, 1); at (1, 2) bit-equal),
+# so the (2, 1) adagrad leg is measured and set beside one process whose
+# batches have their halves swapped (the same steps in exact arithmetic),
+# and the data axis is held under sgd over the same stream (whose
+# reordering does not grow), at lr 1e-3: the losses sum over 4096 rows,
+# and at sgd's default 0.01 a Kaggle weight reaches 6.5 in 3 steps (34b);
+# the predictions still saturate, so its loss and touched rows carry the
+# check
+MESH_IO_LEGS = (((1, 2), True, "adagrad", True),
+                ((2, 1), False, "adagrad", False),
+                ((2, 1), False, "sgd", True))
+MESH_STREAM_SGD_LR = 1e-3
+
+
+def stream_matrix(model, stream):
+    """The whole stream assembled (hashed) as one matrix on the card."""
+    return torch.cat([model.assemble_device_input(x) for x, _ in stream()])
+
+
+def swapped_halves(stream, seed):
+    """``stream``'s chunks shuffled as the streamed fit shuffles them
+    (``default_rng(seed)``, a permutation a chunk), each whole batch's
+    halves then swapped: fitted with ``shuffle=False``, the steps of the
+    shuffled fit with their halves added in the order two data ranks
+    add them (a chunk's last, partial batch as it is)."""
+    def make_iter():
+        rng = np.random.default_rng(seed)
+        for x, y in stream():
+            order = rng.permutation(len(y))
+            whole = len(y) // BATCH * BATCH
+            order[:whole] = order[:whole].reshape(
+                -1, 2, BATCH // 2)[:, ::-1].reshape(-1)
+            yield {k: v[order] for k, v in x.items()}, y[order]
+    return make_iter
+
+
+def mesh_stream_leg(tsv, device, optimizer="adagrad", mesh=None,
+                    shard=False, swap=False):
+    """34d, one leg: phase 32's hashed-Criteo DeepFM (26 x 1M buckets, all
+    on the sparse path) fitted one epoch from ``criteo_stream`` under
+    ``optimizer`` on ``mesh`` (None: this process alone; ``swap``: with
+    each batch's halves swapped, :func:`swapped_halves`); then the
+    predictions of the stream's first MESH_STREAM_CHECKED rows and the
+    touched rows of their ids (the leg's own block), the ms of each chunk
+    (a chunk's steps, and the wait for the next chunk), a second epoch
+    under the profiler for the device's busy ms, and the host half's ms a
+    chunk."""
+    model, cols = stream_model(
+        device, optimizer, MESH_STREAM_SGD_LR if optimizer == "sgd" else None,
+        mesh=mesh, shard_embeddings=shard)
+    stream = pt.criteo_stream(tsv, cols, chunk_rows=STREAM_CHUNK)
+    data, shuffle = ((swapped_halves(stream, model.seed), False) if swap
+                     else (stream, True))
+    marks = []
+    ready = model._ready_steps
+
+    def timed(n):   # called as each chunk's steps begin
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        return ready(n)
+    model._ready_steps = timed
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    hist = model.fit(data, batch_size=BATCH, epochs=1, verbose=0,
+                     shuffle=shuffle)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    counts = read_counts()
+    del model._ready_steps
+    X = stream_matrix(model, stream)[:MESH_STREAM_CHECKED]
+    out = {"loss": list(hist.history["loss"]),
+           "pred": model.predict(X, BATCH),
+           "rows": touched_rows(model, X), "launches": counts,
+           "chunk_ms": [float(t) for t in np.diff(marks) * 1e3],
+           "wall_ms": (marks[-1] - t0) * 1e3, "bytes": mesh_bytes(model),
+           "blocks": {p: b[:2] for p, b in model._shards.items()}}
+    out["busy_ms"], _ = profile_launches(
+        lambda: model.fit(stream, batch_size=BATCH, epochs=1, verbose=0))
+    out["host_ms"], _ = host_chunk_ms(model, stream)
+    return out
+
+
+def mesh_optim_checkpoint(device, directory):
+    """34f: the Kaggle DeepFM on a (1, 2) mesh with its tables sharded,
+    under ``torch.optim.Adagrad`` (lr 0.01; the tables dense), one epoch
+    of MESH_STEPS batches, ``save_checkpoint`` (rank 0 writes), a second
+    epoch; a fresh model loads the checkpoint and takes the second epoch
+    too.  Returns whether the two second epochs agree bit for bit (loss,
+    predictions, every tensor of the rank and every optimizer state), the
+    file's bytes, save and load seconds and the first model's launches."""
+    import torch.distributed as dist
+    from deepctr_tpu_torch.parallel import make_mesh
+    mesh = make_mesh((1, 2), devices="cuda")
+    X, y, Xp = mesh_data("kaggle", device)
+    Xp = Xp[:2 * BATCH]
+
+    def build():
+        return mesh_kaggle(
+            device, lambda m: torch.optim.Adagrad(m.parameters(), lr=0.01),
+            mesh=mesh, shard_embeddings=True)
+
+    def second_epoch(model):
+        hist = model.fit(X, y, batch_size=BATCH, epochs=2, initial_epoch=1,
+                         verbose=0, shuffle=False)
+        return hist.history["loss"][-1], model.predict(Xp, BATCH)
+    whole = build()
+    reset_counts()
+    whole.fit(X, y, batch_size=BATCH, epochs=1, verbose=0, shuffle=False)
+    t0 = time.perf_counter()
+    whole.save_checkpoint(directory)
+    save_s = time.perf_counter() - t0
+    dist.barrier()
+    loss, pred = second_epoch(whole)
+    counts = read_counts()
+    resumed = build()
+    t0 = time.perf_counter()
+    resumed.load_checkpoint(directory)
+    load_s = time.perf_counter() - t0
+    loss_r, pred_r = second_epoch(resumed)
+    a, b = training_state(whole), training_state(resumed)
+    same = (sorted(a) == sorted(b) and any("(state" in k for k in a)
+            and all(tensor_bits_equal(a[k], b[k]) for k in a))
+    path = Path(directory) / "checkpoint.pt"
+    return {"same_loss": loss == loss_r, "same_pred": np.array_equal(
+                pred, pred_r), "same_state": same,
+            "loss": loss, "bytes": path.stat().st_size, "save_s": save_s,
+            "load_s": load_s, "launches": counts,
+            "blocks": len(whole._shards)}
+
+
+def mesh_export(rank, device, directory):
+    """34e: the Kaggle DeepFM on a (1, 2) mesh with its tables sharded,
+    3 sgd steps (34b's leg), then ``export_predict`` on every rank and
+    ``save_exported`` (rank 0 writes), and rank 0 writes the requests the
+    fresh process scores; returns the mesh's predictions of them, the
+    export and save seconds and the fit's launches."""
+    from deepctr_tpu_torch.parallel import make_mesh
+    mesh = make_mesh((1, 2), devices="cuda")
+    model, res = mesh_leg("kaggle", "sgd", device, mesh, True)
+    _, _, Xp = mesh_data("kaggle", device)
+    n = max(SERVE_BATCHES)
+    t0 = time.perf_counter()
+    exported = serving.export_predict(model)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serving.save_exported(exported, str(Path(directory) / "mesh.pt2"))
+    save_s = time.perf_counter() - t0
+    if rank == 0:
+        np.save(Path(directory) / "X.npy", Xp[:n].cpu().numpy())
+    return {"pred": res["pred"][:n], "export_s": export_s, "save_s": save_s,
+            "launches": res["launches"], "tables": res["bytes"][0]}
+
+
+def mesh_io_rank(rank, world, device, tsv, directory):
+    """A rank of phases 34d-f."""
+    from deepctr_tpu_torch.parallel import make_mesh
+    out = {"stream": []}
+    for shape, shard, optimizer, _ in MESH_IO_LEGS:
+        mesh = make_mesh(shape, devices="cuda")
+        out["stream"].append(mesh_stream_leg(tsv, device, optimizer, mesh,
+                                             shard))
+        torch.cuda.empty_cache()
+    out["checkpoint"] = mesh_optim_checkpoint(
+        device, str(Path(directory) / "ckpt"))
+    torch.cuda.empty_cache()
+    out["export"] = mesh_export(rank, device, directory)
+    return out
+
+
+def phase_mesh_io(device):
+    """Phases 34d-f on two gloo ranks of the card: the streamed fit on a
+    mesh against this process's streamed fit, a torch.optim checkpoint's
+    exact resume on a mesh, and a mesh's export scored in a fresh
+    process."""
+    from deepctr_tpu_torch.tools.multiprocess_sim import spawn
+    pt.set_compute_dtype("float32")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    d = scratch_dir("mesh_io")
+    try:
+        tsv = d / "criteo.tsv"
+        write_criteo_tsv(tsv, STREAM_ROWS, SEED + 800)
+        t0 = time.perf_counter()
+        with native_only():
+            ranks = spawn(str(HERE / "chip_smoke.py") + ":mesh_io_rank", 2,
+                          str(scratch_dir("mesh_io_ranks")),
+                          {"tsv": str(tsv), "directory": str(d)},
+                          timeout=MESH_TIMEOUT, backend="gloo",
+                          device="cuda")
+            log("34d-f: two gloo ranks on the card ran in %.1f s"
+                % (time.perf_counter() - t0))
+            want = {opt: mesh_stream_leg(str(tsv), device, opt)
+                    for opt in ("adagrad", "sgd")}
+            want["swapped"] = mesh_stream_leg(str(tsv), device, swap=True)
+        for r in ranks:
+            for part in r["stream"] + [r["checkpoint"], r["export"]]:
+                add_rank_counts(part["launches"])
+        mesh_checkpoint_line(ranks)
+        mesh_export_line(ranks, d)
+        mesh_stream_lines(ranks, want)
+    finally:
+        shutil.rmtree(d)
+
+
+def mesh_stream_lines(ranks, want):
+    """34d: each leg's ranks against this process's streamed fit under
+    the same optimizer, and the swapped-halves witness of the data
+    axis's reordering under adagrad."""
+    failed = False
+    for opt in ("adagrad", "sgd"):
+        log("34d streamed fit without a mesh (graphed), %s, the reference: "
+            "losses %s; %r ms a chunk (median; %s); launches %s"
+            % (opt, want[opt]["loss"],
+               statistics.median(want[opt]["chunk_ms"]),
+               ["%.1f" % t for t in want[opt]["chunk_ms"]],
+               {k: v for k, v in want[opt]["launches"].items() if v}))
+    wp, (wb, wwhere, wscale) = mesh_leg_errors(
+        "34d witness", [want["swapped"]], want["adagrad"])
+    log("34d witness, adagrad, one process, each whole batch's halves "
+        "swapped, against one process: losses %s, predictions %.3g, touched "
+        "rows %.3g (%s, touched |w| up to %.3g)"
+        % (want["swapped"]["loss"], wp, wb, wwhere, wscale))
+    for i, (shape, shard, opt, held) in enumerate(MESH_IO_LEGS):
+        got = [r["stream"][i] for r in ranks]
+        label = "34d streamed fit %s%s %s" % (
+            shape, " sharded" if shard else "", opt)
+        for r in got:
+            check(r["loss"] == got[0]["loss"], "%s: the ranks' losses "
+                  "differ" % label)
+            check(r["launches"]["row_update"] > 0, "%s: no row_update"
+                  % label)
+            if shard:
+                check(len(r["blocks"]) == len(CRITEO_KAGGLE_VOCABS), "%s: "
+                      "%d tables sharded" % (label, len(r["blocks"])))
+        worst_p, (worst_b, where, scale) = mesh_leg_errors(label, got,
+                                                           want[opt])
+        tol, btol = MESH_TOL[opt], MESH_BLOCK_TOL[opt, shape[0]]
+        if held:
+            failed = failed or worst_p > tol or worst_b > btol
+        bounds = ("bound %g" % tol, "bound %g" % btol) if held else (
+            "not held: the witness above", "not held")
+        log("%s (%s), %d rows in chunks of %d, one epoch: losses "
+            "%s (one process %s); predictions of %d rows (%d at 0 or 1) "
+            "%.3g from one "
+            "process's (%s), touched rows %.3g (%s, %s, touched "
+            "|w| up to %.3g); per rank: ms a chunk %s (median; every chunk "
+            "%s), wall %s ms, device busy %s ms of the profiled epoch, idle "
+            "share %s, host half %s ms a chunk, tables %s bytes, state %s "
+            "bytes, launches %s (gloo through the host on one card, not a "
+            "scaling figure)"
+            % (label, card_line(), STREAM_ROWS, STREAM_CHUNK, got[0]["loss"],
+               want[opt]["loss"], MESH_STREAM_CHECKED,
+               check_predictions(got[0]["pred"], MESH_STREAM_CHECKED),
+               worst_p, bounds[0],
+               worst_b, bounds[1], where, scale,
+               ["%.1f" % statistics.median(r["chunk_ms"]) for r in got],
+               [["%.1f" % t for t in r["chunk_ms"]] for r in got],
+               ["%.1f" % r["wall_ms"] for r in got],
+               ["%.1f" % (r["busy_ms"] or float("nan")) for r in got],
+               ["%.3f" % (1 - r["busy_ms"] / r["wall_ms"])
+                if r["busy_ms"] else "not measured" for r in got],
+               ["%.1f" % r["host_ms"] for r in got],
+               [r["bytes"][0] for r in got], [r["bytes"][1] for r in got],
+               [{k: v for k, v in r["launches"].items() if v} for r in got]))
+    check(not failed, "34d: a leg is over its bound (the lines above)")
+
+
+def mesh_checkpoint_line(ranks):
+    """34f: the resumed epoch bit-equal on each rank."""
+    for r in (x["checkpoint"] for x in ranks):
+        for key in ("same_loss", "same_pred", "same_state"):
+            check(r[key], "34f: the resumed epoch is not bit-equal to the "
+                  "uninterrupted one (%s)" % key)
+        check(r["blocks"] > 0, "34f: no table sharded")
+    c = [x["checkpoint"] for x in ranks]
+    log("34f torch.optim.Adagrad checkpoint on (1, 2), Kaggle DeepFM (%d "
+        "tables sharded, dense under an optimizer object), %d steps an "
+        "epoch (%s): the resumed second epoch bit-equal to the "
+        "uninterrupted one on both ranks (loss %r, predictions, every "
+        "table, weight and optimizer state); checkpoint %d bytes (written "
+        "by rank 0), save %s s, load %s s by rank"
+        % (c[0]["blocks"], MESH_STEPS, card_line(), c[0]["loss"],
+           c[0]["bytes"], ["%.2f" % r["save_s"] for r in c],
+           ["%.2f" % r["load_s"] for r in c]))
+
+
+def mesh_export_line(ranks, d):
+    """34e: the artifact written by rank 0, scored in a fresh process,
+    against the mesh's predictions; its bytes cover every table whole."""
+    e = [x["export"] for x in ranks]
+    path = d / "mesh.pt2"
+    full = sum(CRITEO_KAGGLE_VOCABS) * (EMB_DIM + 1) * 4
+    size = path.stat().st_size
+    check(size >= full, "34e: the artifact holds %d bytes, less than the "
+          "%d of the whole tables" % (size, full))
+    check(np.array_equal(e[0]["pred"], e[1]["pred"]), "34e: the ranks "
+          "predict differently")
+    report = fresh_process_serve(path, d / "X.npy", d / "out.npz")
+    got = np.load(d / "out.npz")
+    check(report["gather_launches"] == len(SERVE_BATCHES), "34e: the "
+          "serving process launched the gather %d times for %d batches"
+          % (report["gather_launches"], len(SERVE_BATCHES)))
+    parts = []
+    for b in SERVE_BATCHES:
+        g = got["b%d" % b].astype("float64")
+        check(g.shape == (b, 1), "34e: artifact output %s at B=%d"
+              % (g.shape, b))
+        diff = float(np.abs(g - e[0]["pred"][:b]).max())
+        check(diff <= ATOL_CPU, "34e: artifact vs the mesh's predict at "
+              "B=%d: max |dp| %r > %r" % (b, diff, ATOL_CPU))
+        parts.append("B=%d max |dp| %r" % (b, diff))
+    log("34e export on (1, 2), Kaggle DeepFM after 3 sgd steps (%s): "
+        "export_predict on both ranks %s s, save_exported (rank 0 writes) "
+        "%s s, %d bytes (the whole tables %d bytes; a rank held %s bytes of "
+        "tables); a fresh process (no model, no mesh) loaded it in %.2f s "
+        "on %s: %s against the mesh's predict (atol %r)"
+        % (card_line(), ["%.2f" % r["export_s"] for r in e],
+           ["%.2f" % r["save_s"] for r in e], size, full,
+           [r["tables"] for r in e], report["load_s"], report["device"],
+           "; ".join(parts), ATOL_CPU))
 
 
 def main():
@@ -5165,6 +5610,8 @@ def main():
     zero_fill = mesh_gather_zero_fill(twin)
     phase_mesh(device, twin)
     del twin
+    torch.cuda.empty_cache()
+    phase_mesh_io(device)
 
     log(card_line())
     measured = {"gather_rows": dict(max_abs_err=err, **timing, **zero_fill),
@@ -5182,6 +5629,7 @@ def main():
               "path" % name)
         kernels.append(dict(name=name, launches=MAIN_PATH_LAUNCHES[name],
                             artifact_launches=ARTIFACT_LAUNCHES[name],
+                            mesh_launches=MESH_LAUNCHES[name],
                             **measured[name], **KERNELS[name]))
     log("chip_smoke: %.1f s in all" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -513,9 +513,11 @@ class BaseModel(BaseModule):
     def _capture_init_args(self, local_vars):
         """Record the constructor's arguments, so that ``load_model`` can
         rebuild the model (``deepctr_tpu/models/basemodel.py:2180-2186``).
-        ``mesh`` is left out, as there; ``device`` stays as the caller gave
-        it."""
-        drop = {"self", "__class__", "mesh"}
+        ``mesh`` is left out, as there, and so is ``shard_embeddings``,
+        which needs a mesh here (the JAX package ignores it without one):
+        a model rebuilt from them runs on one process.  ``device`` stays as
+        the caller gave it."""
+        drop = {"self", "__class__", "mesh", "shard_embeddings"}
         self._init_kwargs = {k: v for k, v in local_vars.items()
                              if k not in drop}
 
@@ -1289,13 +1291,13 @@ class BaseModel(BaseModule):
         trains on its rows of each global batch of ``batch_size`` (which
         the ``data`` axis must divide); the losses, metrics and history are
         the global batch's, the same on every rank.  Its steps run eagerly:
-        no CUDA graph is captured under a mesh, and the streamed fit raises
-        (``ROADMAP.md`` section 1, item 9b)."""
+        no CUDA graph is captured under a mesh.  So it is with a callable
+        ``x``: every rank reads the whole stream, shuffles each chunk
+        alike and stops at the same ``steps_per_epoch``, and each step
+        takes the rank's rows of its global batch, as the JAX package's
+        streamed fit puts each chunk on the mesh (``deepctr_tpu/models/
+        basemodel.py:1793``)."""
         if callable(x):
-            if self.mesh is not None:
-                raise NotImplementedError(
-                    "the streamed fit under a mesh is not ported yet "
-                    "(ROADMAP.md section 1, item 9b)")
             def run():
                 return self._fit_stream(x, batch_size, epochs, verbose,
                                         initial_epoch, validation_data,

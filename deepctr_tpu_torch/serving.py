@@ -27,9 +27,16 @@ its launches); one from a ``device="cpu"`` model runs their plain versions
 through the operators' CPU implementations.  Like the JAX artifact it does
 not check ids: an id outside its table gives a NaN row, and so NaN
 predictions.
+
+A model on a mesh (``parallel/``) exports the same one-device, unsharded
+function, as ``jax.export`` of a model on a mesh gives an artifact of one
+device: every rank calls :func:`export_predict`, which gathers the
+row-sharded tables over the ``model`` axis, and :func:`save_exported`
+writes the artifact from rank 0 only.
 """
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from .ops import library  # noqa: F401  (registers the operators)
@@ -56,10 +63,13 @@ class _Predict(nn.Module):
 
 class Exported:
     """An exported inference function: ``program`` is the
-    ``torch.export.ExportedProgram``; :meth:`call` runs it."""
+    ``torch.export.ExportedProgram``; :meth:`call` runs it.  ``writes``
+    is whether :func:`save_exported` writes it from this process (on a
+    mesh only rank 0 does)."""
 
-    def __init__(self, program):
+    def __init__(self, program, writes=True):
         self.program = program
+        self.writes = writes
         self._module = program.module()
         tensors = list(program.state_dict.values()) + list(
             program.constants.values())
@@ -80,15 +90,22 @@ def export_predict(model, batch_size=None):
     The weights are copied into the artifact at export: training the model
     afterwards does not change it.  ``batch_size=None`` exports a symbolic
     batch dimension (any batch size at call time); an int fixes the shape.
-    Raises ``ValueError`` for a model with no input features, and
-    ``NotImplementedError`` for a model on a mesh (ROADMAP.md section 1,
-    item 9b)."""
-    if getattr(model, "mesh", None) is not None:
-        raise NotImplementedError("exporting a model on a mesh is not "
-                                  "ported yet (ROADMAP.md section 1, item "
-                                  "9b)")
+    Raises ``ValueError`` for a model with no input features.
+
+    On a mesh every rank calls it.  Each gathers the whole weights
+    (``full_state_dict``, over the ``model`` axis) into a copy of the
+    model without a mesh, built again from its constructor arguments as
+    ``load_model`` builds one, and exports that copy: the artifact holds
+    every table whole and runs on one device."""
     if model.input_dim == 0:
         raise ValueError("model has no input features")
+    writes = True
+    if getattr(model, "mesh", None) is not None:
+        writes = dist.get_rank() == 0
+        state = model.full_state_dict()
+        model = type(model)(**dict(model._init_kwargs,
+                                   device=model._device))
+        model.load_state_dict(state)
     example = torch.zeros(batch_size or _TRACE_BATCH, model.input_dim,
                           device=model._device)
     dynamic = (None if batch_size is not None
@@ -101,12 +118,15 @@ def export_predict(model, batch_size=None):
             copy = t.detach().clone()
             state[name] = (nn.Parameter(copy, requires_grad=t.requires_grad)
                            if isinstance(t, nn.Parameter) else copy)
-    return Exported(program)
+    return Exported(program, writes)
 
 
 def save_exported(exported, path):
-    """Write an :class:`Exported` to ``path`` (``torch.export.save``)."""
-    torch.export.save(exported.program, path)
+    """Write an :class:`Exported` to ``path`` (``torch.export.save``).  Of
+    an artifact exported on a mesh, every rank calls it and rank 0
+    writes."""
+    if exported.writes:
+        torch.export.save(exported.program, path)
     return path
 
 

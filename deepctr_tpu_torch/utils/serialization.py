@@ -26,7 +26,11 @@ constructor arguments, and ``load_model`` loads it with
 On a mesh (``parallel/``) every rank calls these.  The saves gather each
 row-sharded table, and its optimizer state, over the mesh's ``model`` axis
 and rank 0 writes a file equal to the one rank's run; the loads read the
-full tensors and each rank keeps its block.
+full tensors and each rank keeps its block.  So it is with the state of a
+``torch.optim`` optimizer: a state tensor of a row-sharded table's shape
+(Adagrad's ``sum``, Adam's ``exp_avg`` and ``exp_avg_sq``) is gathered
+whole, a scalar (``step``) written as it is.  The file has the layout of
+a run without a mesh, and loads into a model on any mesh or none.
 """
 
 import os
@@ -47,11 +51,42 @@ def _writes(model):
     return model.mesh is None or dist.get_rank() == 0
 
 
-def _check_optimizer_object(model):
-    if model._optimizer_name is None and model._shards:
-        raise NotImplementedError(
-            "the state of a torch.optim optimizer over row-sharded tables "
-            "is not checkpointed yet (ROADMAP.md section 1, item 9b)")
+def _optimizer_params(model):
+    """``(parameter, table path)`` of each parameter of the ``torch.optim``
+    optimizer, by its index in the optimizer's ``state_dict``; the path is
+    what ``_gather_table`` and ``_block`` read (None for a parameter that
+    is not the model's)."""
+    keys = model._param_paths()
+    paths = {id(p): keys[k] for k, p in model.named_parameters()}
+    return [(p, paths.get(id(p))) for g in model.optim.param_groups
+            for p in g["params"]]
+
+
+def _torch_state(model):
+    """The optimizer object's ``state_dict`` on the CPU, each state tensor
+    of a row-sharded table's shape gathered whole over the ``model``
+    axis."""
+    state = model.optim.state_dict()
+    params = _optimizer_params(model)
+    out = {}
+    for i, st in state["state"].items():
+        p, path = params[i]
+        out[i] = {k: (model._gather_table(path, v) if v.shape == p.shape
+                      else v).detach().cpu()
+                  if isinstance(v, torch.Tensor) else v
+                  for k, v in st.items()}
+    return {"state": out, "param_groups": state["param_groups"]}
+
+
+def _torch_state_blocks(model, saved):
+    """A saved ``torch.optim`` state with each whole state tensor of a
+    row-sharded table cut to this rank's block."""
+    params = _optimizer_params(model)
+    state = {i: {k: model._block(params[i][1], v)
+                 if isinstance(v, torch.Tensor) and v.dim() > 0 else v
+                 for k, v in st.items()}
+             for i, st in saved["state"].items()}
+    return {"state": state, "param_groups": saved["param_groups"]}
 
 
 def _cpu(tensors):
@@ -98,7 +133,6 @@ def load_model(path):
 
 
 def _optimizer_payload(model):
-    _check_optimizer_object(model)
     opt = model._dense_opt
     out = {"name": model._optimizer_name or type(model.optim).__name__,
            "learning_rate": model._learning_rate, "count": opt.count,
@@ -106,13 +140,7 @@ def _optimizer_payload(model):
                            for p, st in model._table_state.items()},
            "table_t": dict(model._table_t)}
     if model._optimizer_name is None:
-        state = model.optim.state_dict()
-        out["torch_state"] = {
-            "state": {i: {k: v.detach().cpu()
-                          if isinstance(v, torch.Tensor) else v
-                          for k, v in st.items()}
-                      for i, st in state["state"].items()},
-            "param_groups": state["param_groups"]}
+        out["torch_state"] = _torch_state(model)
     else:
         out["dense_state"] = [_cpu(model._gather_table(p, t) for t in st)
                               for p, st in zip(model._dense_paths,
@@ -149,8 +177,8 @@ def load_checkpoint(model, directory):
                          "model's %r" % (saved["name"], name))
     opt = model._dense_opt
     if model._optimizer_name is None:
-        _check_optimizer_object(model)
-        _restore_torch_state(model.optim, saved["torch_state"])
+        _restore_torch_state(model.optim,
+                             _torch_state_blocks(model, saved["torch_state"]))
     else:
         _restore_like([t for st in opt.state for t in st],
                       [model._block(p, t)

@@ -23,20 +23,10 @@ import torch
 from deepctr_tpu_torch.layers import core as pcore
 from tests.test_torch_device_loop import _assert_same_training
 from tests.test_torch_train import L2, _data, _pair
+from tests.torch_mesh_workers import chunked as _chunks
 
 B = 32
 SIZES = (100, 37, 163)      # uneven chunks, none a multiple of B
-
-
-def _chunks(x, y, sizes):
-    """A zero-argument callable over consecutive chunks of ``sizes``
-    rows."""
-    bounds = np.cumsum((0,) + tuple(sizes))
-
-    def make_iter():
-        for lo, hi in zip(bounds[:-1], bounds[1:]):
-            yield {k: v[lo:hi] for k, v in x.items()}, y[lo:hi]
-    return make_iter
 
 
 def _fit_both(jm, pm, make_iter, opt, compile_kw=None, **fit_kw):

@@ -4,20 +4,30 @@ its references, in the test process.  Imports neither JAX nor the JAX
 package, so that a rank starts in a few seconds; the columns and models
 are built from plain specs with either package.
 
-A leg is a dict: ``model`` (``"DeepFM"``, ``"DIN"``, ``"MMOE"``), ``cols``
-(specs: ``("sparse", name, vocab, dim)``, ``("dense", name, dim)``,
-``("varlen", name, vocab, dim, maxlen, embedding name, length name)``),
-``kw`` (constructor arguments), ``optimizer``, ``sparse``
+A leg is a dict: ``model`` (``"DeepFM"``, ``"DIN"``, ``"DIEN"``,
+``"MMOE"``, ``"PLE"``), ``cols`` (specs: ``("sparse", name, vocab,
+dim)``, ``("dense", name, dim)``, ``("varlen", name, vocab, dim, maxlen,
+embedding name or None, length name or None[, combiner])``), ``kw``
+(constructor arguments), ``optimizer``, ``sparse``
 (``sparse_table_updates``), ``epochs``, ``batch``, ``exchange`` (None or
 ``(mode, slack, on_overflow)``), ``threshold`` (the packing threshold, or
 None), ``fit`` (False: predict only) and ``weights`` (the key of the JAX
-weights it loads)."""
+weights it loads).  A streamed leg fits ``x`` in ``chunks`` (their row
+counts) through ``fit(x=callable)``, with ``steps_per_epoch``; any leg
+may name ``metrics``, ``verbose``, ``shuffle`` and ``validation`` (a
+``(first, stop)`` row range of its data).  ``steps`` records each step's
+``(data loss, total loss)``; ``local_count`` runs DIEN's auxiliary loss
+over each rank's own count of pairs (the mistake the pair-count witness
+must catch)."""
+
+import os
+import types
 
 import torch
 
 import deepctr_tpu_torch as pt
-from deepctr_tpu_torch import config, inputs
-from deepctr_tpu_torch.models import multitask
+from deepctr_tpu_torch import config, inputs, serving
+from deepctr_tpu_torch.models import dien, multitask
 from deepctr_tpu_torch.parallel import make_mesh
 from deepctr_tpu_torch.utils.jax_weights import load_jax_weights
 
@@ -31,21 +41,25 @@ def columns(pkg, specs):
         elif spec[0] == "dense":
             out.append(pkg.DenseFeat(spec[1], spec[2]))
         else:
-            _, name, vocab, dim, maxlen, emb, length = spec
+            name, vocab, dim, maxlen, emb, length = spec[1:7]
+            extra = {"combiner": spec[7]} if len(spec) > 7 else {}
             out.append(pkg.VarLenSparseFeat(
                 pkg.SparseFeat(name, vocab, dim, embedding_name=emb),
-                maxlen=maxlen, length_name=length))
+                maxlen=maxlen, length_name=length, **extra))
     return out
+
+
+MULTITASK = ("MMOE", "PLE")
 
 
 def make_model(pkg, models, leg, **kw):
     """The leg's model from ``pkg``'s columns and ``models`` (its models
-    module, or its multitask module for MMOE)."""
+    module, or its multitask module for MMOE and PLE)."""
     cols = columns(pkg, leg["cols"])
     cls = getattr(models, leg["model"])
     if leg["model"] == "DeepFM":
         args = (cols, cols)
-    elif leg["model"] == "DIN":
+    elif leg["model"] in ("DIN", "DIEN"):
         args = (cols, leg["history"])
     else:
         args = (cols,)
@@ -53,17 +67,61 @@ def make_model(pkg, models, leg, **kw):
 
 
 def loss_of(leg):
-    if leg["model"] == "MMOE":
+    if leg["model"] in MULTITASK:
         return ["binary_crossentropy", "binary_crossentropy"]
     return "binary_crossentropy"
+
+
+def chunked(x, y, sizes):
+    """A zero-argument callable over consecutive chunks of ``sizes`` rows
+    of ``(x, y)``, as ``fit(x=callable)`` takes it."""
+    bounds = [0]
+    for n in sizes:
+        bounds.append(bounds[-1] + n)
+
+    def make_iter():
+        for lo, hi in zip(bounds[:-1], bounds[1:]):
+            yield {k: v[lo:hi] for k, v in x.items()}, y[lo:hi]
+    return make_iter
+
+
+def fit_leg(model, leg, x, y):
+    """``fit`` as the leg says (streamed where it has ``chunks``); returns
+    the history."""
+    kw = dict(batch_size=leg["batch"], epochs=leg.get("epochs", 1),
+              verbose=leg.get("verbose", 0), shuffle=leg.get("shuffle", True))
+    if leg.get("validation"):
+        lo, hi = leg["validation"]
+        kw["validation_data"] = ({k: v[lo:hi] for k, v in x.items()},
+                                 y[lo:hi])
+    if leg.get("chunks"):
+        return model.fit(chunked(x, y, leg["chunks"]),
+                         steps_per_epoch=leg.get("steps_per_epoch"), **kw)
+    return model.fit(x, y, **kw)
+
+
+def _record_steps(model):
+    """Each train step's ``(data loss, total loss)``, as floats, appended
+    to the returned list."""
+    steps = []
+    step = model._train_step
+
+    def recorded(*args):
+        out = step(*args)
+        steps.append((float(out[0]), float(out[1])))
+        return out
+    model._train_step = recorded
+    return steps
 
 
 def run_leg(leg, x, y, weights, mesh=None, device="cpu"):
     """Train (``fit``) and predict the leg; returns its losses, its
     predictions, the table blocks it holds and their shapes."""
     saved = (inputs.PACKED_VOCAB_THRESHOLD, config.embedding_exchange(),
-             config.a2a_on_overflow())
+             config.a2a_on_overflow(), dien.context)
     try:
+        if leg.get("local_count"):
+            dien.context = types.SimpleNamespace(data_sum=lambda t: t)
         if leg.get("threshold"):
             inputs.PACKED_VOCAB_THRESHOLD = leg["threshold"]
         exchange = leg.get("exchange")
@@ -71,18 +129,21 @@ def run_leg(leg, x, y, weights, mesh=None, device="cpu"):
             config.set_embedding_exchange(exchange[0], mesh,
                                           a2a_slack=exchange[1],
                                           on_overflow=exchange[2])
-        models = multitask if leg["model"] == "MMOE" else pt.models
+        models = multitask if leg["model"] in MULTITASK else pt.models
         model = make_model(pt, models, leg, seed=3, device=device,
                            mesh=mesh, shard_embeddings=mesh is not None)
         load_jax_weights(model, weights)
         out = {"loss": None}
         if leg.get("fit", True):
             model.compile(leg["optimizer"], loss_of(leg),
+                          metrics=leg.get("metrics"),
                           sparse_table_updates=leg.get("sparse", False))
-            hist = model.fit(x, y, batch_size=leg["batch"],
-                             epochs=leg.get("epochs", 1), verbose=0,
-                             shuffle=leg.get("shuffle", True))
+            if leg.get("steps"):
+                out["steps"] = _record_steps(model)
+            hist = fit_leg(model, leg, x, y)
+            model.__dict__.pop("_train_step", None)
             out["loss"] = hist.history["loss"]
+            out["history"] = hist.history
             out["state"] = {p: [tuple(t.shape) for t in st]
                             for p, st in model._table_state.items()}
             out["dense_state"] = {
@@ -99,6 +160,7 @@ def run_leg(leg, x, y, weights, mesh=None, device="cpu"):
         config._EMBEDDING_EXCHANGE, config._EXCHANGE_MESH, \
             config._A2A_SLACK = saved[1]
         config._A2A_ON_OVERFLOW = saved[2]
+        dien.context = saved[3]
 
 
 def run_legs(rank, world, device, mesh_shape, legs, data, weights):
@@ -134,6 +196,74 @@ def sharded_persistence(rank, world, device, mesh_shape, leg, x, y,
             "state": {p: [t.clone() for t in st]
                       for p, st in again._table_state.items()},
             "blocks": {p: s[:2] for p, s in model._shards.items()}}
+
+
+def export_on_mesh(rank, world, device, mesh_shape, leg, x, y, weights,
+                   directory):
+    """A rank: the leg's model on the mesh with row-sharded tables, from
+    the JAX weights, fitted as the leg says; then ``export_predict`` and
+    ``save_exported`` to ``rank<r>.pt2``, and ``save`` to
+    ``model<r>.pt`` (every rank calls both, rank 0 writes).  Returns the
+    mesh's predictions, the artifact's in this rank and the shapes of the
+    artifact's weights."""
+    mesh = make_mesh(mesh_shape, devices="cpu")
+    model = make_model(pt, pt.models, leg, seed=3, device=device, mesh=mesh,
+                       shard_embeddings=True)
+    load_jax_weights(model, weights)
+    model.compile(leg["optimizer"], loss_of(leg))
+    fit_leg(model, leg, x, y)
+    exported = serving.export_predict(model)
+    serving.save_exported(exported,
+                          os.path.join(directory, "rank%d.pt2" % rank))
+    model.save(os.path.join(directory, "model%d.pt" % rank))
+    torch.distributed.barrier()
+    X = torch.from_numpy(model._assemble_x(x))
+    return {"pred": model.predict(x, leg["batch"]),
+            "exported": exported.call(X).numpy(),
+            "blocks": {p: s[:2] for p, s in model._shards.items()},
+            "shapes": {k: tuple(v.shape) for k, v in
+                       exported.program.state_dict.items()}}
+
+
+def optimizer_object(name, model):
+    """A ``torch.optim`` optimizer over ``model``'s parameters:
+    ``"Adagrad"`` at lr 0.01 or ``"Adam"`` at lr 0.001."""
+    lr = {"Adagrad": 0.01, "Adam": 0.001}[name]
+    return getattr(torch.optim, name)(model.parameters(), lr=lr)
+
+
+def optim_checkpoint(rank, world, device, mesh_shape, leg, x, y, directory,
+                     optimizer):
+    """A rank: the leg's model (seed 3) on the mesh with row-sharded
+    tables under a ``torch.optim`` ``optimizer``, one epoch, then
+    ``save_checkpoint`` (rank 0 writes) and a second epoch; a fresh model
+    (seed 3 again: the seed also draws the shuffle) loads the checkpoint
+    and takes the second epoch too.  Returns both runs' second-epoch
+    loss, predictions, weights and optimizer state."""
+    mesh = make_mesh(mesh_shape, devices="cpu")
+
+    def build():
+        model = make_model(pt, pt.models, leg, seed=3, device=device,
+                           mesh=mesh, shard_embeddings=True)
+        model.compile(optimizer_object(optimizer, model), loss_of(leg))
+        return model
+
+    def second_epoch(model):
+        hist = model.fit(x, y, batch_size=leg["batch"], epochs=2,
+                         initial_epoch=1, verbose=0)
+        return {"loss": hist.history["loss"][-1],
+                "pred": model.predict(x, leg["batch"]),
+                "weights": model.get_weights(),
+                "state": [t.clone() for st in model._dense_opt.state
+                          for t in st]}
+    whole = build()
+    whole.fit(x, y, batch_size=leg["batch"], epochs=1, verbose=0)
+    whole.save_checkpoint(directory)
+    torch.distributed.barrier()
+    resumed = build()
+    resumed.load_checkpoint(directory)
+    return {"whole": second_epoch(whole), "resumed": second_epoch(resumed),
+            "blocks": {p: s[:2] for p, s in whole._shards.items()}}
 
 
 def raise_on_rank_one(rank, world, device):
