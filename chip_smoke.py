@@ -405,10 +405,37 @@ Then the mesh (``deepctr_tpu_torch/parallel/``), float32:
     (loss, predictions, every table, weight and optimizer state); the
     checkpoint's bytes, save and load seconds.
 
+Then the rest of the feature set:
+
+35. a. adam's per-row step count (``config.set_adam_t("rowwise")``) on
+    the Criteo Kaggle DeepFM, named adam, "auto" (8 sparse tables): K2's
+    rowwise mode against its plain version bit for bit (tables, m, v and
+    t; counts drawn in [0, 40), untouched rows and counts unchanged) at
+    the touched rows of a batch of 4096 and inside model rank 1's block of
+    the ``(1, 2)`` mesh (the tables that shard, ``shard_local_rows``);
+    then 3 captured steps (graphed device loop, float32) bit-equal to the
+    same steps with K2 replaced by ``row_update_ref``; K2's device ms in
+    rowwise and table mode at the touched rows of a batch, beside their
+    bytes bounds (rowwise: 8 more bytes a touched row and the table of
+    pairs); the device-loop fit (bf16, 8 x 4096) in both modes, median of
+    5 alternating runs with the spread, measured and not held;
+    b. Dice and PReLU with parameters, float32: xDeepFM with
+    ``cin_activation`` ``"dice"`` and ``"prelu"`` at CIN 256-256, MMOE and
+    PLE with ``dnn_activation="dice"`` at Criteo width, the activations'
+    parameters and Dice's statistics drawn from the seed: graphed predict
+    of 8 batches (xDeepFM: ``cin_mix`` twice a batch), the first batch
+    within 1e-5 of the CPU; 2 sgd steps of 512 on the card and the CPU from
+    the same weights, losses within 1e-5 relative, the predictions after
+    within 1e-5 (xDeepFM's fit: ``cin_mix`` twice a step);
+    c. the seven example recipes (``deepctr_tpu_torch/examples/``) called
+    in process as ``main(epochs=1, device="cuda")``, each printing its
+    metrics (finite, but the AUC of a batch of one class) and its
+    launches (the gather and K1 in every one, K3 and K5 in DIEN's).
+
 The command's total seconds are printed before the kernels line.
 
 Launches in the kernels line are those of the main-path runs (phases 3,
-6, 10, 11, 14, 17, 20, 22, 23, 26, 28, 29, 30, 31, 32, 33 and 34, the
+6, 10, 11, 14, 17, 20, 22, 23, 26, 28, 29, 30, 31, 32, 33, 34 and 35, the
 two ranks' counted in their processes and added here; for
 ``static_scatter``, the micro-benchmark's run in phase 19), each counted
 from 0 just before the run and read just after; the runs that compare a
@@ -5517,6 +5544,382 @@ def mesh_export_line(ranks, d):
            "; ".join(parts), ATOL_CPU))
 
 
+# ---------------------------------------------------------------------------
+# phase 35: the rest of the feature set (adam's per-row step count on K2,
+# Dice and PReLU in the CIN and the stacked experts, the example recipes)
+# ---------------------------------------------------------------------------
+
+ROWWISE_STEPS = 3
+# counts drawn for the state's t in the kernel-vs-plain cases, and the
+# rows of their table of (1 - b1^t, 1 - b2^t) pairs
+ROWWISE_MAX_T = 40
+ROWWISE_PAIRS = 64
+
+
+def rowwise_k2_case(tables, grads, rows, l2s, what, seed, blocks=None):
+    """K2 in rowwise mode against ``row_update_ref`` on copies of
+    ``tables``, adam's moments uniform and each row's count t uniform in
+    [0, ROWWISE_MAX_T) from ``seed``: every table, moment and count bit
+    for bit, no row but the touched ones changed (its count included),
+    each touched row's count one more.  ``blocks``: cut each table to one
+    model rank's block ``(first row, stop, vocab, rows a block)`` and take
+    the rows ``shard_local_rows`` gives it, as a mesh rank's step does.
+    Returns max |err|."""
+    from deepctr_tpu_torch.parallel.update import shard_local_rows
+    device = tables[0].device
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if blocks is not None:
+        tables = [t[b[0]:b[1]] for t, b in zip(tables, blocks)]
+        rows = [shard_local_rows(r, b) for r, b in zip(rows, blocks)]
+    pairs = torch.from_numpy(rowup.bias_correction_table(
+        ROWWISE_PAIRS)).to(device)
+    plain_w = [t.clone() for t in tables]
+    kern_w = [same_offset_copy(t) for t in tables]
+    plain_s = [(torch.rand(t.shape, generator=gen, device=device),
+                torch.rand(t.shape, generator=gen, device=device),
+                torch.randint(0, ROWWISE_MAX_T, (t.shape[0],), generator=gen,
+                              device=device, dtype=torch.int32))
+               for t in tables]
+    kern_s = [tuple(a.clone() for a in st) for st in plain_s]
+    first = [tuple(a.clone() for a in st) for st in plain_s]
+    args = (grads, rows, l2s, 0.001, [pairs] * len(tables))
+    want_launches = len(rowup.launch_plan(
+        [len(r) for r in rows],
+        rowup.table_routes(kern_w, kern_s, grads, rows, l2s)))
+    before = rowup.ROW_UPDATE_LAUNCHES
+    rowup.row_update("adam", kern_w, kern_s, *args)
+    launches = rowup.ROW_UPDATE_LAUNCHES - before
+    check(launches == want_launches, "row_update (adam, rowwise) launched "
+          "%d times at %s, its plan %d" % (launches, what, want_launches))
+    rowup.row_update_ref("adam", plain_w, plain_s, *args)
+    torch.cuda.synchronize()
+    err = 0.0
+    n_touched = 0
+    for w, pw, st, ps, st0, w0, r in zip(kern_w, plain_w, kern_s, plain_s,
+                                         first, tables, rows):
+        for a, b in ((w, pw),) + tuple(zip(st, ps)):
+            check(tensor_bits_equal(a, b), "row_update (adam, rowwise) "
+                  "differs from its plain version at %s" % what)
+        err = max(err, (w - pw).abs().max().item())
+        touched = torch.zeros(w.shape[0], dtype=torch.bool, device=device)
+        touched[r[r < w.shape[0]]] = True
+        n_touched += int(touched.sum())
+        check(torch.equal(st[2][touched], st0[2][touched] + 1),
+              "row_update (adam, rowwise): a touched row's count did not "
+              "advance by one at %s" % what)
+        for a, a0 in ((w, w0),) + tuple(zip(st, st0)):
+            check(tensor_bits_equal(a[~touched], a0[~touched]),
+                  "row_update (adam, rowwise) changed other rows than the "
+                  "touched ones at %s" % what)
+    log("kernel vs plain: row_update (adam, rowwise) bit-equal at %s "
+        "(max_abs_err %r): tables, m, v and t; %d touched rows' counts one "
+        "more, every other row and count unchanged; %d launch(es) as planned"
+        % (what, err, n_touched, want_launches))
+    return err
+
+
+def rowwise_bounds(tables, rows, pairs_rows):
+    """The rowwise adam call's least time: table mode's bytes (k2_bounds)
+    plus each touched row's count read and written (8 bytes) and the table
+    of pairs read once."""
+    n_ms, _, n_bytes, _ = k2_bounds("adam", tables, [
+        (t, t) for t in tables], rows)
+    touched = sum(valid_counts(rows, tables))
+    n_bytes += 8 * touched + 8 * pairs_rows
+    return n_bytes / HBM_BYTES_PER_S * 1e3, n_bytes
+
+
+def kaggle_adam(device, seed_model=None):
+    """The Criteo Kaggle DeepFM under named adam, "auto": 8 sparse
+    tables."""
+    cols = criteo_columns()
+    model = DeepFM(cols, cols, dnn_hidden_units=HIDDEN, init_std=INIT_STD,
+                   seed=SEED, device=device)
+    if seed_model is not None:
+        model.set_weights(seed_model.get_weights())
+    model.compile("adam", "binary_crossentropy")
+    return model
+
+
+def phase_adam_rowwise(device):
+    """phase 35a: K2's rowwise mode.  Returns its entry for the kernels
+    line."""
+    from deepctr_tpu_torch.models import basemodel
+    from deepctr_tpu_torch.parallel.sharding import table_block
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pt.set_compute_dtype("float32")
+    pt.set_adam_t("rowwise")
+    try:
+        graphed = kaggle_adam(device)
+        paths = [p for p, _, _ in graphed._sparse_specs]
+        check(len(paths) == 8 and all(
+            len(graphed._table_state[p]) == 3 for p in paths),
+            "rowwise adam: sparse tables %s, states of %s tensors"
+            % (paths, [len(graphed._table_state[p]) for p in paths]))
+        gen = torch.Generator(device=device).manual_seed(SEED + 900)
+        X = criteo_requests(BATCH * ROWWISE_STEPS, gen, device)
+        y = criteo_labels(BATCH * ROWWISE_STEPS, SEED + 901)
+        touched = graphed._touched_rows(X[:BATCH])
+        g = torch.Generator(device=device).manual_seed(SEED + 902)
+        for grad in touched.grads:
+            grad.normal_(generator=g)
+        tables = [graphed._tables()[p].detach() for p in paths]
+        l2s = [graphed._table_l2_vec(p) for p in paths]
+        what = "Criteo Kaggle (%d touched rows in %d slots of %d tables)" % (
+            sum(valid_counts(touched.rows, tables)),
+            sum(len(r) for r in touched.rows), len(paths))
+        err = rowwise_k2_case(tables, touched.grads, touched.rows, l2s, what,
+                              SEED + 903)
+        blocks = [table_block(2, 1, *t.shape) for t in tables]
+        cut = [i for i, b in enumerate(blocks) if b is not None]
+        check(cut, "no sparse Kaggle table shards at (1, 2)")
+        err = max(err, rowwise_k2_case(
+            [tables[i] for i in cut], [touched.grads[i] for i in cut],
+            [touched.rows[i] for i in cut], [l2s[i] for i in cut],
+            "model rank 1's block of the (1, 2) mesh (%d of the sparse "
+            "tables)" % len(cut), SEED + 904,
+            blocks=[(blocks[i][0], blocks[i][1], tables[i].shape[0],
+                     blocks[i][2]) for i in cut]))
+
+        # 3 captured steps against the same steps with the plain version
+        eager = kaggle_adam(device, seed_model=graphed)
+        _, loop, counts, replays = loop_fit(graphed, X, y, BATCH)
+        check(counts["row_update"] == ROWWISE_STEPS and replays ==
+              ROWWISE_STEPS - 1, "rowwise adam graphed fit: launches %s, "
+              "%d replays" % (counts, replays))
+        y_dev = torch.as_tensor(y, device=device).view(-1, 1)
+        sw = torch.ones(BATCH, device=device)
+        real = basemodel.row_update
+        basemodel.row_update = rowup.row_update_ref
+        try:
+            eager._begin_steps(ROWWISE_STEPS)
+            totals = [eager._train_step(X[i * BATCH:(i + 1) * BATCH],
+                                        y_dev[i * BATCH:(i + 1) * BATCH],
+                                        sw)[1]
+                      for i in range(ROWWISE_STEPS)]
+        finally:
+            basemodel.row_update = real
+        check(tensor_bits_equal(loop.losses, torch.stack(totals)),
+              "rowwise adam: graphed losses %s, plain %s" % (
+                  loop.losses.tolist(), [float(t) for t in totals]))
+        check_same_state(training_state(graphed), training_state(eager),
+                         "rowwise adam: graphed K2 vs the plain version")
+        counts_t = [graphed._table_state[p][2] for p in paths]
+        log("fit f32 rowwise adam, Criteo Kaggle: %d captured steps of %d "
+            "(launches %s) bit-equal to the same steps with K2's plain "
+            "version: losses %s, every weight, moment and count; rows "
+            "touched %s, the most steps a row took %d"
+            % (ROWWISE_STEPS, BATCH, counts, loop.losses.tolist(),
+               [int((c > 0).sum()) for c in counts_t],
+               max(int(c.max()) for c in counts_t)))
+        del eager
+        torch.cuda.empty_cache()
+
+        # K2 timed in both modes at the touched rows of one batch
+        log("timing on: %s" % card_line())
+        pairs_rows = graphed._row_bias.shape[0]
+        upd_row = (tables, [graphed._table_state[p] for p in paths],
+                   touched.grads, touched.rows, l2s, 0.001)
+        upd_tab = (tables, [graphed._table_state[p][:2] for p in paths],
+                   touched.grads, touched.rows, l2s, 0.001)
+        saved = [t.clone() for t in tables] + [
+            a.clone() for p in paths for a in graphed._table_state[p]]
+        t_row = k2_times("adam", upd_row, [graphed._row_bias] * len(paths))
+        t_tab = k2_times("adam", upd_tab, k2_bias("adam", len(paths),
+                                                  device))
+        with torch.no_grad():
+            for a, b in zip(tables + [a for p in paths
+                                      for a in graphed._table_state[p]],
+                            saved):
+                a.copy_(b)
+        row_bound, row_bytes = rowwise_bounds(tables, touched.rows,
+                                              pairs_rows)
+        tab_bound = k2_bounds("adam", tables, [(t, t) for t in tables],
+                              touched.rows)
+        log(k2_line("adam, rowwise", what, t_row, (row_bound, float("nan"),
+                                                    row_bytes, 0)))
+        log(k2_line("adam, per table", what, t_tab, tab_bound))
+        del graphed
+        torch.cuda.empty_cache()
+
+        # the device-loop fit in both modes, alternating
+        pt.set_compute_dtype("bfloat16")
+        Xt = criteo_requests(BATCH * N_BATCHES, gen, device)
+        yt = torch.as_tensor(criteo_labels(BATCH * N_BATCHES, SEED + 905),
+                             device=device).view(-1, 1)
+        models = {}
+        for mode in ("table", "rowwise"):
+            pt.set_adam_t(mode)
+            models[mode] = kaggle_adam(device)
+        times = {m: [] for m in models}
+        for m in models.values():
+            m.fit(Xt, yt, batch_size=BATCH, epochs=1, verbose=0)
+        for _ in range(LOOP_RUNS):
+            for mode, m in models.items():
+                times[mode] += run_ms(lambda m=m: m.fit(
+                    Xt, yt, batch_size=BATCH, epochs=1, verbose=0), runs=1)
+        for mode in models:
+            log("fit bf16 adam Criteo Kaggle, device-resident loop, %d steps "
+                "of %d, %s step count on %s: %s" % (
+                    N_BATCHES, BATCH, mode, card_line(),
+                    rate_line(BATCH * N_BATCHES, times[mode])))
+        del models
+        torch.cuda.empty_cache()
+    finally:
+        pt.set_adam_t("table")
+        pt.set_compute_dtype("float32")
+    return dict(rowwise_max_abs_err=err, rowwise_ms=t_row["call cold"],
+                rowwise_bound_ms=row_bound,
+                adam_table_ms=t_tab["call cold"],
+                adam_table_bound_ms=tab_bound[0])
+
+
+# phase 35b: the activations with parameters, at CIN 256-256 (the bench's
+# width with equal sizes) and the multi-task models at Criteo width
+ACT_CIN = (256, 256)
+ACT_STEPS = 2
+ACT_CPU_BATCH = 512
+
+
+def param_act_model(name, act, device):
+    """xDeepFM with ``cin_activation=act`` at CIN 256-256, or MMOE/PLE
+    with ``dnn_activation=act``, weights redrawn as phases 17 and 22 draw
+    them; the activations' parameters and Dice's running statistics drawn
+    from the seed too, so that they count."""
+    if name == "xDeepFM":
+        cols = xdeepfm_columns()
+        model = xDeepFM(cols, cols, dnn_hidden_units=XD_HIDDEN,
+                        cin_layer_size=ACT_CIN, cin_activation=act,
+                        seed=SEED, device=device)
+        gen = torch.Generator(device=device).manual_seed(SEED + 410)
+        with torch.no_grad():
+            for key, p in model.named_parameters():
+                if key.startswith("dnn.") and p.dim() == 2:
+                    p.normal_(0.0, p.shape[1] ** -0.5, generator=gen)
+                elif "embedding_dict" in key:
+                    p.normal_(0.0, XD_EMB_STD, generator=gen)
+    else:
+        model = zoo_model(name, device, dnn_activation=act)
+    gen = torch.Generator(device=device).manual_seed(SEED + 950)
+    with torch.no_grad():
+        for key, t in model.state_dict().items():
+            if key.endswith(".alpha"):
+                t.normal_(0.0, 0.3, generator=gen)
+            elif ".bn.mean" in key and ("Dice_" in key):
+                t.normal_(0.0, 0.1, generator=gen)
+            elif ".bn.var" in key and ("Dice_" in key):
+                t.uniform_(0.5, 1.5, generator=gen)
+    return model
+
+
+def phase_param_activations(device):
+    """phase 35b: xDeepFM with a Dice and a PReLU CIN, MMOE and PLE with
+    Dice experts, float32: graphed predict of 8 batches (K6 twice a
+    batch for xDeepFM), the first batch within 1e-5 of the same model on
+    the CPU; then ACT_STEPS sgd steps on the card and on the CPU from the
+    same weights: per-step losses within 1e-5 relative and the
+    predictions after within 1e-5."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pt.set_compute_dtype("float32")
+    cases = [("xDeepFM", "dice"), ("xDeepFM", "prelu"), ("MMOE", "dice"),
+             ("PLE", "dice")]
+    n = BATCH * N_BATCHES
+    for i, (name, act) in enumerate(cases):
+        model = param_act_model(name, act, device)
+        X = (xdeepfm_requests(n, SEED + 960 + i, device) if name ==
+             "xDeepFM" else zoo_requests(name, n, SEED + 960 + i, device))
+        reset_counts()
+        pred = model.predict(X, batch_size=BATCH)
+        counts = read_counts()
+        if name == "xDeepFM":
+            check(counts["cin_mix"] == 2 * N_BATCHES, "xDeepFM %s predict: "
+                  "cin_mix launched %d times in %d batches" % (
+                      act, counts["cin_mix"], N_BATCHES))
+        check(counts["gather_rows"] == N_BATCHES, "%s %s predict: %d "
+              "gathers" % (name, act, counts["gather_rows"]))
+        check_predictions(pred, n, model.num_tasks)
+        cpu = param_act_model(name, act, "cpu")
+        cpu.set_weights(model.get_weights())
+        pred_cpu = cpu.predict(X[:BATCH].cpu(), batch_size=BATCH)
+        diff = float(np.abs(pred[:BATCH] - pred_cpu).max())
+        check(diff <= ATOL_CPU, "%s %s: card vs CPU max |dp| %r > %r"
+              % (name, act, diff, ATOL_CPU))
+        m = ACT_CPU_BATCH * ACT_STEPS
+        x = X[:m].cpu().numpy()
+        y = (criteo_labels(m, SEED + 970 + i) if name == "xDeepFM"
+             else zoo_labels(name, m, SEED + 970 + i))
+        loss = ("binary_crossentropy" if name == "xDeepFM"
+                else zoo_loss(name))
+        runs = {}
+        for where, mm in (("card", model), ("cpu", cpu)):
+            mm.compile("sgd", loss)
+            rec = record_losses(mm)
+            if where == "card":
+                reset_counts()
+            mm.fit(x, y, batch_size=ACT_CPU_BATCH, epochs=1, verbose=0,
+                   shuffle=False)
+            if where == "card":
+                fit_counts = read_counts()
+            runs[where] = rec
+        rel = max(abs(a - b) / abs(b) for a, b in zip(runs["card"],
+                                                       runs["cpu"]))
+        check(len(runs["card"]) == ACT_STEPS and rel <= 1e-5,
+              "%s %s sgd: losses card %s, CPU %s" % (
+                  name, act, runs["card"], runs["cpu"]))
+        if name == "xDeepFM":
+            check(fit_counts["cin_mix"] == 2 * ACT_STEPS, "xDeepFM %s fit: "
+                  "cin_mix launched %d times" % (act, fit_counts["cin_mix"]))
+        after = model.predict(X[:BATCH], batch_size=BATCH)
+        after_cpu = cpu.predict(X[:BATCH].cpu(), batch_size=BATCH)
+        diff_after = float(np.abs(after - after_cpu).max())
+        check(diff_after <= ATOL_CPU, "%s %s after sgd: card vs CPU max "
+              "|dp| %r" % (name, act, diff_after))
+        log("%s %s on %s, float32: predict launches %s, predictions in "
+            "[%.6f, %.6f], std %.6f, first batch vs CPU max |dp| %r; %d sgd "
+            "steps of %d, launches %s, losses card %s CPU %s (max rel %r), "
+            "predictions after vs CPU max |dp| %r (atol %r)"
+            % (name, act, card_line(), counts, pred.min(), pred.max(),
+               pred.std(), diff, ACT_STEPS, ACT_CPU_BATCH, fit_counts,
+               runs["card"], runs["cpu"], rel, diff_after, ATOL_CPU))
+        del model, cpu
+        torch.cuda.empty_cache()
+
+
+def phase_recipes(device):
+    """phase 35c: the seven example recipes called in process,
+    ``main(epochs=1, device="cuda")``, each printing its metrics; every
+    metric finite (a batch of one class has no AUC), the launches each
+    ran."""
+    from deepctr_tpu_torch.examples import (
+        run_classification_criteo, run_dien, run_din,
+        run_multitask_learning, run_multivalue_movielens,
+        run_regression_movielens, run_streaming_criteo)
+    pt.set_compute_dtype("float32")
+    need = {"run_dien": ("gather_rows", "scatter_add_rows", "gru_scan",
+                         "gru_scan_bwd")}
+    for recipe in (run_classification_criteo, run_regression_movielens,
+                   run_multivalue_movielens, run_multitask_learning,
+                   run_din, run_dien, run_streaming_criteo):
+        short = recipe.__name__.split(".")[-1]
+        reset_counts()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            out = recipe.main(epochs=1, device=str(device))
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        for key, value in out.items():
+            values = np.asarray(value, np.float64).reshape(-1)
+            check(np.isfinite(values).all() or key == "auc",
+                  "%s: %s = %r" % (short, key, value))
+        for name in need.get(short, ("gather_rows", "scatter_add_rows")):
+            check(counts[name] > 0, "%s: %s never launched" % (short, name))
+        log("recipe %s on %s: %.2f s, launches %s, %s" % (
+            short, card_line(), seconds,
+            {k: v for k, v in counts.items() if v}, out))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -5612,13 +6015,19 @@ def main():
     del twin
     torch.cuda.empty_cache()
     phase_mesh_io(device)
+    torch.cuda.empty_cache()
+
+    rowwise = phase_adam_rowwise(device)
+    phase_param_activations(device)
+    phase_recipes(device)
 
     log(card_line())
     measured = {"gather_rows": dict(max_abs_err=err, **timing, **zero_fill),
                 "scatter_add_rows": dict(max_abs_err=k1_err,
                                          **train_timing["scatter_add_rows"]),
                 "row_update": dict(max_abs_err=k2_err,
-                                   **train_timing["row_update"])}
+                                   **train_timing["row_update"],
+                                   **rowwise)}
     for name in ("gru_scan", "gru_scan_bwd", "din_attention"):
         measured[name] = dict(max_abs_err=seq_errs[name], **seq_timing[name])
     measured["cin_mix"] = dict(max_abs_err=cin_err, **cin_timing)

@@ -7,7 +7,7 @@ Models run on ``"cuda"`` unless the caller passes ``device="cpu"``.
 
 from . import config
 from .config import (set_compute_dtype, compute_dtype, set_cin_dtype,
-                     cin_dtype)
+                     cin_dtype, set_adam_t)
 from .features import (SparseFeat, DenseFeat, VarLenSparseFeat,
                        build_input_features, get_feature_names,
                        DEFAULT_GROUP_NAME)

@@ -1,5 +1,6 @@
 """Global framework configuration: the compute dtype, the CIN's
-compute-dtype mode and the lookup exchange of row-sharded tables.
+compute-dtype mode, adam's step count on the sparse tables and the lookup
+exchange of row-sharded tables.
 
 Counterpart of ``deepctr_tpu/config.py:11-26`` and ``:270-308`` and of the
 JAX CIN's ``DEEPCTR_CIN_DTYPE`` (``deepctr_tpu/layers/interaction.py:
@@ -52,6 +53,31 @@ def set_cin_dtype(mode):
 
 def cin_dtype():
     return _CIN_DTYPE
+
+
+_ADAM_T_MODES = ("table", "rowwise")
+_ADAM_T = "table"
+
+
+def set_adam_t(mode):
+    """Adam's bias-correction step count on the sparse tables (the tables
+    that ``compile``'s ``sparse_table_updates`` sends to the touched-rows
+    update): ``"table"`` (the default: one count a table, advanced every
+    step) or ``"rowwise"`` (an int32 count a row, advanced only on the
+    steps that touch the row, as ``torch.optim.SparseAdam`` does).  Dense
+    parameters and dense tables keep the global count either way.  Read by
+    ``compile``, as the JAX package reads ``DEEPCTR_ADAM_T`` when it builds
+    the table state (``deepctr_tpu/models/basemodel.py:538-540``); the port
+    reads no environment variable.  Any other value raises."""
+    global _ADAM_T
+    if mode not in _ADAM_T_MODES:
+        raise ValueError("adam step count must be one of %s, got %r"
+                         % (", ".join(_ADAM_T_MODES), mode))
+    _ADAM_T = mode
+
+
+def adam_t():
+    return _ADAM_T
 
 
 # --------------------------------------------------------------------------

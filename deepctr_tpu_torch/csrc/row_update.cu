@@ -9,6 +9,14 @@
 //     adam:     m = d1 * m_t[r] + c1 * g';  v = d2 * v_t[r] + c2 * g'^2;
 //               w_t[r] -= lr * (m / bc1) / (sqrt(v / bc2) + eps)
 //
+// Adam's (bc1, bc2) = (1 - b1^t, 1 - b2^t) come one pair a table (the
+// table's step count), or, in the per-row mode (t_t non-null, as
+// torch.optim.SparseAdam), from the row's own count: the lane that holds
+// the row's id reads n = t_t[r] + 1, writes it back and reads the pair
+// from row n of a [T, 2] table of the pairs of every count (bias_t), so
+// that the corrections are the JAX package's float32 pow bit for bit.
+// Each row id is held by one lane and the ids are distinct: no race.
+//
 // The table and its state rows are updated IN PLACE (the JAX package
 // returns new buffers through input_output_aliases; here the tensors are
 // simply overwritten).  A table's row list has a fixed capacity: the
@@ -35,11 +43,14 @@
 // intrinsics), so the kernel equals its plain PyTorch version bit for bit.
 // Adam's bias corrections (1 - b1^t, 1 - b2^t) are read from device
 // memory through a pointer in the table's arguments, so that a launch
-// captured in a CUDA graph takes each replay's step.
+// captured in a CUDA graph takes each replay's step; in the per-row mode
+// so is the row's count.
 //
 // What bounds it: device-memory bytes.  Per touched element it reads w, g
 // and the state and writes w and the state: 5 floats for adagrad and
-// rmsprop, 7 for adam, 3 for sgd, and a row id a row.  At B=4096 over the
+// rmsprop, 7 for adam, 3 for sgd, and a row id a row; adam's per-row
+// count adds 8 bytes a row (t read and written) and its pair, 8 bytes
+// from a table of a few KB that stays in L2.  At B=4096 over the
 // 8 big Criteo tables (about 32.6k touched rows of 17 floats) that is
 // about 11.3 MB for adagrad, 3.4 us at 3.35 TB/s.  Counted in the 32-byte
 // sectors the memory moves, a 68-byte row at a random 4-byte offset
@@ -119,7 +130,9 @@ struct Table {
   const float* g;
   const long long* rows;
   const float* l2;
-  const float* bias;  // adam's (1 - b1^t, 1 - b2^t); null otherwise
+  const float* bias;  // adam's (1 - b1^t, 1 - b2^t): one pair, or a
+                      // [T, 2] table by count with t; null otherwise
+  int* t;             // adam's per-row counts [vocab]; null otherwise
   long long vocab;    // the table's rows: a row id past them is padding
   int capacity;       // row ids listed, > 0
   int width;
@@ -194,7 +207,8 @@ __device__ __forceinline__ void update_units(const Table& tb,
                                              const Consts& k, int units,
                                              int k0, int j0, int n,
                                              long long row, unsigned live,
-                                             int lane) {
+                                             int lane, bool rowwise,
+                                             float rbc1, float rbc2) {
   using T = Unit<VEC>;
   if (UNITS != 0) units = UNITS;  // a constant: i / units is a multiply
   const int n_units = n * units;
@@ -245,9 +259,15 @@ __device__ __forceinline__ void update_units(const Table& tb,
     if (past(u)) break;
     const int i = lane + 32 * (k0 + u);
     const long long at = offset(i);
+    Consts ku = k;
+    if (M == kAdam && rowwise) {  // warp-uniform: the row's own pair
+      const int src = (i / units) & 31;
+      ku.bc1 = __shfl_sync(kFull, rbc1, src);
+      ku.bc2 = __shfl_sync(kFull, rbc2, src);
+    }
     if (in_table(i)) {
       w[at] = update<M>(wv[u], gv[u], __ldg(l2 + i % units), av[u], bv[u],
-                        k);
+                        ku);
       if (M != kSgd) s1[at] = av[u];
       if (M == kAdam) s2[at] = bv[u];
     }
@@ -257,16 +277,18 @@ __device__ __forceinline__ void update_units(const Table& tb,
 template <int M, bool VEC, int UNITS>
 __device__ __forceinline__ void update_run(const Table& tb, const Consts& k,
                                            int j0, int n, long long row,
-                                           unsigned live, int lane) {
+                                           unsigned live, int lane,
+                                           bool rowwise, float rbc1,
+                                           float rbc2) {
   if constexpr (UNITS != 0) {
     update_units<M, VEC, UNITS, (kRunRows * UNITS + 31) / 32>(
-        tb, k, UNITS, 0, j0, n, row, live, lane);
+        tb, k, UNITS, 0, j0, n, row, live, lane, rowwise, rbc1, rbc2);
   } else {
     constexpr int K = VEC ? kBatch / 4 : kBatch;
     const int units = VEC ? tb.width >> 2 : tb.width;
     for (int k0 = 0; 32 * k0 < n * units; k0 += K) {
       update_units<M, VEC, 0, K>(tb, k, units, k0, j0, n, row, live,
-                                 lane);
+                                 lane, rowwise, rbc1, rbc2);
     }
   }
 }
@@ -295,12 +317,23 @@ row_update_kernel(const __grid_constant__ Args a) {
                                static_cast<unsigned long long>(tb.vocab));
     if (live == 0) continue;  // warp-uniform: a run of padding only
     Consts k{a.lr, a.eps, a.d1, a.c1, a.d2, a.c2, 1.0f, 1.0f};
-    if (M == kAdam) {
+    // per-row counts: the lane of each live row advances it and reads
+    // the row's pair (rbc1, rbc2), which the row's units take by shuffle
+    const bool rowwise = M == kAdam && tb.t != nullptr;
+    float rbc1 = 1.0f, rbc2 = 1.0f;
+    if (rowwise) {
+      if ((live >> lane) & 1u) {
+        const int count = tb.t[row] + 1;
+        tb.t[row] = count;
+        rbc1 = __ldg(tb.bias + 2 * static_cast<long long>(count));
+        rbc2 = __ldg(tb.bias + 2 * static_cast<long long>(count) + 1);
+      }
+    } else if (M == kAdam) {
       k.bc1 = __ldg(tb.bias);
       k.bc2 = __ldg(tb.bias + 1);
     }
     update_run<M, R == kVec, R == kW17 ? 17 : 0>(tb, k, j0, n, row, live,
-                                                 lane);
+                                                 lane, rowwise, rbc1, rbc2);
   }
 }
 

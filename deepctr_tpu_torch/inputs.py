@@ -37,6 +37,34 @@ from .parallel.sharding import gather_data
 PACKED_VOCAB_THRESHOLD = 131072
 
 
+# the JAX package's bfloat16 lowerings of a small-table lookup
+# (``deepctr_tpu/inputs.py:190-233``, ``deepctr_tpu/config.py:131-180``,
+# ``deepctr_tpu/ops/onehot_lookup.py:100-111``): tables of at most this
+# many stored rows, a model-level lookup of at least this many ids
+_GATHER_CAST_MAX_ROWS = 65536
+_ONEHOT_MIN_IDS = 32768
+
+
+def rounds_to_bf16(vocab, width, n_ids, substituted):
+    """Whether the JAX package's ``"auto"`` gather mode, at bfloat16
+    compute, returns this table's rows rounded to bfloat16: ``"cast"``
+    for the touched rows of a packed table in a train step
+    (``substituted``; at most 65536 of them), ``"onehot"`` (an exact
+    bfloat16 one-hot product) for a full unpacked table of at most 65536
+    rows when the model's largest lookup (``n_ids``, B times its longest
+    sequence) reaches 32768 ids or the table factorizes; ``"off"`` (a
+    float32 gather) otherwise."""
+    rows, pack = stored_rows(vocab, width)
+    if substituted:
+        return pack > 1
+    if pack > 1 or rows > _GATHER_CAST_MAX_ROWS:
+        return False
+    if n_ids >= _ONEHOT_MIN_IDS:
+        return True
+    v2 = min(max(1, 1024 // max(width, 1)), rows)
+    return v2 > 1 and rows // v2 >= 2
+
+
 def stored_rows(vocab, width):
     """``(rows, pack)``: the rows of a ``[vocab, width]`` table as the JAX
     package stores it, and the logical rows each of them packs (1 where it
@@ -168,6 +196,10 @@ class EmbeddingDict(TableHolder):
             table.normal_(0.0, init_std, generator=generator)
             self.tables[name] = nn.Parameter(table)
             self.table_dims[name] = dim
+        # the longest lookup a row makes, as the JAX package's gather mode
+        # counts it (``deepctr_tpu/inputs.py:108``)
+        self._max_maxlen = max([f.maxlen for f in feature_columns
+                                if isinstance(f, VarLenSparseFeat)] + [1])
 
     def _route(self, fc):
         """How feature ``fc``'s rows are looked up: ``"gather"`` (a
@@ -212,9 +244,40 @@ class EmbeddingDict(TableHolder):
             else:
                 rows = self._gather(X, [self.tables[n] for n in names],
                                     names, cols)
+            if config.compute_dtype() == torch.bfloat16:
+                rows = self._round_like_jax(X, rows, names)
             for fc, (first, n) in zip(fcs, spans):
                 out[fc.name] = rows[:, first:first + n]
         return out
+
+    def _round_like_jax(self, X, rows, names):
+        """``rows`` [B, F, W] with the fields whose table the JAX package
+        looks up in bfloat16 (:func:`rounds_to_bf16`) rounded to bfloat16
+        values, kept float32: the forward reads what the JAX package's
+        lookup returns, and each row's cotangent is rounded to bfloat16
+        on its way back, as the one-hot lowering's backward rounds it
+        (whose float32 sums K1 then repeats; the ``"cast"`` lowering sums
+        a batch's duplicate ids in bfloat16, the port in float32)."""
+        n_data = 1 if self._axes is None else self._axes.n_data
+        n_ids = X.shape[0] * n_data * self._max_maxlen
+        train = self._capture is not None
+        flags = {n: rounds_to_bf16(*self.tables[n].shape, n_ids,
+                                   train and n in self._exact)
+                 for n in set(names)}
+        if not any(flags.values()):
+            return rows
+        rounded = rows.to(torch.bfloat16).to(rows.dtype)
+        if all(flags.values()):
+            return rounded
+        # runs of fields alike, sliced (no index tensor: a captured step
+        # uploads nothing)
+        parts, first = [], 0
+        for i in range(1, len(names) + 1):
+            if i == len(names) or flags[names[i]] != flags[names[first]]:
+                src = rounded if flags[names[first]] else rows
+                parts.append(src[:, first:i])
+                first = i
+        return torch.cat(parts, dim=1)
 
     def forward(self, name, rows):
         """Deep columns of gathered full-width rows: [..., dim]."""

@@ -103,42 +103,75 @@ class Dice(nn.Module):
     without scale or bias (:class:`BatchNorm` with ``epsilon=1e-8``, the
     JAX package's ``Dice``): batch statistics in training, which move the
     running buffers ``bn.mean`` and ``bn.var``, those buffers at
-    inference.  Computed in float32, returned in x's dtype."""
+    inference.  Computed in float32, returned in x's dtype.
 
-    def __init__(self, emb_size, epsilon=1e-8, device=None):
+    ``experts`` gives every parameter and statistic a leading axis of that
+    size, as the JAX package's ``nn.vmap`` of a DNN does for the stacked
+    expert towers: ``alpha`` and ``bn.{mean,var}`` are [experts, emb_size],
+    the input [experts, B, emb_size], and each expert normalises with its
+    own batch's statistics.
+
+    ``promote`` keeps the dtypes of flax's arithmetic on a low-precision
+    input, as the CIN meets it: the normalised input is rounded to x's
+    dtype (flax's ``BatchNorm`` returns it), the gate and ``p * x`` stay in
+    it, and the float32 ``alpha`` promotes the result to float32."""
+
+    def __init__(self, emb_size, epsilon=1e-8, experts=None, promote=False,
+                 device=None):
         super().__init__()
-        self.alpha = nn.Parameter(torch.zeros(emb_size, device=device))
-        self.bn = BatchNorm(emb_size, epsilon=epsilon, use_scale=False,
-                            use_bias=False, device=device)
+        shape = emb_size if experts is None else (experts, emb_size)
+        self.experts = experts
+        self.promote = promote
+        self.alpha = nn.Parameter(torch.zeros(shape, device=device))
+        self.bn = BatchNorm(shape, epsilon=epsilon, use_scale=False,
+                            use_bias=False,
+                            axis=-1 if experts is None else (0, 2),
+                            device=device)
 
     def forward(self, x, training=False):
+        alpha = self.alpha if self.experts is None else self.alpha[:, None]
+        x_norm = self.bn(x, training)
+        if self.promote:
+            x_p = torch.sigmoid(x_norm.to(x.dtype))
+            return alpha * (1.0 - x_p) * x + x_p * x
         x32 = x.float()
-        x_p = torch.sigmoid(self.bn(x32, training))
-        return (self.alpha * (1.0 - x_p) * x32 + x_p * x32).to(x.dtype)
+        x_p = torch.sigmoid(x_norm)
+        return (alpha * (1.0 - x_p) * x32 + x_p * x32).to(x.dtype)
 
 
 class PReLU(nn.Module):
     """Parametric ReLU with one learned slope (torch ``nn.PReLU``'s
-    default)."""
+    default); ``experts`` gives the slope a leading axis, ``alpha``
+    [experts, 1] over an [experts, B, units] input.  ``promote``: the
+    float32 slope promotes a low-precision input's negative side, and with
+    it the result, to float32, as ``jnp.where`` does."""
 
-    def __init__(self, init=0.25, device=None):
+    def __init__(self, init=0.25, experts=None, promote=False, device=None):
         super().__init__()
-        self.alpha = nn.Parameter(torch.full((1,), init, device=device))
+        shape = (1,) if experts is None else (experts, 1)
+        self.experts = experts
+        self.promote = promote
+        self.alpha = nn.Parameter(torch.full(shape, init, device=device))
 
     def forward(self, x, training=False):
-        return torch.where(x >= 0, x, self.alpha.to(x.dtype) * x)
+        alpha = self.alpha if self.experts is None else self.alpha[:, None]
+        if not self.promote:
+            alpha = alpha.to(x.dtype)
+        return torch.where(x >= 0, x, alpha * x)
 
 
 def _wrap(fn):
     return lambda x, training=False: fn(x)
 
 
-def activation_layer(act_name, hidden_size=None, dice_dim=2, device=None):
+def activation_layer(act_name, hidden_size=None, dice_dim=2, device=None,
+                     experts=None, promote=False):
     """Resolve an activation spec to ``callable(x, training=False) -> x``.
 
     Accepts 'sigmoid' | 'linear' | 'relu' | 'tanh' | 'dice' | 'prelu' or a
     plain callable.  Dice needs ``hidden_size``, the width of its input's
-    last axis; ``dice_dim`` is accepted for API parity."""
+    last axis; ``dice_dim`` is accepted for API parity.  ``experts`` and
+    ``promote`` go to Dice and PReLU (see there)."""
     if isinstance(act_name, str):
         name = act_name.lower()
         if name == "sigmoid":
@@ -152,9 +185,10 @@ def activation_layer(act_name, hidden_size=None, dice_dim=2, device=None):
         if name == "dice":
             if hidden_size is None:
                 raise ValueError("Dice needs hidden_size")
-            return Dice(hidden_size, device=device)
+            return Dice(hidden_size, experts=experts, promote=promote,
+                        device=device)
         if name == "prelu":
-            return PReLU(device=device)
+            return PReLU(experts=experts, promote=promote, device=device)
         raise NotImplementedError("unknown activation %r" % act_name)
     if callable(act_name):
         return _wrap(act_name)

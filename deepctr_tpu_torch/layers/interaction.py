@@ -52,7 +52,21 @@ class CIN(nn.Module):
     U(+-1/sqrt(size)), the JAX layer's ``variance_scaling(1/3, "fan_in",
     "uniform")`` on shape ``(size, in_ch)`` (flax's fan-in of a 2-D kernel
     is its first axis), and ``conv_b_<i>`` starts at zero (the JAX layer's
-    ``init_std`` is unused there and has no counterpart).  On CUDA the
+    ``init_std`` is unused there and has no counterpart).
+
+    ``"dice"`` and ``"prelu"`` build one module, ``Dice_0`` or
+    ``PReLU_0``, shared by every layer, as the JAX layer builds one before
+    its loop (``deepctr_tpu/layers/interaction.py:165``).  PReLU has one
+    scalar slope at any layer sizes; Dice's ``alpha`` and statistics have
+    the layer width, so layer sizes that differ raise ValueError (the JAX
+    layer fails to broadcast at its second layer).  The JAX layer calls
+    the activation without ``training`` (``:178``), so its Dice always
+    normalises with the running statistics, which a training step leaves
+    at 0 and 1: a quirk of the reference, kept.  The activation takes the
+    carried maps in their dtype and returns float32, as flax's promotion
+    does (``Dice(promote=True)``); from there on the maps are float32 and
+    each product casts them to its operand dtype, so in bfloat16 compute
+    the kernel still mixes bfloat16.  On CUDA the
     kernel's weight layouts are kept between calls
     (``ops.cin.kernel_weights``), so inference casts and transposes no
     weight a batch."""
@@ -63,14 +77,20 @@ class CIN(nn.Module):
         if len(layer_size) == 0:
             raise ValueError("layer_size must be a list(tuple) of length "
                              "greater than 1")
-        if isinstance(activation, str) and activation.lower() in (
-                "dice", "prelu"):
-            raise NotImplementedError("CIN takes activations without "
-                                      "parameters, got %r" % (activation,))
         self.field_size = field_size
         self.layer_size = tuple(layer_size)
         self.split_half = split_half
-        self.activation = activation_layer(activation)
+        if (isinstance(activation, str) and activation.lower() == "dice"
+                and len(set(self.layer_size)) > 1):
+            raise ValueError(
+                "CIN shares one Dice across its layers, whose alpha and "
+                "statistics have the first layer's width: layer sizes %r "
+                "differ" % (self.layer_size,))
+        act = activation_layer(activation, hidden_size=self.layer_size[0],
+                               device=device, promote=True)
+        if isinstance(act, nn.Module):
+            self.add_module("%s_0" % type(act).__name__, act)
+        self.act = [act]        # a list: the module is registered once
         self.field_nums = [field_size]
         last = len(self.layer_size) - 1
         for i, size in enumerate(self.layer_size):
@@ -116,7 +136,7 @@ class CIN(nn.Module):
                 w3, wt, wm = w3.to(op_dtype), None, None
             x = cin_mix(hidden.to(op_dtype), x0_op, w3, wt=wt, wm=wm,
                         out_dtype=carry_dtype) + b.to(carry_dtype)
-            curr = self.activation(x)                            # [B, E, size]
+            curr = self.act[0](x)                                # [B, E, size]
             if self.split_half and i != last:
                 hidden, direct = torch.split(curr, size // 2, dim=-1)
             else:

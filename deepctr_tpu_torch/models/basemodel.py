@@ -32,7 +32,9 @@ nothing back, so that a CUDA graph can replay it: ``graphs.py``):
    launch on the touched rows of every sparse table (lazy L2 and the
    optimizer's row step, in place; adam's bias corrections for the step
    read on the device from a table uploaded once for the steps ahead,
-   ``_begin_steps``).
+   ``_begin_steps``; under ``config.set_adam_t("rowwise")`` each sparse
+   row's own step count, advanced by the kernel, picks its pair from a
+   table of the pairs of every count).
 
 ``fit`` on host arrays runs these steps eagerly, uploading each batch and
 reading its loss.  ``fit`` on a device tensor is the device-resident loop:
@@ -83,7 +85,8 @@ from ..layers.utils import slice_arrays
 from ..losses import resolve_loss
 from ..ops import row_update as _row_update
 from ..ops._args import DeviceArgs, device_array
-from ..ops.row_update import adam_bias_corrections, row_update
+from ..ops.row_update import (adam_bias_corrections, bias_correction_table,
+                              row_update)
 from ..ops.scatter_add import scatter_add_rows
 from ..parallel.context import data_shard
 from ..parallel.sharding import (Axes, batch_sharding, gather_data,
@@ -725,6 +728,9 @@ class BaseModel(BaseModule):
         self.metrics = resolve_metrics(metrics)
         self.metrics_names = ["loss"] + list(self.metrics)
         self._sparse_specs = self._resolve_sparse_specs(sparse_table_updates)
+        # adam's step count on the sparse tables (config.set_adam_t), read
+        # here as the JAX package reads DEEPCTR_ADAM_T for its table state
+        self._adam_t = config.adam_t() if optimizer == "adam" else None
         self._eager_step_warned = False
         self._init_optimizer_state()
         return self
@@ -744,8 +750,13 @@ class BaseModel(BaseModule):
             n_state = _row_update.MODES[self._optimizer_name][1]
         self._dense_paths = [path for path, _ in self._named_params()
                              if path not in sparse]
+        # rowwise adam: each table's state gains t, int32 [rows], the
+        # rows of this rank's block on a mesh
+        rowwise = self._adam_t == "rowwise"
         self._table_state = {
             p: tuple(torch.zeros_like(tables[p]) for _ in range(n_state))
+            + ((torch.zeros(tables[p].shape[0], dtype=torch.int32,
+                            device=tables[p].device),) if rowwise else ())
             for p, _, _ in self._sparse_specs}
         # a row-sharded table on the sparse path takes the exact (psum)
         # exchange in a train step (inputs.TableHolder)
@@ -757,6 +768,8 @@ class BaseModel(BaseModule):
         # device, and adam's bias corrections for those steps
         self._step_i = torch.zeros(1, dtype=torch.int64, device=self._device)
         self._bias_table = None
+        # rowwise adam: the pairs of every count (bias_correction_table)
+        self._row_bias = None
         self._step_rules = None
         self._invalidate_graphs()
 
@@ -782,6 +795,7 @@ class BaseModel(BaseModule):
         streamed epoch calls it for each chunk, without reseeding the
         dropout generator, so that the chunks carry on the epoch's masks
         and adam's step count."""
+        self._reserve_steps(n)
         t0 = self._dense_opt.count
         self._dense_opt.count += n
         for p in self._table_t:
@@ -789,7 +803,6 @@ class BaseModel(BaseModule):
         self._step_i.zero_()
         if self._optimizer_name != "adam":
             return
-        self._reserve_steps(n)
         values = [c for t in range(t0 + 1, t0 + n + 1)
                   for c in adam_bias_corrections(t)]
         self._bias_table[:n].copy_(
@@ -797,13 +810,25 @@ class BaseModel(BaseModule):
 
     def _reserve_steps(self, n):
         """adam's table of bias corrections, made (or made larger) for
-        ``n`` steps.  A new table drops the captured graphs, which read
-        the old one: the device loop reserves it before it looks up its
-        graph."""
-        if self._optimizer_name == "adam" and (
-                self._bias_table is None or self._bias_table.shape[0] < n):
+        the next ``n`` steps; under rowwise adam also the table of the
+        pairs of every count up to the steps taken and ``n`` more (no
+        row's count exceeds the steps taken), at least doubled when it
+        grows.  A new table drops the captured graphs, which read the old
+        one: the device loop reserves it before it looks up its graph."""
+        if self._optimizer_name != "adam":
+            return
+        if self._bias_table is None or self._bias_table.shape[0] < n:
             self._drop_graphs()
             self._bias_table = torch.empty(n, 2, device=self._device)
+        if self._adam_t != "rowwise" or not self._sparse_specs:
+            return
+        need = self._dense_opt.count + n + 1
+        have = 0 if self._row_bias is None else self._row_bias.shape[0]
+        if have < need:
+            self._drop_graphs()
+            self._row_bias = device_array(
+                bias_correction_table(max(need, 2 * have, 1024)),
+                torch.float32, self._device)
 
     def _step_plan(self, B):
         plan = self._plans.get(B)
@@ -1148,6 +1173,8 @@ class BaseModel(BaseModule):
         paths = [p for p, _, _ in self._sparse_specs]
         rows = [shard_local_rows(r, self._shards.get(p))
                 for r, p in zip(touched.rows, paths)]
+        if bias is not None and self._adam_t == "rowwise":
+            bias = self._row_bias     # each row's pair by its own count
         row_update(self._optimizer_name, [tables[p] for p in paths],
                    [self._table_state[p] for p in paths], touched.grads,
                    rows, [l2_vecs[p] for p in paths], self._learning_rate,

@@ -67,8 +67,10 @@ class StackedDNN(nn.Module):
     ``use_bn`` ``bn_<i>`` (:class:`BatchNorm` of [num, units] over the
     batch alone, each tower its own statistics), the activation, and
     dropout drawing one mask over every tower's values.  [B, D] ->
-    [B, num, units[-1]].  Activations with parameters (Dice, PReLU) are
-    not ported here and raise."""
+    [B, num, units[-1]].  Dice and PReLU are one module a layer,
+    ``Dice_<i>``/``PReLU_<i>``, with the expert axis: Dice's ``alpha`` and
+    ``bn.{mean,var}`` [num, units] (each tower normalised by its own batch
+    statistics in training), PReLU's ``alpha`` [num, 1]."""
 
     def __init__(self, num, inputs_dim, hidden_units, activation="relu",
                  dropout_rate=0.0, use_bn=False, init_std=1e-4, device=None,
@@ -76,15 +78,10 @@ class StackedDNN(nn.Module):
         super().__init__()
         if len(hidden_units) == 0:
             raise ValueError("hidden_units is empty!!")
-        if isinstance(activation, str) and activation.lower() in (
-                "dice", "prelu"):
-            raise NotImplementedError(
-                "stacked expert towers take activations without "
-                "parameters, got %r" % (activation,))
-        self.act = activation_layer(activation)
         self.hidden_units = tuple(hidden_units)
         self.use_bn = use_bn
         self.dropout = Dropout(dropout_rate, batch_axis=1)  # [num, B, u]
+        self.acts = []
         dims = (inputs_dim,) + self.hidden_units
         for i, units in enumerate(self.hidden_units):
             self.add_module("dense_%d" % i, StackedDense(
@@ -92,13 +89,18 @@ class StackedDNN(nn.Module):
             if use_bn:
                 self.add_module("bn_%d" % i, BatchNorm(
                     (num, units), epsilon=1e-5, axis=(0, 2), device=device))
+            act = activation_layer(activation, hidden_size=units,
+                                   experts=num, device=device)
+            if isinstance(act, nn.Module):
+                self.add_module("%s_%d" % (type(act).__name__, i), act)
+            self.acts.append(act)
 
     def forward(self, x, training=False):
-        for i in range(len(self.hidden_units)):
+        for i, act in enumerate(self.acts):
             x = getattr(self, "dense_%d" % i)(x)
             if self.use_bn:
                 x = getattr(self, "bn_%d" % i)(x, training)
-            x = self.dropout(self.act(x, training), training)
+            x = self.dropout(act(x, training), training)
         return x.transpose(0, 1)
 
 

@@ -14,6 +14,18 @@ Per table ``t`` and listed row ``r = rows[t][j]`` that lies in the table
     adam     m = 0.9 m + 0.1 g';  v = 0.999 v + 0.001 g'^2;
              w -= lr * (m / bc1) / (sqrt(v / bc2) + 1e-8)
 
+Adam's bias corrections ``(bc1, bc2) = (1 - b1^t, 1 - b2^t)`` come in one
+of two modes (``config.set_adam_t``).  Per table: one step count, its
+pair a float32 [2] tensor on the device.  Per row (``"rowwise"``, as
+``torch.optim.SparseAdam``): the table's state carries a third tensor,
+``t`` int32 [V]; a step reads ``t[r]``, adds 1, writes it back and takes
+the row's pair from a float32 [T, 2] table of the pairs of every count
+(``bias_correction_table``: row ``t`` holds ``adam_bias_corrections(t)``),
+so an untouched row keeps its count and the corrections stay the JAX
+package's float32 ``pow`` bit for bit.  That adds 8 bytes of ``t`` a
+touched row to the traffic (and the few KB of the pair table, which stays
+in L2).
+
 Tables and state are updated in place; rows that are not touched keep
 their bits.  A table's row list has a fixed capacity, its unused slots
 padded with row ids past the table, which are dropped (the JAX package's
@@ -60,6 +72,24 @@ def adam_bias_corrections(t):
             float(one - np.float32(ADAM_B2) ** tf))
 
 
+# the pairs of every count 0 .. len - 1, grown on demand
+_BIAS_TABLE = np.zeros((0, 2), np.float32)
+
+
+def bias_correction_table(n):
+    """float32 [n, 2]: row ``t`` is ``adam_bias_corrections(t)`` (row 0
+    is (0, 0) and never read).  Computed one count at a time: numpy's
+    float32 power over an array rounds some counts otherwise than its
+    scalar power, which is the one that equals XLA's."""
+    global _BIAS_TABLE
+    have = _BIAS_TABLE.shape[0]
+    if have < n:
+        more = np.array([adam_bias_corrections(t) for t in range(have, n)],
+                        np.float32).reshape(-1, 2)
+        _BIAS_TABLE = np.concatenate([_BIAS_TABLE, more])
+    return _BIAS_TABLE[:n]
+
+
 def _eps(optimizer):
     return {"adagrad": ADAGRAD_EPS, "rmsprop": RMS_EPS,
             "adam": ADAM_EPS}.get(optimizer, 0.0)
@@ -91,7 +121,7 @@ def row_update_ref(optimizer, tables, states, grads, rows, l2s, lr,
             acc.index_copy_(0, r, a)
             step = lr * gp / (torch.sqrt(a) + eps)
         elif optimizer == "adam":
-            m_state, v_state = st
+            m_state, v_state = st[:2]
             m = ADAM_B1 * m_state.index_select(0, r) + (1 - ADAM_B1) * gp
             v = (ADAM_B2 * v_state.index_select(0, r)
                  + (1 - ADAM_B2) * (gp * gp))
@@ -99,9 +129,16 @@ def row_update_ref(optimizer, tables, states, grads, rows, l2s, lr,
             v_state.index_copy_(0, r, v)
             # divide by device tensors: CUDA divides by a host scalar as a
             # multiply by its reciprocal, which rounds otherwise
-            bc = bias[t]
-            m_hat = m / bc[0]
-            v_hat = v / bc[1]
+            if len(st) == 3:       # rowwise: each row's own count
+                count = st[2].index_select(0, r) + 1
+                st[2].index_copy_(0, r, count)
+                bc = bias[t].index_select(0, count.long())    # [n, 2]
+                m_hat = m / bc[:, :1]
+                v_hat = v / bc[:, 1:]
+            else:
+                bc = bias[t]
+                m_hat = m / bc[0]
+                v_hat = v / bc[1]
             step = lr * m_hat / (torch.sqrt(v_hat) + eps)
         else:
             raise ValueError("unknown optimizer %r" % optimizer)
@@ -120,17 +157,28 @@ def _check(optimizer, tables, states, grads, rows, l2s, bias):
                          "row list and l2 vector per table")
     if optimizer == "adam":
         if bias is None or len(bias) != len(tables):
-            raise ValueError("adam needs one (1-b1^t, 1-b2^t) pair per "
-                             "table")
-        for b in bias:
-            if tuple(b.shape) != (2,) or b.dtype != torch.float32 or \
-                    not b.is_contiguous():
+            raise ValueError("adam needs one (1-b1^t, 1-b2^t) pair, or "
+                             "table of pairs, per table")
+        for b, st in zip(bias, states):
+            want = "[2]" if len(st) == 2 else "[T, 2]"
+            if (b.dim() != (1 if len(st) == 2 else 2)
+                    or b.shape[-1] != 2 or b.dtype != torch.float32
+                    or not b.is_contiguous()):
                 raise ValueError("adam's (1-b1^t, 1-b2^t) must be a "
-                                 "contiguous float32 [2] tensor, got %s %s"
-                                 % (b.dtype, tuple(b.shape)))
+                                 "contiguous float32 %s tensor, got %s %s"
+                                 % (want, b.dtype, tuple(b.shape)))
     devices = set()
     for w, st, g, r, l2 in zip(*lists):
         width = w.shape[1] if w.dim() == 2 else -1
+        if optimizer == "adam" and len(st) == 3:
+            count = st[2]
+            if count.dtype != torch.int32 or tuple(count.shape) != (
+                    w.shape[0],) or not count.is_contiguous():
+                raise ValueError("adam's per-row step count must be a "
+                                 "contiguous int32 [%d], got %s %s"
+                                 % (w.shape[0], count.dtype,
+                                    tuple(count.shape)))
+            st = st[:2]
         if len(st) != n_state:
             raise ValueError("%s carries %d state tensors a table, got %d"
                              % (optimizer, n_state, len(st)))
@@ -206,13 +254,15 @@ def launch_plan(caps, routes, capacity=CAPACITY):
 
 def _pointers(w, st, g, r, l2):
     """A table's (w, s1, s2, g, rows, l2) pointers, 0 for a state it does
-    not carry, and its route: 16-byte units need every array read in them
-    (all but the row ids and adam's pair) on a 16-byte boundary."""
+    not carry, adam's per-row count (0 but in rowwise mode), and its
+    route: 16-byte units need every array read in them (all but the row
+    ids, the counts and adam's pairs) on a 16-byte boundary."""
     s1 = st[0].data_ptr() if st else 0
     s2 = st[1].data_ptr() if len(st) > 1 else 0
     ptrs = (w.data_ptr(), s1, s2, g.data_ptr(), r.data_ptr(), l2.data_ptr())
     aligned = (ptrs[0] | s1 | s2 | ptrs[3] | ptrs[5]) % 16 == 0
-    return ptrs, route_of(w.shape[1], aligned)
+    count = st[2].data_ptr() if len(st) > 2 else 0
+    return (ptrs, count), route_of(w.shape[1], aligned)
 
 
 def table_routes(tables, states, grads, rows, l2s):
@@ -222,7 +272,8 @@ def table_routes(tables, states, grads, rows, l2s):
 
 class _Table(ctypes.Structure):
     _fields_ = ([(name, ctypes.c_void_p)
-                 for name in ("w", "s1", "s2", "g", "rows", "l2", "bias")]
+                 for name in ("w", "s1", "s2", "g", "rows", "l2", "bias",
+                              "t")]
                 + [("vocab", ctypes.c_longlong)]
                 + [(name, ctypes.c_int) for name in ("capacity", "width")])
 
@@ -238,7 +289,7 @@ class _Args(ctypes.Structure):
 
 # the same fields packed straight into an _Args (a ctypes struct is a
 # writable buffer): a table, the first runs, and n_tables .. c2
-_TABLE = struct.Struct("<7Qq2i")
+_TABLE = struct.Struct("<8Qq2i")
 _FIRST = struct.Struct("<%di" % CAPACITY)
 _HEAD = struct.Struct("<4i6f")
 
@@ -290,9 +341,10 @@ def kernel_args(optimizer, tables, states, grads, rows, l2s, lr, bias=None):
         for i, (t, first_run, runs) in enumerate(planned):
             first[i] = first_run
             b = bias[t].data_ptr() if bias is not None else 0
+            table_ptrs, count = ptrs[t]
             _TABLE.pack_into(a, _Args.table.offset + i * _TABLE.size,
-                             *ptrs[t], b, tables[t].shape[0], caps[t],
-                             tables[t].shape[1])
+                             *table_ptrs, b, count, tables[t].shape[0],
+                             caps[t], tables[t].shape[1])
         _FIRST.pack_into(a, _Args.first_run.offset, *first)
         _HEAD.pack_into(a, _Args.n_tables.offset, len(planned),
                         first_run + runs, mode, route, lr, _eps(optimizer),
@@ -323,12 +375,16 @@ def row_update(optimizer, tables, states, grads, rows, l2s, lr, bias=None):
 
     ``tables`` [V_t, W_t] float32 and ``states`` (a tuple per table: none
     for sgd, ``(acc,)`` for adagrad and rmsprop, ``(m, v)`` for adam, each
-    shaped like its table) are updated in place.  ``rows`` [cap_t] int64
+    shaped like its table, or ``(m, v, t)`` for adam's per-row count, ``t``
+    int32 [V_t]) are updated in place.  ``rows`` [cap_t] int64
     are distinct row ids, a slot past the table (``>= V_t``) padding that
     is dropped; ``grads`` [cap_t, W_t] float32 the summed gradients of
     those rows; ``l2s`` [W_t] float32 the lazy L2 per column; ``bias`` for
-    adam one float32 [2] tensor ``(1-b1^t, 1-b2^t)`` per table, on the
-    tables' device (one tensor may serve every table).
+    adam one float32 [2] tensor ``(1-b1^t, 1-b2^t)`` per table, or with a
+    per-row count a float32 [T, 2] table of them by count
+    (``bias_correction_table``; every count after the step, ``t[r] + 1``,
+    must be below T), on the tables' device (one tensor may serve every
+    table).
 
     On CUDA tensors this launches the kernel (building it at first use) or
     raises; on CPU tensors it runs ``row_update_ref``.  Returns

@@ -136,7 +136,9 @@ def shard_variables(mesh, tables):
     each at its full ``[vocab, width]``) to this rank's block, in place
     (the parameter object stays, so an optimizer built over it keeps
     it).  Returns ``{path: (first row, stop, vocab, rows a block)}`` of
-    the tables cut."""
+    the tables cut.  A table's optimizer state (rowwise adam's per-row
+    counts among it) is made afterwards at the block's rows, so it is cut
+    with its table."""
     ax = Axes(mesh)
     blocks = {}
     for path, w in sorted(tables.items()):

@@ -16,7 +16,12 @@ axis).  On each rank, a touched row it owns becomes a row of its block
 (shifted by the block's first row); any other, and the padding past the
 table, is mapped past its block, where K2 drops it.  No collective runs:
 each touched row's gradient is there, and its weights and state live only
-on its owner.
+on its owner.  Under rowwise adam (``config.set_adam_t``) the state holds
+the block's per-row step counts ``t`` [rows of the block] too, made at the
+block's size by ``BaseModel._init_optimizer_state``: the local rows index
+them as they index the block, and K2 advances only the owned ones.  The
+JAX package runs rowwise sharded tables as separate leaves
+(``deepctr_tpu/models/basemodel.py:544-556``), with the same arithmetic.
 """
 
 import torch

@@ -14,7 +14,12 @@ JAX leaf                               port key
 ``dnn/dense_<i>/bias``                 ``dnn.dense_<i>.bias``
 ``dnn_linear/kernel``                  ``dnn_linear.weight`` (transposed)
 ``out/bias``                           ``out.bias``
-``.../Dice_<i>/alpha``                 ``....Dice_<i>.alpha``
+``.../Dice_<i>/alpha``                 ``....Dice_<i>.alpha`` (a DNN's; a
+                                       stacked expert group's ``[K, units]``)
+``.../PReLU_<i>/alpha``                ``....PReLU_<i>.alpha`` (``[1]``;
+                                       stacked experts ``[K, 1]``)
+``cin/{Dice,PReLU}_0/alpha``           ``cin.{Dice,PReLU}_0.alpha`` (one
+                                       module shared by the CIN's layers)
 ``.../bn_<i>/{scale,bias}``            ``....bn_<i>.{scale,bias}``
 ``.../gru/weight_ih`` (and ``_hh``)    ``....gru.weight_ih`` (not transposed)
 ``cin/conv_w_<i>`` ``[size, in_ch]``   ``cin.conv_w_<i>`` (not transposed)
@@ -45,7 +50,8 @@ the GRUs', the convolutions', the stacked experts'); any other ``kernel``
 is a ``Dense`` layer's, transposed.
 
 ``batch_stats`` leaves map the same way onto buffers: Dice's running
-``.../Dice_<i>/bn/{mean,var}`` onto ``....Dice_<i>.bn.{mean,var}``, a DNN
+``.../Dice_<i>/bn/{mean,var}`` onto ``....Dice_<i>.bn.{mean,var}`` (the
+CIN's ``cin/Dice_0/bn``, a stacked expert group's ``[K, units]``), a DNN
 batch norm's (the LTL's, a stacked expert group's ``[K, units]``)
 ``.../bn_<i>/{mean,var}`` onto ``....bn_<i>.{mean,var}``;
 ``jax_batch_stats`` reads the port's buffers back as that tree.

@@ -5,6 +5,8 @@ Counterpart of ``deepctr_tpu/utils/metrics.py``.  The JAX package takes
 their average rank, as sklearn's does), so the port needs no sklearn.
 """
 
+import warnings
+
 import numpy as np
 
 
@@ -18,8 +20,10 @@ def log_loss(y_true, y_pred, eps=1e-7):
 
 def roc_auc_score(y_true, y_pred):
     """Area under the ROC curve of binary labels: the Mann-Whitney U of
-    the positives' average ranks.  Raises, as sklearn does, when only one
-    class is present.  A label matrix [n, T] (a multi-task fit's train
+    the positives' average ranks.  Where only one class is present it
+    warns and returns NaN, as the sklearn the JAX package calls does (a
+    train metric of a small batch; sklearn before 1.6 raised).  A label
+    matrix [n, T] (a multi-task fit's train
     metric) gives the mean of its columns' AUCs, sklearn's default
     ``average="macro"`` for a label-indicator matrix."""
     y_true = np.asarray(y_true)
@@ -30,9 +34,13 @@ def roc_auc_score(y_true, y_pred):
     y_true = y_true.reshape(-1)
     y_pred = np.asarray(y_pred, dtype=np.float64).reshape(-1)
     classes = np.unique(y_true)
+    if len(classes) == 1:
+        warnings.warn("Only one class is present in y_true. ROC AUC score "
+                      "is not defined in that case.")
+        return float("nan")
     if len(classes) != 2:
-        raise ValueError("Only one class present in y_true. ROC AUC score "
-                         "is not defined in that case.")
+        raise ValueError("roc_auc_score takes binary labels, got classes %s"
+                         % (classes,))
     pos = y_true == classes[1]
     order = np.argsort(y_pred, kind="mergesort")
     sorted_pred = y_pred[order]

@@ -19,7 +19,8 @@ constructor arguments, and ``load_model`` loads it with
   optimizer's name and learning rate, the dense parameters' optimizer state
   and step count (``DenseOptimizer``, or the ``state_dict`` of a
   ``torch.optim`` optimizer) and every sparse table's state and adam step
-  count (``_table_state``, ``_table_t``), for an exact resume.  A saved
+  count (``_table_state``, ``_table_t``; under rowwise adam a table's
+  state holds its per-row counts ``t`` too), for an exact resume.  A saved
   state whose layout (tensor count or shapes) differs from the compiled
   model's raises ``ValueError``: it is never reinterpreted.
 
@@ -210,8 +211,9 @@ def _layout_error(what, ref_sig, new_sig):
              % (len(ref_sig), len(new_sig)))
     return ValueError(
         "checkpointed %s layout does not match this model's (saved under "
-        "a different optimizer or sparse_table_updates setting?): %s. Load "
-        "under the same configuration it was saved with." % (what, first))
+        "a different optimizer, sparse_table_updates or adam step-count "
+        "(config.set_adam_t) setting?): %s. Load under the same "
+        "configuration it was saved with." % (what, first))
 
 
 def _restore_like(ref, saved, what):

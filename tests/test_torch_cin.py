@@ -305,8 +305,15 @@ def test_cin_raises_where_the_jax_layer_does():
         JCIN(field_size=4).init(jax.random.PRNGKey(0), x[0])
     with pytest.raises(ValueError):
         PCIN(4, device="cpu")(torch.from_numpy(x[0]))
-    with pytest.raises(NotImplementedError):
-        PCIN(4, activation="dice", device="cpu")
+    # one Dice shared by the layers: sizes that differ fail to broadcast in
+    # the JAX layer's second layer (a TypeError) and raise here at
+    # construction (tests/test_torch_param_activations.py)
+    with pytest.raises(TypeError):
+        JCIN(field_size=4, layer_size=(6, 4), activation="dice").init(
+            jax.random.PRNGKey(0), x)
+    with pytest.raises(ValueError):
+        PCIN(4, (6, 4), activation="dice", device="cpu")
+    PCIN(4, activation="dice", device="cpu")
 
 
 # ---------------------------------------------------------------------------

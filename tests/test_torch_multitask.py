@@ -213,7 +213,12 @@ def test_multitask_constructors_raise_where_the_jax_models_do(
 
 
 def test_stacked_experts_raise_on_activations_with_parameters():
+    """Dice and PReLU are ported with the expert axis (tests/test_torch_
+    param_activations.py); an activation neither package knows raises."""
     _, cols, _, _ = mtl_data(2, 1, 8, seed=9)
     for act in ("dice", "prelu"):
-        with pytest.raises(NotImplementedError, match="stacked"):
-            pmt.MMOE(cols, dnn_activation=act, device="cpu")
+        model = pmt.MMOE(cols, dnn_activation=act, device="cpu")
+        assert any(k.startswith("expert_dnn.%s_0." % (
+            "Dice" if act == "dice" else "PReLU")) for k in model.state_dict())
+    with pytest.raises(NotImplementedError, match="unknown activation"):
+        pmt.MMOE(cols, dnn_activation="swish", device="cpu")

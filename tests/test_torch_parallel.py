@@ -126,6 +126,14 @@ LEGS = {
     "sparse_adam": _leg(cols=BIG, kw=dict(dnn_hidden_units=(8,), **NO_L2),
                         optimizer="adam", sparse=True, threshold=1024,
                         data="big_packed", weights="big", tol=1e-4),
+    # adam's per-row step count (config.set_adam_t, DEEPCTR_ADAM_T) cut
+    # with each table's block; a model axis alone reorders no sum, so it
+    # is held at 1e-6
+    "sparse_adam_rowwise": _leg(cols=BIG, kw=dict(dnn_hidden_units=(8,),
+                                                  **NO_L2),
+                                optimizer="adam", sparse=True,
+                                threshold=1024, data="big_packed",
+                                weights="big", tol=1e-6, adam_t="rowwise"),
     "psum": _leg(optimizer="adagrad", exchange=("psum", 8.0, "error"),
                  tol=1e-4, jax=False, same_as="adagrad"),
     "a2a": _leg(optimizer="adagrad", exchange=("a2a", 8.0, "error"),
@@ -148,6 +156,16 @@ LEGS = {
                          task_names=("ctr", "cvr")),
                  optimizer="sgd", epochs=2, batch=32, data="mmoe",
                  weights="mmoe", tol=1e-5),
+    # Dice in the stacked experts ([3, units] statistics, each expert's
+    # from the global batch) and in the gates and towers
+    "mmoe_dice": dict(model="MMOE", cols=MMOE_COLS,
+                      kw=dict(num_experts=3, expert_dnn_hidden_units=(8,),
+                              gate_dnn_hidden_units=(4,),
+                              tower_dnn_hidden_units=(4,),
+                              dnn_activation="dice",
+                              task_names=("ctr", "cvr")),
+                      optimizer="sgd", epochs=2, batch=32, data="mmoe",
+                      weights="mmoe_dice", tol=1e-5),
     # no JAX counterpart (flax's dropout bits differ): the mesh's masks
     # against the one rank's
     "dropout": _leg(kw=dict(dnn_hidden_units=(8,), dnn_dropout=0.5),
@@ -198,9 +216,10 @@ SEQ_LEGS = ("dien", "ple", "dien_count", "dien_count_local")
 MESH_LEGS = {
     (1, 1): [n for n in LEGS if n not in SEQ_LEGS],
     (2, 1): ["sgd", "adagrad", "sparse_adagrad", "l2", "din", "dropout",
-             "stream_sgd", "stream_adagrad", "stream_cap"],
+             "stream_sgd", "stream_adagrad", "stream_cap", "mmoe_dice"],
     (1, 2): ["sgd", "adagrad", "sparse_adagrad", "sparse_adam", "a2a_error",
-             "a2a_drop", "stream_sgd", "stream_adagrad", "stream_cap"],
+             "a2a_drop", "stream_sgd", "stream_adagrad", "stream_cap",
+             "sparse_adam_rowwise"],
     (2, 2): ["sgd", "adagrad", "sparse_adagrad", "sparse_adam", "psum",
              "a2a", "a2a_error", "a2a_drop", "l2", "mmoe", "dropout"],
 }
@@ -299,7 +318,9 @@ def jax_leg(name, shape):
     leg = LEGS[name]
     mesh = jax_mesh(shape, devices=jax.devices()[:shape[0] * shape[1]])
     saved = dc_inputs.PACKED_VOCAB_THRESHOLD
+    saved_t = os.environ.get("DEEPCTR_ADAM_T")
     try:
+        os.environ["DEEPCTR_ADAM_T"] = leg.get("adam_t", "table")
         if leg.get("threshold"):
             dc_inputs.PACKED_VOCAB_THRESHOLD = leg["threshold"]
         if leg.get("exchange"):
@@ -320,6 +341,10 @@ def jax_leg(name, shape):
     finally:
         dc_inputs.PACKED_VOCAB_THRESHOLD = saved
         dc_config.set_embedding_exchange("gspmd")
+        if saved_t is None:
+            os.environ.pop("DEEPCTR_ADAM_T")
+        else:
+            os.environ["DEEPCTR_ADAM_T"] = saved_t
     return _JAX[name, shape]
 
 

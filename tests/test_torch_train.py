@@ -545,8 +545,14 @@ def test_metrics_match_sklearn_and_the_jax_package():
         want = jmetrics.resolve_metrics([name])[name](y, p)
         got = pmetrics.resolve_metrics([name])[name](y, p)
         assert got == pytest.approx(want, rel=1e-12), name
-    with pytest.raises(ValueError):
-        pmetrics.roc_auc_score(np.ones(4), rng.random(4))
+    # one class: the JAX package's sklearn warns and returns NaN, and so
+    # does the port
+    p4 = rng.random(4)
+    with pytest.warns(Warning):
+        want = jmetrics.roc_auc_score(np.ones(4), p4)
+    with pytest.warns(UserWarning, match="one class"):
+        got = pmetrics.roc_auc_score(np.ones(4), p4)
+    assert np.isnan(want) and np.isnan(got)
 
 
 @pytest.mark.parametrize("args", [

@@ -18,7 +18,8 @@ may name ``metrics``, ``verbose``, ``shuffle`` and ``validation`` (a
 ``(first, stop)`` row range of its data).  ``steps`` records each step's
 ``(data loss, total loss)``; ``local_count`` runs DIEN's auxiliary loss
 over each rank's own count of pairs (the mistake the pair-count witness
-must catch)."""
+must catch); ``adam_t`` sets ``config.set_adam_t`` for the leg, and the
+leg then returns each sparse table's per-row counts (``counts``)."""
 
 import os
 import types
@@ -118,8 +119,9 @@ def run_leg(leg, x, y, weights, mesh=None, device="cpu"):
     """Train (``fit``) and predict the leg; returns its losses, its
     predictions, the table blocks it holds and their shapes."""
     saved = (inputs.PACKED_VOCAB_THRESHOLD, config.embedding_exchange(),
-             config.a2a_on_overflow(), dien.context)
+             config.a2a_on_overflow(), dien.context, config.adam_t())
     try:
+        config.set_adam_t(leg.get("adam_t", "table"))
         if leg.get("local_count"):
             dien.context = types.SimpleNamespace(data_sum=lambda t: t)
         if leg.get("threshold"):
@@ -146,6 +148,9 @@ def run_leg(leg, x, y, weights, mesh=None, device="cpu"):
             out["history"] = hist.history
             out["state"] = {p: [tuple(t.shape) for t in st]
                             for p, st in model._table_state.items()}
+            if leg.get("adam_t") == "rowwise":
+                out["counts"] = {p: st[2].clone()
+                                 for p, st in model._table_state.items()}
             out["dense_state"] = {
                 p: [tuple(t.shape) for t in st]
                 for p, st in zip(model._dense_paths, model._dense_opt.state)
@@ -161,6 +166,7 @@ def run_leg(leg, x, y, weights, mesh=None, device="cpu"):
             config._A2A_SLACK = saved[1]
         config._A2A_ON_OVERFLOW = saved[2]
         dien.context = saved[3]
+        config.set_adam_t(saved[4])
 
 
 def run_legs(rank, world, device, mesh_shape, legs, data, weights):
