@@ -1,0 +1,12 @@
+"""The whole forward's share of the H100's bf16 peak (989 TFLOP/s), in
+percent: the model's matrix products at the traced window's rate of
+candidates."""
+
+
+from portbench.metrics import _roofline
+
+
+def read(view):
+    if view.records.busy_s <= 0:
+        return None
+    return _roofline.mfu(view, training=False)
