@@ -92,6 +92,7 @@ from ..parallel.context import data_shard
 from ..parallel.sharding import (Axes, batch_sharding, gather_data,
                                  shard_variables)
 from ..parallel.update import shard_local_rows
+from ..tracing import span
 from ..utils import serialization
 from ..utils.jax_weights import jax_path
 from ..utils.metrics import resolve_metrics
@@ -977,74 +978,93 @@ class BaseModel(BaseModule):
         step advances.
 
         On a mesh the batch is this rank's rows of a global batch, and
-        the step is the global batch's (:meth:`_mesh_step`)."""
-        reg, l2_vecs = self._ensure_compiled()
-        ax = self._axes
-        B = X.shape[0] * (1 if ax is None else ax.n_data)
-        plan = self._step_plan(B)
-        tables = self._tables()
-        touched = None
-        if self._sparse_specs:
-            ids = None
-            if ax is not None and ax.n_data > 1:
-                # the global batch's ids: every rank touches its rows
-                ids = gather_data(X.index_select(1, plan.cols), ax)
-            touched = _TouchedRows(X, plan, ids)
-            if ids is not None:
-                n = X.shape[0]
-                touched.slots = touched.slots[ax.data * n:(ax.data + 1) * n]
-        captures = {}
-        holders = self._table_holders()
-        for prefix, holder in holders:
-            holder._capture = captures.setdefault(prefix, [])
-        self.aux_loss = None
-        shard = (contextlib.nullcontext() if ax is None else
-                 data_shard(ax.data_group, ax.n_data, ax.data))
-        try:
-            with dropout_generator(self._dropout_generator()), shard:
-                y_pred = self(X, training=True)
-        finally:
-            for _, holder in holders:
-                holder._capture = None
-            aux, self.aux_loss = self.aux_loss, None
-        data_loss = self._compute_loss(y_pred.float(), y, sw)
-        reg_loss = self._reg_loss(reg)
-        # on a mesh the penalty counts once: on the data axis's first rank
-        # (the gradients are summed over the data axis)
-        total = data_loss
-        if ax is None or ax.data == 0:
-            total = total + reg_loss
-        if aux is not None:
-            total = total + aux
-        for p in self._dense_opt.params:
-            p.grad = None
-        # a dense table's gradient is the plan's buffer: the L2 term's
-        # gradient adds into it in place, then the rows' cotangents
-        for path, g in plan.dense_grads.items():
-            tables[path].grad = g.zero_()
-        total.backward()
-        with torch.no_grad():
-            mesh_report = (ax is not None and ax.n_data * ax.n_model > 1)
-            if mesh_report:   # the penalty's parts, before the update
-                reg_parts = self._reg_parts(reg)
-            self._scatter_row_grads(X, captures, touched, plan)
-            if ax is not None and ax.n_data > 1:
-                self._sum_gradients(plan)
-            bias = None
-            if self._optimizer_name == "adam":
-                if self._bias_table is None:
-                    raise RuntimeError("adam's train step reads its bias "
-                                       "corrections from _begin_steps")
-                bias = self._bias_table.index_select(
-                    0, self._step_i).view(2)
-            self._dense_opt.step(bias)
-            if touched is not None:
-                self._update_touched_rows(tables, touched, l2_vecs, bias)
-            self._step_i.add_(1)
-            if mesh_report:
-                return self._mesh_results(data_loss, reg_parts, aux, y_pred,
-                                          B)
-        return data_loss.detach(), total.detach(), y_pred.detach()
+        the step is the global batch's (:meth:`_mesh_step`).
+
+        Its spans (``tracing.span``) are ``train_step`` and, inside it in
+        this order, ``train_step.forward`` (the touched rows and the
+        forward), ``.loss``, ``.backward``, ``.scatter_grads``,
+        ``.all_reduce`` (on a mesh), ``.dense_update`` and
+        ``.row_update``."""
+        with span("train_step"):
+            reg, l2_vecs = self._ensure_compiled()
+            ax = self._axes
+            B = X.shape[0] * (1 if ax is None else ax.n_data)
+            plan = self._step_plan(B)
+            tables = self._tables()
+            touched = None
+            captures = {}
+            holders = self._table_holders()
+            with span("train_step.forward"):
+                if self._sparse_specs:
+                    ids = None
+                    if ax is not None and ax.n_data > 1:
+                        # the global batch's ids: every rank touches its
+                        # rows
+                        ids = gather_data(X.index_select(1, plan.cols), ax)
+                    touched = _TouchedRows(X, plan, ids)
+                    if ids is not None:
+                        n = X.shape[0]
+                        touched.slots = touched.slots[ax.data * n:
+                                                      (ax.data + 1) * n]
+                for prefix, holder in holders:
+                    holder._capture = captures.setdefault(prefix, [])
+                self.aux_loss = None
+                shard = (contextlib.nullcontext() if ax is None else
+                         data_shard(ax.data_group, ax.n_data, ax.data))
+                try:
+                    with dropout_generator(self._dropout_generator()), shard:
+                        y_pred = self(X, training=True)
+                finally:
+                    for _, holder in holders:
+                        holder._capture = None
+                    aux, self.aux_loss = self.aux_loss, None
+            with span("train_step.loss"):
+                data_loss = self._compute_loss(y_pred.float(), y, sw)
+                reg_loss = self._reg_loss(reg)
+                # on a mesh the penalty counts once: on the data axis's
+                # first rank (the gradients are summed over the data axis)
+                total = data_loss
+                if ax is None or ax.data == 0:
+                    total = total + reg_loss
+                if aux is not None:
+                    total = total + aux
+            with span("train_step.backward"):
+                for p in self._dense_opt.params:
+                    p.grad = None
+                # a dense table's gradient is the plan's buffer: the L2
+                # term's gradient adds into it in place, then the rows'
+                # cotangents
+                for path, g in plan.dense_grads.items():
+                    tables[path].grad = g.zero_()
+                total.backward()
+            with torch.no_grad():
+                mesh_report = (ax is not None and ax.n_data * ax.n_model > 1)
+                if mesh_report:   # the penalty's parts, before the update
+                    reg_parts = self._reg_parts(reg)
+                with span("train_step.scatter_grads"):
+                    self._scatter_row_grads(X, captures, touched, plan)
+                if ax is not None and ax.n_data > 1:
+                    with span("train_step.all_reduce"):
+                        self._sum_gradients(plan)
+                bias = None
+                with span("train_step.dense_update"):
+                    if self._optimizer_name == "adam":
+                        if self._bias_table is None:
+                            raise RuntimeError("adam's train step reads its "
+                                               "bias corrections from "
+                                               "_begin_steps")
+                        bias = self._bias_table.index_select(
+                            0, self._step_i).view(2)
+                    self._dense_opt.step(bias)
+                if touched is not None:
+                    with span("train_step.row_update"):
+                        self._update_touched_rows(tables, touched, l2_vecs,
+                                                  bias)
+                self._step_i.add_(1)
+                if mesh_report:
+                    return self._mesh_results(data_loss, reg_parts, aux,
+                                              y_pred, B)
+            return data_loss.detach(), total.detach(), y_pred.detach()
 
     def _sum_gradients(self, plan):
         """Sum the gradients over the mesh's ``data`` axis: the touched
@@ -1214,36 +1234,39 @@ class BaseModel(BaseModule):
         The columns are concatenated by the native batcher
         (``native.assemble``); features with ``use_hash`` are hashed onto
         ``[0, vocabulary_size)`` here on the host, strings or ints
-        (:meth:`_hash_feature`)."""
-        if isinstance(x, dict):
-            x = [x[feature] for feature in self.feature_index]
-        if isinstance(x, np.ndarray):
-            x = [x]
-        hashed = self._hash_feats
-        arrays = []
-        for name, a in zip(self.feature_index, x):
-            a = np.asarray(a)
-            if a.ndim == 1:
-                a = a[:, None]
-            feat = hashed.get(name)
-            if feat is not None:
-                a = self._hash_feature(feat, a)
-            arrays.append(np.asarray(a, dtype=np.float32))
-        if not arrays:
-            raise ValueError("the model has no input features")
-        lens = {a.shape[0] for a in arrays}
-        if len(lens) > 1:
-            detail = ", ".join(
-                "%s: %d" % (n, a.shape[0])
-                for n, a in zip(self.feature_index, arrays))
-            raise ValueError(
-                "input features have inconsistent sample counts (%s)"
-                % detail)
-        X = native.assemble(arrays)
-        if X.shape[1] != self.input_dim:
-            raise ValueError("input width %d != expected %d"
-                             % (X.shape[1], self.input_dim))
-        return X
+        (:meth:`_hash_feature`).  Spans: ``assemble`` over the whole,
+        ``assemble.batcher`` over the batcher."""
+        with span("assemble"):
+            if isinstance(x, dict):
+                x = [x[feature] for feature in self.feature_index]
+            if isinstance(x, np.ndarray):
+                x = [x]
+            hashed = self._hash_feats
+            arrays = []
+            for name, a in zip(self.feature_index, x):
+                a = np.asarray(a)
+                if a.ndim == 1:
+                    a = a[:, None]
+                feat = hashed.get(name)
+                if feat is not None:
+                    a = self._hash_feature(feat, a)
+                arrays.append(np.asarray(a, dtype=np.float32))
+            if not arrays:
+                raise ValueError("the model has no input features")
+            lens = {a.shape[0] for a in arrays}
+            if len(lens) > 1:
+                detail = ", ".join(
+                    "%s: %d" % (n, a.shape[0])
+                    for n, a in zip(self.feature_index, arrays))
+                raise ValueError(
+                    "input features have inconsistent sample counts (%s)"
+                    % detail)
+            with span("assemble.batcher"):
+                X = native.assemble(arrays)
+            if X.shape[1] != self.input_dim:
+                raise ValueError("input width %d != expected %d"
+                                 % (X.shape[1], self.input_dim))
+            return X
 
     @staticmethod
     def _hash_feature(feat, a):
@@ -1568,14 +1591,18 @@ class BaseModel(BaseModule):
         for epoch in range(initial_epoch, epochs):
             callbacks.on_epoch_begin(epoch)
             start_time = time.time()
-            state = np.random.SeedSequence([self.seed, epoch])
-            generator.manual_seed(int(state.generate_state(1, np.uint64)[0]))
-            losses = loop.run_epoch(generator, epoch)
-            epoch_logs = {"loss": float(losses.sum()) / sample_num}
-            self._epoch_metrics(
-                epoch_logs, y[:sample_num] if need_preds else None,
-                loop.preds[:sample_num] if need_preds else None,
-                (val_x, val_y) if do_validation else None, batch_size)
+            with span("fit.epoch_begin"):
+                state = np.random.SeedSequence([self.seed, epoch])
+                generator.manual_seed(
+                    int(state.generate_state(1, np.uint64)[0]))
+                loop.begin_epoch(generator, epoch)
+            losses = loop.run()
+            with span("fit.epoch_end"):
+                epoch_logs = {"loss": float(losses.sum()) / sample_num}
+                self._epoch_metrics(
+                    epoch_logs, y[:sample_num] if need_preds else None,
+                    loop.preds[:sample_num] if need_preds else None,
+                    (val_x, val_y) if do_validation else None, batch_size)
             if verbose > 0:
                 print("Epoch {0}/{1} - {2}s - loss: {3:.4f}".format(
                     epoch + 1, epochs, int(time.time() - start_time),
@@ -1837,42 +1864,53 @@ class BaseModel(BaseModule):
         into a static buffer and replays one captured forward
         (``graphs.ForwardGraph``); the predictions are read back once at
         the end.  On a mesh every rank calls it with the same ``x``, runs
-        its rows of each batch eagerly and gets every prediction."""
-        device = self._device
-        if isinstance(x, torch.Tensor):
-            X = x
-            if X.dim() != 2 or X.shape[1] != self.input_dim:
-                raise ValueError("tensor input must be [N, %d], got %r"
-                                 % (self.input_dim, tuple(X.shape)))
-        else:
-            X = torch.from_numpy(self._assemble_x(x))
-        forward = None
-        if device.type == "cuda" and self.mesh is None:
-            key = self._graph_key("predict", batch_size)
-            forward = self._graphs.get(key)
-            if forward is None:
-                forward = self._graphs[key] = ForwardGraph(self, batch_size)
-        outs = []
-        with torch.no_grad():
-            for start in range(0, X.shape[0], batch_size):
-                xb = X[start:start + batch_size]
-                n = xb.shape[0]
-                if forward is not None:
-                    outs.append(forward.run(xb)[:n].clone())
-                    continue
-                xb = xb.to(device, torch.float32)
-                if n < batch_size:
-                    xb = torch.cat([xb, xb.new_zeros(batch_size - n,
-                                                     xb.shape[1])])
-                if self.mesh is None:
-                    outs.append(self(xb, training=False).float()[:n])
-                    continue
-                out = self(self._put_batch(xb), training=False).float()
-                outs.append(gather_data(out, self._axes)[:n])
-        out = torch.cat(outs).cpu().numpy().astype("float64")
-        if out.ndim == 1:
-            out = out[:, None]
-        return out
+        its rows of each batch eagerly and gets every prediction.
+
+        Spans: ``predict`` over the call; inside it ``assemble`` (host
+        arrays), then a batch's ``predict.upload`` (its copy to the
+        device and the padding) and ``predict.forward`` (the replay or
+        the eager forward), then ``predict.readback`` (the predictions to
+        the host, which waits for the device)."""
+        with span("predict"):
+            device = self._device
+            if isinstance(x, torch.Tensor):
+                X = x
+                if X.dim() != 2 or X.shape[1] != self.input_dim:
+                    raise ValueError("tensor input must be [N, %d], got %r"
+                                     % (self.input_dim, tuple(X.shape)))
+            else:
+                X = torch.from_numpy(self._assemble_x(x))
+            forward = None
+            if device.type == "cuda" and self.mesh is None:
+                key = self._graph_key("predict", batch_size)
+                forward = self._graphs.get(key)
+                if forward is None:
+                    forward = self._graphs[key] = ForwardGraph(self,
+                                                               batch_size)
+            outs = []
+            with torch.no_grad():
+                for start in range(0, X.shape[0], batch_size):
+                    xb = X[start:start + batch_size]
+                    if forward is not None:
+                        outs.append(forward.run(xb))
+                        continue
+                    n = xb.shape[0]
+                    with span("predict.upload"):
+                        xb = xb.to(device, torch.float32)
+                        if n < batch_size:
+                            xb = torch.cat([xb, xb.new_zeros(batch_size - n,
+                                                             xb.shape[1])])
+                        xb = self._put_batch(xb)   # a mesh rank's rows
+                    with span("predict.forward"):
+                        out = self(xb, training=False).float()
+                        if self.mesh is not None:
+                            out = gather_data(out, self._axes)
+                        outs.append(out[:n])
+            with span("predict.readback"):
+                out = torch.cat(outs).cpu().numpy().astype("float64")
+                if out.ndim == 1:
+                    out = out[:, None]
+                return out
 
     # ------------------------------------------------------------------
     # weights

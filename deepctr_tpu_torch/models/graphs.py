@@ -31,7 +31,11 @@ it by what the capture drew, as the eager step does, so that every step
 draws new masks and the graphed steps draw the eager steps' bits.  A
 replay runs no host code, so the wrappers' launch counters, which count
 at the Python call, do not move: each graph counts the launches its
-capture recorded and adds them once a replay.
+capture recorded and adds them once a replay.  Nor does a replay enter a
+span (``tracing.span``): a trace shows ``graph.capture`` around a
+capture, with the spans of its warm-up inside it and none from its
+recording (``tracing.paused``); ``ForwardGraph.run`` records a batch's
+``predict.upload`` and ``predict.forward``.
 
 A graph holds the addresses of every tensor it read at capture: the model
 drops its graphs (``BaseModel._invalidate_graphs``) whenever it makes new
@@ -44,6 +48,7 @@ import gc
 import torch
 
 from ..ops import attention, cin, gather, gru, row_update, scatter_add
+from ..tracing import paused, span
 
 # every kernel wrapper's launch counter: (module, name)
 COUNTERS = ((gather, "GATHER_LAUNCHES"),
@@ -67,7 +72,7 @@ class _Captured:
     what each replay overwrites."""
 
     def __init__(self, body, device, generators=()):
-        with torch.cuda.device(device):
+        with span("graph.capture"), torch.cuda.device(device):
             current = torch.cuda.current_stream()
             side = torch.cuda.Stream()
             side.wait_stream(current)
@@ -86,7 +91,7 @@ class _Captured:
             collecting = gc.isenabled()
             gc.disable()
             try:
-                with torch.cuda.graph(self.graph):
+                with paused(), torch.cuda.graph(self.graph):
                     self.out = body()
             finally:
                 if collecting:
@@ -157,15 +162,20 @@ class StepGraph:
         object whose ``step()`` cannot (``basemodel.TorchOptimizer``)."""
         return self.model._dense_opt.capturable
 
-    def run_epoch(self, generator, epoch):
-        """Epoch ``epoch``: the permutation (drawn from ``generator`` with
-        a shuffle), the steps made ready (``BaseModel._begin_steps``) and
-        :meth:`run`.  Returns the per-step losses, still on the device."""
+    def begin_epoch(self, generator, epoch):
+        """Epoch ``epoch`` made ready: the permutation (drawn from
+        ``generator`` with a shuffle) and the steps
+        (``BaseModel._begin_steps``)."""
         if self.shuffle:
             self.perm.copy_(torch.randperm(self.perm.shape[0],
                                            generator=generator,
                                            device=self.perm.device))
         self.model._begin_steps(self.steps, epoch)
+
+    def run_epoch(self, generator, epoch):
+        """:meth:`begin_epoch`, then :meth:`run`.  Returns the per-step
+        losses, still on the device."""
+        self.begin_epoch(generator, epoch)
         return self.run()
 
     def run(self):
@@ -219,16 +229,20 @@ class ForwardGraph:
     def run(self, xb):
         """The forward of the rows ``xb`` (at most B, any device), the
         batch padded with zero rows: the capture's warm-up on the first
-        call, a replay after.  Returns the output, which the next call
-        overwrites."""
+        call, a replay after.  Returns a copy of the output's first
+        ``len(xb)`` rows."""
         n = xb.shape[0]
-        self.x[:n].copy_(xb, non_blocking=True)
-        self.x[n:].zero_()
-        if self.captured is None:
-            self.captured = _Captured(self._forward, self.x.device)
-            return self.captured.warm
-        self.captured.replay()
-        return self.captured.out
+        with span("predict.upload"):
+            self.x[:n].copy_(xb, non_blocking=True)
+            self.x[n:].zero_()
+        with span("predict.forward"):
+            if self.captured is None:
+                self.captured = _Captured(self._forward, self.x.device)
+                out = self.captured.warm
+            else:
+                self.captured.replay()
+                out = self.captured.out
+            return out[:n].clone()
 
     def release(self):
         self.captured = None
