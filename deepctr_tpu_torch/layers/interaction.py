@@ -15,6 +15,7 @@ from .. import config
 from ..ops import cin_mix, cross_net, fm_cross
 from ..ops._args import ParamCache
 from ..ops.cin import kernel_weights
+from ..tracing import span
 from .activation import BatchNorm, activation_layer
 from .core import _TRUNC_NORMAL_STD, Conv2dSame, Dropout, _dense
 from .sequence import KMaxPooling
@@ -69,7 +70,11 @@ class CIN(nn.Module):
     the kernel still mixes bfloat16.  On CUDA the
     kernel's weight layouts are kept between calls
     (``ops.cin.kernel_weights``), so inference casts and transposes no
-    weight a batch."""
+    weight a batch.
+
+    Spans (``tracing.span``): ``cin`` over the forward, ``cin.mix`` over
+    each layer's weight layouts and ``cin_mix`` call; on CUDA tensors the
+    backward's is ``ops.cin.CinMix``'s ``cin.backward``."""
 
     def __init__(self, field_size, layer_size=(128, 128), activation="relu",
                  split_half=True, device=None, generator=None):
@@ -114,35 +119,41 @@ class CIN(nn.Module):
     def forward(self, inputs, training=False):
         if inputs.dim() != 3:
             raise ValueError("CIN expects [B, F, E] inputs")
-        dtype = config.compute_dtype()
-        mode = (config.cin_dtype() if dtype == torch.bfloat16 and training
-                else "off")
-        op_dtype = torch.float32 if mode == "f32" else dtype
-        carry_dtype = torch.float32 if mode in ("f32", "carry") else dtype
-        F = self.field_size
-        x0_t = inputs.transpose(1, 2).to(carry_dtype).contiguous()  # [B, E, F]
-        x0_op = x0_t.to(op_dtype)
-        hidden = x0_t
-        finals = []
-        last = len(self.layer_size) - 1
-        for i, size in enumerate(self.layer_size):
-            w = getattr(self, "conv_w_%d" % i)
-            b = getattr(self, "conv_b_%d" % i)
-            w3 = w.view(size, self.field_nums[i], F)
-            if x0_t.is_cuda:
-                wt, wm = self._wt[i].get(
-                    [w], op_dtype, lambda: kernel_weights(w3, op_dtype))
-            else:
-                w3, wt, wm = w3.to(op_dtype), None, None
-            x = cin_mix(hidden.to(op_dtype), x0_op, w3, wt=wt, wm=wm,
-                        out_dtype=carry_dtype) + b.to(carry_dtype)
-            curr = self.act[0](x)                                # [B, E, size]
-            if self.split_half and i != last:
-                hidden, direct = torch.split(curr, size // 2, dim=-1)
-            else:
-                hidden = direct = curr
-            finals.append(direct)
-        return torch.cat(finals, dim=-1).sum(dim=1)        # [B, featuremap_num]
+        with span("cin"):
+            dtype = config.compute_dtype()
+            mode = (config.cin_dtype() if dtype == torch.bfloat16 and training
+                    else "off")
+            op_dtype = torch.float32 if mode == "f32" else dtype
+            carry_dtype = torch.float32 if mode in ("f32", "carry") else dtype
+            F = self.field_size
+            # [B, E, F]
+            x0_t = inputs.transpose(1, 2).to(carry_dtype).contiguous()
+            x0_op = x0_t.to(op_dtype)
+            hidden = x0_t
+            finals = []
+            last = len(self.layer_size) - 1
+            for i, size in enumerate(self.layer_size):
+                w = getattr(self, "conv_w_%d" % i)
+                b = getattr(self, "conv_b_%d" % i)
+                w3 = w.view(size, self.field_nums[i], F)
+                with span("cin.mix"):
+                    if x0_t.is_cuda:
+                        wt, wm = self._wt[i].get(
+                            [w], op_dtype,
+                            lambda: kernel_weights(w3, op_dtype))
+                    else:
+                        w3, wt, wm = w3.to(op_dtype), None, None
+                    x = cin_mix(hidden.to(op_dtype), x0_op, w3, wt=wt, wm=wm,
+                                out_dtype=carry_dtype)
+                x = x + b.to(carry_dtype)
+                curr = self.act[0](x)                        # [B, E, size]
+                if self.split_half and i != last:
+                    hidden, direct = torch.split(curr, size // 2, dim=-1)
+                else:
+                    hidden = direct = curr
+                finals.append(direct)
+            # [B, featuremap_num]
+            return torch.cat(finals, dim=-1).sum(dim=1)
 
 
 def _pair_indices(num_fields, device=None):

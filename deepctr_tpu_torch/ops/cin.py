@@ -36,7 +36,7 @@ and whose backward is ``_cin_mix_bwd``'s explicit contractions
 (``cin_mix_bwd``), in the operands' dtype, from the saved inputs; a
 float32 cotangent of a float32 output from bfloat16 operands enters its
 products unrounded, as the JAX transposes of a ``preferred_element_type``
-product take it.
+product take it.  The backward runs inside the span ``cin.backward``.
 """
 
 import ctypes
@@ -46,6 +46,7 @@ import torch
 
 from . import _build
 from .reference import cin_mix_ref
+from ..tracing import span
 
 # kernel launches since import (or since a caller reset it to 0); counts
 # only launches of the CUDA kernel, never the plain version
@@ -269,7 +270,9 @@ class CinMix(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         hidden_t, x0_t, wt = ctx.saved_tensors
-        dh, dx, dwt = cin_mix_bwd(hidden_t, x0_t, wt, g.to(ctx.out_dtype))
+        with span("cin.backward"):
+            dh, dx, dwt = cin_mix_bwd(hidden_t, x0_t, wt,
+                                      g.to(ctx.out_dtype))
         return dh, dx, None, dwt, None, None
 
 
