@@ -443,6 +443,16 @@ Then the rest of the feature set:
     chain of PyTorch operations it replaced, with the device operations
     of each, beside the bytes bound (28 bytes a float).  Phase 20's
     graphed DeepFM and DIEN loops launch it once a step.
+37. the CIN backward's kernels (``ops.cin.bwd_launch``: the tiles of g,
+    wt, hid and x, the data and weight products, the partials' sum) at the
+    benchmark xDeepFM's layer shapes (B=4096, E=10, F=26, H 26 and 200 to
+    200 maps) against a float64 evaluation from the same bfloat16 inputs:
+    dh, dx and dwt each no further off than the einsums they replace
+    (``cin_mix_bwd``) plus one bf16 ulp of the sum of the terms'
+    magnitudes, a repeat bit-equal; device ms with a cold L2 of both at
+    each shape and over the three layers, beside the bound (the two
+    products at the bf16 rate, 0.367 ms); a bf16 step of the cell's CIN
+    launches the kernels 7 times a layer and takes no einsum.
 
 The command's total seconds are printed before the kernels line.
 
@@ -684,6 +694,12 @@ KERNELS = {
         "replaces": "none: the dense optimizer step, left to optax and "
                     "XLA in the JAX package",
     },
+    "cin_mix_bwd": {
+        "route": "cuda",
+        "source": "deepctr_tpu_torch/csrc/cin_mix_bwd.cu",
+        "replaces": "none: the CIN kernel's backward, XLA einsums in the "
+                    "JAX package (deepctr_tpu/ops/pallas.py:104)",
+    },
 }
 
 # each kernel's launch counter: (module, attribute)
@@ -696,6 +712,7 @@ COUNTERS = {
     "gru_scan_bwd": (gru, "GRU_SCAN_BWD_LAUNCHES"),
     "din_attention": (attention, "DIN_ATTENTION_LAUNCHES"),
     "cin_mix": (cin, "CIN_MIX_LAUNCHES"),
+    "cin_mix_bwd": (cin, "CIN_MIX_BWD_LAUNCHES"),
     "static_scatter": (scatter_rows, "STATIC_SCATTER_LAUNCHES"),
 }
 # the launches of every main-path run, summed (read_counts adds to it)
@@ -4341,22 +4358,41 @@ CIN_MODES = ("bf16", "carry", "f32")
 def phase_cin_modes(device):
     """phase 31: xDeepFM at Criteo width (CIN 256-128, DNN 400-400, B=4096)
     fit in bf16 compute under each CIN mode: the graphed fit bit-equal to
-    eager steps on a twin, 2 cin_mix launches a step; then one model's
+    eager steps on a twin, 2 cin_mix launches a step, and the backward's
+    14 kernel launches a step in the "bf16" mode, the einsums in the
+    others, replays counted; then one model's
     device-loop fit in each mode (a graph each: the mode is in the graph's
     key), alternating: examples/s and device busy ms a step, and the
     device time by kernel of one replayed step under carry and f32."""
     pt.set_compute_dtype("bfloat16")
     X = xdeepfm_requests(BATCH * 3, SEED + 760, device)
     y = criteo_labels(BATCH * 3, SEED + 761)
-    per_step = {"gather_rows": 1, "scatter_add_rows": 1, "cin_mix": 2}
+    layers = len(XD_CIN)
     try:
         for mode in CIN_MODES:
             pt.set_cin_dtype(mode)
             graphed, eager = xdeepfm_model(device), xdeepfm_model(device)
             for m in (graphed, eager):
                 m.compile("adagrad", "binary_crossentropy")
+            # the "bf16" mode's backward takes the kernels, seven launches a
+            # layer; the others take the einsums, in the graphed steps
+            # (replays count what their capture took) and the eager ones
+            kernels = mode == "bf16"
+            per_step = {"gather_rows": 1, "scatter_add_rows": 1,
+                        "cin_mix": layers,
+                        "cin_mix_bwd": 7 * layers if kernels else 0}
+            einsums = cin.CIN_MIX_BWD_EINSUM
             graph_vs_eager_fit(graphed, eager, X, y, BATCH,
                                "xDeepFM bf16, CIN mode %s" % mode, per_step)
+            einsums = cin.CIN_MIX_BWD_EINSUM - einsums
+            want = 0 if kernels else 2 * layers * (X.shape[0] // BATCH)
+            check(einsums == want, "xDeepFM bf16, CIN mode %s: %d einsum "
+                  "backwards in the graphed and the eager steps, want %d"
+                  % (mode, einsums, want))
+            log("xDeepFM bf16, CIN mode %s: %d einsum backwards in %d "
+                "graphed and %d eager steps" % (mode, einsums,
+                                                X.shape[0] // BATCH,
+                                                X.shape[0] // BATCH))
             del graphed, eager
         model = xdeepfm_model(device)
         model.compile("adagrad", "binary_crossentropy")
@@ -6069,6 +6105,119 @@ def phase_dense_update(device):
                 dien_bound_ms=out["DIEN Amazon Books"]["bound_ms"])
 
 
+# phase 37: the CIN backward's kernels at the benchmark xDeepFM's layer
+# shapes (arXiv:1803.05170 section 4.1.3: B=4096, E=10, F=26, three layers
+# of 200 maps; layers 1 and 2 share a shape)
+CIN_BWD_LAYERS = ((26, 200, 1), (200, 200, 2))
+CIN_BWD_BATCH, CIN_BWD_EMB = 4096, 10
+
+
+def cin_bwd_inputs(B, D, H, F, O, seed, device):
+    """hidden [B, D, H], x0 [B, D, F], wt [F*H, O] and g [B, D, O] in
+    bfloat16 at a trained layer's scales."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(*size, std=1.0):
+        return (torch.randn(*size, generator=gen, device=device)
+                * std).to(torch.bfloat16)
+    return (draw(B, D, H), draw(B, D, F), draw(F * H, O, std=(H * F) ** -0.5),
+            draw(B, D, O, std=0.1))
+
+
+def cin_bwd_float64(hidden, x0, wt, g):
+    """(dh, dx, dwt) in float64 from the bfloat16 inputs."""
+    B, D, H = hidden.shape
+    F, O, M = x0.shape[2], g.shape[2], B * D
+    h = hidden.reshape(M, H).double()
+    x = x0.reshape(M, F).double()
+    gg = g.reshape(M, O).double()
+    dz = torch.matmul(gg, wt.double().t()).reshape(M, F, H)
+    dh = torch.einsum("mfh,mf->mh", dz, x)
+    dx = torch.einsum("mfh,mh->mf", dz, h)
+    del dz
+    z = (x[:, :, None] * h[:, None, :]).reshape(M, F * H)
+    return dh.reshape(B, D, H), dx.reshape(B, D, F), torch.matmul(z.t(), gg)
+
+
+def phase_cin_bwd(device):
+    """phase 37: the CIN backward's kernels (``ops.cin.bwd_launch``)
+    against a float64 evaluation from the same bfloat16 inputs, beside the
+    einsums they replace (``cin_mix_bwd``): each of dh, dx and dwt, output
+    by output, no further off than twice the einsums' largest error plus
+    one bf16 ulp of the float64 value; a repeat bit-equal; then device ms
+    with a cold L2 of
+    the kernels and of the einsums at each layer shape and over the three
+    layers, beside the bound (the two products at the bf16 rate).  A CIN
+    of the cell's three layers trained one bf16 step counts its launches
+    on the main path.  Returns its entry for the kernels line."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    worst = 0.0
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    for H, O, layers in CIN_BWD_LAYERS:
+        shape = (CIN_BWD_BATCH, CIN_BWD_EMB, H, XD_FIELDS, O)
+        hidden, x0, wt, g = cin_bwd_inputs(*shape, SEED + 970 + H, device)
+        got = cin.bwd_launch(hidden, x0, wt, g)
+        again = cin.bwd_launch(hidden, x0, wt, g)
+        einsum = cin.cin_mix_bwd(hidden, x0, wt, g)
+        want = cin_bwd_float64(hidden, x0, wt, g)
+        torch.cuda.synchronize()
+        what = "CIN backward B=%d D=%d H=%d F=%d O=%d" % shape
+        errs = []
+        for name, k, k2, e, w in zip(("dh", "dx", "dwt"), got, again, einsum,
+                                     want):
+            check(torch.equal(k.view(torch.int16), k2.view(torch.int16)),
+                  "%s %s: a repeat differs" % (what, name))
+            ulp = torch.exp2(torch.floor(torch.log2(
+                w.abs().clamp_min(2.0 ** -126))) - 7)
+            err_k = (k.double() - w).abs()
+            err_e = (e.double() - w).abs().max().item()
+            excess = (err_k - ulp).max().item()
+            check(excess <= 2 * err_e, "%s %s: kernels off by %r past one "
+                  "ulp, einsums by %r" % (what, name, excess, err_e))
+            worst = max(worst, err_k.max().item())
+            errs.append("%s %.3g (einsums %.3g)" % (name, err_k.max().item(),
+                                                    err_e))
+        ms = device_ms(lambda: cin.bwd_launch(hidden, x0, wt, g))
+        plain_ms = device_ms(lambda: cin.cin_mix_bwd(hidden, x0, wt, g))
+        B, D = CIN_BWD_BATCH, CIN_BWD_EMB
+        bound = 4 * B * D * H * XD_FIELDS * O / BF16_FLOP_PER_S * 1e3
+        ops = profile_launches(lambda: cin.bwd_launch(hidden, x0, wt, g))[1]
+        log("%s on %s: max |err| vs float64 %s, repeat bit-equal; kernels "
+            "%r ms, einsums %r ms (device ms, cold L2, median of 20), %d "
+            "device operations a call; bound %r ms (products at %g FLOP/s)"
+            % (what, card_line(), ", ".join(errs), ms, plain_ms, ops, bound,
+               BF16_FLOP_PER_S))
+        total["ms"] += layers * ms
+        total["plain_ms"] += layers * plain_ms
+        total["bound_ms"] += layers * bound
+    log("CIN backward over the cell's three layers on %s: kernels %r ms, "
+        "einsums %r ms, bound %r ms" % (card_line(), total["ms"],
+                                        total["plain_ms"],
+                                        total["bound_ms"]))
+    # a bf16 training step of the cell's CIN on the main path's counters
+    from deepctr_tpu_torch.layers.interaction import CIN
+    pt.set_compute_dtype("bfloat16")
+    pt.set_cin_dtype("bf16")
+    gen = torch.Generator(device=device).manual_seed(SEED + 975)
+    layer = CIN(XD_FIELDS, (200, 200, 200), activation="linear",
+                split_half=False, device=device, generator=gen)
+    xin = (torch.randn(1024, XD_FIELDS, CIN_BWD_EMB, device=device,
+                       generator=gen) * 0.05).requires_grad_()
+    reset_counts()
+    einsums = cin.CIN_MIX_BWD_EINSUM
+    layer(xin, training=True).float().sum().backward()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts["cin_mix_bwd"] == 21 and cin.CIN_MIX_BWD_EINSUM == einsums,
+          "a bf16 CIN step of three layers: %d backward launches, %d einsum "
+          "backwards" % (counts["cin_mix_bwd"],
+                         cin.CIN_MIX_BWD_EINSUM - einsums))
+    pt.set_compute_dtype("float32")
+    return dict(max_abs_err=worst, ms=total["ms"],
+                plain_ms=total["plain_ms"], library_ms=None,
+                bound_ms=total["bound_ms"], bound_by="operations")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -6171,6 +6320,8 @@ def main():
     phase_recipes(device)
     torch.cuda.empty_cache()
     dense = phase_dense_update(device)
+    torch.cuda.empty_cache()
+    cin_bwd = phase_cin_bwd(device)
 
     log(card_line())
     measured = {"gather_rows": dict(max_abs_err=err, **timing, **zero_fill),
@@ -6184,6 +6335,7 @@ def main():
     measured["cin_mix"] = dict(max_abs_err=cin_err, **cin_timing)
     measured["static_scatter"] = scatter
     measured["dense_update"] = dense
+    measured["cin_mix_bwd"] = cin_bwd
     kernels = []
     for name in KERNELS:
         check(MAIN_PATH_LAUNCHES[name] > 0, "%s never launched on the main "

@@ -51,14 +51,16 @@ from ..ops import (attention, cin, dense_update, gather, gru, row_update,
                    scatter_add)
 from ..tracing import paused, span
 
-# every kernel wrapper's launch counter: (module, name)
+# every kernel wrapper's launch counter, and the CIN backwards that took
+# the einsums: (module, name)
 COUNTERS = ((gather, "GATHER_LAUNCHES"),
             (scatter_add, "SCATTER_ADD_LAUNCHES"),
             (row_update, "ROW_UPDATE_LAUNCHES"),
             (dense_update, "DENSE_UPDATE_LAUNCHES"),
             (gru, "GRU_SCAN_LAUNCHES"), (gru, "GRU_SCAN_BWD_LAUNCHES"),
             (attention, "DIN_ATTENTION_LAUNCHES"),
-            (cin, "CIN_MIX_LAUNCHES"))
+            (cin, "CIN_MIX_LAUNCHES"), (cin, "CIN_MIX_BWD_LAUNCHES"),
+            (cin, "CIN_MIX_BWD_EINSUM"))
 
 # graph replays since import (or since a caller reset it to 0)
 GRAPH_REPLAYS = 0

@@ -32,11 +32,17 @@ in the FMA kernel.
 Unlike the JAX package, which runs its kernel only at inference unless
 ``set_use_pallas(True)``, the port runs it in training too: while autograd
 records, ``cin_mix`` runs as :class:`CinMix`, whose forward is the kernel
-and whose backward is ``_cin_mix_bwd``'s explicit contractions
-(``cin_mix_bwd``), in the operands' dtype, from the saved inputs; a
-float32 cotangent of a float32 output from bfloat16 operands enters its
-products unrounded, as the JAX transposes of a ``preferred_element_type``
-product take it.  The backward runs inside the span ``cin.backward``.
+and whose backward runs from the saved inputs inside the span
+``cin.backward``.  Where ``bwd_route`` says "mma" (bfloat16 operands, a
+bfloat16 cotangent, tiles that fit shared memory: ``bwd_plan``) it is the
+hand-written backward of ``csrc/cin_mix_bwd.cu`` (``bwd_launch``: dh and
+dx from dz formed on chip, dwt from z formed on chip, neither written to
+device memory; ``cin_mix_bwd_mma_ref`` is its plain version).  Elsewhere
+(float32 operands, the CIN's carry mode, whose float32 cotangent enters
+the products unrounded as the JAX transposes of a
+``preferred_element_type`` product take it, and tiles too large) it is
+``_cin_mix_bwd``'s explicit contractions (``cin_mix_bwd``), in the
+operands' dtype.
 """
 
 import ctypes
@@ -51,6 +57,11 @@ from ..tracing import span
 # kernel launches since import (or since a caller reset it to 0); counts
 # only launches of the CUDA kernel, never the plain version
 CIN_MIX_LAUNCHES = 0
+# launches of the backward's kernels (seven a CinMix backward on its "mma"
+# route: four tilings, data, weight, reduce), and CinMix backwards that
+# took the einsums
+CIN_MIX_BWD_LAUNCHES = 0
+CIN_MIX_BWD_EINSUM = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -252,12 +263,237 @@ def cin_mix_bwd(hidden_t, x0_t, wt, g):
     return dh, dx, dwt.to(wt.dtype)
 
 
+# bwd_plan's keys, in the order cin_mix_bwd_plan writes them
+_PLAN = ("NT", "nch", "FG", "XF", "stages", "NO", "hb_log2", "FB",
+         "w_stages")
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_plan(H, F, O):
+    """The backward kernels' tiling at (H, F, O), as
+    ``csrc/cin_mix_bwd.cu:cin_mix_bwd_plan`` chooses it, or None where a
+    tile does not fit shared memory: the data kernel takes H in ``nch``
+    chunks of ``NT`` maps, ``FG`` fields a product, x's rows at stride
+    ``XF``; the weight kernel takes O in blocks of ``NO`` columns and dwt's
+    rows in tiles of 2^``hb_log2`` maps by ``FB`` fields; ``stages`` and
+    ``w_stages`` ring stages.  Builds the kernel library at first use: a
+    question for CUDA tensors only.  Do not modify the dict it returns."""
+    fn = _build.load("cin_mix_bwd").cin_mix_bwd_plan
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * len(_PLAN))()
+    return dict(zip(_PLAN, out)) if fn(H, F, O, out) else None
+
+
+def bwd_route(dtype, g_dtype, H, F, O):
+    """"mma" where CinMix's backward takes the hand-written kernels:
+    bfloat16 operands, a cotangent in the operands' dtype (the CIN's "bf16"
+    mode) and tiles that fit shared memory (``bwd_plan``; a block's rows of
+    g are staged whole, so O = 1024 does not); else "einsum"
+    (``cin_mix_bwd``: float32 compute, the carry mode's float32 cotangent,
+    rows of g too wide).  A pure function of its arguments; asks
+    ``bwd_plan`` only where the dtypes would take the kernels."""
+    if (dtype != torch.bfloat16 or g_dtype != dtype
+            or bwd_plan(H, F, O) is None):
+        return "einsum"
+    return "mma"
+
+
+def weight_splits(M, H, F, O, plan, n_sms):
+    """``(rows_per_split, splits)`` of the weight kernel over M rows, each
+    split a whole number of 64-row chunks: the fewest splits (at most 64)
+    whose blocks, one an SM, fill 95% of their waves, else the best
+    filled."""
+    HB = 1 << plan["hb_log2"]
+    tiles = -(-H // HB) * -(-F // plan["FB"]) * -(-O // plan["NO"])
+    chunks = -(-M // 64)
+    best = None
+    for want in range(1, min(chunks, 64) + 1):
+        rows = -(-chunks // want) * 64
+        splits = -(-M // rows)
+        blocks = tiles * splits
+        fill = blocks / (-(-blocks // n_sms) * n_sms)
+        if fill >= 0.95:
+            return rows, splits
+        if best is None or fill > best[0]:
+            best = (fill, rows, splits)
+    return best[1], best[2]
+
+
+def cin_mix_bwd_mma_ref(hidden_t, x0_t, wt, g, rows_per_split=None):
+    """Plain version of the backward kernels' arithmetic, from the forward's
+    inputs and g [B, D, O] in their dtype: a field at a time, dz = g wt_f^T
+    (a float32 sum) rounded to the dtype, dh summed over the fields in
+    order and dx over the maps in float32; z rounded to the dtype and dwt's
+    float32 sums over splits of ``rows_per_split`` rows (all in one by
+    default) added in split order; each output rounded once.  -> (dh, dx,
+    dwt [F*H, O])."""
+    B, D, H = hidden_t.shape
+    F = x0_t.shape[2]
+    O = g.shape[2]
+    M = B * D
+    dtype = hidden_t.dtype
+    h = hidden_t.reshape(M, H).float()
+    x = x0_t.reshape(M, F).float()
+    gg = g.reshape(M, O).float()
+    w = wt.float().reshape(F, H, O)
+    dh = torch.zeros(M, H)
+    dx = torch.empty(M, F)
+    for f in range(F):
+        dz = torch.matmul(gg, w[f].t()).to(dtype).float()
+        dh += dz * x[:, f:f + 1]
+        dx[:, f] = (dz * h).sum(1)
+    z = (x[:, :, None] * h[:, None, :]).to(dtype).float().reshape(M, F * H)
+    step = rows_per_split or max(M, 1)
+    dwt = torch.zeros(F * H, O)
+    for lo in range(0, M, step):
+        dwt = dwt + torch.matmul(z[lo:lo + step].t(), gg[lo:lo + step])
+    return (dh.to(dtype).reshape(B, D, H), dx.to(dtype).reshape(B, D, F),
+            dwt.to(dtype))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _bwd_kernel(name, n_args):
+    fn = getattr(_build.load("cin_mix_bwd"), name)
+    fn.argtypes = n_args
+    fn.restype = ctypes.c_int
+    return fn
+
+
+_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_BWD_ARGS = {
+    "cin_mix_bwd_tile": [_P, _LL, _LL, _I, _P, _I, _I, _I, _I, _LL, _I, _I,
+                         _I, _I, _P],
+    "cin_mix_bwd_data": [_P, _I, _P, _P, _LL, _P, _LL, _P, _P, _LL, _I, _I,
+                         _I, _I, _I, _I, _I, _P],
+    "cin_mix_bwd_weight": [_P, _I, _P, _P, _P, _LL, _I, _I, _I, _I, _LL, _I,
+                           _I, _I, _P],
+    "cin_mix_bwd_reduce": [_P, _P, _LL, _I, _P],
+}
+
+
+def bwd_launch(hidden_t, x0_t, wt, g):
+    """The backward kernels on CUDA tensors, for shapes ``bwd_route`` sends
+    to them: hidden_t [B, D, H] and x0_t [B, D, F] at a row stride each
+    (``_rows``), wt [F*H, O] and g [B, D, O], all bfloat16 -> (dh, dx, dwt
+    [F*H, O]) in bfloat16.  Seven launches (the tiles of g, wt, hid and x,
+    the data and weight products, the partials' sum), counted in
+    ``CIN_MIX_BWD_LAUNCHES``; no host sync."""
+    B, D, H = hidden_t.shape
+    F = x0_t.shape[2]
+    O = wt.shape[1]
+    M = B * D
+    dev = hidden_t.device
+    plan = bwd_plan(H, F, O)
+    if (plan is None or dev.type != "cuda" or any(
+            t.dtype != torch.bfloat16 or t.device != dev
+            for t in (hidden_t, x0_t, wt, g))
+            or tuple(g.shape) != (B, D, O) or tuple(wt.shape) != (F * H, O)):
+        raise ValueError("cin_mix's backward kernels take bfloat16 CUDA "
+                         "tensors of one device at shapes bwd_plan tiles, got "
+                         "%s %s, %s %s, %s %s and g %s %s"
+                         % (hidden_t.dtype, tuple(hidden_t.shape), x0_t.dtype,
+                            tuple(x0_t.shape), wt.dtype, tuple(wt.shape),
+                            g.dtype, tuple(g.shape)))
+    dh = torch.empty(B, D, H, dtype=torch.bfloat16, device=dev)
+    dx = torch.empty(B, D, F, dtype=torch.bfloat16, device=dev)
+    dwt = torch.empty(F * H, O, dtype=torch.bfloat16, device=dev)
+    if M == 0:
+        return dh, dx, dwt.zero_()
+    if _rows(hidden_t) is None:
+        hidden_t = hidden_t.contiguous()
+    if _rows(x0_t) is None:
+        x0_t = x0_t.contiguous()
+    ld_h, ld_x = _rows(hidden_t), _rows(x0_t)
+    g2 = g.reshape(M, O)
+    if g2.stride(1) != 1:
+        g2 = g2.contiguous()
+    wt = wt.contiguous()
+    NT, nch, NO = plan["NT"], plan["nch"], plan["NO"]
+    nkc = -(-O // 64)
+    # the operands as the kernels' shared-memory tiles, each copied whole
+    # by the TMA: g's [64, 64] (both kernels'), wt's [FG * NT, 64] of FG
+    # fields and an H chunk (the data kernel's), hid's [64, HB] and x's
+    # [64, 8] of the weight kernel's HB maps and 128 / HB fields
+    gcols = -(-O // NO) * -(-NO // 64)
+    FG, FB = plan["FG"], plan["FB"]
+    nfg = -(-F // FG)
+    HB = 1 << plan["hb_log2"]
+    nhb, nfb, nrt = -(-H // HB), -(-F // FB), -(-M // 64)
+    gt = _bf16(nrt * gcols * 64 * 64, dev)
+    wtl = _bf16(nch * nfg * nkc * FG * NT * 64, dev)
+    ht = _bf16(nrt * nhb * 64 * HB, dev)
+    xt = _bf16(nrt * nfb * 64 * 8, dev)
+    rows, splits = weight_splits(M, H, F, O, plan,
+                                 _sm_count(dev.index if dev.index is not None
+                                           else torch.cuda.current_device()))
+    part = torch.empty(splits, F * H, O, dtype=torch.float32, device=dev)
+    tile = "cin_mix_bwd_tile"
+    tiles = (
+        # src, ld, rows, cols, dst, TR, CW, SCW, swz, tiles, column tiles,
+        # and wt's fields: field_rows, fields, chunk
+        (tile, (g2.data_ptr(), g2.stride(0), M, O, gt.data_ptr(), 64, 64, 64,
+                1, nrt, gcols, 0, 0, 0)),
+        (tile, (wt.data_ptr(), O, F * H, O, wtl.data_ptr(), FG * NT, 64, 64,
+                1, nch * nfg, nkc, H, F, NT)),
+        (tile, (hidden_t.data_ptr(), ld_h, M, H, ht.data_ptr(), 64, HB, HB, 0,
+                nrt, nhb, 0, 0, 0)),
+        (tile, (x0_t.data_ptr(), ld_x, M, F, xt.data_ptr(), 64, 8, FB, 0, nrt,
+                nfb, 0, 0, 0)))
+    data = ("cin_mix_bwd_data", (
+        gt.data_ptr(), gcols, wtl.data_ptr(), hidden_t.data_ptr(), ld_h,
+        x0_t.data_ptr(), ld_x, dh.data_ptr(), dx.data_ptr(), M, H, F, O, NT,
+        nch, plan["XF"], plan["stages"]))
+    weight = ("cin_mix_bwd_weight", (
+        gt.data_ptr(), gcols, ht.data_ptr(), xt.data_ptr(), part.data_ptr(),
+        M, H, F, O, NO, rows, splits, plan["hb_log2"], plan["w_stages"]))
+    reduce = ("cin_mix_bwd_reduce", (part.data_ptr(), dwt.data_ptr(),
+                                     F * H * O, splits))
+    with torch.cuda.device(dev):
+        # g's tiles, then the weight product's kernels on a second stream
+        # beside the data product's, so that each fills the other's last
+        # wave; every tensor is made on the current stream, which waits for
+        # the second before it returns
+        main = torch.cuda.current_stream(dev)
+        _bwd_calls(tiles[:1], main)
+        side = _side_stream(dev)
+        side.wait_stream(main)
+        _bwd_calls((tiles[1], data), main)
+        _bwd_calls(tiles[2:] + (weight, reduce), side)
+        main.wait_stream(side)
+    return dh, dx, dwt
+
+
+def _bf16(n, dev):
+    return torch.empty(n, dtype=torch.bfloat16, device=dev)
+
+
+@functools.lru_cache(maxsize=None)
+def _side_stream(dev):
+    return torch.cuda.Stream(dev)
+
+
+def _bwd_calls(calls, stream):
+    global CIN_MIX_BWD_LAUNCHES
+    for name, args in calls:
+        rc = _bwd_kernel(name, _BWD_ARGS[name])(*args, stream.cuda_stream)
+        if rc != 0:
+            raise RuntimeError("%s launch failed with CUDA error %d"
+                               % (name, rc))
+        CIN_MIX_BWD_LAUNCHES += 1
+
+
 class CinMix(torch.autograd.Function):
     """The ``deepctr_tpu_torch::cin_mix`` op's forward (the kernel) on CUDA
-    tensors, with the contractions of :func:`cin_mix_bwd` as its backward;
-    saves only its inputs.  ``w3`` reaches the op, whose CPU version reads
-    it; the gradient goes to ``wt``, from which autograd carries it to
-    ``w3``."""
+    tensors; its backward is :func:`bwd_launch`'s kernels on
+    :func:`bwd_route`'s "mma" route, else the contractions of
+    :func:`cin_mix_bwd`.  Saves only its inputs.  ``w3`` reaches the op,
+    whose CPU version reads it; the gradient goes to ``wt``, from which
+    autograd carries it to ``w3``."""
 
     @staticmethod
     def forward(ctx, hidden_t, x0_t, w3, wt, wm=None, out_dtype=None):
@@ -269,10 +505,16 @@ class CinMix(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        global CIN_MIX_BWD_EINSUM
         hidden_t, x0_t, wt = ctx.saved_tensors
+        g = g.to(ctx.out_dtype)
         with span("cin.backward"):
-            dh, dx, dwt = cin_mix_bwd(hidden_t, x0_t, wt,
-                                      g.to(ctx.out_dtype))
+            if bwd_route(hidden_t.dtype, g.dtype, hidden_t.shape[2],
+                         x0_t.shape[2], wt.shape[1]) == "mma":
+                dh, dx, dwt = bwd_launch(hidden_t, x0_t, wt, g)
+            else:
+                CIN_MIX_BWD_EINSUM += 1
+                dh, dx, dwt = cin_mix_bwd(hidden_t, x0_t, wt, g)
         return dh, dx, None, dwt, None, None
 
 

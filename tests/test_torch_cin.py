@@ -31,6 +31,7 @@ from deepctr_tpu_torch.layers import CIN as PCIN
 from deepctr_tpu_torch.ops import cin as p_cin
 from deepctr_tpu_torch.ops import dispatch as p_dispatch
 from deepctr_tpu_torch.ops import reference as pref
+from tests.test_torch_cin_bwd_card import BWD_PLANS
 
 F32_ATOL = 1e-5
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -478,3 +479,126 @@ def test_set_cin_dtype_rejects_other_modes_and_keys_the_graphs(
         assert pt_config.cin_dtype() == mode
         keys.add(BaseModel._graph_key("fit", 4096))
     assert len(keys) == 3
+
+
+# ---------------------------------------------------------------------------
+# the hand-written backward's route and plain version (csrc/cin_mix_bwd.cu)
+# ---------------------------------------------------------------------------
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("dtype,g_dtype,shape,want", [
+    # the benchmark's xDeepFM layers and DeepCTR's 256-128 split_half
+    (BF16, BF16, (26, 26, 200), "mma"), (BF16, BF16, (200, 26, 200), "mma"),
+    (BF16, BF16, (26, 26, 256), "mma"), (BF16, BF16, (128, 26, 128), "mma"),
+    # ragged H, O and F
+    (BF16, BF16, (5, 3, 7), "mma"), (BF16, BF16, (26, 26, 61), "mma"),
+    (BF16, BF16, (400, 26, 72), "mma"),
+    # the carry mode's float32 cotangent, float32 compute
+    (BF16, F32, (200, 26, 200), "einsum"), (F32, F32, (200, 26, 200),
+                                            "einsum"),
+    # hidden rows too wide for K6's tensor-core route (the backward keeps
+    # no hid rows in shared memory), and cotangent rows too wide for it
+    (BF16, BF16, (1000, 26, 256), "mma"), (BF16, BF16, (200, 26, 1024),
+                                           "einsum")])
+def test_cin_bwd_route_is_a_function_of_dtypes_and_shapes(
+        monkeypatch, dtype, g_dtype, shape, want):
+    """The library's plans (``BWD_PLANS``, which the card test holds
+    ``bwd_plan`` to) stand in for it here, where it cannot be built."""
+    asked = []
+
+    def plan_of(*hfo):
+        asked.append(hfo)
+        return BWD_PLANS[hfo]
+    monkeypatch.setattr(p_cin, "bwd_plan", plan_of)
+    assert p_cin.bwd_route(dtype, g_dtype, *shape) == want
+    # the dtypes decide first: the plan is asked for bfloat16 alone
+    assert asked == ([shape] if dtype == g_dtype == BF16 else [])
+    plan = BWD_PLANS[shape]
+    if plan is None:
+        return
+    H, F, O = shape
+    # the tiles cover H, F and O
+    assert plan["nch"] * plan["NT"] >= H > (plan["nch"] - 1) * plan["NT"]
+    assert plan["FG"] * plan["NT"] <= 208
+    assert plan["XF"] >= F and plan["XF"] % 2 == 1
+    assert plan["NO"] >= min(O, 256) and plan["NO"] in (64, 128, 208, 256)
+    assert plan["hb_log2"] in (4, 5, 6)
+    assert plan["FB"] << plan["hb_log2"] == 128
+    assert 2 <= plan["stages"] <= 12 and 2 <= plan["w_stages"] <= 12
+
+
+def test_cin_bwd_plan_at_the_benchmark_shapes_by_hand():
+    # layer 0: H = 26 in one chunk of 32; layers 1-2: 200 in two of 104
+    p0, p1 = BWD_PLANS[(26, 26, 200)], BWD_PLANS[(200, 26, 200)]
+    assert (p0["NT"], p0["nch"], p0["NO"]) == (32, 1, 208)
+    assert (p1["NT"], p1["nch"], p1["NO"]) == (104, 2, 208)
+    # dwt's rows in tiles of 32 maps by 4 fields: 7 x 1 and 7 x 7 tiles
+    assert p0["hb_log2"] == p1["hb_log2"] == 5
+    # one block an SM on 132: 7 tiles x 18 splits fill 95% of one wave,
+    # 49 x 8 of three
+    assert p_cin.weight_splits(40960, 26, 26, 200, p0, 132) == (2304, 18)
+    assert p_cin.weight_splits(40960, 200, 26, 200, p1, 132) == (5120, 8)
+    # every split a whole number of 64-row chunks, none empty
+    for M in (1, 63, 64, 770, 40960):
+        rows, splits = p_cin.weight_splits(M, 26, 26, 61, p0, 132)
+        assert rows % 64 == 0 and rows * splits >= M > rows * (splits - 1)
+
+
+def _bf16_bound(got, want, scale):
+    """|got - want| within 2^-8 of the terms' magnitude sum (dz, or z,
+    rounded to bfloat16 before a float32 sum: 2^-9 relative each) and one
+    bf16 ulp of |want| (the final rounding)."""
+    a, b, s = _np(got), _np(want), _np(scale)
+    ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(b), 2.0 ** -126))) - 7)
+    assert np.all(np.abs(a - b) <= 2.0 ** -8 * s + ulp + 1e-6), \
+        np.max(np.abs(a - b) - 2.0 ** -8 * s - ulp)
+
+
+@pytest.mark.parametrize("shape,rows", [((4, 16, 26, 26, 32), None),
+                                        ((3, 5, 7, 3, 9), 64),
+                                        ((77, 3, 26, 5, 61), 64)])
+def test_cin_mix_bwd_mma_ref_matches_jax_grad(shape, rows):
+    """The kernels' order of rounding and sums (``cin_mix_bwd_mma_ref``:
+    dz rounded a field at a time, float32 dh and dx, dwt over row splits
+    added in order) against ``jax.vjp`` through the JAX ``cin_mix_ref``:
+    float32 within 1e-5 of the terms' magnitudes, bfloat16 inputs within
+    the roundings' bound; and at bfloat16 beside the einsums'
+    ``cin_mix_bwd`` within the same bound."""
+    B, D, H, F, O = shape
+    h, x, w3 = _inputs(shape, 7)
+    g = np.random.default_rng(8).normal(0, 1, (B, D, O)).astype(np.float32)
+    _, s_h, s_x, s_wt = _scales(h, x, w3, g)
+    for dtype in ("float32", "bfloat16"):
+        td = DTYPES[dtype][1]
+        th, tx, tw3, tg = (torch.from_numpy(a).to(td) for a in (h, x, w3, g))
+        # JAX in float32 from the same (bf16-rounded) values
+        _, vjp = jax.vjp(jref.cin_mix_ref, *(jnp.asarray(_np(t))
+                                             for t in (th, tx, tw3)))
+        dh_j, dx_j, dw3_j = vjp(jnp.asarray(_np(tg)))
+        dwt_j = np.transpose(np.asarray(dw3_j), (2, 1, 0)).reshape(F * H, O)
+        wt = p_cin.kernel_weight(tw3, td)
+        got = p_cin.cin_mix_bwd_mma_ref(th, tx, wt, tg, rows)
+        assert [t.dtype for t in got] == [td] * 3
+        assert tuple(got[2].shape) == (F * H, O)
+        if dtype == "float32":
+            for a, b, s in zip(got, (dh_j, dx_j, dwt_j), (s_h, s_x, s_wt)):
+                assert_agree(a, b, "float32", s)
+            continue
+        einsum = p_cin.cin_mix_bwd(th, tx, wt, tg)
+        for a, e, b, s in zip(got, einsum, (dh_j, dx_j, dwt_j),
+                              (s_h, s_x, s_wt)):
+            _bf16_bound(a, b, s)
+            _bf16_bound(e, b, s)
+
+
+def test_cin_bwd_on_the_cpu_takes_the_einsums_and_counts_no_launch():
+    """On CPU tensors autograd differentiates the plain forward: neither
+    backward counter moves."""
+    h, x, w3 = (torch.from_numpy(a).requires_grad_()
+                for a in _inputs((2, 3, 4, 5, 6), 9))
+    p_cin.CIN_MIX_BWD_LAUNCHES = p_cin.CIN_MIX_BWD_EINSUM = 0
+    p_cin.cin_mix(h, x, w3).sum().backward()
+    assert p_cin.CIN_MIX_BWD_LAUNCHES == p_cin.CIN_MIX_BWD_EINSUM == 0
+    assert h.grad is not None and w3.grad is not None
