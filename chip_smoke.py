@@ -503,6 +503,7 @@ from deepctr_tpu_torch.layers import core as pcore  # noqa: E402
 from deepctr_tpu_torch.layers.sequence import (  # noqa: E402
     AttentionSequencePoolingLayer)
 from deepctr_tpu_torch.ops import _build  # noqa: E402
+from deepctr_tpu_torch.ops._args import DeviceArgs  # noqa: E402
 from deepctr_tpu_torch.ops import attention  # noqa: E402
 from deepctr_tpu_torch.ops import cin  # noqa: E402
 from deepctr_tpu_torch.ops import dense_update  # noqa: E402
@@ -601,7 +602,7 @@ SEQ_TRAIN_STEPS = 3
 SEQ_CPU_BATCH = 256
 SEQ_CPU_STEPS = 3
 # the launches of one train step (tables dense under "auto": no row_update)
-SEQ_TRAIN_LAUNCHES = {
+SEQ_STEP_KERNELS = {
     ("dien", "AUGRU"): {"gather_rows": 1, "scatter_add_rows": 1,
                         "gru_scan": 2, "gru_scan_bwd": 2, "row_update": 0,
                         "din_attention": 0},
@@ -624,7 +625,7 @@ XD_LAYERS = ((XD_FIELDS, XD_CIN[0]), (XD_CIN[0] // 2, XD_CIN[1]))
 # H100 SXM bf16 dense tensor-core rate (NVIDIA data sheet)
 BF16_FLOP_PER_S = 989e12
 # the launches of one xDeepFM train step (tables dense under "auto")
-XD_TRAIN_LAUNCHES = {"gather_rows": 1, "scatter_add_rows": 1, "cin_mix": 2,
+XD_STEP_KERNELS = {"gather_rows": 1, "scatter_add_rows": 1, "cin_mix": 2,
                      "row_update": 0}
 # phase 19: the micro-benchmark's repeats, and rows of a sentinel past the
 # arena
@@ -702,23 +703,12 @@ KERNELS = {
     },
 }
 
-# each kernel's launch counter: (module, attribute)
-COUNTERS = {
-    "gather_rows": (gather, "GATHER_LAUNCHES"),
-    "scatter_add_rows": (scatter_add, "SCATTER_ADD_LAUNCHES"),
-    "row_update": (rowup, "ROW_UPDATE_LAUNCHES"),
-    "dense_update": (dense_update, "DENSE_UPDATE_LAUNCHES"),
-    "gru_scan": (gru, "GRU_SCAN_LAUNCHES"),
-    "gru_scan_bwd": (gru, "GRU_SCAN_BWD_LAUNCHES"),
-    "din_attention": (attention, "DIN_ATTENTION_LAUNCHES"),
-    "cin_mix": (cin, "CIN_MIX_LAUNCHES"),
-    "cin_mix_bwd": (cin, "CIN_MIX_BWD_LAUNCHES"),
-    "static_scatter": (scatter_rows, "STATIC_SCATTER_LAUNCHES"),
-}
+# each kernel's launches, by the names of KERNELS
+LAUNCHES = _build.LAUNCHES
 # the launches of every main-path run, summed (read_counts adds to it)
-MAIN_PATH_LAUNCHES = dict.fromkeys(COUNTERS, 0)
+MAIN_PATH_TOTALS = dict.fromkeys(KERNELS, 0)
 # of those, the launches on the ranks of a mesh (phases 34b-f)
-MESH_LAUNCHES = dict.fromkeys(COUNTERS, 0)
+MESH_TOTALS = dict.fromkeys(KERNELS, 0)
 
 
 def log(msg):
@@ -727,24 +717,23 @@ def log(msg):
 
 def reset_counts():
     """Every kernel's launch count to 0, just before a main-path run."""
-    for module, attr in COUNTERS.values():
-        setattr(module, attr, 0)
+    for name in KERNELS:
+        LAUNCHES[name] = 0
 
 
 def add_rank_counts(counts):
     """A mesh rank's launches (counted in its process) into the totals."""
     for name, n in counts.items():
-        MAIN_PATH_LAUNCHES[name] += n
-        MESH_LAUNCHES[name] += n
+        MAIN_PATH_TOTALS[name] += n
+        MESH_TOTALS[name] += n
 
 
 def read_counts():
     """The launches since reset_counts(), just after a main-path run;
-    added to MAIN_PATH_LAUNCHES."""
-    counts = {name: getattr(module, attr)
-              for name, (module, attr) in COUNTERS.items()}
+    added to MAIN_PATH_TOTALS."""
+    counts = {name: LAUNCHES[name] for name in KERNELS}
     for name, count in counts.items():
-        MAIN_PATH_LAUNCHES[name] += count
+        MAIN_PATH_TOTALS[name] += count
     return counts
 
 
@@ -1290,9 +1279,9 @@ def check_row_update_case(base, grads, rows, l2s, what, seed):
             rowup.table_routes(kern_w, kern_s, grads, rows, l2s)))
         args = (grads, rows, l2s, 0.01,
                 k2_bias(opt, len(base), base[0].device))
-        before = rowup.ROW_UPDATE_LAUNCHES
+        before = LAUNCHES["row_update"]
         rowup.row_update(opt, kern_w, kern_s, *args)
-        launches = rowup.ROW_UPDATE_LAUNCHES - before
+        launches = LAUNCHES["row_update"] - before
         check(launches == want_launches, "row_update (%s) launched %d times "
               "at %s, its plan %d" % (opt, launches, what, want_launches))
         rowup.row_update_ref(opt, plain_w, plain_s, *args)
@@ -1927,9 +1916,9 @@ def check_attention_layer(device, shape, seed):
     with torch.no_grad():
         for p in layer.parameters():
             p.normal_(0.0, SEQ_STD, generator=gen)
-        attention.DIN_ATTENTION_LAUNCHES = 0
+        LAUNCHES["din_attention"] = 0
         got = layer(q, k, keys_length=lengths)
-        launches = attention.DIN_ATTENTION_LAUNCHES
+        launches = LAUNCHES["din_attention"]
         lau = layer.local_att
         dense = [getattr(lau.dnn, "dense_%d" % i)
                  for i in range(len(w["hidden"]))] + [lau.dense]
@@ -2512,7 +2501,7 @@ def phase_seq_fit_f32(kind, variant, device):
     reset_counts()
     model.fit(x, y, batch_size=SEQ_BATCH, epochs=1, verbose=0)
     counts = read_counts()
-    for name, per_step in SEQ_TRAIN_LAUNCHES[(kind, variant)].items():
+    for name, per_step in SEQ_STEP_KERNELS[(kind, variant)].items():
         check(counts[name] == per_step * SEQ_TRAIN_STEPS,
               "%s: %s launched %d times in %d train steps, want %d a step"
               % (label, name, counts[name], SEQ_TRAIN_STEPS, per_step))
@@ -3012,7 +3001,7 @@ def phase_xdeepfm_f32(device):
     reset_counts()
     model.fit(x, y, batch_size=BATCH, epochs=1, verbose=0)
     train_counts = read_counts()
-    for name, per_step in XD_TRAIN_LAUNCHES.items():
+    for name, per_step in XD_STEP_KERNELS.items():
         check(train_counts[name] == per_step * XD_TRAIN_STEPS,
               "xDeepFM fit: %s launched %d times in %d train steps, want %d "
               "a step" % (name, train_counts[name], XD_TRAIN_STEPS,
@@ -3223,14 +3212,14 @@ def phase_static_scatter(device):
                                 arena.numel() * 4 / 1e9, err))
 
     reset_counts()
-    scatter_rows.SCATTER_ROWS_LAUNCHES = 0
+    LAUNCHES["scatter_rows"] = 0
     records = scatter_micro.run(inp, repeats=SCATTER_REPEATS)
     counts = read_counts()
     for rec in records:
         print(json.dumps(rec), flush=True)
     log("scatter micro-benchmark on %s: static_scatter launches %d, dynamic "
         "launches %d" % (card_line(), counts["static_scatter"],
-                         scatter_rows.SCATTER_ROWS_LAUNCHES))
+                         LAUNCHES["scatter_rows"]))
 
     with torch.no_grad():
         valid = torch.arange(N, device=device)[None, :] < nvs[:, None].long()
@@ -4381,10 +4370,10 @@ def phase_cin_modes(device):
             per_step = {"gather_rows": 1, "scatter_add_rows": 1,
                         "cin_mix": layers,
                         "cin_mix_bwd": 7 * layers if kernels else 0}
-            einsums = cin.CIN_MIX_BWD_EINSUM
+            einsums = LAUNCHES["cin_mix_bwd_einsum"]
             graph_vs_eager_fit(graphed, eager, X, y, BATCH,
                                "xDeepFM bf16, CIN mode %s" % mode, per_step)
-            einsums = cin.CIN_MIX_BWD_EINSUM - einsums
+            einsums = LAUNCHES["cin_mix_bwd_einsum"] - einsums
             want = 0 if kernels else 2 * layers * (X.shape[0] // BATCH)
             check(einsums == want, "xDeepFM bf16, CIN mode %s: %d einsum "
                   "backwards in the graphed and the eager steps, want %d"
@@ -4449,7 +4438,7 @@ STREAM_RUNS = 3
 # the batches the Kaggle artifact serves, in a fresh process
 SERVE_BATCHES = (1, BATCH, BATCH + 1)
 # the kernels' launches inside the artifacts of phase 33
-ARTIFACT_LAUNCHES = dict.fromkeys(COUNTERS, 0)
+ARTIFACT_TOTALS = dict.fromkeys(KERNELS, 0)
 
 _HEX = np.frombuffer(b"0123456789abcdef", np.uint8)
 _SMALL_INTS = np.array([b"%d" % i for i in range(-1, 1000)])
@@ -4697,7 +4686,7 @@ def fresh_process_serve(path, X_path, out_path):
         "import numpy as np, torch\n"
         "sys.path.insert(0, sys.argv[4])\n"
         "from deepctr_tpu_torch import serving\n"
-        "from deepctr_tpu_torch.ops import gather\n"
+        "from deepctr_tpu_torch.ops._build import LAUNCHES\n"
         "t0 = time.perf_counter()\n"
         "exp = serving.load_exported(sys.argv[1])\n"
         "load_s = time.perf_counter() - t0\n"
@@ -4707,7 +4696,7 @@ def fresh_process_serve(path, X_path, out_path):
         "    outs['b%d' % b] = exp.call(X[:b]).cpu().numpy()\n"
         "np.savez(sys.argv[3], **outs)\n"
         "print(json.dumps({'load_s': load_s, 'device': str(exp.device),\n"
-        "                  'gather_launches': gather.GATHER_LAUNCHES}))\n")
+        "                  'gather_launches': LAUNCHES['gather_rows']}))\n")
     proc = subprocess.run(
         [sys.executable, "-c", code, str(path), str(X_path), str(out_path),
          str(HERE), json.dumps(list(SERVE_BATCHES))], capture_output=True,
@@ -4760,7 +4749,7 @@ def phase_serve_kaggle(model, X_all):
         exp.call(X4)
         counts = read_counts()
         for name, n in counts.items():
-            ARTIFACT_LAUNCHES[name] += n
+            ARTIFACT_TOTALS[name] += n
         check(counts["gather_rows"] == 1, "the artifact launched the gather "
               "%d times a batch" % counts["gather_rows"])
         fns = {"artifact": lambda: exp.call(X4),
@@ -4805,7 +4794,7 @@ def serve_case(label, build, X, B, per_batch, device):
     finally:
         shutil.rmtree(d)
     for name, n in counts.items():
-        ARTIFACT_LAUNCHES[name] += n
+        ARTIFACT_TOTALS[name] += n
     for name, n in per_batch.items():
         check(counts[name] == n, "%s artifact: %s launched %d times in one "
               "batch, want %d" % (label, name, counts[name], n))
@@ -4846,7 +4835,7 @@ def phase_serve_models(device):
         BATCH, SEED + 831, device), BATCH, {"gather_rows": 1, "cin_mix": 2},
         device)
     for name in ("gather_rows", "din_attention", "gru_scan", "cin_mix"):
-        check(ARTIFACT_LAUNCHES[name] > 0, "%s never launched inside an "
+        check(ARTIFACT_TOTALS[name] > 0, "%s never launched inside an "
               "artifact" % name)
 
 
@@ -5643,9 +5632,9 @@ def rowwise_k2_case(tables, grads, rows, l2s, what, seed, blocks=None):
     want_launches = len(rowup.launch_plan(
         [len(r) for r in rows],
         rowup.table_routes(kern_w, kern_s, grads, rows, l2s)))
-    before = rowup.ROW_UPDATE_LAUNCHES
+    before = LAUNCHES["row_update"]
     rowup.row_update("adam", kern_w, kern_s, *args)
-    launches = rowup.ROW_UPDATE_LAUNCHES - before
+    launches = LAUNCHES["row_update"] - before
     check(launches == want_launches, "row_update (adam, rowwise) launched "
           "%d times at %s, its plan %d" % (launches, what, want_launches))
     rowup.row_update_ref("adam", plain_w, plain_s, *args)
@@ -6049,14 +6038,14 @@ def phase_dense_update(device):
             want_p = [p.clone() for p in got_p]
             want_s = [tuple(a.clone() for a in st) for st in got_s]
             plan = dense_update.launch_plan([int(np.prod(s)) for s in shp])
-            before = dense_update.DENSE_UPDATE_LAUNCHES
+            before = LAUNCHES["dense_update"]
             for _ in range(3):
                 dense_update.dense_update(name, got_p, grads, got_s,
                                           DENSE_LR[name], bias)
                 dense_update.dense_update_ref(name, want_p, grads, want_s,
                                               DENSE_LR[name], bias)
             torch.cuda.synchronize()
-            launches = dense_update.DENSE_UPDATE_LAUNCHES - before
+            launches = LAUNCHES["dense_update"] - before
             what = "dense_update %s at %s (%d parameters, %d floats)" % (
                 name, label, len(shp), sum(int(np.prod(s)) for s in shp))
             check(launches == 3 * len(plan), "%s: %d launches in 3 steps, "
@@ -6075,7 +6064,7 @@ def phase_dense_update(device):
         n = sum(p.numel() for p in params)
         args = dense_update.kernel_args("adam", params, grads, states,
                                         DENSE_LR["adam"], bias)
-        cache = dense_update.LaunchArgs()
+        cache = DeviceArgs()
         fns = {
             "kernel": lambda: dense_update.launch(args, device),
             "call": lambda: dense_update.dense_update(
@@ -6204,14 +6193,14 @@ def phase_cin_bwd(device):
     xin = (torch.randn(1024, XD_FIELDS, CIN_BWD_EMB, device=device,
                        generator=gen) * 0.05).requires_grad_()
     reset_counts()
-    einsums = cin.CIN_MIX_BWD_EINSUM
+    einsums = LAUNCHES["cin_mix_bwd_einsum"]
     layer(xin, training=True).float().sum().backward()
     torch.cuda.synchronize()
     counts = read_counts()
-    check(counts["cin_mix_bwd"] == 21 and cin.CIN_MIX_BWD_EINSUM == einsums,
+    einsums = LAUNCHES["cin_mix_bwd_einsum"] - einsums
+    check(counts["cin_mix_bwd"] == 21 and einsums == 0,
           "a bf16 CIN step of three layers: %d backward launches, %d einsum "
-          "backwards" % (counts["cin_mix_bwd"],
-                         cin.CIN_MIX_BWD_EINSUM - einsums))
+          "backwards" % (counts["cin_mix_bwd"], einsums))
     pt.set_compute_dtype("float32")
     return dict(max_abs_err=worst, ms=total["ms"],
                 plain_ms=total["plain_ms"], library_ms=None,
@@ -6272,10 +6261,10 @@ def main():
     seq_timing = phase_seq_timing_bf16(device)
 
     seq_errs["gru_scan_bwd"] = phase_gru_bwd_vs_plain(device)
-    for kind, variant in SEQ_TRAIN_LAUNCHES:
+    for kind, variant in SEQ_STEP_KERNELS:
         phase_seq_fit_f32(kind, variant, device)
     phase_seq_fit_sparse(device)
-    for kind, variant in SEQ_TRAIN_LAUNCHES:
+    for kind, variant in SEQ_STEP_KERNELS:
         phase_seq_fit_card_vs_cpu(kind, variant, device)
     seq_timing["gru_scan_bwd"] = phase_seq_train_timing_bf16(device)
     torch.cuda.empty_cache()
@@ -6338,11 +6327,11 @@ def main():
     measured["cin_mix_bwd"] = cin_bwd
     kernels = []
     for name in KERNELS:
-        check(MAIN_PATH_LAUNCHES[name] > 0, "%s never launched on the main "
+        check(MAIN_PATH_TOTALS[name] > 0, "%s never launched on the main "
               "path" % name)
-        kernels.append(dict(name=name, launches=MAIN_PATH_LAUNCHES[name],
-                            artifact_launches=ARTIFACT_LAUNCHES[name],
-                            mesh_launches=MESH_LAUNCHES[name],
+        kernels.append(dict(name=name, launches=MAIN_PATH_TOTALS[name],
+                            artifact_launches=ARTIFACT_TOTALS[name],
+                            mesh_launches=MESH_TOTALS[name],
                             **measured[name], **KERNELS[name]))
     log("chip_smoke: %.1f s in all" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": kernels}), flush=True)

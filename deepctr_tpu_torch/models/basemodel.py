@@ -85,7 +85,7 @@ from ..layers.utils import slice_arrays
 from ..losses import resolve_loss
 from ..ops import row_update as _row_update
 from ..ops._args import DeviceArgs, device_array
-from ..ops.dense_update import LaunchArgs, dense_update
+from ..ops.dense_update import dense_update
 from ..ops.row_update import (adam_bias_corrections, bias_correction_table,
                               row_update)
 from ..ops.scatter_add import scatter_add_rows
@@ -149,7 +149,7 @@ class DenseOptimizer:
         self.state = [tuple(torch.zeros_like(p) for _ in range(n_state))
                       for p in self.params]
         self.count = 0
-        self._launch_args = LaunchArgs()
+        self._launch_args = DeviceArgs()
 
     @torch.no_grad()
     def step(self, bias=None):
@@ -1298,22 +1298,23 @@ class BaseModel(BaseModule):
             steps_per_epoch=None):
         """Keras-style training loop; returns the ``History``.
 
-        ``x`` a dict/list of host arrays: an eager loop that uploads each
-        batch and reads its loss.  Batches have a fixed size; the last is
-        padded with sample 0 at sample weight 0.  The shuffle is
-        ``np.random.default_rng(seed).permutation``, as the JAX package's,
-        one permutation an epoch from epoch 0, so that a fit from
-        ``initial_epoch`` shuffles its epochs as a fit from 0 did.
+        The type of ``x`` picks the epoch's body (:meth:`_fit_epochs`
+        runs the epochs around it):
 
-        ``x`` a flat [N, input_dim] tensor (``assemble_device_input``):
-        the device-resident loop, :meth:`_fit_device`.
+        - a dict/list of host arrays: an eager loop that uploads each
+          batch and reads its loss, :meth:`_fit_host`;
+        - a flat [N, input_dim] tensor (``assemble_device_input``): the
+          device-resident loop, :meth:`_fit_device`;
+        - a zero-argument callable that returns an iterator of
+          ``(x_chunk, y_chunk)`` pairs (``data.criteo_stream``): the
+          streamed fit, :meth:`_fit_stream`, for data larger than host
+          memory; it is called once an epoch, and ``steps_per_epoch`` caps
+          the steps an epoch takes from it (read only with a callable
+          ``x``, as in the JAX package).
 
-        ``x`` a zero-argument callable that returns an iterator of
-        ``(x_chunk, y_chunk)`` pairs (``data.criteo_stream``): the streamed
-        fit, :meth:`_fit_stream`, for data larger than host memory; it is
-        called once an epoch, and ``steps_per_epoch`` caps the steps an
-        epoch takes from it (read only with a callable ``x``, as in the JAX
-        package).
+        ``validation_data`` is ``(x_val, y_val)`` or ``(x_val, y_val,
+        val_sample_weights)`` (the weights are not read); ``validation_split``
+        (host arrays and tensors) holds out the last rows of ``x`` instead.
 
         ``profile``: a directory; ``torch.profiler`` traces the whole call
         (host, and the card where the model is on one) and writes its
@@ -1329,16 +1330,31 @@ class BaseModel(BaseModule):
         takes the rank's rows of its global batch, as the JAX package's
         streamed fit puts each chunk on the mesh (``deepctr_tpu/models/
         basemodel.py:1793``)."""
-        if callable(x):
-            def run():
-                return self._fit_stream(x, batch_size, epochs, verbose,
-                                        initial_epoch, validation_data,
-                                        callbacks, steps_per_epoch, shuffle)
-        else:
-            def run():
-                return self._fit(x, y, batch_size, epochs, verbose,
-                                 initial_epoch, validation_split,
-                                 validation_data, shuffle, callbacks)
+        if batch_size is None:
+            batch_size = 256
+
+        def run():
+            self._ensure_compiled()
+            validation = None
+            if validation_data:
+                if len(validation_data) not in (2, 3):
+                    raise ValueError(
+                        "When passing a `validation_data` argument, it must "
+                        "contain either 2 items (x_val, y_val), or 3 items "
+                        "(x_val, y_val, val_sample_weights)")
+                validation = tuple(validation_data[:2])
+            if callable(x):
+                body = self._fit_stream(x, batch_size, verbose,
+                                        steps_per_epoch, validation, shuffle)
+            elif isinstance(x, torch.Tensor):
+                body = self._fit_device(x, y, batch_size, verbose,
+                                        validation_split, validation, shuffle)
+            else:
+                body = self._fit_host(x, y, batch_size, verbose,
+                                      initial_epoch, validation_split,
+                                      validation, shuffle)
+            return self._fit_epochs(*body, batch_size, epochs, initial_epoch,
+                                    verbose, callbacks)
         if not profile:
             return run()
         activities = [torch.profiler.ProfilerActivity.CPU]
@@ -1354,43 +1370,72 @@ class BaseModel(BaseModule):
         finally:
             prof.stop()
 
-    def _fit(self, x, y, batch_size, epochs, verbose, initial_epoch,
-             validation_split, validation_data, shuffle, callbacks):
-        self._ensure_compiled()
-        if isinstance(x, torch.Tensor):
-            return self._fit_device(x, y, batch_size, epochs, verbose,
-                                    initial_epoch, validation_split,
-                                    validation_data, shuffle, callbacks)
+    def _fit_epochs(self, stages, validation, header, batch_size, epochs,
+                    initial_epoch, verbose, callbacks):
+        """The epochs of ``fit`` around one body's ``stages``, ``(begin,
+        train, end)``: ``begin(epoch)`` makes the epoch ready (span
+        ``fit.epoch_begin``), ``train`` takes what it returned and trains
+        the epoch, ``end`` takes what that returned and gives the epoch's
+        logs, ``loss`` and the train metrics (span ``fit.epoch_end``, with
+        the validation of ``validation`` = ``(x, y)`` or None into
+        ``val_<name>``).  Owns the callbacks, the printed lines and
+        ``stop_training``."""
+        begin, train, end = stages
+        callbacks = CallbackList((callbacks or []) + [self.history])
+        callbacks.set_model(self)
+        callbacks.on_train_begin()
+        self.stop_training = False
+        if verbose > 0 and header:
+            print(header)
+        for epoch in range(initial_epoch, epochs):
+            callbacks.on_epoch_begin(epoch)
+            start_time = time.time()
+            with span("fit.epoch_begin"):
+                ready = begin(epoch)
+            trained = train(ready)
+            with span("fit.epoch_end"):
+                logs = end(trained)
+                if validation is not None:
+                    for name, result in self.evaluate(
+                            *validation, batch_size).items():
+                        logs["val_" + name] = result
+            if verbose > 0:
+                print("Epoch {0}/{1} - {2}s - loss: {3:.4f}".format(
+                    epoch + 1, epochs, int(time.time() - start_time),
+                    logs["loss"]) +
+                    "".join(" - %s: %.4f" % (k, v)
+                            for k, v in logs.items() if k != "loss"))
+            callbacks.on_epoch_end(epoch, logs)
+            if self.stop_training:
+                break
+        callbacks.on_train_end()
+        return self.history
+
+    def _fit_host(self, x, y, batch_size, verbose, initial_epoch,
+                  validation_split, validation, shuffle):
+        """The host-array loop's body for :meth:`_fit_epochs`: ``(stages,
+        validation, header)``.  Batches have a fixed size; the last is
+        padded with sample 0 at sample weight 0.  The shuffle is
+        ``np.random.default_rng(seed).permutation``, as the JAX package's,
+        one permutation an epoch from epoch 0, so that a fit from
+        ``initial_epoch`` shuffles its epochs as a fit from 0 did.  Each
+        step uploads its batch and reads its loss; train metrics
+        (``verbose > 0``) are averaged over the steps, as the JAX package's
+        host loop does."""
         if isinstance(x, dict):
             x = [x[feature] for feature in self.feature_index]
         if isinstance(x, np.ndarray):
             x = [x]
         x = [np.asarray(a) for a in x]
         y = np.asarray(y)
-
-        do_validation = False
-        if validation_data:
-            do_validation = True
-            if len(validation_data) == 2:
-                val_x, val_y = validation_data
-            elif len(validation_data) == 3:
-                val_x, val_y, _ = validation_data
-            else:
-                raise ValueError(
-                    "When passing a `validation_data` argument, it must "
-                    "contain either 2 items (x_val, y_val), or 3 items "
-                    "(x_val, y_val, val_sample_weights)")
-            if isinstance(val_x, dict):
-                val_x = [val_x[feature] for feature in self.feature_index]
-        elif validation_split and 0. < validation_split < 1.:
-            do_validation = True
+        if validation is None and validation_split and \
+                0. < validation_split < 1.:
             split_at = int(x[0].shape[0] * (1. - validation_split))
             x, val_x = (slice_arrays(x, 0, split_at),
                         slice_arrays(x, split_at))
             y, val_y = (slice_arrays(y, 0, split_at),
                         slice_arrays(y, split_at))
-        else:
-            val_x, val_y = [], []
+            validation = (val_x, val_y)
 
         X = self._assemble_x(x)
         y = np.asarray(y, dtype=np.float32)
@@ -1400,8 +1445,6 @@ class BaseModel(BaseModule):
             raise ValueError(
                 "x and y have different sample counts: %d vs %d"
                 % (X.shape[0], y.shape[0]))
-        if batch_size is None:
-            batch_size = 256
         self._check_sparse_ids(X)
 
         device = self._device
@@ -1412,26 +1455,15 @@ class BaseModel(BaseModule):
             for _ in range(initial_epoch):
                 rng_shuffle.permutation(sample_num)
 
-        callbacks = CallbackList((callbacks or []) + [self.history])
-        callbacks.set_model(self)
-        callbacks.on_train_begin()
-        self.stop_training = False
-
-        if verbose > 0:
-            print("Train on {0} samples, validate on {1} samples, {2} steps "
-                  "per epoch".format(sample_num, len(val_y),
-                                     steps_per_epoch))
-
-        for epoch in range(initial_epoch, epochs):
-            callbacks.on_epoch_begin(epoch)
-            epoch_logs = {}
-            start_time = time.time()
-            total_loss_epoch = 0.0
-            train_result = {}
-
+        def begin(epoch):
             order = (rng_shuffle.permutation(sample_num) if shuffle
                      else np.arange(sample_num))
             self._begin_steps(steps_per_epoch, epoch)
+            return order
+
+        def train(order):
+            total_loss_epoch = 0.0
+            train_result = {}
             iterator = range(steps_per_epoch)
             if verbose == 1 and tqdm is not None:
                 iterator = tqdm(iterator, disable=False)
@@ -1463,34 +1495,20 @@ class BaseModel(BaseModule):
             finally:
                 if hasattr(iterator, "close"):
                     iterator.close()
+            return total_loss_epoch, train_result
 
-            epoch_logs["loss"] = total_loss_epoch / sample_num
+        def end(trained):
+            total_loss_epoch, train_result = trained
+            logs = {"loss": total_loss_epoch / sample_num}
             for name, result in train_result.items():
-                epoch_logs[name] = np.sum(result) / steps_per_epoch
+                logs[name] = np.sum(result) / steps_per_epoch
+            return logs
 
-            if do_validation:
-                eval_result = self.evaluate(val_x, val_y, batch_size)
-                for name, result in eval_result.items():
-                    epoch_logs["val_" + name] = result
-
-            if verbose > 0:
-                epoch_time = int(time.time() - start_time)
-                print("Epoch {0}/{1}".format(epoch + 1, epochs))
-                eval_str = "{0}s - loss: {1: .4f}".format(
-                    epoch_time, epoch_logs["loss"])
-                for name in self.metrics:
-                    eval_str += " - " + name + ": {0: .4f}".format(
-                        epoch_logs[name])
-                if do_validation:
-                    for name in self.metrics:
-                        eval_str += (" - val_" + name + ": {0: .4f}".format(
-                            epoch_logs["val_" + name]))
-                print(eval_str)
-            callbacks.on_epoch_end(epoch, epoch_logs)
-            if self.stop_training:
-                break
-        callbacks.on_train_end()
-        return self.history
+        header = ("Train on {0} samples, validate on {1} samples, {2} steps "
+                  "per epoch".format(sample_num, 0 if validation is None
+                                     else len(validation[1]),
+                                     steps_per_epoch))
+        return (begin, train, end), validation, header
 
     def assemble_device_input(self, x):
         """dict/list of host arrays -> one flat [N, input_dim] float32
@@ -1499,24 +1517,20 @@ class BaseModel(BaseModule):
         host traffic a step."""
         return torch.from_numpy(self._assemble_x(x)).to(self._device)
 
-    def _fit_device(self, X, y, batch_size, epochs, verbose, initial_epoch,
-                    validation_split, validation_data, shuffle, callbacks):
-        """The device-resident training loop (``deepctr_tpu/models/
-        basemodel.py:1509-1656``): ``X`` a flat [N, input_dim] tensor
-        (column order = ``feature_index``), moved once to the model's
-        device.  The data is padded to ``steps * B`` rows with zero rows at
-        sample weight 0, an epoch's permutation is drawn on the device
-        (``torch.randperm`` from a generator seeded with ``seed``), and
-        every step gathers its batch and trains on the device: on the card
-        a replay of one captured graph (``graphs.StepGraph``).  The host
-        reads one loss vector an epoch; the epoch loss is its sum over N.
-
-        As the JAX package's loop: train metrics (``verbose > 0``) are
-        computed once over the epoch's predictions, not averaged over
-        batches; epoch callbacks, History, EarlyStopping and validation
-        are kept."""
-        if batch_size is None:
-            batch_size = 256
+    def _fit_device(self, X, y, batch_size, verbose, validation_split,
+                    validation, shuffle):
+        """The device-resident loop's body for :meth:`_fit_epochs`
+        (``deepctr_tpu/models/basemodel.py:1509-1656``): ``X`` a flat [N,
+        input_dim] tensor (column order = ``feature_index``), moved once to
+        the model's device.  The data is padded to ``steps * B`` rows with
+        zero rows at sample weight 0, an epoch's permutation is drawn on
+        the device (``torch.randperm`` from a generator seeded with
+        ``seed``), and every step gathers its batch and trains on the
+        device: on the card a replay of one captured graph
+        (``graphs.StepGraph``).  The host reads one loss vector an epoch;
+        the epoch loss is its sum over N.  As the JAX package's loop, train
+        metrics (``verbose > 0``) are computed once over the epoch's
+        predictions, not averaged over batches."""
         device = self._device
         if X.dim() != 2 or X.shape[1] != self.input_dim:
             raise ValueError("tensor input must be [N, %d], got %r"
@@ -1530,17 +1544,12 @@ class BaseModel(BaseModule):
             raise ValueError(
                 "x and y have different sample counts: %d vs %d"
                 % (X.shape[0], y.shape[0]))
-
-        do_validation = False
-        val_x, val_y = [], []
-        if validation_data:
-            do_validation = True
-            val_x, val_y = validation_data[:2]
-        elif validation_split and 0. < validation_split < 1.:
-            do_validation = True
+        if validation is None and validation_split and \
+                0. < validation_split < 1.:
             split_at = int(X.shape[0] * (1. - validation_split))
             X, val_x = X[:split_at], X[split_at:]
             y, val_y = y[:split_at], y[split_at:]
+            validation = (val_x, val_y)
 
         B = batch_size
         sample_num = X.shape[0]
@@ -1560,49 +1569,33 @@ class BaseModel(BaseModule):
         self._warn_if_eager(loop, "the device-resident loop")
         generator = torch.Generator(device=device)
 
-        callbacks = CallbackList((callbacks or []) + [self.history])
-        callbacks.set_model(self)
-        callbacks.on_train_begin()
-        self.stop_training = False
+        def begin(epoch):
+            state = np.random.SeedSequence([self.seed, epoch])
+            generator.manual_seed(int(state.generate_state(1, np.uint64)[0]))
+            loop.begin_epoch(generator, epoch)
 
-        if verbose > 0:
-            print("Train on {0} samples, validate on {1} samples, {2} steps "
+        def train(_):
+            return loop.run()
+
+        def end(losses):
+            logs = {"loss": float(losses.sum()) / sample_num}
+            if need_preds:
+                self._epoch_metrics(logs, y[:sample_num],
+                                    loop.preds[:sample_num])
+            return logs
+
+        header = ("Train on {0} samples, validate on {1} samples, {2} steps "
                   "per epoch (device-resident loop)".format(
-                      sample_num, len(val_y), steps_per_epoch))
+                      sample_num, 0 if validation is None
+                      else len(validation[1]), steps_per_epoch))
+        return (begin, train, end), validation, header
 
-        for epoch in range(initial_epoch, epochs):
-            callbacks.on_epoch_begin(epoch)
-            start_time = time.time()
-            with span("fit.epoch_begin"):
-                state = np.random.SeedSequence([self.seed, epoch])
-                generator.manual_seed(
-                    int(state.generate_state(1, np.uint64)[0]))
-                loop.begin_epoch(generator, epoch)
-            losses = loop.run()
-            with span("fit.epoch_end"):
-                epoch_logs = {"loss": float(losses.sum()) / sample_num}
-                self._epoch_metrics(
-                    epoch_logs, y[:sample_num] if need_preds else None,
-                    loop.preds[:sample_num] if need_preds else None,
-                    (val_x, val_y) if do_validation else None, batch_size)
-            if verbose > 0:
-                print("Epoch {0}/{1} - {2}s - loss: {3:.4f}".format(
-                    epoch + 1, epochs, int(time.time() - start_time),
-                    epoch_logs["loss"]) +
-                    "".join(" - %s: %.4f" % (k, v)
-                            for k, v in epoch_logs.items() if k != "loss"))
-            callbacks.on_epoch_end(epoch, epoch_logs)
-            if self.stop_training:
-                break
-        callbacks.on_train_end()
-        return self.history
-
-    def _fit_stream(self, make_iter, batch_size, epochs, verbose,
-                    initial_epoch, validation_data, callbacks,
-                    steps_per_epoch, shuffle=True):
-        """The streamed fit (``deepctr_tpu/models/basemodel.py:1658-1845``):
-        one pass over ``make_iter()`` an epoch, each ``(x_chunk, y_chunk)``
-        trained as it comes, for data larger than host memory.
+    def _fit_stream(self, make_iter, batch_size, verbose, steps_per_epoch,
+                    validation, shuffle):
+        """The streamed fit's body for :meth:`_fit_epochs`
+        (``deepctr_tpu/models/basemodel.py:1658-1845``): one pass over
+        ``make_iter()`` an epoch, each ``(x_chunk, y_chunk)`` trained as it
+        comes, for data larger than host memory.
 
         The host half runs on a background thread, one chunk ahead of the
         device, through a queue of two: it takes a chunk from the iterator,
@@ -1628,12 +1621,8 @@ class BaseModel(BaseModule):
         draws do not depend on how far it ran ahead).  An error in the
         worker is raised here; the worker is stopped and joined whatever
         happens.  Train metrics (``verbose > 0``) are computed over the
-        epoch's predictions; validation and callbacks as in
-        :meth:`_fit_device`.  A model keeps the loops of its last
+        epoch's predictions.  A model keeps the loops of its last
         ``_STREAM_LOOPS`` chunk geometries."""
-        if batch_size is None:
-            batch_size = 256
-        self._ensure_compiled()
         B = batch_size
         device = self._device
         pin = device.type == "cuda"
@@ -1689,15 +1678,7 @@ class BaseModel(BaseModule):
                 if close is not None:
                     close()
 
-        callbacks = CallbackList((callbacks or []) + [self.history])
-        callbacks.set_model(self)
-        callbacks.on_train_begin()
-        self.stop_training = False
-
-        for epoch in range(initial_epoch, epochs):
-            callbacks.on_epoch_begin(epoch)
-            start_time = time.time()
-            self._begin_epoch(epoch)
+        def train(_):
             sample_num, steps = 0, 0
             loss_parts, pred_parts, y_parts = [], [], []
             q = queue.Queue(maxsize=2)
@@ -1736,27 +1717,19 @@ class BaseModel(BaseModule):
                 if worker.is_alive():
                     warnings.warn("the streamed fit's reader thread is still "
                                   "inside the chunk iterator after 60 s")
+            return sample_num, loss_parts, pred_parts, y_parts
+
+        def end(trained):
+            sample_num, loss_parts, pred_parts, y_parts = trained
             total = float(sum(l.sum() for l in loss_parts)) \
                 if loss_parts else 0.0
-            epoch_logs = {"loss": total / max(sample_num, 1)}
-            seen = need_preds and pred_parts
-            self._epoch_metrics(
-                epoch_logs, np.concatenate(y_parts) if seen else None,
-                torch.cat(pred_parts) if seen else None,
-                validation_data[:2] if validation_data else None,
-                batch_size)
-            if verbose > 0:
-                print("Epoch {0}/{1} - {2}s - {3} samples - loss: {4:.4f}"
-                      .format(epoch + 1, epochs,
-                              int(time.time() - start_time), sample_num,
-                              epoch_logs["loss"]) +
-                      "".join(" - %s: %.4f" % (k, v)
-                              for k, v in epoch_logs.items() if k != "loss"))
-            callbacks.on_epoch_end(epoch, epoch_logs)
-            if self.stop_training:
-                break
-        callbacks.on_train_end()
-        return self.history
+            logs = {"loss": total / max(sample_num, 1)}
+            if pred_parts:
+                self._epoch_metrics(logs, np.concatenate(y_parts),
+                                    torch.cat(pred_parts))
+            return logs
+
+        return (self._begin_epoch, train, end), validation, None
 
     # the streamed fit's loops a model keeps, one for each chunk geometry
     # (full chunks, the last one, one cut by steps_per_epoch, ...)
@@ -1792,24 +1765,17 @@ class BaseModel(BaseModule):
                 "%s runs each step eagerly on the card"
                 % (type(self.optim).__name__, what))
 
-    def _epoch_metrics(self, logs, y, pred, validation, batch_size):
+    def _epoch_metrics(self, logs, y, pred):
         """Into ``logs``: each train metric over the epoch's labels ``y``
-        and predictions ``pred`` (arrays or tensors; None for none), once
-        for the whole epoch as the JAX package's device and streamed loops
-        compute them, and each metric of ``validation`` = ``(x, y)`` (or
-        None) as ``val_<name>``."""
-        if pred is not None:
-            y_np = y.cpu().numpy() if isinstance(y, torch.Tensor) else y
-            p_np = pred.cpu().numpy().astype("float64")
-            if self.num_tasks == 1:
-                y_np, p_np = y_np.reshape(-1), p_np.reshape(-1)
-            for name, metric_fun in self.metrics.items():
-                logs[name] = metric_fun(y_np, p_np)
-        if validation is not None:
-            val_x, val_y = validation
-            for name, result in self.evaluate(val_x, val_y,
-                                              batch_size).items():
-                logs["val_" + name] = result
+        and predictions ``pred`` (arrays or tensors), once for the whole
+        epoch as the JAX package's device and streamed loops compute
+        them."""
+        y_np = y.cpu().numpy() if isinstance(y, torch.Tensor) else y
+        p_np = pred.cpu().numpy().astype("float64")
+        if self.num_tasks == 1:
+            y_np, p_np = y_np.reshape(-1), p_np.reshape(-1)
+        for name, metric_fun in self.metrics.items():
+            logs[name] = metric_fun(y_np, p_np)
 
     def evaluate(self, x, y, batch_size=256):
         """``{metric: value}`` over the predictions of ``x``.  A multi-task

@@ -29,9 +29,9 @@ generator with its graph (``CUDAGraph.register_generator_state``): each
 replay then draws from the generator's state at that replay and advances
 it by what the capture drew, as the eager step does, so that every step
 draws new masks and the graphed steps draw the eager steps' bits.  A
-replay runs no host code, so the wrappers' launch counters, which count
-at the Python call, do not move: each graph counts the launches its
-capture recorded and adds them once a replay.  Nor does a replay enter a
+replay runs no host code, so the launch counts (``ops._build.LAUNCHES``),
+which count at the Python call, do not move: each graph keeps the counts
+its capture recorded and adds them once a replay.  Nor does a replay enter a
 span (``tracing.span``): a trace shows ``graph.capture`` around a
 capture, with the spans of its warm-up inside it and none from its
 recording (``tracing.paused``); ``ForwardGraph.run`` records a batch's
@@ -43,37 +43,23 @@ ones (``compile``, ``set_weights``, ``load_state_dict``, ``.to()``, a new
 optimizer state or a larger table of adam's bias corrections).
 """
 
+import collections
 import gc
 
 import torch
 
-from ..ops import (attention, cin, dense_update, gather, gru, row_update,
-                   scatter_add)
+from ..ops._build import LAUNCHES
 from ..tracing import paused, span
-
-# every kernel wrapper's launch counter, and the CIN backwards that took
-# the einsums: (module, name)
-COUNTERS = ((gather, "GATHER_LAUNCHES"),
-            (scatter_add, "SCATTER_ADD_LAUNCHES"),
-            (row_update, "ROW_UPDATE_LAUNCHES"),
-            (dense_update, "DENSE_UPDATE_LAUNCHES"),
-            (gru, "GRU_SCAN_LAUNCHES"), (gru, "GRU_SCAN_BWD_LAUNCHES"),
-            (attention, "DIN_ATTENTION_LAUNCHES"),
-            (cin, "CIN_MIX_LAUNCHES"), (cin, "CIN_MIX_BWD_LAUNCHES"),
-            (cin, "CIN_MIX_BWD_EINSUM"))
 
 # graph replays since import (or since a caller reset it to 0)
 GRAPH_REPLAYS = 0
 
 
-def _counts():
-    return [getattr(m, name) for m, name in COUNTERS]
-
-
 class _Captured:
     """A CUDA graph of ``body`` on ``device`` and the kernel launches it
-    holds; ``warm`` is what the warm-up run of ``body`` returned, ``out``
-    what each replay overwrites."""
+    holds (``launches``: the counts its capture added to ``LAUNCHES``, the
+    kernels it holds none of left out); ``warm`` is what the warm-up run
+    of ``body`` returned, ``out`` what each replay overwrites."""
 
     def __init__(self, body, device, generators=()):
         with span("graph.capture"), torch.cuda.device(device):
@@ -86,7 +72,7 @@ class _Captured:
             self.graph = torch.cuda.CUDAGraph()
             for g in generators:
                 self.graph.register_generator_state(g)
-            before = _counts()
+            before = collections.Counter(LAUNCHES)
             # a graph of a model left in a reference cycle (a model and its
             # loops point at each other) is destroyed when the collector
             # reaches it, and a destruction during this capture would end
@@ -100,18 +86,17 @@ class _Captured:
             finally:
                 if collecting:
                     gc.enable()
-                after = _counts()
-                for (m, name), n in zip(COUNTERS, before):
-                    setattr(m, name, n)
-        self.launches = [a - b for a, b in zip(after, before)]
+                recorded = LAUNCHES - before
+                LAUNCHES.clear()
+                LAUNCHES.update(before)
+        self.launches = list(recorded.items())
 
     def replay(self):
         global GRAPH_REPLAYS
         self.graph.replay()
         GRAPH_REPLAYS += 1
-        for (m, name), n in zip(COUNTERS, self.launches):
-            if n:
-                setattr(m, name, getattr(m, name) + n)
+        for name, n in self.launches:
+            LAUNCHES[name] += n
 
 
 class StepGraph:

@@ -1,13 +1,8 @@
 """Hot ops: each has a plain PyTorch version and, where the JAX package has a
-TPU kernel, a hand-written CUDA kernel that runs on CUDA tensors.  Read
-launch counts from the kernel's own module (``ops.gather.GATHER_LAUNCHES``,
-``ops.scatter_add.SCATTER_ADD_LAUNCHES``, ``ops.row_update.
-ROW_UPDATE_LAUNCHES``, ``ops.dense_update.DENSE_UPDATE_LAUNCHES``,
-``ops.gru.GRU_SCAN_LAUNCHES`` and ``GRU_SCAN_BWD_LAUNCHES``,
-``ops.attention.DIN_ATTENTION_LAUNCHES``, ``ops.cin.CIN_MIX_LAUNCHES``,
-``ops.scatter_rows.STATIC_SCATTER_LAUNCHES`` and ``SCATTER_ROWS_LAUNCHES``):
-a name imported from it is a copy taken at import time.  The training kernels
-live in ``ops.scatter_add``, ``ops.row_update`` and ``ops.dense_update``
+TPU kernel, a hand-written CUDA kernel that runs on CUDA tensors.  Launch
+counts are ``ops._build.LAUNCHES``, by kernel name
+(``LAUNCHES["gather_rows"]``).  The training kernels live in
+``ops.scatter_add``, ``ops.row_update`` and ``ops.dense_update``
 (the dense parameters' optimizer step, a kernel of the port's own with no
 TPU counterpart), the sequence kernels in ``ops.gru`` and ``ops.attention``,
 xDeepFM's CIN kernel in ``ops.cin``, and the row scatter of the scatter

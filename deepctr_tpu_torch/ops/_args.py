@@ -5,10 +5,10 @@ A CUDA graph replays the device work of a captured step and none of its
 host code: an array uploaded during the capture would be read from host
 memory that PyTorch may have freed or reused by the time the graph
 replays, and a cached copy of weights would be checked on the host only
-once.  So an argument array is built before any capture, kept on the
-device and rebuilt only when its key changes (:class:`DeviceArgs`); an
-upload during a capture raises; and a weight copy is rebuilt inside the
-graph (:class:`ParamCache`)."""
+once.  So a kernel's arguments are built before any capture and kept,
+rebuilt only when their key changes (:class:`DeviceArgs`); an upload
+during a capture raises; and a weight copy is rebuilt inside the graph
+(:class:`ParamCache`)."""
 
 import torch
 
@@ -37,21 +37,32 @@ def device_array(values, dtype, device):
 
 
 class DeviceArgs:
-    """A kernel's argument array on the device, kept between calls and
-    rebuilt only when its key (the pointers and shapes it is made of)
-    changes: a call copies nothing to the device but its data."""
+    """A kernel's arguments built on the host (an array on the device, or
+    argument structs in host memory), kept between calls and rebuilt only
+    when their key (the pointers and shapes they are made of) changes: a
+    call then builds and copies nothing.
 
-    def __init__(self):
-        self._key = None
-        self._array = None
+    It holds the arguments of the last key, which a new key replaces; with
+    ``every_key`` it keeps the arguments of each key it was asked for, so
+    that a captured graph that read an array keeps reading it whatever
+    other keys come later.  A copy (a deep-copied model, pickling) starts
+    empty: the arguments hold pointers, which are not the copy's."""
 
-    def get(self, key, values, dtype, device):
-        """The array of ``values()`` for ``key`` on ``device``."""
-        key = (torch.device(device), key)
-        if key != self._key:
-            self._array = device_array(values(), dtype, device)
-            self._key = key
-        return self._array
+    def __init__(self, every_key=False):
+        self.every_key = every_key
+        self._built = {}
+
+    def get(self, key, build):
+        """The arguments ``build()`` made for ``key``."""
+        args = self._built.get(key)
+        if args is None:
+            if not self.every_key:
+                self._built.clear()
+            args = self._built[key] = build()
+        return args
+
+    def __reduce__(self):
+        return (DeviceArgs, (self.every_key,))
 
 
 class ParamCache:

@@ -32,10 +32,6 @@ import torch
 
 from . import _build
 
-# kernel launches since import (or since a caller reset it to 0); counts
-# only launches of the CUDA kernel, never the plain version
-DIN_ATTENTION_LAUNCHES = 0
-
 ACTIVATIONS = {"sigmoid": 0, "relu": 1, "linear": 2}
 MAX_EMBEDDING = 512
 # the mask constant of the reference layer (deepctr_tpu/ops/reference.py)
@@ -152,19 +148,11 @@ def _check_packed(packed, keys, layer_params):
                             tuple(packed.shape), packed.device))
 
 
-def _kernel(lib=None):
-    """din_attention_fwd of ``lib`` (the built csrc/din_attention.cu by
-    default), its argument types declared."""
-    lib = _build.load("din_attention") if lib is None else lib
-    fn = lib.din_attention_fwd
-    fn.argtypes = ([ctypes.c_int] * 3
-                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                      ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
-                      ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-                   + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+_I, _LL, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+_KERNEL = _build.Fn("din_attention", "din_attention_fwd",
+                    [_I] * 3 + [_P, _I, _P, _LL, _LL, _P, _P, _I, _P]
+                    + [_I] * 3 + [_P, _P])
+_ROUTE = _build.Fn("din_attention", "din_attention_route", [_I, _I, _P, _I])
 
 
 def route(E, layer_widths, dtype=torch.float32):
@@ -173,13 +161,10 @@ def route(E, layer_widths, dtype=torch.float32):
     ``"mma16"`` (the tensor cores, the instance of up to 8 or 16 n tiles:
     hidden widths up to 64, up to 128) or ``"fma"`` (float32 FMAs); asks
     the built kernel, so it needs the CUDA toolkit."""
-    lib = _build.load("din_attention")
-    fn = lib.din_attention_route
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
-    fn.restype = ctypes.c_int
     widths = [4 * E] + list(layer_widths)
     c_widths = (ctypes.c_int * len(widths))(*widths)
-    rc = fn(_DTYPES[dtype], len(widths) - 1, ctypes.addressof(c_widths), E)
+    rc = _ROUTE(_DTYPES[dtype], len(widths) - 1, ctypes.addressof(c_widths),
+                E)
     if rc not in (0, 8, 16):
         raise ValueError("no din_attention design takes E=%d with layers "
                          "%s (code %d)" % (E, widths, rc))
@@ -219,7 +204,6 @@ def launch(query, keys, mask, layer_params, activation,
            weight_normalization, packed=None):
     """The kernel on CUDA tensors (the op's CUDA implementation): checks
     what the kernel takes, launches it and counts the launch."""
-    global DIN_ATTENTION_LAUNCHES
     if packed is not None:
         _check_packed(packed, keys, layer_params)
     if keys.device.type != "cuda":
@@ -241,21 +225,15 @@ def launch(query, keys, mask, layer_params, activation,
     q = query.reshape(B, E).contiguous()
     m = (mask if mask.dtype == torch.bool else mask != 0).contiguous()
     c_widths = (ctypes.c_int * len(widths))(*widths)
-    with torch.cuda.device(keys.device):
-        stream = torch.cuda.current_stream(keys.device).cuda_stream
-        rc = _kernel()(
-            _DTYPES[keys.dtype], ACTIVATIONS[activation],
-            int(bool(weight_normalization)), q.data_ptr(),
-            _DTYPES[query.dtype], keys.data_ptr(), keys.stride(0),
-            keys.stride(1), m.data_ptr(), packed.data_ptr(),
-            len(layer_params), ctypes.addressof(c_widths), B, T, E,
-            out.data_ptr(), stream)
+    rc = _KERNEL.launch(
+        keys.device, _DTYPES[keys.dtype], ACTIVATIONS[activation],
+        int(bool(weight_normalization)), q.data_ptr(), _DTYPES[query.dtype],
+        keys.data_ptr(), keys.stride(0), keys.stride(1), m.data_ptr(),
+        packed.data_ptr(), len(layer_params), ctypes.addressof(c_widths), B,
+        T, E, out.data_ptr(), count="din_attention",
+        returns=(_DOES_NOT_FIT,))
     if rc == _DOES_NOT_FIT:
         raise ValueError("din_attention_fused: one step of E=%d with layers "
                          "%s does not fit in a block's shared memory"
                          % (E, widths))
-    if rc != 0:
-        raise RuntimeError("din_attention kernel launch failed with CUDA "
-                           "error %d" % rc)
-    DIN_ATTENTION_LAUNCHES += 1
     return out

@@ -54,16 +54,28 @@ from . import _build
 from .reference import cin_mix_ref
 from ..tracing import span
 
-# kernel launches since import (or since a caller reset it to 0); counts
-# only launches of the CUDA kernel, never the plain version
-CIN_MIX_LAUNCHES = 0
-# launches of the backward's kernels (seven a CinMix backward on its "mma"
-# route: four tilings, data, weight, reduce), and CinMix backwards that
-# took the einsums
-CIN_MIX_BWD_LAUNCHES = 0
-CIN_MIX_BWD_EINSUM = 0
-
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_I, _LL, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+_ROUTE = _build.Fn("cin_mix", "cin_mix_route", [_I] * 4)
+# the dtype codes: (operands, output) for the FMA kernel, the output's for
+# the tensor-core one
+_FWD = {"fma": _build.Fn("cin_mix", "cin_mix_fwd", [
+            _I, _I, _P, _LL, _P, _LL, _P, _P, _LL, _I, _I, _I, _P]),
+        "mma": _build.Fn("cin_mix", "cin_mix_mma_fwd", [
+            _I, _P, _LL, _P, _LL, _P, _P, _LL, _I, _I, _I, _P])}
+_BWD_PLAN = _build.Fn("cin_mix_bwd", "cin_mix_bwd_plan",
+                      [_I] * 3 + [ctypes.POINTER(_I)])
+# the backward's kernels (launches counted as ``cin_mix_bwd``: seven a
+# CinMix backward on its "mma" route, four tilings, data, weight, reduce)
+_BWD = {name: _build.Fn("cin_mix_bwd", name, argtypes) for name, argtypes in (
+    ("cin_mix_bwd_tile", [_P, _LL, _LL, _I, _P, _I, _I, _I, _I, _LL, _I, _I,
+                          _I, _I, _P]),
+    ("cin_mix_bwd_data", [_P, _I, _P, _P, _LL, _P, _LL, _P, _P, _LL, _I, _I,
+                          _I, _I, _I, _I, _I, _P]),
+    ("cin_mix_bwd_weight", [_P, _I, _P, _P, _P, _LL, _I, _I, _I, _I, _LL, _I,
+                            _I, _I, _P]),
+    ("cin_mix_bwd_reduce", [_P, _P, _LL, _I, _P]))}
 
 
 def kernel_weight(w3, dtype):
@@ -112,10 +124,7 @@ def route(dtype, H, F, O):
 
 @functools.lru_cache(maxsize=None)
 def _route(code, H, F, O):
-    fn = _build.load("cin_mix").cin_mix_route
-    fn.argtypes = [ctypes.c_int] * 4
-    fn.restype = ctypes.c_int
-    return "mma" if fn(code, H, F, O) else "fma"
+    return "mma" if _ROUTE(code, H, F, O) else "fma"
 
 
 def kernel_weights(w3, dtype):
@@ -161,19 +170,6 @@ def _rows(t):
     return ld if ld >= t.shape[2] else None
 
 
-def _kernel(name):
-    fn = getattr(_build.load("cin_mix"), name)
-    # the dtype codes: (operands, output) for the FMA kernel, the output's
-    # for the tensor-core one
-    fn.argtypes = [ctypes.c_int] * (2 if name == "cin_mix_fwd" else 1) + [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _out_dtype(dtype, out_dtype):
     """The output's dtype: ``dtype`` (the operands') by default, or
     float32."""
@@ -192,7 +188,6 @@ def launch(hidden_t, x0_t, wt, wm=None, out_dtype=None):
     what the kernel takes, launches it and counts the launch.  The
     tensor-core route takes ``wm`` (``mma_weight`` of wt), built here when
     None."""
-    global CIN_MIX_LAUNCHES
     if hidden_t.device.type != "cuda":
         raise ValueError("no cin_mix kernel for device %s" % hidden_t.device)
     B, D, H = hidden_t.shape
@@ -216,7 +211,8 @@ def launch(hidden_t, x0_t, wt, wm=None, out_dtype=None):
     if B * D == 0:
         return out
     args = (hidden_t.data_ptr(), ld_h, x0_t.data_ptr(), ld_x)
-    if route(dtype, H, F, O) == "mma":
+    kind = route(dtype, H, F, O)
+    if kind == "mma":
         if wm is None:
             with torch.no_grad():
                 wm = mma_weight(wt.detach(), H, F)
@@ -228,18 +224,11 @@ def launch(hidden_t, x0_t, wt, wm=None, out_dtype=None):
                              "contiguous %s %s on %s, 16-byte aligned, got "
                              "%s %s" % (dtype, shape, hidden_t.device,
                                         wm.dtype, tuple(wm.shape)))
-        fn = _kernel("cin_mix_mma_fwd")
         args = (_DTYPES[out_dtype],) + args + (wm.data_ptr(),)
     else:
-        fn = _kernel("cin_mix_fwd")
         args = (_DTYPES[dtype], _DTYPES[out_dtype]) + args + (wt.data_ptr(),)
-    with torch.cuda.device(hidden_t.device):
-        stream = torch.cuda.current_stream(hidden_t.device).cuda_stream
-        rc = fn(*args, out.data_ptr(), B * D, H, F, O, stream)
-    if rc != 0:
-        raise RuntimeError("cin_mix kernel launch failed with CUDA error %d"
-                           % rc)
-    CIN_MIX_LAUNCHES += 1
+    _FWD[kind].launch(hidden_t.device, *args, out.data_ptr(), B * D, H, F, O,
+                      count="cin_mix")
     return out
 
 
@@ -278,11 +267,8 @@ def bwd_plan(H, F, O):
     rows in tiles of 2^``hb_log2`` maps by ``FB`` fields; ``stages`` and
     ``w_stages`` ring stages.  Builds the kernel library at first use: a
     question for CUDA tensors only.  Do not modify the dict it returns."""
-    fn = _build.load("cin_mix_bwd").cin_mix_bwd_plan
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
     out = (ctypes.c_int * len(_PLAN))()
-    return dict(zip(_PLAN, out)) if fn(H, F, O, out) else None
+    return dict(zip(_PLAN, out)) if _BWD_PLAN(H, F, O, out) else None
 
 
 def bwd_route(dtype, g_dtype, H, F, O):
@@ -357,32 +343,13 @@ def _sm_count(index):
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _bwd_kernel(name, n_args):
-    fn = getattr(_build.load("cin_mix_bwd"), name)
-    fn.argtypes = n_args
-    fn.restype = ctypes.c_int
-    return fn
-
-
-_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-_BWD_ARGS = {
-    "cin_mix_bwd_tile": [_P, _LL, _LL, _I, _P, _I, _I, _I, _I, _LL, _I, _I,
-                         _I, _I, _P],
-    "cin_mix_bwd_data": [_P, _I, _P, _P, _LL, _P, _LL, _P, _P, _LL, _I, _I,
-                         _I, _I, _I, _I, _I, _P],
-    "cin_mix_bwd_weight": [_P, _I, _P, _P, _P, _LL, _I, _I, _I, _I, _LL, _I,
-                           _I, _I, _P],
-    "cin_mix_bwd_reduce": [_P, _P, _LL, _I, _P],
-}
-
-
 def bwd_launch(hidden_t, x0_t, wt, g):
     """The backward kernels on CUDA tensors, for shapes ``bwd_route`` sends
     to them: hidden_t [B, D, H] and x0_t [B, D, F] at a row stride each
     (``_rows``), wt [F*H, O] and g [B, D, O], all bfloat16 -> (dh, dx, dwt
     [F*H, O]) in bfloat16.  Seven launches (the tiles of g, wt, hid and x,
     the data and weight products, the partials' sum), counted in
-    ``CIN_MIX_BWD_LAUNCHES``; no host sync."""
+    ``_build.LAUNCHES["cin_mix_bwd"]``; no host sync."""
     B, D, H = hidden_t.shape
     F = x0_t.shape[2]
     O = wt.shape[1]
@@ -478,13 +445,9 @@ def _side_stream(dev):
 
 
 def _bwd_calls(calls, stream):
-    global CIN_MIX_BWD_LAUNCHES
     for name, args in calls:
-        rc = _bwd_kernel(name, _BWD_ARGS[name])(*args, stream.cuda_stream)
-        if rc != 0:
-            raise RuntimeError("%s launch failed with CUDA error %d"
-                               % (name, rc))
-        CIN_MIX_BWD_LAUNCHES += 1
+        _BWD[name].launch(stream.device, *args, stream=stream,
+                          count="cin_mix_bwd")
 
 
 class CinMix(torch.autograd.Function):
@@ -505,7 +468,6 @@ class CinMix(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        global CIN_MIX_BWD_EINSUM
         hidden_t, x0_t, wt = ctx.saved_tensors
         g = g.to(ctx.out_dtype)
         with span("cin.backward"):
@@ -513,7 +475,7 @@ class CinMix(torch.autograd.Function):
                          x0_t.shape[2], wt.shape[1]) == "mma":
                 dh, dx, dwt = bwd_launch(hidden_t, x0_t, wt, g)
             else:
-                CIN_MIX_BWD_EINSUM += 1
+                _build.LAUNCHES["cin_mix_bwd_einsum"] += 1
                 dh, dx, dwt = cin_mix_bwd(hidden_t, x0_t, wt, g)
         return dh, dx, None, dwt, None, None
 

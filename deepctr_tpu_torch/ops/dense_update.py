@@ -30,10 +30,6 @@ from . import _build
 from .row_update import (ADAGRAD_EPS, ADAM_B1, ADAM_B2, ADAM_EPS, MODES,
                          RMS_DECAY, RMS_EPS)
 
-# kernel launches since import (or since a caller reset it to 0); counts
-# only launches of the CUDA kernel, never the plain version
-DENSE_UPDATE_LAUNCHES = 0
-
 
 @torch.no_grad()
 def dense_update_ref(name, params, grads, states, lr, bias=None):
@@ -151,32 +147,9 @@ _CONSTS = {"sgd": (0.0, 0.0, 0.0, 0.0, 0.0),
            "adam": (ADAM_EPS, ADAM_B1, 1 - ADAM_B1, ADAM_B2, 1 - ADAM_B2)}
 
 
-_KERNEL = None
-
-
-def _kernel():
-    global _KERNEL
-    if _KERNEL is None:
-        lib = _build.load("dense_update")
-        layout = []
-        for name in ("dense_update_args_bytes", "dense_update_capacity",
-                     "dense_update_chunk"):
-            fn = getattr(lib, name)
-            fn.argtypes = []
-            fn.restype = ctypes.c_int
-            layout.append(fn())
-        want = (ctypes.sizeof(_Args), CAPACITY, CHUNK)
-        if tuple(layout) != want:
-            raise RuntimeError("dense_update's argument layout (bytes, "
-                               "capacity, chunk) is %s in the kernel, %s "
-                               "here" % (tuple(layout), want))
-        # the struct is copied into the launch's parameters during the
-        # call: nothing of it need outlive the call
-        fn = lib.dense_update_f32
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _KERNEL = fn
-    return _KERNEL
+_KERNEL = _build.StructFn("dense_update", "dense_update_f32", {
+    "dense_update_args_bytes": ctypes.sizeof(_Args),
+    "dense_update_capacity": CAPACITY, "dense_update_chunk": CHUNK})
 
 
 def kernel_args(name, params, grads, states, lr, bias=None):
@@ -207,48 +180,24 @@ def kernel_args(name, params, grads, states, lr, bias=None):
     return out
 
 
-class LaunchArgs:
-    """One optimizer's argument structs, kept between steps and rebuilt
-    only when their key (the optimizer, its rate and every pointer and
-    size they hold) changes.  An eager step whose gradients are new
+def cached_args(cache, name, params, grads, states, lr, bias):
+    """:func:`kernel_args` from ``cache`` (a :class:`~._args.DeviceArgs`),
+    rebuilt only when their key (the optimizer, its rate and every pointer
+    and size they hold) changes: an eager step whose gradients are new
     tensors rebuilds them; a captured graph holds its launches and builds
     nothing on a replay."""
-
-    def __init__(self):
-        self._key = None
-        self._args = None
-
-    def get(self, name, params, grads, states, lr, bias):
-        key = (name, lr, 0 if bias is None else bias.data_ptr(),
-               tuple((p.data_ptr(), p.numel(),
-                      0 if g is None else g.data_ptr(),
-                      tuple(s.data_ptr() for s in st))
-                     for p, g, st in zip(params, grads, states)))
-        if key != self._key:
-            self._args = kernel_args(name, params, grads, states, lr, bias)
-            self._key = key
-        return self._args
-
-    def __reduce__(self):
-        # a copy (deepcopy of a model, pickling) starts empty: the structs
-        # hold pointers, which ctypes refuses to pickle and which would
-        # not be the copy's
-        return (LaunchArgs, ())
+    key = (name, lr, 0 if bias is None else bias.data_ptr(),
+           tuple((p.data_ptr(), p.numel(), 0 if g is None else g.data_ptr(),
+                  tuple(s.data_ptr() for s in st))
+                 for p, g, st in zip(params, grads, states)))
+    return cache.get(key, lambda: kernel_args(name, params, grads, states,
+                                              lr, bias))
 
 
 def launch(args, device):
     """Launches the kernel once for each struct of ``args``
     (:func:`kernel_args`) on ``device``'s current stream."""
-    global DENSE_UPDATE_LAUNCHES
-    fn = _kernel()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        for a in args:
-            rc = fn(ctypes.addressof(a), stream)
-            if rc != 0:
-                raise RuntimeError("dense_update kernel launch failed with "
-                                   "CUDA error %d" % rc)
-            DENSE_UPDATE_LAUNCHES += 1
+    _KERNEL.launch_all(device, args, "dense_update")
 
 
 def dense_update(name, params, grads, states, lr, bias=None, cache=None):
@@ -261,8 +210,9 @@ def dense_update(name, params, grads, states, lr, bias=None, cache=None):
     ``(m, v)`` for adam), each tensor shaped like its parameter and updated
     in place; ``lr`` a Python float; ``bias`` adam's float32 [2]
     ``(1-b1^t, 1-b2^t)``, on the parameters' device.  Every tensor is
-    contiguous.  ``cache``, a :class:`LaunchArgs`, keeps the argument
-    structs between calls.
+    contiguous.  ``cache``, a :class:`~._args.DeviceArgs` the caller
+    keeps, holds the argument structs between calls
+    (:func:`cached_args`).
 
     On CUDA tensors this launches the kernel (building it at first use) or
     raises; on CPU tensors it runs ``dense_update_ref``."""
@@ -275,10 +225,9 @@ def dense_update(name, params, grads, states, lr, bias=None, cache=None):
         return
     if device.type != "cuda":
         raise ValueError("no dense-update kernel for device %s" % device)
-    args = (kernel_args(name, params, grads, states, lr, bias)
-            if cache is None else
-            cache.get(name, params, grads, states, lr, bias))
-    launch(args, device)
+    launch(kernel_args(name, params, grads, states, lr, bias)
+           if cache is None else
+           cached_args(cache, name, params, grads, states, lr, bias), device)
     # the kernel writes behind PyTorch's back: advance the version counters
     # as the in-place operations of the plain version do, so that a copy
     # kept against them (ops._args.ParamCache) is rebuilt

@@ -30,12 +30,8 @@ import ctypes
 import torch
 
 from . import _build
-from ._args import device_array
+from ._args import DeviceArgs, device_array
 from .scatter_add import scatter_add_rows
-
-# kernel launches since import (or since a caller reset it to 0); counts
-# only launches of the CUDA kernel, never the plain version
-GATHER_LAUNCHES = 0
 
 # the kernel indexes output floats with 32-bit unsigned integers
 _MAX_OUTPUT_ELEMENTS = 2 ** 31 - 1
@@ -65,7 +61,7 @@ def gather_rows_ref(X, tables, cols, bases=None):
 # never replaced, so a captured graph that read one keeps reading it, and
 # a forward copies nothing to the device but its batch.  One small array
 # for each set of tables and columns the process gathers from.
-_ARGS = {}
+_TABLE_ARGS = DeviceArgs(every_key=True)
 
 
 def kernel_args(tables, cols, device, bases=None):
@@ -78,10 +74,8 @@ def kernel_args(tables, cols, device, bases=None):
     bases = [] if bases is None else list(bases)
     key = (torch.device(device), tuple(ptrs), tuple(vocabs), tuple(cols),
            tuple(bases))
-    meta = _ARGS.get(key)
-    if meta is None:
-        meta = _ARGS[key] = device_array(ptrs + list(cols) + vocabs + bases,
-                                         torch.int64, device)
+    meta = _TABLE_ARGS.get(key, lambda: device_array(
+        ptrs + list(cols) + vocabs + bases, torch.int64, device))
     return meta, vector_rows(tables)
 
 
@@ -119,13 +113,10 @@ def vector_rows(tables):
             and all(t.data_ptr() % 16 == 0 for t in tables))
 
 
-def _kernel():
-    fn = _build.load("gather_rows").gather_rows_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+_KERNEL = _build.Fn("gather_rows", "gather_rows_f32", [
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_void_p])
 
 
 class GatherRows(torch.autograd.Function):
@@ -181,7 +172,6 @@ def gather_rows(X, tables, cols, bases=None):
 def launch(X, tables, cols, bases=None):
     """The kernel on CUDA tensors (the op's CUDA implementation): checks
     what the kernel takes, launches it and counts the launch."""
-    global GATHER_LAUNCHES
     if X.device.type != "cuda":
         raise ValueError("no gather kernel for device %s" % X.device)
     if X.stride(1) != 1 or any(not t.is_contiguous() for t in tables):
@@ -197,14 +187,8 @@ def launch(X, tables, cols, bases=None):
     if n_rows == 0:
         return out
     meta, vector = kernel_args(tables, cols, X.device, bases)
-    fn = _kernel()
-    with torch.cuda.device(X.device):
-        stream = torch.cuda.current_stream(X.device).cuda_stream
-        rc = fn(X.data_ptr(), n_rows, X.stride(0), meta.data_ptr(),
-                n_fields, width, int(vector), int(bases is not None),
-                out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError("gather_rows kernel launch failed with CUDA "
-                           "error %d" % rc)
-    GATHER_LAUNCHES += 1
+    _KERNEL.launch(X.device, X.data_ptr(), n_rows, X.stride(0),
+                   meta.data_ptr(), n_fields, width, int(vector),
+                   int(bases is not None), out.data_ptr(),
+                   count="gather_rows")
     return out

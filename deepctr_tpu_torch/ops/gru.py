@@ -34,12 +34,6 @@ import torch
 
 from . import _build
 
-# kernel launches since import (or since a caller reset it to 0); count
-# only launches of the CUDA kernels, never the plain versions: the forward
-# (with or without carries) and the backward
-GRU_SCAN_LAUNCHES = 0
-GRU_SCAN_BWD_LAUNCHES = 0
-
 MODES = {"gru": 0, "agru": 1, "augru": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernels' code for a hidden size a block does not take
@@ -208,37 +202,16 @@ def _check_bwd(gi, carry, douts, dh_last):
                          % (gi.dtype, carry.dtype))
 
 
-def _kernel(lib=None):
-    """gru_scan_fwd of ``lib`` (the built csrc/gru_scan.cu by default),
-    its argument types declared."""
-    lib = _build.load("gru_scan") if lib is None else lib
-    fn = lib.gru_scan_fwd
-    fn.argtypes = ([ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                    ctypes.c_longlong, ctypes.c_longlong]
-                   + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
-                   + [ctypes.c_void_p] * 3)
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _bwd_kernel(lib=None):
-    """gru_scan_bwd_scratch and gru_scan_bwd of ``lib`` (the built
-    csrc/gru_scan_bwd.cu by default), their argument types declared."""
-    lib = _build.load("gru_scan_bwd") if lib is None else lib
-    scratch = lib.gru_scan_bwd_scratch
-    scratch.argtypes = [ctypes.c_int] * 3
-    scratch.restype = ctypes.c_longlong
-    fn = lib.gru_scan_bwd
-    ll, ptr = ctypes.c_longlong, ctypes.c_void_p
-    fn.argtypes = ([ctypes.c_int] * 3 + [ptr, ll, ll]
-                   + [ptr] * 6 + [ctypes.c_int]
-                   + [ptr, ll, ll, ptr, ll]
-                   + [ctypes.c_int] * 3
-                   + [ptr, ll, ll] + [ptr] * 5)
-    fn.restype = ctypes.c_int
-    return scratch, fn
+_I, _LL, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+_FWD = _build.Fn("gru_scan", "gru_scan_fwd",
+                [_I, _I, _P, _LL, _LL] + [_P] * 4 + [_I] * 4
+                + [_P, _LL, _LL] + [_P] * 3)
+_BWD_SCRATCH = _build.Fn("gru_scan_bwd", "gru_scan_bwd_scratch", [_I] * 3,
+                        _LL)
+_BWD = _build.Fn("gru_scan_bwd", "gru_scan_bwd",
+                [_I] * 3 + [_P, _LL, _LL] + [_P] * 6 + [_I]
+                + [_P, _LL, _LL, _P, _LL] + [_I] * 3 + [_P, _LL, _LL]
+                + [_P] * 5)
 
 
 def _kernel_inputs(gi, whh_t, bhh, mask, att):
@@ -260,8 +233,7 @@ def _raise_on(rc, what, H):
         raise ValueError("%s takes hidden sizes up to 1024, got %d"
                          % (what, H))
     if rc != 0:
-        raise RuntimeError("%s kernel launch failed with CUDA error %d"
-                           % (what, rc))
+        raise RuntimeError("%s failed with CUDA error %d" % (what, rc))
 
 
 def launch(gi, whh_t, bhh, mask, att, mode, save_carry):
@@ -269,7 +241,6 @@ def launch(gi, whh_t, bhh, mask, att, mode, save_carry):
     -> ``(outs [B, T, H], h_last [B, H], carry [T, B, H] or [0])`` in gi's
     dtype; checks what the kernel takes, launches it and counts the
     launch."""
-    global GRU_SCAN_LAUNCHES
     if gi.device.type != "cuda":
         raise ValueError("no gru_scan kernel for device %s" % gi.device)
     if gi.stride(2) != 1:
@@ -283,17 +254,15 @@ def launch(gi, whh_t, bhh, mask, att, mode, save_carry):
     if B == 0:
         return out, h_last, carry
     w, b, m, a = _kernel_inputs(gi, whh_t, bhh, mask, att)
-    with torch.cuda.device(gi.device):
-        stream = torch.cuda.current_stream(gi.device).cuda_stream
-        rc = _kernel()(
-            _DTYPES[gi.dtype], MODES[mode], gi.data_ptr(), gi.stride(0),
-            gi.stride(1), w.data_ptr(), b.data_ptr(), m.data_ptr(),
-            None if a is None else a.data_ptr(),
-            int(a is not None and a.dtype == torch.bfloat16), B, T, H,
-            out.data_ptr(), out.stride(1), out.stride(0), h_last.data_ptr(),
-            carry.data_ptr() if save_carry else None, stream)
+    rc = _FWD.launch(
+        gi.device, _DTYPES[gi.dtype], MODES[mode], gi.data_ptr(),
+        gi.stride(0), gi.stride(1), w.data_ptr(), b.data_ptr(), m.data_ptr(),
+        None if a is None else a.data_ptr(),
+        int(a is not None and a.dtype == torch.bfloat16), B, T, H,
+        out.data_ptr(), out.stride(1), out.stride(0), h_last.data_ptr(),
+        carry.data_ptr() if save_carry else None, count="gru_scan",
+        returns=(_DOES_NOT_FIT,))
     _raise_on(rc, "gru_scan", H)
-    GRU_SCAN_LAUNCHES += 1
     return out, h_last, carry
 
 
@@ -417,33 +386,28 @@ def gru_scan_bwd_launcher(gi, carry, whh_t, bhh, mask, att=None, douts=None,
         dwhh.zero_()
         dbhh.zero_()
         return (lambda parts: None), result
-    scratch_fn, fn = _bwd_kernel()
-    scratch = torch.empty(scratch_fn(B, T, H), dtype=torch.float32,
+    scratch = torch.empty(_BWD_SCRATCH(B, T, H), dtype=torch.float32,
                           device=dev)
     whh = w.t().contiguous()
 
     def run(parts):
-        global GRU_SCAN_BWD_LAUNCHES
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = fn(
-                parts, _DTYPES[gi.dtype], MODES[mode], gi.data_ptr(),
-                gi.stride(0), gi.stride(1), carry.data_ptr(), w.data_ptr(),
-                whh.data_ptr(), b.data_ptr(), m.data_ptr(),
-                None if a is None else a.data_ptr(),
-                int(a is not None and a.dtype == torch.bfloat16),
-                None if douts is None else douts.data_ptr(),
-                0 if douts is None else douts.stride(0),
-                0 if douts is None else douts.stride(1),
-                None if dh_last is None else dh_last.data_ptr(),
-                0 if dh_last is None else dh_last.stride(0), B, T, H,
-                dgi.data_ptr(), dgi.stride(0), dgi.stride(1),
-                dwhh.data_ptr(), dbhh.data_ptr(),
-                None if datt is None else datt.data_ptr(),
-                scratch.data_ptr(), stream)
+        rc = _BWD.launch(
+            dev, parts, _DTYPES[gi.dtype], MODES[mode], gi.data_ptr(),
+            gi.stride(0), gi.stride(1), carry.data_ptr(), w.data_ptr(),
+            whh.data_ptr(), b.data_ptr(), m.data_ptr(),
+            None if a is None else a.data_ptr(),
+            int(a is not None and a.dtype == torch.bfloat16),
+            None if douts is None else douts.data_ptr(),
+            0 if douts is None else douts.stride(0),
+            0 if douts is None else douts.stride(1),
+            None if dh_last is None else dh_last.data_ptr(),
+            0 if dh_last is None else dh_last.stride(0), B, T, H,
+            dgi.data_ptr(), dgi.stride(0), dgi.stride(1), dwhh.data_ptr(),
+            dbhh.data_ptr(), None if datt is None else datt.data_ptr(),
+            scratch.data_ptr(),
+            count="gru_scan_bwd" if parts & BWD_SCAN else None,
+            returns=(_DOES_NOT_FIT,))
         _raise_on(rc, "gru_scan_bwd", H)
-        if parts & BWD_SCAN:
-            GRU_SCAN_BWD_LAUNCHES += 1
 
     return run, result
 

@@ -5,7 +5,7 @@ implementations:
 
 - CUDA: the wrapper module's ``launch``, which checks what the kernel
   takes, launches the hand-written kernel through ``ctypes`` and counts
-  the launch (``GATHER_LAUNCHES`` and the others, at run time);
+  the launch (``ops._build.LAUNCHES``, at run time);
 - CPU: the kernel's plain PyTorch version;
 - fake: the output's shape and dtype from the inputs alone, with the
   batch dimension left symbolic, so that ``torch.export`` traces a model

@@ -48,10 +48,6 @@ import torch
 
 from . import _build
 
-# kernel launches since import (or since a caller reset it to 0); counts
-# only launches of the CUDA kernel, never the plain version
-ROW_UPDATE_LAUNCHES = 0
-
 # torch-form hyperparameters, as deepctr_tpu/models/basemodel.py:52-56
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 ADAGRAD_EPS = 1e-10
@@ -294,33 +290,9 @@ _FIRST = struct.Struct("<%di" % CAPACITY)
 _HEAD = struct.Struct("<4i6f")
 
 
-_KERNEL = None
-
-
-def _kernel():
-    global _KERNEL
-    if _KERNEL is None:
-        lib = _build.load("row_update")
-        layout = []
-        for name in ("row_update_args_bytes", "row_update_capacity",
-                     "row_update_run_rows"):
-            fn = getattr(lib, name)
-            fn.argtypes = []
-            fn.restype = ctypes.c_int
-            layout.append(fn())
-        layout = tuple(layout)
-        if layout != (ctypes.sizeof(_Args), CAPACITY, RUN_ROWS):
-            raise RuntimeError("row_update's argument layout (bytes, "
-                               "capacity, run rows) is %s in the kernel, %s "
-                               "here" % (layout, (ctypes.sizeof(_Args),
-                                                  CAPACITY, RUN_ROWS)))
-        # the struct is copied into the launch's parameters during the
-        # call: nothing of it need outlive the call
-        fn = lib.row_update_f32
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _KERNEL = fn
-    return _KERNEL
+_KERNEL = _build.StructFn("row_update", "row_update_f32", {
+    "row_update_args_bytes": ctypes.sizeof(_Args),
+    "row_update_capacity": CAPACITY, "row_update_run_rows": RUN_ROWS})
 
 
 def kernel_args(optimizer, tables, states, grads, rows, l2s, lr, bias=None):
@@ -356,16 +328,7 @@ def kernel_args(optimizer, tables, states, grads, rows, l2s, lr, bias=None):
 def launch(args, device):
     """Launches the kernel once for each struct of ``args``
     (:func:`kernel_args`) on ``device``'s current stream."""
-    global ROW_UPDATE_LAUNCHES
-    fn = _kernel()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        for a in args:
-            rc = fn(ctypes.addressof(a), stream)
-            if rc != 0:
-                raise RuntimeError("row_update kernel launch failed with "
-                                   "CUDA error %d" % rc)
-            ROW_UPDATE_LAUNCHES += 1
+    _KERNEL.launch_all(device, args, "row_update")
 
 
 def row_update(optimizer, tables, states, grads, rows, l2s, lr, bias=None):

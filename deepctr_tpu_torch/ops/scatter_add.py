@@ -32,10 +32,6 @@ import torch
 from . import _build
 from ._args import device_array
 
-# kernel launches since import (or since a caller reset it to 0); counts
-# only launches of the CUDA kernel, never the plain version
-SCATTER_ADD_LAUNCHES = 0
-
 # the two-level sum's chunk length (csrc/scatter_add_rows.cu:kChunk)
 CHUNK = 64
 
@@ -85,14 +81,14 @@ def _check(grad, targets, rows):
                                              for t in targets]))
 
 
-def _kernel():
-    fn = _build.load("scatter_add_rows").scatter_add_rows_f32
-    fn.argtypes = ([ctypes.c_void_p] * 3
-                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
-                      ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+_LL, _P = ctypes.c_longlong, ctypes.c_void_p
+_KERNEL = _build.Fn("scatter_add_rows", "scatter_add_rows_f32", [
+    _P, _P, _P, _LL, ctypes.c_int, ctypes.c_int, _LL, _P, _LL, ctypes.c_int,
+    _P])
+_WORKSPACE = _build.Fn("scatter_add_rows", "scatter_add_rows_workspace",
+                       [_LL, ctypes.c_int], _LL)
+_SORTED = _build.Fn("scatter_add_rows", "scatter_add_rows_sorted",
+                    [_P, _LL, ctypes.c_int, _LL, _P, _P, _P])
 
 
 def kernel_args(targets, device, cache=None):
@@ -114,8 +110,8 @@ def kernel_args(targets, device, cache=None):
         return ptrs + counts + [bases[p] for p in ptrs]
     if cache is None:
         return device_array(values(), torch.int64, device)
-    return cache.get((tuple(ptrs), tuple(counts)), values, torch.int64,
-                     device)
+    return cache.get((torch.device(device), tuple(ptrs), tuple(counts)),
+                     lambda: device_array(values(), torch.int64, device))
 
 
 def total_rows(targets):
@@ -256,10 +252,8 @@ def scatter_add_rows(grad, targets, rows, args=None):
 def workspace(n, width, device):
     """The kernels' scratch for n contributions of ``width`` floats: the
     sort's keys, order and histograms and the chunk sums."""
-    fn = _build.load("scatter_add_rows").scatter_add_rows_workspace
-    fn.argtypes = [ctypes.c_longlong, ctypes.c_int]
-    fn.restype = ctypes.c_longlong
-    return torch.empty(fn(n, width), dtype=torch.uint8, device=device)
+    return torch.empty(_WORKSPACE(n, width), dtype=torch.uint8,
+                       device=device)
 
 
 def launch(grad, rows, meta, total, ws, part=0):
@@ -267,33 +261,16 @@ def launch(grad, rows, meta, total, ws, part=0):
     :func:`kernel_args` of the targets, their :func:`total_rows` and a
     :func:`workspace`.  ``part``: 0 the whole call, 1 the sort alone, 2 the
     sums alone on the sort a part-1 call left in ``ws``."""
-    global SCATTER_ADD_LAUNCHES
-    fn = _kernel()
-    with torch.cuda.device(grad.device):
-        stream = torch.cuda.current_stream(grad.device).cuda_stream
-        rc = fn(grad.data_ptr(), rows.data_ptr(), meta.data_ptr(),
-                rows.numel(), grad.shape[1], grad.shape[2], total,
-                ws.data_ptr(), ws.numel(), part, stream)
-    if rc != 0:
-        raise RuntimeError("scatter_add_rows kernel launch failed with CUDA "
-                           "error %d" % rc)
-    SCATTER_ADD_LAUNCHES += 1
+    _KERNEL.launch(grad.device, grad.data_ptr(), rows.data_ptr(),
+                   meta.data_ptr(), rows.numel(), grad.shape[1],
+                   grad.shape[2], total, ws.data_ptr(), ws.numel(), part,
+                   count="scatter_add_rows")
 
 
 def kernel_sorted(ws, n, width, total):
     """The keys and order (int32) that the last sort left in ``ws``."""
-    fn = _build.load("scatter_add_rows").scatter_add_rows_sorted
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     keys = torch.empty(n, dtype=torch.int32, device=ws.device)
     order = torch.empty(n, dtype=torch.int32, device=ws.device)
-    with torch.cuda.device(ws.device):
-        stream = torch.cuda.current_stream(ws.device).cuda_stream
-        rc = fn(ws.data_ptr(), n, width, total, keys.data_ptr(),
-                order.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError("scatter_add_rows_sorted failed with CUDA error "
-                           "%d" % rc)
+    _SORTED.launch(ws.device, ws.data_ptr(), n, width, total,
+                   keys.data_ptr(), order.data_ptr())
     return keys, order

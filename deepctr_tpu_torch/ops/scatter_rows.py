@@ -30,12 +30,6 @@ import torch
 
 from . import _build
 
-# kernel launches since import (or since a caller reset it to 0); count
-# only launches of the CUDA kernel, never the plain versions: the static
-# variant, and the dynamic one
-STATIC_SCATTER_LAUNCHES = 0
-SCATTER_ROWS_LAUNCHES = 0
-
 UNROLLS = (1, 2, 4, 8)
 
 
@@ -109,18 +103,12 @@ def scatter_rows_ref(table, vals, starts, n_valid, L=1):
     return _scatter_ref(table, vals, starts, n_valid, L)
 
 
-def _kernel():
-    lib = _build.load("static_scatter")
-    fn = lib.static_scatter
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+_I, _LL, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+_KERNEL = _build.Fn("static_scatter", "static_scatter",
+                    [_I, _I, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _P])
 
 
-def _launch(table, vals, starts, n_valid, G, n, L, unroll):
+def _launch(table, vals, starts, n_valid, G, n, L, unroll, count):
     if table.device.type != "cuda":
         raise ValueError("no static_scatter kernel for device %s"
                          % table.device)
@@ -138,16 +126,11 @@ def _launch(table, vals, starts, n_valid, G, n, L, unroll):
                          "%s on %s" % (G, table.device, n_valid.dtype,
                                        tuple(n_valid.shape),
                                        n_valid.device))
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        rc = _kernel()(int(n_valid is not None), unroll, vals.data_ptr(),
-                       table.data_ptr(), starts.data_ptr(),
-                       None if n_valid is None else n_valid.data_ptr(),
-                       G, n, L, table.shape[1] * table.element_size(),
-                       table.shape[0], stream)
-    if rc != 0:
-        raise RuntimeError("static_scatter kernel launch failed with CUDA "
-                           "error %d" % rc)
+    _KERNEL.launch(table.device, int(n_valid is not None), unroll,
+                   vals.data_ptr(), table.data_ptr(), starts.data_ptr(),
+                   None if n_valid is None else n_valid.data_ptr(), G, n, L,
+                   table.shape[1] * table.element_size(), table.shape[0],
+                   count=count)
 
 
 def static_scatter(table, vals, starts, unroll=1):
@@ -160,12 +143,10 @@ def static_scatter(table, vals, starts, unroll=1):
     ``vals.shape[-2] // n``.  ``unroll`` (1, 2, 4 or 8) is how many slots
     a lane has in flight at once.  On CUDA tensors this launches the
     kernel (building it at first use) or raises."""
-    global STATIC_SCATTER_LAUNCHES
     G, n, L = _check(table, vals, starts, None)
     if table.device.type == "cpu":
         return _scatter_ref(table, vals, starts, [n] * G, L)
-    _launch(table, vals, starts, None, G, n, L, unroll)
-    STATIC_SCATTER_LAUNCHES += 1
+    _launch(table, vals, starts, None, G, n, L, unroll, "static_scatter")
     return table
 
 
@@ -174,10 +155,9 @@ def scatter_rows(table, vals, starts, n_valid, L=1):
     starts [n], or of each of G groups (vals [G, n*L, W], starts [G, n],
     n_valid [G]) in one launch, in place; returns ``table``.  ``n_valid``
     is int32 on the table's device, read by the kernel."""
-    global SCATTER_ROWS_LAUNCHES
     G, n, L = _check(table, vals, starts, L)
     if table.device.type == "cpu":
         return _scatter_ref(table, vals, starts, n_valid, L)
-    _launch(table, vals, starts, n_valid.reshape(-1), G, n, L, 1)
-    SCATTER_ROWS_LAUNCHES += 1
+    _launch(table, vals, starts, n_valid.reshape(-1), G, n, L, 1,
+            "scatter_rows")
     return table

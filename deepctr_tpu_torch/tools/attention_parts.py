@@ -83,7 +83,7 @@ def make_inputs(seed):
 
 def readout_call(lib, inputs, mask, softmax):
     query, keys, _, packed, widths = inputs
-    fn = attention._kernel(lib)
+    fn = attention._KERNEL.bind(lib)
     out = torch.empty(B, E, dtype=keys.dtype, device="cuda")
     c_widths = (ctypes.c_int * len(widths))(*widths)
 

@@ -148,7 +148,7 @@ def make_inputs(seed):
 
 def forward_call(lib, inputs):
     gi, whh_t, bhh, mask, _, _, _ = inputs
-    fn = gru._kernel(lib)
+    fn = gru._FWD.bind(lib)
     out = torch.empty(B, T, H, dtype=gi.dtype, device="cuda")
     h_last = torch.empty(B, H, dtype=gi.dtype, device="cuda")
 
@@ -164,7 +164,7 @@ def forward_call(lib, inputs):
 
 def scan_call(lib, inputs):
     gi, whh_t, bhh, mask, carry, douts, dh_last = inputs
-    scratch_fn, fn = gru._bwd_kernel(lib)
+    scratch_fn, fn = gru._BWD_SCRATCH.bind(lib), gru._BWD.bind(lib)
     whh = whh_t.t().contiguous()
     dgi = torch.empty(B, T, 3 * H, dtype=gi.dtype,
                       device="cuda").transpose(0, 1)

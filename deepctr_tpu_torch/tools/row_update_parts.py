@@ -116,15 +116,11 @@ def run(seed=0):
     try:
         for build, lib in libs.items():
             run_rows = _BUILDS[build][0]
-            lib.row_update_run_rows.argtypes = []
-            lib.row_update_run_rows.restype = ctypes.c_int
-            if lib.row_update_run_rows() != run_rows:
+            built = RU._KERNEL.layout_of(lib)["row_update_run_rows"]
+            if built != run_rows:
                 raise RuntimeError("build %r takes %d rows a run, not %d"
-                                   % (build, lib.row_update_run_rows(),
-                                      run_rows))
-            fn = lib.row_update_f32
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+                                   % (build, built, run_rows))
+            fn = RU._KERNEL.bind(lib)
             RU.RUN_ROWS = run_rows
             for shape, (tables, rows, grads, l2s) in shapes.items():
                 for opt in OPTIMIZERS:

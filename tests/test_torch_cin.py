@@ -29,6 +29,7 @@ from deepctr_tpu.ops import reference as jref
 from deepctr_tpu_torch import config as pt_config
 from deepctr_tpu_torch.layers import CIN as PCIN
 from deepctr_tpu_torch.ops import cin as p_cin
+from deepctr_tpu_torch.ops._build import LAUNCHES
 from deepctr_tpu_torch.ops import dispatch as p_dispatch
 from deepctr_tpu_torch.ops import reference as pref
 from tests.test_torch_cin_bwd_card import BWD_PLANS
@@ -196,9 +197,9 @@ def test_kernel_weight_is_the_pallas_layout():
 
 def test_cin_mix_on_the_cpu_takes_the_plain_version_and_checks_shapes():
     h, x, w3 = map(torch.from_numpy, _inputs((2, 3, 4, 5, 6), 5))
-    p_cin.CIN_MIX_LAUNCHES = 0
+    LAUNCHES["cin_mix"] = 0
     got = p_cin.cin_mix(h, x, w3)
-    assert p_cin.CIN_MIX_LAUNCHES == 0
+    assert LAUNCHES["cin_mix"] == 0
     np.testing.assert_array_equal(got.numpy(),
                                   pref.cin_mix_ref(h, x, w3).numpy())
     with pytest.raises(ValueError):
@@ -598,7 +599,7 @@ def test_cin_bwd_on_the_cpu_takes_the_einsums_and_counts_no_launch():
     backward counter moves."""
     h, x, w3 = (torch.from_numpy(a).requires_grad_()
                 for a in _inputs((2, 3, 4, 5, 6), 9))
-    p_cin.CIN_MIX_BWD_LAUNCHES = p_cin.CIN_MIX_BWD_EINSUM = 0
+    LAUNCHES["cin_mix_bwd"] = LAUNCHES["cin_mix_bwd_einsum"] = 0
     p_cin.cin_mix(h, x, w3).sum().backward()
-    assert p_cin.CIN_MIX_BWD_LAUNCHES == p_cin.CIN_MIX_BWD_EINSUM == 0
+    assert LAUNCHES["cin_mix_bwd"] == LAUNCHES["cin_mix_bwd_einsum"] == 0
     assert h.grad is not None and w3.grad is not None

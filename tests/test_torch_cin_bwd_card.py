@@ -21,6 +21,7 @@ import torch
 
 from deepctr_tpu_torch import config as pt_config
 from deepctr_tpu_torch.ops import cin
+from deepctr_tpu_torch.ops._build import LAUNCHES
 
 BF16 = torch.bfloat16
 # (B, D, H, F, O, hidden's row stride or None): the benchmark's three
@@ -124,9 +125,9 @@ def test_kernels_against_float64_and_the_einsums(card, shape):
     B, D, H, F, O, _ = shape
     assert cin.bwd_route(BF16, BF16, H, F, O) == "mma"
     hidden, x0, wt, g = inputs(shape, 11 + H + O, card)
-    before = cin.CIN_MIX_BWD_LAUNCHES
+    before = LAUNCHES["cin_mix_bwd"]
     got = cin.bwd_launch(hidden, x0, wt, g)
-    assert cin.CIN_MIX_BWD_LAUNCHES - before == 7
+    assert LAUNCHES["cin_mix_bwd"] - before == 7
     einsum = cin.cin_mix_bwd(hidden, x0, wt, g)
     want = float64_backward(hidden, x0, wt, g)
     torch.cuda.synchronize()
@@ -157,10 +158,10 @@ def test_repeat_and_graph_replay_are_bit_equal(card, shape):
         with torch.cuda.graph(graph, stream=stream):
             captured = cin.bwd_launch(hidden, x0, wt, g)
     torch.cuda.current_stream().wait_stream(stream)
-    before = cin.CIN_MIX_BWD_LAUNCHES
+    before = LAUNCHES["cin_mix_bwd"]
     graph.replay()
     torch.cuda.synchronize()
-    assert cin.CIN_MIX_BWD_LAUNCHES == before      # a replay calls no host
+    assert LAUNCHES["cin_mix_bwd"] == before       # a replay calls no host
     for a, b, c in zip(first, second, captured):
         assert torch.equal(a.view(torch.int16), b.view(torch.int16))
         assert torch.equal(a.view(torch.int16), c.view(torch.int16))
@@ -183,11 +184,12 @@ def test_cin_modes_take_their_route(card, mode, kernels):
                 device=card, generator=gen)
     x = (torch.randn(256, 26, 10, device=card, generator=gen) * 0.05
          ).requires_grad_()
-    launches, einsums = cin.CIN_MIX_BWD_LAUNCHES, cin.CIN_MIX_BWD_EINSUM
+    launches = LAUNCHES["cin_mix_bwd"]
+    einsums = LAUNCHES["cin_mix_bwd_einsum"]
     layer(x, training=True).float().sum().backward()
     torch.cuda.synchronize()
-    launches = cin.CIN_MIX_BWD_LAUNCHES - launches
-    einsums = cin.CIN_MIX_BWD_EINSUM - einsums
+    launches = LAUNCHES["cin_mix_bwd"] - launches
+    einsums = LAUNCHES["cin_mix_bwd_einsum"] - einsums
     assert (launches, einsums) == ((21, 0) if kernels else (0, 3))
     assert all(p.grad is not None and torch.isfinite(p.grad).all()
                for p in layer.parameters())

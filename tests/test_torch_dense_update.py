@@ -14,6 +14,7 @@ imports JAX:
 import copy
 import ctypes
 import re
+import types
 
 import numpy as np
 import pytest
@@ -21,6 +22,7 @@ import torch
 
 from deepctr_tpu_torch.models import basemodel
 from deepctr_tpu_torch.ops import _build
+from deepctr_tpu_torch.ops._args import DeviceArgs
 from deepctr_tpu_torch.ops import dense_update as DU
 from deepctr_tpu_torch.ops import row_update as RU
 
@@ -205,6 +207,34 @@ def test_the_kernel_source_declares_the_layout_the_host_mirrors():
         assert re.search(r"k%s = %d" % (name.capitalize(), mode), src)
 
 
+@pytest.mark.parametrize("kernel", [DU._KERNEL, RU._KERNEL],
+                         ids=["dense_update", "row_update"])
+def test_the_struct_kernels_check_the_built_layout_once(monkeypatch, kernel):
+    """Each struct-by-value kernel is bound once, its signature declared,
+    after the library's layout exports agree with the ctypes mirror; a
+    library that lays the struct out otherwise is refused."""
+    def export(value):
+        return lambda *args: value
+
+    def library(**changed):
+        layout = dict(kernel.layout, **changed)
+        return types.SimpleNamespace(**{name: export(v)
+                                        for name, v in layout.items()},
+                                     **{kernel.name: export(0)})
+    lib = library()
+    monkeypatch.setattr(_build, "load", lambda name: lib)
+    monkeypatch.setattr(kernel, "_fn", None)
+    bound = kernel.bind()
+    assert bound is getattr(lib, kernel.name) and kernel.bind() is bound
+    assert bound.argtypes == [ctypes.c_void_p, ctypes.c_void_p]
+    assert bound.restype is ctypes.c_int
+    first = next(iter(kernel.layout))
+    lib = library(**{first: kernel.layout[first] + 8})
+    monkeypatch.setattr(kernel, "_fn", None)
+    with pytest.raises(RuntimeError, match="layout"):
+        kernel.bind()
+
+
 def test_kernel_args_pass_every_parameter_by_value():
     """One host struct a launch: each parameter's pointers (0 for a
     gradient that is None and for a state it does not carry) and size,
@@ -255,15 +285,17 @@ def test_rounded_constants_are_the_ones_pytorch_multiplies_by():
 def test_launch_args_are_kept_until_a_pointer_changes():
     params, states, bias = _problem("adam", SHAPES, 3)
     grads = _grads(SHAPES, 4)
-    cache = DU.LaunchArgs()
-    a = cache.get("adam", params, grads, states, 0.001, bias)
-    assert cache.get("adam", params, grads, states, 0.001, bias) is a
+    cache = DeviceArgs()
+    a = DU.cached_args(cache, "adam", params, grads, states, 0.001, bias)
+    assert DU.cached_args(cache, "adam", params, grads, states, 0.001,
+                          bias) is a
     grads[2] = grads[2].clone()
-    b = cache.get("adam", params, grads, states, 0.001, bias)
+    b = DU.cached_args(cache, "adam", params, grads, states, 0.001, bias)
     assert b is not a and b[0].tensor[2].g == grads[2].data_ptr()
-    assert cache.get("adam", params, grads, states, 0.002, bias) is not b
+    assert DU.cached_args(cache, "adam", params, grads, states, 0.002,
+                          bias) is not b
     # a copy (a deep-copied model's optimizer) starts empty
-    assert copy.deepcopy(cache)._args is None
+    assert copy.deepcopy(cache)._built == {}
 
 
 def _raises(match, name, params, grads, states, bias=None):
@@ -302,10 +334,10 @@ def test_dense_update_raises_on_what_the_kernel_does_not_take():
 
 def test_no_parameters_is_no_step():
     DU.dense_update("adam", [], [], [], 0.001, None)
-    before = DU.DENSE_UPDATE_LAUNCHES
+    before = _build.LAUNCHES["dense_update"]
     params, states, bias = _problem("adam", SHAPES, 1)
     DU.dense_update("adam", params, _grads(SHAPES, 2), states, 0.001, bias)
-    assert DU.DENSE_UPDATE_LAUNCHES == before   # the plain version
+    assert _build.LAUNCHES["dense_update"] == before   # the plain version
 
 
 # the card: the kernel against its plain version, and its launches in a
@@ -328,17 +360,17 @@ def test_kernel_equals_the_plain_version_bit_for_bit_on_the_card(card, name):
     got_p, got_s, bias = _problem(name, shapes, 21, card, offsets)
     want_p = [p.clone() for p in got_p]
     want_s = [tuple(s.clone() for s in st) for st in got_s]
-    cache = DU.LaunchArgs()
+    cache = DeviceArgs()
     written = got_p + [s for st in got_s for s in st]
     for step in range(3):
         grads = _grads(shapes, 200 + step, card)
         for i in range(0, len(grads), 4):
             grads[i] = None
-        before = DU.DENSE_UPDATE_LAUNCHES
+        before = _build.LAUNCHES["dense_update"]
         versions = [t._version for t in written]
         DU.dense_update(name, got_p, grads, got_s, LR[name], bias,
                         cache=cache)
-        assert DU.DENSE_UPDATE_LAUNCHES - before == 2
+        assert _build.LAUNCHES["dense_update"] - before == 2
         # every tensor written in place advanced its version counter
         assert all(t._version > v for t, v in zip(written, versions))
         DU.dense_update_ref(name, want_p, grads, want_s, LR[name], bias)
@@ -375,9 +407,9 @@ def test_a_captured_step_launches_the_kernel_once_a_plan_launch(card):
                                    for p in graphed._dense_opt.params]))
     assert n_params > DU.CAPACITY and launches == 2
     X = graphed.assemble_device_input(x)
-    before = DU.DENSE_UPDATE_LAUNCHES
+    before = _build.LAUNCHES["dense_update"]
     graphed.fit(X, y, batch_size=B, epochs=1, verbose=0, shuffle=False)
-    assert DU.DENSE_UPDATE_LAUNCHES - before == launches * (n // B)
+    assert _build.LAUNCHES["dense_update"] - before == launches * (n // B)
     assert any(k[0] == "fit" for k in graphed._graphs)
     y_dev = torch.as_tensor(y, device=card).view(-1, 1)
     sw = torch.ones(B, device=card)

@@ -70,13 +70,13 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch(monkeypatch):
     def no_kernel(name):
         raise AssertionError("the CPU path must not load a kernel")
     monkeypatch.setattr(_build, "load", no_kernel)
-    before = G.GATHER_LAUNCHES
+    before = _build.LAUNCHES["gather_rows"]
     X = torch.tensor([[1.0, 0.0], [0.0, 1.0]])
     tables = [torch.arange(6.0).reshape(3, 2), torch.arange(4.0).reshape(2, 2)]
     out = G.gather_rows(X, tables, [0, 1])
     torch.testing.assert_close(out, G.gather_rows_ref(X, tables, [0, 1]),
                                rtol=0, atol=0)
-    assert G.GATHER_LAUNCHES == before
+    assert _build.LAUNCHES["gather_rows"] == before
 
 
 @pytest.mark.parametrize("tables, cols", [

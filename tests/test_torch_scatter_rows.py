@@ -19,6 +19,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from deepctr_tpu_torch.ops import scatter_rows as sr
+from deepctr_tpu_torch.ops._build import LAUNCHES
 from deepctr_tpu_torch.tools import scatter_micro
 
 REPO = Path(__file__).resolve().parent.parent
@@ -85,7 +86,7 @@ def _loop(table, vals, starts, counts, L):
 def test_dynamic_variants_copy_the_valid_slots_only():
     table, vals, starts = _case(3, pairs=200, n=64, nv=40, L=2, W=6)
     t = torch.from_numpy
-    sr.SCATTER_ROWS_LAUNCHES = 0
+    LAUNCHES["scatter_rows"] = 0
     got = sr.scatter_rows(t(table.copy()), t(vals), t(starts),
                           t(np.array([40], np.int32)), L=2)
     np.testing.assert_array_equal(got.numpy(),
@@ -101,7 +102,7 @@ def test_dynamic_variants_copy_the_valid_slots_only():
     np.testing.assert_array_equal(
         sr.scatter_rows_ref(t(table.copy()), t(vals3), t(starts3), t(counts),
                             L=2).numpy(), want)
-    assert sr.SCATTER_ROWS_LAUNCHES == 0
+    assert LAUNCHES["scatter_rows"] == 0
 
 
 def test_static_scatter_on_the_cpu_takes_the_plain_version():
@@ -113,12 +114,12 @@ def test_static_scatter_on_the_cpu_takes_the_plain_version():
     starts = np.array([[0, 1, 27, 4, 4, 10], [9, 0, 12, 20, 27, 3]],
                       np.int32)
     want = _loop(table, vals, starts, [6, 6], 3)
-    sr.STATIC_SCATTER_LAUNCHES = 0
+    LAUNCHES["static_scatter"] = 0
     got = sr.static_scatter(torch.from_numpy(table.copy()),
                             torch.from_numpy(vals), torch.from_numpy(starts),
                             unroll=4)
     np.testing.assert_array_equal(got.numpy(), want)
-    assert sr.STATIC_SCATTER_LAUNCHES == 0
+    assert LAUNCHES["static_scatter"] == 0
     t = torch.from_numpy
     with pytest.raises(ValueError):
         sr.static_scatter_ref(t(table.copy()), t(vals),

@@ -31,7 +31,7 @@ from deepctr_tpu.models import DIEN as JDIEN, DIN as JDIN
 from deepctr_tpu.ops import pallas_gru as PG
 from deepctr_tpu_torch import config as pt_config
 from deepctr_tpu_torch.models import DIEN as PDIEN, DIN as PDIN
-from deepctr_tpu_torch.ops import gru as p_gru
+from deepctr_tpu_torch.ops._build import LAUNCHES
 from deepctr_tpu_torch.utils.jax_weights import (jax_batch_stats,
                                                  jax_to_state_dict,
                                                  load_jax_weights)
@@ -306,4 +306,4 @@ def test_dien_train_step_adds_the_auxiliary_loss_once():
     assert pm.aux_loss is None
     pm.predict(x, B)
     assert len(seen) == 1 and pm.aux_loss is None
-    assert p_gru.GRU_SCAN_BWD_LAUNCHES == 0      # CPU: the plain versions
+    assert LAUNCHES["gru_scan_bwd"] == 0     # CPU: the plain versions

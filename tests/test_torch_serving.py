@@ -22,7 +22,7 @@ from deepctr_tpu import serving as jserving
 from deepctr_tpu.models import DeepFM as JDeepFM
 from deepctr_tpu_torch import serving
 from deepctr_tpu_torch.models import DeepFM as PDeepFM
-from deepctr_tpu_torch.ops import gather
+from deepctr_tpu_torch.ops._build import LAUNCHES
 from deepctr_tpu_torch.utils.jax_weights import load_jax_weights
 from tests import test_torch_multitask as mtl
 from tests.test_torch_train import _data, _pair, _redraw
@@ -158,10 +158,10 @@ def test_a_fresh_process_serves_the_artifact_without_the_model(tmp_path):
     code = (
         "import sys, numpy as np\n"
         "from deepctr_tpu_torch import serving\n"
-        "from deepctr_tpu_torch.ops import gather\n"
+        "from deepctr_tpu_torch.ops._build import LAUNCHES\n"
         "out = serving.load_exported(sys.argv[1]).call(np.load(sys.argv[2]))\n"
         "np.save(sys.argv[3], out.numpy())\n"
-        "print('launches', gather.GATHER_LAUNCHES)\n")
+        "print('launches', LAUNCHES['gather_rows'])\n")
     proc = subprocess.run(
         [sys.executable, "-c", code, path, str(tmp_path / "X.npy"),
          str(tmp_path / "out.npy")], cwd=REPO, capture_output=True,
@@ -170,7 +170,7 @@ def test_a_fresh_process_serves_the_artifact_without_the_model(tmp_path):
     assert "launches 0" in proc.stdout
     np.testing.assert_array_equal(np.load(tmp_path / "out.npy"),
                                   exp.call(X).numpy())
-    assert gather.GATHER_LAUNCHES >= 0 and isinstance(exp.program,
-                                                      torch.export.
-                                                      ExportedProgram)
+    assert LAUNCHES["gather_rows"] >= 0 and isinstance(exp.program,
+                                                       torch.export.
+                                                       ExportedProgram)
     assert pt.serving is serving

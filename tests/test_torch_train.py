@@ -439,6 +439,26 @@ def test_validation_data_and_train_metrics_with_verbose():
         np.testing.assert_allclose(hp[k], hj[k], rtol=1e-4, err_msg=k)
 
 
+@pytest.mark.parametrize("loop", ["host", "device", "stream"])
+def test_validation_data_of_two_or_three_items_in_every_loop(loop):
+    """The three loops of ``fit`` read ``validation_data`` alike: three
+    items (the weights unread) give the validation keys of two, and four
+    raise."""
+    _, pm, cols = _pair()
+    x, y = _data(cols, 128, np.random.default_rng(8))
+    xv, yv = _data(cols, 64, np.random.default_rng(9))
+    pm.compile("adagrad", "binary_crossentropy", metrics=["auc", "logloss"])
+    fit_x = {"host": x, "device": pm.assemble_device_input(x),
+             "stream": lambda: iter([(x, y)])}[loop]
+    h = pm.fit(fit_x, y, batch_size=64, epochs=1, verbose=0,
+               validation_data=(xv, yv, np.ones(64))).history
+    assert {k for k in h if k.startswith("val_")} == {"val_auc",
+                                                      "val_logloss"}
+    with pytest.raises(ValueError, match="either 2 items"):
+        pm.fit(fit_x, y, batch_size=64, epochs=1, verbose=0,
+               validation_data=(xv, yv, np.ones(64), None))
+
+
 def test_early_stopping_restores_the_best_weights():
     _, pm, cols = _pair()
     x, y = _data(cols, 128, np.random.default_rng(10))
