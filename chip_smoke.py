@@ -436,13 +436,19 @@ Then the rest of the feature set:
     (``ops.dense_update``): ``dense_update`` against ``dense_update_ref``
     bit for bit, 3 steps, for sgd, adagrad, rmsprop and adam, at the dense
     parameters of the benchmark's DeepFM and DIEN (``portbench/configs``)
-    and at three times DIEN's (past a launch's capacity, every third array
-    one float past a 16-byte boundary), every fourth gradient None, each
-    call with the launches its plan counts; adam's device ms with a cold
-    L2 at each model's shapes, the kernel alone, the whole call and the
-    chain of PyTorch operations it replaced, with the device operations
-    of each, beside the bytes bound (28 bytes a float).  Phase 20's
-    graphed DeepFM and DIEN loops launch it once a step.
+    with the L2 vectors their compiled rules give the dense optimizer
+    (DeepFM's 19, DIEN none) and at three times DIEN's with drawn ones
+    (past a launch's capacity, every third array one float past a 16-byte
+    boundary), every fourth gradient None, each call with the launches
+    its plan counts; adam's device ms with a cold L2 at each model's
+    shapes, the kernel alone, the whole call and the chain of PyTorch
+    operations it replaced, with the device operations of each, beside
+    the bytes bound (28 bytes a float).  Then the penalty's launch
+    (``dense_penalty``) at DeepFM's: two calls bit-equal, within 1e-6 of
+    a float64 sum; its device ms beside its plain version, the eager
+    autograd penalty it replaced (value and gradient, one term a rule)
+    and the bytes bound (4 a float).  Phase 20's graphed DeepFM and DIEN
+    loops launch the step once a step, DeepFM's the penalty too.
 37. the CIN backward's kernels (``ops.cin.bwd_launch``: the tiles of g,
     wt, hid and x, the data and weight products, the partials' sum) at the
     benchmark xDeepFM's layer shapes (B=4096, E=10, F=26, H 26 and 200 to
@@ -694,6 +700,12 @@ KERNELS = {
         "source": "deepctr_tpu_torch/csrc/dense_update.cu",
         "replaces": "none: the dense optimizer step, left to optax and "
                     "XLA in the JAX package",
+    },
+    "dense_penalty": {
+        "route": "cuda",
+        "source": "deepctr_tpu_torch/csrc/dense_update.cu",
+        "replaces": "none: the dense parameters' L2 penalty, an autograd "
+                    "term under XLA in the JAX package",
     },
     "cin_mix_bwd": {
         "route": "cuda",
@@ -3456,7 +3468,7 @@ def loop_models(device):
             y=criteo_labels(BATCH * LOOP_STEPS, SEED + 503),
             predict={"gather_rows": 1},
             fit={"gather_rows": 1, "scatter_add_rows": 1, "row_update": 1,
-                 "dense_update": 1}),
+                 "dense_update": 1, "dense_penalty": 1}),
         "DIEN AUGRU+neg, sparse tables": dict(
             make=dien, X=X_seq, B=SEQ_BATCH, sparse=True,
             y=seq_labels(SEQ_BATCH * LOOP_STEPS, SEED + 504),
@@ -5975,9 +5987,12 @@ DENSE_LR = {"sgd": 0.01, "adagrad": 0.0123, "rmsprop": 0.01, "adam": 0.001}
 
 
 def benchmark_dense_shapes(device):
-    """The dense parameters' shapes of the benchmark's two models
+    """The dense parameters of the benchmark's two models
     (``portbench/configs``), as their named optimizer steps them:
-    ``{label: [shape, ...]}``."""
+    ``{label: ([shape, ...], [L2 vector or None, ...], [(parameter, l2,
+    column mask or None), ...])}``, the vectors the compiled rules give
+    the dense optimizer (numpy) and the eager penalty's terms they
+    replaced."""
     from portbench.harness import program
     out = {}
     for label, name in (("DeepFM Criteo Kaggle", "deepfm_criteo_kaggle"),
@@ -5986,11 +6001,27 @@ def benchmark_dense_shapes(device):
                              / ("%s.json" % name)).read_text())
         model = program.build(config, device, SEED)
         program.compile_model(model, config)
-        out[label] = [tuple(p.shape) for p in model._dense_opt.params]
+        index = {id(p): i for i, p in enumerate(model._dense_opt.params)}
+        terms = [(index[id(w)], l2, None if mask is None
+                  else mask.cpu().numpy())
+                 for w, _, l2, mask in model._reg_entries() if l2 > 0]
+        model._ensure_compiled()
+        out[label] = ([tuple(p.shape) for p in model._dense_opt.params],
+                      [None if v is None else v.cpu().numpy()
+                       for v in model._dense_opt.l2], terms)
         del model
         torch.cuda.empty_cache()
     pt.set_compute_dtype("float32")
     return out
+
+
+def drawn_l2(shapes, seed):
+    """An L2 vector a parameter, as numpy: per column for a [rows, width]
+    table of width under 32, [1] otherwise, None for every fifth."""
+    rng = np.random.default_rng(seed)
+    return [None if i % 5 == 4 else rng.uniform(1e-6, 1e-4, (
+        s[1] if len(s) == 2 and s[1] < 32 else 1)).astype(np.float32)
+        for i, s in enumerate(shapes)]
 
 
 def dense_problem(name, shapes, seed, device, offsets=None):
@@ -6019,35 +6050,42 @@ def dense_problem(name, shapes, seed, device, offsets=None):
 def phase_dense_update(device):
     """phase 36: ``dense_update`` against ``dense_update_ref`` on the card,
     bit for bit, for each optimizer at the benchmark models' dense shapes
-    and at 3 x DIEN's (past a launch's capacity, every third array one
-    float past a 16-byte boundary); then adam's device ms with a cold L2
-    at each model's shapes: the kernel alone (structs built beforehand),
-    the whole call, and the chain of PyTorch operations it replaced, with
-    the device operations of each, beside the bytes bound.  Returns its
-    entry for the kernels line."""
-    shapes = benchmark_dense_shapes(device)
-    cases = dict(shapes)
-    wide = shapes["DIEN Amazon Books"] * 3
+    with their L2 vectors and at 3 x DIEN's with drawn ones (past a
+    launch's capacity, every third array one float past a 16-byte
+    boundary); then adam's device ms with a cold L2 at each model's
+    shapes: the kernel alone (structs built beforehand), the whole call,
+    and the chain of PyTorch operations it replaced, with the device
+    operations of each, beside the bytes bound; then the penalty's launch
+    (``phase_dense_penalty``).  Returns the entries of both for the
+    kernels line."""
+    models = benchmark_dense_shapes(device)
+    cases = {label: (shp, l2s, None)
+             for label, (shp, l2s, _) in models.items()}
+    wide = models["DIEN Amazon Books"][0] * 3
     cases["3 x DIEN, one float past 16 bytes"] = (
-        wide, [int(i % 3 == 1) for i in range(len(wide))])
+        wide, drawn_l2(wide, SEED + 962),
+        [int(i % 3 == 1) for i in range(len(wide))])
     for name in rowup.MODES:
-        for label, case in cases.items():
-            shp, offsets = case if isinstance(case, tuple) else (case, None)
+        for label, (shp, l2_np, offsets) in cases.items():
             got_p, grads, got_s, bias = dense_problem(name, shp, SEED + 960,
                                                       device, offsets)
+            l2s = [None if v is None else torch.from_numpy(v).to(device)
+                   for v in l2_np]
             want_p = [p.clone() for p in got_p]
             want_s = [tuple(a.clone() for a in st) for st in got_s]
             plan = dense_update.launch_plan([int(np.prod(s)) for s in shp])
             before = LAUNCHES["dense_update"]
             for _ in range(3):
                 dense_update.dense_update(name, got_p, grads, got_s,
-                                          DENSE_LR[name], bias)
+                                          DENSE_LR[name], bias, l2s=l2s)
                 dense_update.dense_update_ref(name, want_p, grads, want_s,
-                                              DENSE_LR[name], bias)
+                                              DENSE_LR[name], bias, l2s=l2s)
             torch.cuda.synchronize()
             launches = LAUNCHES["dense_update"] - before
-            what = "dense_update %s at %s (%d parameters, %d floats)" % (
-                name, label, len(shp), sum(int(np.prod(s)) for s in shp))
+            what = ("dense_update %s at %s (%d parameters, %d floats, %d "
+                    "L2 vectors)" % (name, label, len(shp),
+                                     sum(int(np.prod(s)) for s in shp),
+                                     sum(v is not None for v in l2s)))
             check(launches == 3 * len(plan), "%s: %d launches in 3 steps, "
                   "want %d" % (what, launches, 3 * len(plan)))
             check(all(same_bits(a, b) for a, b in zip(got_p, want_p)),
@@ -6058,20 +6096,23 @@ def phase_dense_update(device):
             log("%s: 3 steps bit-equal to dense_update_ref on %s, %d "
                 "launch(es) a step" % (what, card_line(), len(plan)))
     out = {}
-    for label, shp in shapes.items():
+    for label, (shp, l2_np, _) in models.items():
         params, grads, states, bias = dense_problem("adam", shp, SEED + 961,
                                                     device)
+        l2s = [None if v is None else torch.from_numpy(v).to(device)
+               for v in l2_np]
         n = sum(p.numel() for p in params)
         args = dense_update.kernel_args("adam", params, grads, states,
-                                        DENSE_LR["adam"], bias)
+                                        DENSE_LR["adam"], bias, l2s)
         cache = DeviceArgs()
         fns = {
             "kernel": lambda: dense_update.launch(args, device),
             "call": lambda: dense_update.dense_update(
                 "adam", params, grads, states, DENSE_LR["adam"], bias,
-                cache=cache),
+                cache=cache, l2s=l2s),
             "plain": lambda: dense_update.dense_update_ref(
-                "adam", params, grads, states, DENSE_LR["adam"], bias)}
+                "adam", params, grads, states, DENSE_LR["adam"], bias,
+                l2s=l2s)}
         ms = {k: device_ms(fn) for k, fn in fns.items()}
         ops = {k: profile_launches(fn)[1] for k, fn in fns.items()}
         bound = n * DENSE_BYTES_PER_FLOAT["adam"] / HBM_BYTES_PER_S * 1e3
@@ -6091,7 +6132,77 @@ def phase_dense_update(device):
                 bound_ms=deepfm["bound_ms"], bound_by="bytes",
                 dien_ms=out["DIEN Amazon Books"]["ms"],
                 dien_plain_ms=out["DIEN Amazon Books"]["plain_ms"],
-                dien_bound_ms=out["DIEN Amazon Books"]["bound_ms"])
+                dien_bound_ms=out["DIEN Amazon Books"]["bound_ms"]), \
+        phase_dense_penalty(device, *models["DeepFM Criteo Kaggle"])
+
+
+def phase_dense_penalty(device, shapes, l2_np, terms):
+    """phase 36, the penalty: ``dense_penalty`` at the benchmark DeepFM's
+    dense parameters and L2 vectors, twice through one workspace and once
+    through a fresh one, bit-equal, within 1e-6 of a float64 sum; its
+    device ms with a cold L2 (the kernel alone, the whole call), the plain
+    version's, and the eager autograd penalty it replaced (one term a
+    rule, ``BaseModel._reg_loss`` and its backward into the gradients),
+    the device operations of each, beside the bytes bound (4 a float of
+    the parameters with L2).  Returns its entry for the kernels line."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 963)
+    params = [torch.empty(s, device=device).normal_(generator=gen)
+              .mul_(1e-2) for s in shapes]
+    l2s = [None if v is None else torch.from_numpy(v).to(device)
+           for v in l2_np]
+    kept = [p for p, v in zip(params, l2s) if v is not None]
+    plan = dense_update.launch_plan([p.numel() for p in kept])
+    cache = DeviceArgs()
+    before = LAUNCHES["dense_penalty"]
+    runs = [dense_update.dense_penalty(params, l2s, cache).clone()
+            for _ in range(2)]
+    runs.append(dense_update.dense_penalty(params, l2s))
+    torch.cuda.synchronize()
+    launches = LAUNCHES["dense_penalty"] - before
+    want = sum(float(torch.sum(v.double() * (p.double() ** 2).reshape(
+        -1, v.numel()))) for p, v in zip(params, l2s) if v is not None)
+    rel = abs(float(runs[0]) - want) / want
+    what = "dense_penalty at DeepFM Criteo Kaggle (%d parameters with L2, " \
+        "%d floats)" % (len(kept), sum(p.numel() for p in kept))
+    check(launches == 3 * len(plan), "%s: %d launches in 3 calls, want %d"
+          % (what, launches, 3 * len(plan)))
+    check(same_bits(runs[0], runs[1]) and same_bits(runs[0], runs[2]),
+          what + ": two calls differ")
+    check(rel <= 1e-6, "%s: %r against the float64 sum %r" % (
+        what, float(runs[0]), want))
+    leaves = [p.clone().requires_grad_(True) for p in params]
+    masks = [(i, l2, None if m is None else torch.from_numpy(m).to(device))
+             for i, l2, m in terms]
+
+    def eager():
+        total = torch.zeros((), device=device)
+        for i, l2, mask in masks:
+            sq = leaves[i] * leaves[i]
+            total = total + torch.sum(l2 * (sq if mask is None
+                                            else sq * mask))
+        total.backward()
+        for w in leaves:
+            w.grad = None
+    work = dense_update.penalty_args(params, l2s)
+    fns = {"kernel": lambda: dense_update.launch_penalty(work, device),
+           "call": lambda: dense_update.dense_penalty(params, l2s, cache),
+           "plain": lambda: dense_update.dense_penalty_ref(params, l2s),
+           "eager": eager}
+    ms = {k: device_ms(fn) for k, fn in fns.items()}
+    ops = {k: profile_launches(fn)[1] for k, fn in fns.items()}
+    n = sum(p.numel() for p in kept)
+    bound = n * 4 / HBM_BYTES_PER_S * 1e3
+    log("%s on %s: 3 calls bit-equal, %d launch(es) a call, %r against "
+        "float64 (relative %r); kernel %r ms, whole call %r ms, plain %r "
+        "ms, the eager autograd penalty it replaced (%d terms) %r ms "
+        "(device ms, cold L2, median of 20); device operations %s; bound "
+        "%r ms (bytes at %g B/s)" % (
+            what, card_line(), len(plan), float(runs[0]), rel, ms["kernel"],
+            ms["call"], ms["plain"], len(terms), ms["eager"], ops, bound,
+            HBM_BYTES_PER_S))
+    return dict(max_abs_err=rel, ms=ms["kernel"], plain_ms=ms["plain"],
+                library_ms=None, bound_ms=bound, bound_by="bytes",
+                call_ms=ms["call"], eager_ms=ms["eager"], operations=ops)
 
 
 # phase 37: the CIN backward's kernels at the benchmark xDeepFM's layer
@@ -6308,7 +6419,7 @@ def main():
     phase_param_activations(device)
     phase_recipes(device)
     torch.cuda.empty_cache()
-    dense = phase_dense_update(device)
+    dense, penalty = phase_dense_update(device)
     torch.cuda.empty_cache()
     cin_bwd = phase_cin_bwd(device)
 
@@ -6324,6 +6435,7 @@ def main():
     measured["cin_mix"] = dict(max_abs_err=cin_err, **cin_timing)
     measured["static_scatter"] = scatter
     measured["dense_update"] = dense
+    measured["dense_penalty"] = penalty
     measured["cin_mix_bwd"] = cin_bwd
     kernels = []
     for name in KERNELS:

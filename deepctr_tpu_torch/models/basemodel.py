@@ -22,13 +22,16 @@ nothing back, so that a CUDA graph can replay it: ``graphs.py``):
    and padded past it;
 2. the forward, whose gathers run without a graph back to the tables
    (``TableHolder._capture``): the gathered rows are leaves;
-3. loss + the eager L1/L2 of the dense parameters + the model's auxiliary
-   term (DIEN's, ``aux_loss``), ``backward``;
+3. loss + the L2 penalty of the dense parameters (one launch under a
+   named optimizer, outside autograd; eager under a ``torch.optim``
+   optimizer, and L1 always) + the model's auxiliary term (DIEN's,
+   ``aux_loss``), ``backward``;
 4. one ``scatter_add_rows`` launch a gather: each row's cotangent goes
    into its dense table's ``[V, W]`` gradient, or into the ``[n, W]``
    gradient of its sparse table's touched rows (a ``VarLenSparseFeat``
    is ``maxlen`` fields of its table);
-5. the dense optimizer on the dense parameters, and one ``row_update``
+5. the dense optimizer on the dense parameters (with the L2 penalty's
+   gradient under a named optimizer), and one ``row_update``
    launch on the touched rows of every sparse table (lazy L2 and the
    optimizer's row step, in place; adam's bias corrections for the step
    read on the device from a table uploaded once for the steps ahead,
@@ -48,8 +51,10 @@ On a mesh (``mesh=``, ``parallel/``; ``deepctr_tpu/models/basemodel.py:
 the touched rows come from the global batch's ids (one all-reduce over
 ``data`` of a zero-filled id matrix), the row-sharded tables are looked up
 through an exchange (``inputs.TableHolder``), the touched rows' and the
-dense gradients are summed over ``data``, the penalty counts once, and the
-row update runs on the rank's blocks.  No graph is captured there.
+dense gradients are summed over ``data``, the penalty counts once (its
+eager part on the first data rank, before the sum; its folded gradient
+in every rank's update, after it), and the row update runs on the
+rank's blocks.  No graph is captured there.
 
 Unlike the JAX package, which stores tables of >= 131072 rows packed into
 128-lane rows and updates them by packed row, the port updates logical
@@ -85,7 +90,7 @@ from ..layers.utils import slice_arrays
 from ..losses import resolve_loss
 from ..ops import row_update as _row_update
 from ..ops._args import DeviceArgs, device_array
-from ..ops.dense_update import dense_update
+from ..ops.dense_update import dense_penalty, dense_update
 from ..ops.row_update import (adam_bias_corrections, bias_correction_table,
                               row_update)
 from ..ops.scatter_add import scatter_add_rows
@@ -137,6 +142,12 @@ class DenseOptimizer:
     multi-tensor kernel for up to ``ops.dense_update.CAPACITY``
     parameters on the card (``ops/dense_update.py``), its plain version
     on the CPU; a CUDA graph captures it.
+
+    ``l2`` is each parameter's L2 vector (``BaseModel._ensure_compiled``
+    sets it from the regularization rules), or None: the step adds the
+    penalty's gradient ``2 l2 p`` to the parameter's, and
+    :meth:`penalty` gives the penalty's value, so that neither goes
+    through autograd.
     """
 
     capturable = True
@@ -149,12 +160,24 @@ class DenseOptimizer:
         self.state = [tuple(torch.zeros_like(p) for _ in range(n_state))
                       for p in self.params]
         self.count = 0
+        self.l2 = [None] * len(self.params)
         self._launch_args = DeviceArgs()
+        self._penalty_args = DeviceArgs()
 
     @torch.no_grad()
     def step(self, bias=None):
         dense_update(self.name, self.params, [p.grad for p in self.params],
-                     self.state, self.lr, bias, cache=self._launch_args)
+                     self.state, self.lr, bias, cache=self._launch_args,
+                     l2s=self.l2)
+
+    def penalty(self, keep=None):
+        """The L2 penalty of the parameters with an L2 vector (of those
+        ``keep(parameter)`` accepts), a float32 0-d tensor outside
+        autograd (on the card one launch, its workspace's: the next call
+        overwrites it), or None where there is none."""
+        l2s = [v if keep is None or keep(p) else None
+               for p, v in zip(self.params, self.l2)]
+        return dense_penalty(self.params, l2s, cache=self._penalty_args)
 
 
 class TorchOptimizer:
@@ -207,6 +230,11 @@ class TorchOptimizer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         self.optimizer.step()
+
+    def penalty(self, keep=None):
+        """None: the optimizer reads the penalty's gradient from
+        ``p.grad``, so the penalty stays in the eager term."""
+        return None
 
 
 class _StepPlan:
@@ -604,8 +632,10 @@ class BaseModel(BaseModule):
         return deep, wide
 
     def _reg_entries(self):
-        """``[(parameter, l1, l2, column mask or None)]`` of the eager
-        term; tables on the sparse path are left out, their L2 is lazy."""
+        """``[(parameter, l1, l2, column mask or None)]`` of every rule's
+        term; tables on the sparse path are left out, their L2 is lazy.
+        Under a named optimizer the L2 terms go to the dense optimizer
+        (:meth:`_ensure_compiled`)."""
         layouts = self._table_layouts()
         sparse = {s[0] for s in getattr(self, "_sparse_specs", [])}
         entries = []
@@ -629,8 +659,10 @@ class BaseModel(BaseModule):
                 entries.append((w, l1, l2, mask))
         return entries
 
-    def _reg_loss(self, entries):
-        total = torch.zeros((), dtype=torch.float32, device=self._device)
+    def _reg_loss(self, entries, total=None):
+        """The entries' penalty, added to ``total`` (0 by default)."""
+        if total is None:
+            total = torch.zeros((), dtype=torch.float32, device=self._device)
         for w, l1, l2, mask in entries:
             if l1 > 0:
                 aw = torch.abs(w)
@@ -649,10 +681,13 @@ class BaseModel(BaseModule):
         with torch.no_grad():
             return float(self._reg_loss(self._reg_entries()))
 
-    def _table_l2_vec(self, path):
-        """Per-column lazy L2 of a sparse table: the fused wide column
-        carries l2_reg_linear, the deep columns l2_reg_embedding."""
-        deep, wide = self._lane_masks(self._table_layouts()[path])
+    def _l2_vec(self, path, layouts):
+        """The L2 of each column of the embedding table at ``path`` (the
+        fused wide column carries l2_reg_linear, the deep columns
+        l2_reg_embedding), or the [1] L2 of any other parameter, from the
+        rules that match it (a "wide" rule matches tables alone), as a
+        float32 numpy vector; ``layouts`` is :meth:`_table_layouts`."""
+        deep, wide = self._lane_masks(layouts.get(path, (1, None)))
         vec = np.zeros_like(deep)
         for pattern, _, l2, part in self.regularization_rules:
             if not re.compile(pattern).search(path):
@@ -663,7 +698,12 @@ class BaseModel(BaseModule):
                 vec += l2 * deep
             else:
                 vec += l2 * (deep + wide)
-        return device_array(vec, torch.float32, self._tables()[path].device)
+        return vec
+
+    def _table_l2_vec(self, path):
+        """Per-column lazy L2 of a sparse table, on its device."""
+        return device_array(self._l2_vec(path, self._table_layouts()),
+                            torch.float32, self._tables()[path].device)
 
     # ------------------------------------------------------------------
     # compile
@@ -822,7 +862,12 @@ class BaseModel(BaseModule):
     def _ensure_compiled(self):
         """The eager regularization term and the sparse tables' lazy L2,
         fixed at the first fit after ``compile`` (as the JAX package builds
-        its train step), so that rules added in between apply.  Raises if
+        its train step), so that rules added in between apply.  Under a
+        named optimizer the dense parameters' L2 goes to the dense
+        optimizer (``DenseOptimizer.l2``: its launch adds the gradient,
+        one launch gives the value), and the eager term keeps the L1
+        alone; a ``torch.optim`` optimizer reads ``p.grad``, so there
+        every term stays eager.  Raises if
         an optimizer object holds tensors that are not the model's
         parameters (built over another model, or before a conversion that
         made new parameters)."""
@@ -837,8 +882,19 @@ class BaseModel(BaseModule):
                     "or before .to() made new ones): build it over "
                     "model.parameters() and compile again" % len(stale))
         if self._step_rules is None:
+            entries = self._reg_entries()
+            opt = self._dense_opt
+            if isinstance(opt, DenseOptimizer):
+                layouts = self._table_layouts()
+                vecs = [self._l2_vec(path, layouts)
+                        for path in self._dense_paths]
+                opt.l2 = [device_array(v, torch.float32, p.device)
+                          if v.any() else None
+                          for v, p in zip(vecs, opt.params)]
+                entries = [(w, l1, 0.0, mask)
+                           for w, l1, _, mask in entries if l1 > 0]
             self._step_rules = (
-                self._reg_entries(),
+                entries,
                 {p: self._table_l2_vec(p) for p, _, _ in self._sparse_specs})
         return self._step_rules
 
@@ -1002,7 +1058,9 @@ class BaseModel(BaseModule):
                     aux, self.aux_loss = self.aux_loss, None
             with span("train_step.loss"):
                 data_loss = self._compute_loss(y_pred.float(), y, sw)
-                reg_loss = self._reg_loss(reg)
+                # the dense optimizer's penalty (no autograd edge: its
+                # gradient joins the update) and the eager terms
+                reg_loss = self._reg_loss(reg, self._dense_opt.penalty())
                 # on a mesh the penalty counts once: on the data axis's
                 # first rank (the gradients are summed over the data axis)
                 total = data_loss
@@ -1013,7 +1071,7 @@ class BaseModel(BaseModule):
             with span("train_step.backward"):
                 for p in self._dense_opt.params:
                     p.grad = None
-                # a dense table's gradient is the plan's buffer: the L2
+                # a dense table's gradient is the plan's buffer: an eager
                 # term's gradient adds into it in place, then the rows'
                 # cotangents
                 for path, g in plan.dense_grads.items():
@@ -1069,11 +1127,15 @@ class BaseModel(BaseModule):
                 off += n
 
     def _reg_parts(self, reg):
-        """The eager penalty of the row-sharded tables' blocks and of the
-        other (replicated) parameters."""
+        """The penalty of the row-sharded tables' blocks and of the other
+        (replicated) parameters: the eager terms' and the dense
+        optimizer's."""
         sharded = {id(self._tables()[p]) for p in self._shards}
-        return (self._reg_loss([e for e in reg if id(e[0]) in sharded]),
-                self._reg_loss([e for e in reg if id(e[0]) not in sharded]))
+        opt = self._dense_opt
+        return tuple(
+            self._reg_loss([e for e in reg if (id(e[0]) in sharded) == inside],
+                           opt.penalty(lambda p: (id(p) in sharded) == inside))
+            for inside in (True, False))
 
     def _mesh_results(self, data_loss, reg_parts, aux, y_pred, B):
         """The global batch's data loss, total loss and predictions on

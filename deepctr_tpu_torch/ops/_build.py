@@ -147,15 +147,17 @@ class Fn:
 
 
 class StructFn(Fn):
-    """A kernel ``name(const Args*, stream)`` of ``csrc/<lib>.cu`` that
-    copies its one argument struct into the launch's parameters during the
-    call, so that nothing of the struct need outlive it.  ``layout`` maps
-    the library's exports that give the struct's size and constants (C
+    """A kernel ``name(const Args*, ..., stream)`` of ``csrc/<lib>.cu``
+    that copies its argument struct into the launch's parameters during
+    the call, so that nothing of the struct need outlive it; ``extra`` are
+    the ctypes of any arguments between the two.  ``layout`` maps the
+    library's exports that give the struct's size and constants (C
     functions of no argument that return an int) to the values the ctypes
     mirror is laid out by; they are checked at first use."""
 
-    def __init__(self, lib, name, layout):
-        super().__init__(lib, name, [ctypes.c_void_p, ctypes.c_void_p])
+    def __init__(self, lib, name, layout, extra=()):
+        super().__init__(lib, name, [ctypes.c_void_p, *extra,
+                                     ctypes.c_void_p])
         self.layout = layout
 
     def layout_of(self, lib=None):
